@@ -1,0 +1,67 @@
+"""Finetune model: encoder → masked sum-pool (atoms & frags by graph) →
+concat → FTHead. Reference: gat2.py:758-826 (FragNetFineTune); counterpart
+of fragnet_tpu/model/finetune.py."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from fragnet_tpu_torch.model.fragnet import FragNet
+from fragnet_tpu_torch.model.heads import FTHEADS
+from fragnet_tpu_torch.model.layers import KernelPolicy
+from fragnet_tpu_torch.ops.segment import segment_sum
+
+
+class FragNetFineTune(nn.Module):
+    """The flagship finetune model (gat2.py:758-826). Parameters are drawn
+    from ``generator`` (a seeded ``torch.Generator``) on the CPU; move the
+    module to its device afterwards."""
+
+    def __init__(self, n_classes: int = 1, atom_features: int = 167,
+                 frag_features: int = 167, edge_features: int = 17,
+                 fedge_in: int = 6, fbond_edge_in: int = 6,
+                 num_layer: int = 4, num_heads: int = 4,
+                 drop_ratio: float = 0.15, h1: int = 256, h2: int = 256,
+                 h3: int = 256, h4: int = 256, act: str = "celu",
+                 emb_dim: int = 128, fthead: str = "FTHead3",
+                 policy: KernelPolicy = KernelPolicy(),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.pretrain = FragNet(
+            num_layer=num_layer, drop_ratio=drop_ratio, emb_dim=emb_dim,
+            atom_features=atom_features, frag_features=frag_features,
+            edge_features=edge_features, fedge_in=fedge_in,
+            fbond_edge_in=fbond_edge_in, num_heads=num_heads, policy=policy,
+            generator=g)
+        cls = FTHEADS[fthead]
+        in_dim = 2 * emb_dim  # pooled atoms ‖ pooled frags
+        if fthead in ("FTHead1", "FTHead2"):
+            self.fthead = cls(in_dim, n_classes=n_classes, generator=g)
+        elif fthead == "FTHead3":
+            self.fthead = cls(in_dim, h1=h1, h2=h2, h3=h3, h4=h4,
+                              drop_ratio=drop_ratio, n_classes=n_classes,
+                              act=act, generator=g)
+        elif fthead == "FTHead4":
+            self.fthead = cls(in_dim, h1=h1, act=act, n_classes=n_classes,
+                              drop_ratio=drop_ratio, generator=g)
+        else:
+            self.fthead = cls(in_dim, h1=h1, h2=h2, drop_ratio=drop_ratio,
+                              n_classes=n_classes, act=act, generator=g)
+
+    def forward(self, batch, return_attentions: bool = False):
+        out = self.pretrain(batch, return_attentions=return_attentions)
+        x_atoms, x_frags = out[0], out[1]
+        G = batch.y.shape[0]
+        x_frags_pooled = segment_sum(x_frags, batch.frag_batch, G,
+                                     mask=batch.frag_mask)
+        x_atoms_pooled = segment_sum(x_atoms, batch.atom_batch, G,
+                                     mask=batch.atom_mask)
+        cat = torch.cat([x_atoms_pooled, x_frags_pooled], dim=1)
+        pred = self.fthead(cat).float()
+        if return_attentions:
+            return pred, out[4]
+        return pred

@@ -1,0 +1,138 @@
+"""Prediction heads FTHead1–5 (gat2.py:569-751; counterpart of
+fragnet_tpu/model/heads.py). Linear layers use the torch default weight
+init and zero biases, as the JAX package's Dense layers do."""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from fragnet_tpu_torch.model.layers import torch_linear_init_
+
+
+def make_activation(name: str) -> Callable:
+    """The nine activation choices of FTHead3/4/5 (gat2.py:600-622).
+    torch RReLU at eval uses slope (lower+upper)/2 = (1/8 + 1/3)/2."""
+    table = {
+        "relu": F.relu,
+        "silu": F.silu,
+        "gelu": lambda x: F.gelu(x, approximate="none"),
+        "celu": F.celu,
+        "selu": F.selu,
+        "rrelu": lambda x: F.leaky_relu(x, (1.0 / 8 + 1.0 / 3) / 2),
+        "relu6": lambda x: torch.clamp(x, 0.0, 6.0),
+        "leakyrelu": lambda x: F.leaky_relu(x, 0.01),
+    }
+    if name == "prelu":
+        return nn.PReLU(init=0.25)
+    if name not in table:
+        raise ValueError(f"unknown activation {name!r}")
+    return table[name]
+
+
+def _dense(d_in: int, d_out: int,
+           generator: Optional[torch.Generator]) -> nn.Linear:
+    lin = nn.Linear(d_in, d_out)
+    torch_linear_init_(lin.weight, d_in, generator)
+    with torch.no_grad():
+        lin.bias.zero_()
+    return lin
+
+
+class _MLPHead(nn.Module):
+    """in_dim -> dims[0] -> ... -> dims[-1]; activation(dropout(linear))
+    between all but the final layer (the FTHead2/3/5 predictor loop,
+    gat2.py:745-749)."""
+
+    def __init__(self, in_dim: int, dims: Sequence[int],
+                 drop_ratio: float = 0.2, act: str = "relu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        widths = [in_dim] + list(dims)
+        self.predictor = nn.ModuleList([
+            _dense(widths[i], widths[i + 1], generator)
+            for i in range(len(dims))])
+        self.drop = nn.Dropout(drop_ratio)
+        self.act = make_activation(act)
+
+    def forward(self, x):
+        for lin in self.predictor[:-1]:
+            x = self.act(self.drop(lin(x)))
+        return self.predictor[-1](x)
+
+
+class FTHead1(nn.Module):
+    """2-layer head: dropout→lin1→relu→dropout→out (gat2.py:569-588)."""
+
+    def __init__(self, in_dim: int, h1: int = 128, drop_ratio: float = 0.2,
+                 n_classes: int = 1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.drop = nn.Dropout(drop_ratio)
+        self.lin1 = _dense(in_dim, h1, generator)
+        self.out = _dense(h1, n_classes, generator)
+
+    def forward(self, enc):
+        x = self.drop(enc)
+        x = torch.relu(self.lin1(x))
+        return self.out(self.drop(x))
+
+
+class FTHead2(_MLPHead):
+    """Fixed 1024/1024/512 relu head with dropout 0.1 (gat2.py:728-751)."""
+
+    def __init__(self, in_dim: int, n_classes: int = 1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_dim, [1024, 1024, 512, n_classes], 0.1, "relu",
+                         generator)
+
+
+class FTHead3(_MLPHead):
+    """h1–h4 + activation choice (gat2.py:678-725) — the production head."""
+
+    def __init__(self, in_dim: int, h1: int = 128, h2: int = 1024,
+                 h3: int = 1024, h4: int = 512, drop_ratio: float = 0.2,
+                 n_classes: int = 1, act: str = "relu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_dim, [h1, h2, h3, h4, n_classes], drop_ratio,
+                         act, generator)
+
+
+class FTHead4(nn.Module):
+    """Single hidden layer + activation choice (gat2.py:640-675)."""
+
+    def __init__(self, in_dim: int, h1: int = 128, act: str = "relu",
+                 n_classes: int = 1, drop_ratio: float = 0.2,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.drop = nn.Dropout(drop_ratio)
+        self.act = make_activation(act)
+        self.dense = _dense(in_dim, h1, generator)
+        self.out_proj = _dense(h1, n_classes, generator)
+
+    def forward(self, x):
+        x = self.act(self.dense(self.drop(x)))
+        return self.out_proj(self.drop(x))
+
+
+class FTHead5(_MLPHead):
+    """h1, h2 two-hidden-layer variant (gat2.py:591-637)."""
+
+    def __init__(self, in_dim: int, h1: int = 128, h2: int = 1024,
+                 drop_ratio: float = 0.2, n_classes: int = 1,
+                 act: str = "relu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_dim, [h1, h2, n_classes], drop_ratio, act,
+                         generator)
+
+
+FTHEADS = {
+    "FTHead1": FTHead1,
+    "FTHead2": FTHead2,
+    "FTHead3": FTHead3,
+    "FTHead4": FTHead4,
+    "FTHead5": FTHead5,
+}

@@ -1,0 +1,282 @@
+"""FragNetLayer — the four-level attention layer as an ``nn.Module``
+(counterpart of fragnet_tpu/model/layers.py).
+
+Re-designs fragnet/model/gat/gat2.py:40-330 (FragNetLayerA.forward): five
+passes (bond-graph GAT → atom-graph GAT with self-loops → atom→frag pooling
+→ fconn-graph GAT → frag-graph GAT) over static-shape padded tensors. Every
+GAT pass goes through ``_gat_dispatch``: the dense planes kernel
+(ops/dense_gat.py) or the fused TCSR kernel (ops/tcsr_gat.py) when the batch
+carries their metadata, else — on the CPU only — the segment path
+(ops/segment.py). The attention vectors are computed only when asked for.
+
+Parameter names are the reference torch names (gat2.py): projection_b/a/fb,
+edge_attr_bond_embed, edge_attr_fbond_embed and the attention vectors
+a_b/a/f/f_a_b. The reference also constructs modules that never affect the
+forward (atom_embed, frag_embed, ... gat2.py:64-85); this layer does not.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from fragnet_tpu_torch.ops.dense_gat import dense_gat_pass
+from fragnet_tpu_torch.ops.segment import gat_attention_pass, segment_sum
+from fragnet_tpu_torch.ops.tcsr import TileMeta
+from fragnet_tpu_torch.ops.tcsr_gat import tcsr_gat_pass
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPolicy:
+    """Per-level dense-kernel strategy (the JAX package's KernelPolicy):
+
+    * ``bond``: "planes" (host-precomputed value-plane kernel) or "tcsr".
+      "attr" is REFUSED: the dense-attr kernel hung the TPU at bond-level
+      shapes (BASELINE.md r4 experiment log — "parked, never enable").
+    * ``fc``: "planes" | "attr" | "tcsr".
+    * ``attr``: atom/frag levels use the dense-attr kernel instead of TCSR.
+
+    The dense-attr kernels (fragnet_tpu/ops/dense_gat.py:216,276,359) are
+    not ported yet (ROADMAP.md Queue B4), so ``fc="attr"`` and ``attr=True``
+    raise NotImplementedError."""
+
+    bond: str = "planes"
+    fc: str = "planes"
+    attr: bool = False
+
+    def __post_init__(self):
+        if self.bond == "attr":
+            raise ValueError(
+                "kernel.bond='attr' is refused: the dense-attr kernel HUNG "
+                "the device at bond-level shapes (see BASELINE.md, r4 "
+                "on-device experiments: 'parked — never enable'). Use "
+                "'planes' or 'tcsr'.")
+        if self.bond not in ("planes", "tcsr"):
+            raise ValueError(f"kernel.bond={self.bond!r} (planes|tcsr)")
+        if self.fc not in ("planes", "attr", "tcsr"):
+            raise ValueError(f"kernel.fc={self.fc!r} (planes|attr|tcsr)")
+        if self.fc == "attr" or self.attr:
+            raise NotImplementedError(
+                "kernel.fc='attr' / kernel.attr=true need the dense-attr "
+                "kernels, not ported yet (ROADMAP.md Queue B4)")
+
+
+def torch_linear_init_(w: torch.Tensor, fan_in: int,
+                       generator: Optional[torch.Generator]) -> None:
+    """torch nn.Linear default: U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+    bound = math.sqrt(3.0 * (1.0 / 3.0) / fan_in)
+    with torch.no_grad():
+        w.uniform_(-bound, bound, generator=generator)
+
+
+def xavier_gain_(w: torch.Tensor, fan_in: int, fan_out: int,
+                 generator: Optional[torch.Generator]) -> None:
+    """xavier_uniform with gain 1.414 (reference gat2.py:111-115), as the
+    JAX package's variance_scaling(2·1.414², fan_avg, uniform)."""
+    bound = math.sqrt(3.0 * 2.0 * 1.414 ** 2 / ((fan_in + fan_out) / 2.0))
+    with torch.no_grad():
+        w.uniform_(-bound, bound, generator=generator)
+
+
+def _linear(d_in: int, d_out: int, init: str,
+            generator: Optional[torch.Generator]) -> nn.Linear:
+    lin = nn.Linear(d_in, d_out)
+    if init == "xavier":
+        xavier_gain_(lin.weight, d_in, d_out, generator)
+    else:
+        torch_linear_init_(lin.weight, d_in, generator)
+    with torch.no_grad():
+        lin.bias.zero_()
+    return lin
+
+
+def _attn_param(H: int, width: int,
+                generator: Optional[torch.Generator]) -> nn.Parameter:
+    p = nn.Parameter(torch.empty(H, width))
+    xavier_gain_(p, H, width, generator)
+    return p
+
+
+def _gat_dispatch(
+    nf: torch.Tensor,            # (N, H, Dp) projected node features
+    ea: torch.Tensor,            # (E, Da) per-edge attrs (embedded/dynamic)
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    mask: torch.Tensor,
+    avec: torch.Tensor,          # (H, 2*Dp + Da) attention vector
+    *,
+    num_nodes: int,
+    tm: Optional[TileMeta],
+    dp: Optional[torch.Tensor],  # dense planes
+    mode: str,                   # "planes" | "tcsr"
+    fold=None,                   # (v, c) folded edge-attr term (planes mode)
+    self_loops: bool = False,
+    seg=None,                    # (src, dst, attr, mask) for the segment
+                                 # path (the atom level appends explicit
+                                 # self-loop rows there)
+    need_attn: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One GAT pass through whichever kernel the batch metadata + policy
+    select: the dense planes kernel, else the fused TCSR kernel, else — for
+    CPU tensors only — the segment path. A CUDA tensor with neither kernel's
+    metadata raises. Math contract for every branch:
+    ops/segment.py:gat_attention_pass (reference gat2.py:137-169)."""
+    if mode == "planes" and dp is not None and fold is not None:
+        v, c = fold
+        return dense_gat_pass(nf, dp, v, c, ea, src, dst, mask, avec,
+                              return_attention=need_attn)
+    if isinstance(tm, TileMeta):
+        return tcsr_gat_pass(nf, ea, src, dst, mask, avec, tm,
+                             self_loops=self_loops,
+                             return_attention=need_attn)
+    if nf.device.type != "cpu":
+        raise RuntimeError(
+            f"GAT pass on {nf.device} without TCSR tile metadata or dense "
+            f"planes: the segment path runs on the CPU only; build the batch "
+            f"with a TCSR spec (spec_for(..., tcsr=True))")
+    xsrc, xdst, xattr, xmask = seg if seg is not None else (src, dst, ea, mask)
+    H = nf.shape[1]
+    attr_h = xattr[:, None, :].expand(xattr.shape[0], H, xattr.shape[1])
+    out, attn = gat_attention_pass(nf, attr_h, xsrc, xdst, avec, num_nodes,
+                                   edge_mask=xmask)
+    return out, (attn if need_attn else None)
+
+
+def _fold_planes(emb: nn.Linear, raw_dim: int, avec: torch.Tensor,
+                 dp0: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold an edge-attr embed Linear + the a_ea slice of the attention
+    vector into the (v (R, H), c (H,)) rank terms the planes kernel consumes
+    — basis-applied through the SAME module, as the JAX package does."""
+    H = avec.shape[0]
+    dev, dt = avec.device, emb.weight.dtype
+    bias_row = emb(torch.zeros((1, raw_dim), dtype=dt, device=dev))
+    Wt = emb(torch.eye(raw_dim, dtype=dt, device=dev)) - bias_row  # (R, Dp)
+    a_ea = avec[:, dp0:2 * dp0].float()
+    v = Wt.float() @ a_ea.T
+    c = (bias_row.float() @ a_ea.T).reshape(H)
+    return v, c
+
+
+@dataclasses.dataclass
+class LayerAttn:
+    atoms: torch.Tensor   # (A, H) summed attention by source
+    frags: torch.Tensor   # (F, H)
+    bonds: torch.Tensor   # (E, H)
+    fbonds: torch.Tensor  # (C, H)
+
+
+class FragNetLayer(nn.Module):
+    """One four-level message-passing layer (f32)."""
+
+    def __init__(self, atom_in: int = 128, atom_out: int = 128,
+                 edge_in: int = 128, edge_out: int = 128,
+                 fedge_in: int = 128, bond_edge_in: int = 1,
+                 fbond_edge_in: int = 6, num_heads: int = 4,
+                 policy: KernelPolicy = KernelPolicy(),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        H = num_heads
+        self.num_heads = H
+        self.atom_out = atom_out
+        self.edge_out = edge_out
+        self.policy = policy
+        eph = edge_out // H
+        aph = atom_out // H
+        g = generator
+        self.edge_attr_bond_embed = _linear(bond_edge_in, eph, "torch", g)
+        self.projection_b = _linear(edge_in, eph * H, "xavier", g)
+        self.a_b = _attn_param(H, 3 * eph, g)
+        self.projection_a = _linear(atom_in, aph * H, "torch", g)
+        self.a = _attn_param(H, 2 * aph + edge_out, g)
+        self.edge_attr_fbond_embed = _linear(fbond_edge_in, eph, "torch", g)
+        self.projection_fb = _linear(fedge_in, eph * H, "torch", g)
+        self.f_a_b = _attn_param(H, 3 * eph, g)
+        self.f = _attn_param(H, 2 * aph + edge_out, g)
+
+    def forward(self, x_atoms, nf_bonds, nf_fbonds, batch,
+                need_attn: bool = False):
+        H = self.num_heads
+        pol = self.policy
+        edge_out_ph = self.edge_out // H
+        atom_out_ph = self.atom_out // H
+        edge_mask = batch.edge_mask
+        A = x_atoms.shape[0]
+        E = nf_bonds.shape[0]
+        C = nf_fbonds.shape[0]
+
+        # ---- pass 1: bond-graph GAT (gat2.py:137-169) --------------------
+        ea_b = self.edge_attr_bond_embed(batch.ea_bonds)          # (EB, Dp)
+        nf_b = self.projection_b(nf_bonds).reshape(E, H, edge_out_ph)
+        fold_b = None
+        if pol.bond == "planes" and batch.dp_bond is not None:
+            # raw bond-graph edge attr is the 1-dim cos-angle → rank-1 fold
+            fold_b = _fold_planes(self.edge_attr_bond_embed,
+                                  batch.ea_bonds.shape[1], self.a_b,
+                                  edge_out_ph)
+        bond_out, attn_bonds = _gat_dispatch(
+            nf_b, ea_b, batch.bg_src, batch.bg_dst, batch.bg_mask, self.a_b,
+            num_nodes=E, tm=batch.tm_bond, dp=batch.dp_bond, mode=pol.bond,
+            fold=fold_b, need_attn=need_attn)
+        new_bond_features = bond_out.reshape(E, -1) * edge_mask[:, None]
+
+        # ---- pass 2: atom-graph GAT with self-loops (gat2.py:178-224) ----
+        # self-loops appended after real edges, zero edge attrs
+        # (gat2.py:179-185); the kernel folds them in analytically, so the
+        # appended arrays are built only for the segment path
+        seg = None
+        if batch.tm_atom is None:
+            sl = torch.arange(A, dtype=batch.edge_src.dtype,
+                              device=x_atoms.device)
+            seg = (torch.cat([batch.edge_src, sl]),
+                   torch.cat([batch.edge_dst, sl]),
+                   torch.cat([new_bond_features,
+                              new_bond_features.new_zeros((A, self.edge_out))]),
+                   torch.cat([edge_mask, edge_mask.new_ones((A,))]))
+        nf_a = self.projection_a(x_atoms).reshape(A, H, atom_out_ph)
+        atom_out_feats, attn_atoms = _gat_dispatch(
+            nf_a, new_bond_features, batch.edge_src, batch.edge_dst,
+            edge_mask, self.a, num_nodes=A, tm=batch.tm_atom, dp=None,
+            mode="tcsr", self_loops=True, seg=seg, need_attn=need_attn)
+        x_atoms_new = atom_out_feats.reshape(A, -1) * batch.atom_mask[:, None]
+
+        # ---- pass 3: atom → fragment pooling (gat2.py:234) ----------------
+        # incoming fragment state is recomputed from atoms every layer (the
+        # reference overwrites its x_frags argument)
+        F_ = batch.x_frags.shape[0]
+        x_frags = segment_sum(x_atoms_new, batch.atom_to_frag, F_)
+
+        # ---- pass 4: fconn-graph GAT (gat2.py:238-278) --------------------
+        ea_fb = self.edge_attr_fbond_embed(batch.ea_fbonds)
+        nf_fb = self.projection_fb(nf_fbonds).reshape(C, H, edge_out_ph)
+        fold_f = None
+        if pol.fc == "planes" and batch.dp_fc is not None:
+            # raw fconn attrs are the 6-dim connection one-hot sums → rank-6
+            fold_f = _fold_planes(self.edge_attr_fbond_embed,
+                                  batch.ea_fbonds.shape[1], self.f_a_b,
+                                  edge_out_ph)
+        fbond_out, attn_fbonds = _gat_dispatch(
+            nf_fb, ea_fb, batch.fc_src, batch.fc_dst, batch.fc_mask,
+            self.f_a_b, num_nodes=C, tm=batch.tm_fc, dp=batch.dp_fc,
+            mode=pol.fc, fold=fold_f, need_attn=need_attn)
+        new_fbond_features = (fbond_out.reshape(C, -1)
+                              * batch.fconn_mask[:, None])
+
+        # ---- pass 5: frag-graph GAT (gat2.py:283-316) ---------------------
+        # fragment node features enter per head WITHOUT projection
+        nf_f = x_frags.reshape(F_, H, -1)
+        frag_out, attn_frags = _gat_dispatch(
+            nf_f, new_fbond_features, batch.frag_src, batch.frag_dst,
+            batch.fconn_mask, self.f, num_nodes=F_, tm=batch.tm_frag,
+            dp=None, mode="tcsr", need_attn=need_attn)
+        x_frags_new = frag_out.reshape(F_, -1) * batch.frag_mask[:, None]
+
+        attn = None
+        if need_attn:
+            attn = LayerAttn(atoms=attn_atoms, frags=attn_frags,
+                             bonds=attn_bonds, fbonds=attn_fbonds)
+        return (x_atoms_new, x_frags_new, new_bond_features,
+                new_fbond_features, attn)

@@ -1,0 +1,147 @@
+"""Eval steps, metrics and the eval half of the finetune trainer
+(counterpart of fragnet_tpu/train/loop.py; the train step, optimizer and
+TrainState come with training, ROADMAP.md Queue A4).
+
+Re-designs fragnet/train/utils.py:307-637 (TrainerFineTune): masked losses
+that are exactly the reference's (MSE; masked BCE ignoring labels < −0.5 —
+the NaN-label convention, train/utils.py:422-429), and host metrics (RMSE,
+masked mean-per-task ROC-AUC, train/utils.py:480-492).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable, Tuple, Union
+
+import numpy as np
+import torch
+
+from fragnet_tpu_torch.graphs.batch import to_device
+
+
+# ---------------------------------------------------------------------------
+# losses (masked — padding-aware versions of the reference's)
+# ---------------------------------------------------------------------------
+
+def mse_loss(pred: torch.Tensor, y: torch.Tensor,
+             graph_mask: torch.Tensor) -> torch.Tensor:
+    """Mean over real graphs of (pred − y)² (nn.MSELoss over the batch)."""
+    se = (pred.reshape(y.shape) - y) ** 2
+    m = graph_mask[:, None]
+    return torch.sum(se * m) / torch.clamp(torch.sum(m) * y.shape[1],
+                                           min=1.0)
+
+
+def bce_masked_loss(pred: torch.Tensor, y: torch.Tensor,
+                    graph_mask: torch.Tensor) -> torch.Tensor:
+    """BCE-with-logits, ignoring labels < −0.5 (missing-label convention)
+    and padded graphs. Reference: train/utils.py:297-305,412-429."""
+    pred = pred.reshape(y.shape)
+    is_valid = (y > -0.5) & (graph_mask[:, None] > 0)
+    per = (torch.clamp(pred, min=0) - pred * y
+           + torch.log1p(torch.exp(-torch.abs(pred))))
+    per = torch.where(is_valid, per, torch.zeros_like(per))
+    return torch.sum(per) / torch.clamp(is_valid.sum().float(), min=1.0)
+
+
+LOSSES = {"mse": mse_loss, "bce": bce_masked_loss}
+
+
+# ---------------------------------------------------------------------------
+# steps
+# ---------------------------------------------------------------------------
+
+def make_eval_step(model: torch.nn.Module, loss_name: str = "mse",
+                   device: Union[str, torch.device] = "cuda") -> Callable:
+    """``eval_step(batch) -> (loss, pred)`` for a numpy HierGraphBatch; the
+    batch is moved to ``device`` and the model runs in eval mode."""
+    loss_fn = LOSSES[loss_name]
+
+    def eval_step(batch):
+        b = to_device(batch, device)
+        model.eval()
+        with torch.no_grad():
+            out = model(b)
+            return loss_fn(out, b.y, b.graph_mask), out
+
+    return eval_step
+
+
+def make_predict_step(model: torch.nn.Module,
+                      device: Union[str, torch.device] = "cuda") -> Callable:
+    def predict(batch):
+        model.eval()
+        with torch.no_grad():
+            return model(to_device(batch, device))
+
+    return predict
+
+
+# ---------------------------------------------------------------------------
+# host-side metrics
+# ---------------------------------------------------------------------------
+
+def rmse_metric(y: np.ndarray, pred: np.ndarray) -> float:
+    return float(np.sqrt(np.mean((y - pred) ** 2)))
+
+
+def mean_per_task_auc(y: np.ndarray, pred: np.ndarray) -> float:
+    """Masked mean-per-task ROC-AUC (train/utils.py:480-492)."""
+    from sklearn.metrics import roc_auc_score
+
+    rocs = []
+    for t in range(y.shape[1]):
+        col = y[:, t]
+        if (col == 1).sum() > 0 and (col == 0).sum() > 0:
+            valid = col > -0.5
+            rocs.append(roc_auc_score(col[valid], pred[valid, t]))
+    return float(np.mean(rocs)) if rocs else float("nan")
+
+
+# ---------------------------------------------------------------------------
+# trainer (eval half)
+# ---------------------------------------------------------------------------
+
+class TrainerFineTune:
+    """Epoch-level runner mirroring the reference trainer's API surface
+    (validate/test) on top of the eval step. The model holds its own
+    parameters, so the methods take only the batches.
+
+    target_type: 'regr' (MSE / RMSE) or 'clsf' (masked BCE / −mean ROC-AUC).
+    """
+
+    def __init__(self, model: torch.nn.Module, target_type: str = "regr",
+                 device: Union[str, torch.device] = "cuda"):
+        self.model = model
+        self.target_type = target_type
+        loss = "mse" if target_type == "regr" else "bce"
+        self._eval_step = make_eval_step(model, loss, device)
+
+    def validate(self, batches: Iterable) -> float:
+        """Returns the score minimized by early stopping: mean loss for
+        regression, −mean-per-task ROC-AUC for classification."""
+        if self.target_type == "regr":
+            total, n = 0.0, 0
+            for batch in batches:
+                l, _ = self._eval_step(batch)
+                total += float(l)
+                n += 1
+            return total / max(n, 1)
+        y, p = self._collect(batches)
+        return -mean_per_task_auc(y, p)
+
+    def test(self, batches: Iterable) -> Tuple[float, np.ndarray, np.ndarray]:
+        y, p = self._collect(batches)
+        if self.target_type == "regr":
+            mse = float(np.mean((y - p) ** 2))
+            return mse, y, p
+        return -mean_per_task_auc(y, p), y, p
+
+    def _collect(self, batches: Iterable):
+        ys, ps = [], []
+        for batch in batches:
+            _, out = self._eval_step(batch)
+            mask = np.asarray(batch.graph_mask) > 0
+            y = np.asarray(batch.y)
+            ys.append(y[mask])
+            ps.append(out.cpu().numpy().reshape(y.shape)[mask])
+        return np.concatenate(ys), np.concatenate(ps)

@@ -1,0 +1,114 @@
+#!/usr/bin/env python3
+"""A/B device time of the port's CUDA kernels: this checkout's sources
+against another version's, on chip_smoke.py's esol batch, in one process on
+one card.
+
+    python3 scripts/kernel_ab.py BASE_CSRC_DIR [--rounds 5]
+
+BASE_CSRC_DIR holds the other version's ``*.cu`` (for example the parent
+commit's ``fragnet_tpu_torch/csrc``, unpacked with ``git archive``). For
+every kernel whose source differs between the two, each level's layer-0
+inputs are timed in turns (base, change, change, base) × rounds, each turn
+the device time of 50 calls (torch.profiler, as in chip_smoke.py); both
+versions are also held against the plain version (limit 1e-4 of scale).
+Prints one line per level and a JSON line of the medians.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("base_csrc")
+    ap.add_argument("--rounds", type=int, default=5)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+    from fragnet_tpu_torch.graphs.batch import to_device
+    from fragnet_tpu_torch.ops import _cuda, dense_gat, tcsr_gat
+    from fragnet_tpu_torch.train.finetune import build_model, load_datasets
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    mods = {"tcsr_gat_fwd": tcsr_gat, "dense_gat_fwd": dense_gat}
+    plain = {"tcsr_gat_fwd": tcsr_gat.tcsr_gat_fwd_plain,
+             "dense_gat_fwd": dense_gat.dense_gat_fwd_plain}
+    pairs = {}
+    for name, mod in mods.items():
+        change = mod.KERNEL
+        base_path = os.path.join(args.base_csrc, change.source)
+        with open(change.path, "rb") as f, open(base_path, "rb") as g:
+            if f.read() == g.read():
+                print(f"{name}: same source, skipped")
+                continue
+        base = _cuda.CudaKernel(change.source, change.symbol,
+                                change.argtypes, csrc=args.base_csrc)
+        pairs[name] = {"base": base, "change": change}
+    if not pairs:
+        return 0
+    _cuda.build_all([k for p in pairs.values() for k in p.values()],
+                    force=True)
+
+    opt = cs.smoke_opt()
+    datasets = load_datasets(opt)
+    _spec, _windows, batch_np = cs.smoke_batch(opt, datasets)
+    model = build_model(opt, n_classes=datasets[3],
+                        generator=torch.Generator().manual_seed(0))
+    model = model.to("cuda").eval()
+    calls = cs.layer0_kernel_calls(opt, model, to_device(batch_np, "cuda"))
+
+    summary = []
+    for name, kern in pairs.items():
+        mod = mods[name]
+        wrapper = getattr(mod, name)
+        for lvl, a, kw in calls[name]:
+            want = plain[name](*a, **kw)
+            times = {"base": [], "change": []}
+            try:
+                for which in ("base", "change"):
+                    mod.KERNEL = kern[which]
+                    rel = max(cs._diff(k, p)[1]
+                              for k, p in zip(wrapper(*a, **kw), want))
+                    if rel > cs.REL_LIMIT:
+                        raise AssertionError(f"{name} [{lvl}] {which}: "
+                                             f"rel {rel:.3e}")
+                for _ in range(args.rounds):
+                    for which in ("base", "change", "change", "base"):
+                        mod.KERNEL = kern[which]
+                        times[which].append(
+                            cs._device_ms(lambda: wrapper(*a, **kw)))
+            finally:
+                mod.KERNEL = kern["change"]
+            med = {k: statistics.median(v) for k, v in times.items()}
+            wins = sum(c < b for b, c in zip(times["base"], times["change"]))
+            print(f"{name} [{lvl}]: base {med['base']:.4f} ms, change "
+                  f"{med['change']:.4f} ms (change faster in {wins}/"
+                  f"{len(times['base'])} pairs); base runs "
+                  f"{[round(x, 4) for x in times['base']]}, change runs "
+                  f"{[round(x, 4) for x in times['change']]}")
+            summary.append({"kernel": name, "level": lvl,
+                            "base_ms": med["base"],
+                            "change_ms": med["change"], "wins": wins,
+                            "pairs": len(times["base"])})
+    print(json.dumps({"kernel_ab": summary}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,142 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test skips without a CUDA device. Run on a machine
+with an H100 (no JAX needed there, hence ``--noconftest``):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+Inputs are random tile-local graphs made with numpy from a seed, at the
+esol model's head shapes (H = 4, D = 32) and both node tiles the batcher
+uses (128, 256). Tolerance: the kernels sum in another order than the plain
+versions (and K1 with shared-memory atomics, in an order that varies from
+run to run), so outputs agree to f32 rounding: |k - p| ≤ 1e-4 · max|p|.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from fragnet_tpu_torch.ops import dense_gat, tcsr_gat
+from fragnet_tpu_torch.ops.tcsr import build_tile_meta
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _graph(rng, tn, n_tiles, deg, te, empty_tile=None):
+    """Tile-local edges sorted by dst, padded to a multiple of te."""
+    src, dst = [], []
+    for t in range(n_tiles):
+        if t == empty_tile:
+            continue
+        seen = set()
+        for _ in range(deg * tn):
+            i, j = (int(x) for x in rng.integers(0, tn, 2))
+            if (i, j) not in seen:
+                seen.add((i, j))
+                src.append(t * tn + j)
+                dst.append(t * tn + i)
+    order = np.argsort(dst, kind="stable")
+    n = len(order)
+    E = ((n + te - 1) // te + 1) * te
+    s = np.zeros(E, np.int32)
+    d = np.zeros(E, np.int32)
+    m = np.zeros(E, np.float32)
+    s[:n] = np.array(src)[order]
+    d[:n] = np.array(dst)[order]
+    m[:n] = 1.0
+    return s, d, m
+
+
+def _close(k, p):
+    k, p = k.float().cpu(), p.float().cpu()
+    scale = float(p.abs().max())
+    assert torch.isfinite(k).all()
+    assert float((k - p).abs().max()) <= 1e-4 * max(scale, 1e-30)
+
+
+def _close_m(k, p):
+    """m: the −1e30 empty-row marker must agree exactly, the rest closely."""
+    k, p = k.cpu(), p.cpu()
+    empty = p <= -1e29
+    assert torch.equal(k <= -1e29, empty)
+    _close(k[~empty], p[~empty])
+
+
+@pytest.mark.parametrize("tn", [128, 256])
+@pytest.mark.parametrize("self_loops", [False, True])
+def test_tcsr_gat_fwd_matches_plain(cuda, tn, self_loops):
+    rng = np.random.default_rng(tn + self_loops)
+    H, D, te, n_tiles = 4, 32, 256, 3
+    src, dst, mask = _graph(rng, tn, n_tiles, 3, te, empty_tile=1)
+    N = n_tiles * tn
+    meta = build_tile_meta(src, dst, mask, N, tn=tn, te=te)
+    assert meta is not None
+    E = len(src)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    wn = T(rng.standard_normal((N, 2 * H)).astype(np.float32))
+    nf = T(rng.standard_normal((N, H * D)).astype(np.float32))
+    w_ea = T(rng.standard_normal((E, H)).astype(np.float32))
+    meta_t = dataclasses.replace(meta, ew_blk=T(meta.ew_blk), cw=T(meta.cw),
+                                 sw_tile=T(meta.sw_tile),
+                                 flat_slot=T(meta.flat_slot))
+    args = (wn, nf, w_ea, T(src), T(dst), T(mask), meta_t, self_loops)
+    n0 = tcsr_gat.KERNEL.launches
+    out, m, den = tcsr_gat.tcsr_gat_fwd(*args)
+    torch.cuda.synchronize()
+    assert tcsr_gat.KERNEL.launches == n0 + 1
+    out_p, m_p, den_p = tcsr_gat.tcsr_gat_fwd_plain(*args)
+    _close(out, out_p)
+    _close(den, den_p)
+    _close_m(m, m_p)
+    if not self_loops:  # the empty tile: m = -1e30, den = 0, out = 0
+        assert float(out[tn:2 * tn].abs().max()) == 0.0
+        assert float(den[tn:2 * tn].abs().max()) == 0.0
+        assert bool((m[tn:2 * tn] == -1e30).all())
+
+
+@pytest.mark.parametrize("tn", [128, 256])
+@pytest.mark.parametrize("R", [1, 6])
+def test_dense_gat_fwd_matches_plain(cuda, tn, R):
+    rng = np.random.default_rng(tn + R)
+    H, D, n_tiles = 4, 32, 3
+    src, dst, mask = _graph(rng, tn, n_tiles, 3, 32, empty_tile=2)
+    N = n_tiles * tn
+    ea = rng.standard_normal((len(src), R)).astype(np.float32)
+    planes = dense_gat.build_dense_planes(src, dst, mask, ea, N, tn=tn)
+    assert planes is not None
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    args = (T(planes), T(rng.standard_normal((N, H)).astype(np.float32)),
+            T(rng.standard_normal((N, H)).astype(np.float32)),
+            T(rng.standard_normal((N, H * D)).astype(np.float32)),
+            T(rng.standard_normal((R + 1, H)).astype(np.float32)))
+    n0 = dense_gat.KERNEL.launches
+    out, m, den = dense_gat.dense_gat_fwd(*args)
+    torch.cuda.synchronize()
+    assert dense_gat.KERNEL.launches == n0 + 1
+    out_p, m_p, den_p = dense_gat.dense_gat_fwd_plain(*args)
+    _close(out, out_p)
+    _close(den, den_p)
+    _close_m(m, m_p)
+    assert float(out[2 * tn:].abs().max()) == 0.0
+
+
+def test_wrappers_refuse_bad_inputs(cuda):
+    N, H, D, R, tn = 128, 4, 32, 1, 128
+    planes = torch.zeros((1, (R + 1) * tn, tn), device=cuda)
+    wd = torch.zeros((N, H), device=cuda)
+    nf = torch.zeros((N, H * D), device=cuda)
+    vc = torch.zeros((R + 1, H), device=cuda)
+    with pytest.raises(ValueError):
+        dense_gat.dense_gat_fwd(planes, wd, wd.double(), nf, vc)
+    with pytest.raises(ValueError):
+        dense_gat.dense_gat_fwd(planes, wd, wd, nf.t(), vc)

@@ -1,0 +1,229 @@
+"""The port's model and eval path against fragnet_tpu's, on the CPU: weights
+carried across with ``state_dict_from_jax``, FragNetFineTune predictions and
+all four attention vectors (aligned TCSR batch and segment path), the
+trainer's test RMSE, ``run_finetune`` with ``n_epochs=0``, and the opt dict
+that ``chip_smoke.py`` drives. Small model: 2 layers, emb 32, 4 heads.
+Tolerance: 1e-4 relative (f32 through two frameworks and ~10 ops deep)."""
+
+import dataclasses
+import importlib.util
+import os
+import pickle
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fragnet_tpu.config import load_config
+from fragnet_tpu.data.batcher import BatchLoader as JaxLoader
+from fragnet_tpu.graphs.hiergraph import pad_batch as jax_pad_batch
+from fragnet_tpu.graphs.hiergraph import spec_for as jax_spec_for
+from fragnet_tpu.model.finetune import FragNetFineTune as JaxModel
+from fragnet_tpu.train.checkpoint import import_torch_state_dict
+from fragnet_tpu.train.loop import TrainerFineTune as JaxTrainer
+from fragnet_tpu.train.optim import make_optimizer
+
+from fragnet_tpu_torch.chem import engine as port_engine
+from fragnet_tpu_torch.config import Config
+from fragnet_tpu_torch.data.batcher import BatchLoader
+from fragnet_tpu_torch.graphs.batch import to_device
+from fragnet_tpu_torch.graphs.build import GraphBuilder as PortBuilder
+from fragnet_tpu_torch.graphs.hiergraph import pad_batch, spec_for
+from fragnet_tpu_torch.model.finetune import FragNetFineTune
+from fragnet_tpu_torch.train.checkpoint import state_dict_from_jax
+from fragnet_tpu_torch.train.finetune import run_finetune
+from fragnet_tpu_torch.train.loop import TrainerFineTune
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = dict(num_layer=2, num_heads=4, emb_dim=32, h1=16, h2=16, h3=16,
+             h4=16)
+
+
+def _jnp(b):
+    return jax.tree.map(lambda x: jnp.asarray(x) if x is not None else None,
+                        b)
+
+
+def _close(port, ref, rel=1e-4):
+    port = port.detach().numpy() if isinstance(port, torch.Tensor) else port
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(port, ref, rtol=rel,
+                               atol=rel * float(np.abs(ref).max()))
+
+
+@pytest.fixture(scope="module")
+def port_graphs(ft_graphs):
+    builder = PortBuilder("exp1s")
+    return [builder.build(*port_engine.mol_3d(g.smiles), g.y,
+                          smiles=g.smiles) for g in ft_graphs]
+
+
+@pytest.fixture(scope="module")
+def aligned(ft_graphs, port_graphs):
+    """(jax batch, port batch) of all eight molecules, tile-aligned TCSR."""
+    kw = dict(batch_size=len(ft_graphs), tcsr=True, align=True)
+    bj = jax_pad_batch(ft_graphs, jax_spec_for(ft_graphs, **kw))
+    bp = pad_batch(port_graphs, spec_for(port_graphs, **kw))
+    assert bp.tm_atom is not None and bp.dp_bond is not None
+    return _jnp(bj), bp
+
+
+_NO_KERNELS = dict(tm_atom=None, tm_bond=None, tm_frag=None, tm_fc=None,
+                   dp_bond=None, dp_fc=None)
+
+
+def _init(model, aligned, seed):
+    # init on the segment path: the params do not depend on the kernels
+    batch = dataclasses.replace(aligned[0], **_NO_KERNELS)
+    return model.init(jax.random.PRNGKey(seed), batch, deterministic=True)
+
+
+@pytest.fixture(scope="module")
+def carried(aligned):
+    """A JAX model's params and the port model holding the same weights."""
+    model = JaxModel(**SMALL)
+    params = _init(model, aligned, 0)
+    port = FragNetFineTune(**SMALL)
+    port.load_state_dict(state_dict_from_jax(params), strict=True)
+    return model, params, port.eval()
+
+
+@pytest.mark.parametrize("fthead", ["FTHead1", "FTHead3", "FTHead4"])
+def test_state_dict_round_trip(aligned, fthead):
+    model = JaxModel(**SMALL, fthead=fthead)
+    params = _init(model, aligned, 1)
+    sd = state_dict_from_jax(params)
+    back = import_torch_state_dict(sd, template=params, strict=True)
+    lj = jax.tree_util.tree_leaves_with_path(params)
+    lb = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(lj) == len(lb)
+    for path, leaf in lj:
+        np.testing.assert_array_equal(np.asarray(lb[path]), np.asarray(leaf))
+    port = FragNetFineTune(**SMALL, fthead=fthead)
+    port.load_state_dict(sd, strict=True)  # every port param is named
+
+
+@pytest.mark.parametrize("path", ["aligned-tcsr", "segment"])
+def test_forward_and_attentions_match(aligned, carried, path):
+    model, params, port = carried
+    bj, bp = aligned
+    if path == "segment":
+        bj = dataclasses.replace(bj, **_NO_KERNELS)
+        bp = dataclasses.replace(bp, **_NO_KERNELS)
+    pred_j, attn_j = model.apply(params, bj, deterministic=True,
+                                 return_attentions=True)
+    with torch.no_grad():
+        pred_p, attn_p = port(to_device(bp, "cpu"), return_attentions=True)
+        pred_only = port(to_device(bp, "cpu"))
+    _close(pred_p, pred_j)
+    assert torch.equal(pred_only, pred_p)
+    for level in ("atoms", "frags", "bonds", "fbonds"):
+        _close(getattr(attn_p, level), getattr(attn_j, level))
+
+
+def test_trainer_test_rmse_matches(ft_graphs, port_graphs, carried):
+    model, params, port = carried
+    sj = jax_spec_for(ft_graphs, batch_size=4)
+    sp = spec_for(port_graphs, batch_size=4)
+    tx = make_optimizer("adam", lr=1e-4)
+    mse_j, y_j, p_j = JaxTrainer(model, tx, target_type="regr").test(
+        params, JaxLoader(ft_graphs, 4, spec=sj))
+    trainer = TrainerFineTune(port, target_type="regr", device="cpu")
+    mse_p, y_p, p_p = trainer.test(BatchLoader(port_graphs, 4, spec=sp))
+    np.testing.assert_array_equal(y_p, np.asarray(y_j))
+    _close(p_p, p_j)
+    assert abs(np.sqrt(mse_p) - np.sqrt(mse_j)) <= 1e-4 * np.sqrt(mse_j)
+    assert abs(trainer.validate(BatchLoader(port_graphs, 4, spec=sp))
+               - mse_j) <= 1e-3 * mse_j  # batch-mean of MSE, a looser sum
+
+
+def test_losses_metrics_and_predict_step_match(aligned, carried):
+    from fragnet_tpu.train import loop as jloop
+    from fragnet_tpu_torch.train import loop as ploop
+
+    rng = np.random.default_rng(5)
+    pred = rng.standard_normal((6, 3)).astype(np.float32)
+    y = rng.standard_normal((6, 3)).astype(np.float32)
+    labels = rng.choice([-1.0, 0.0, 1.0], (6, 3)).astype(np.float32)
+    gm = np.array([1, 1, 1, 1, 0, 0], np.float32)
+    t, j = torch.from_numpy, jnp.asarray
+    _close(ploop.mse_loss(t(pred), t(y), t(gm)),
+           jloop.mse_loss(j(pred), j(y), j(gm)), 1e-6)
+    _close(ploop.bce_masked_loss(t(pred), t(labels), t(gm)),
+           jloop.bce_masked_loss(j(pred), j(labels), j(gm)), 1e-6)
+    assert ploop.mean_per_task_auc(labels, pred) == \
+        jloop.mean_per_task_auc(labels, pred)
+    assert ploop.rmse_metric(y, pred) == jloop.rmse_metric(y, pred)
+    port = carried[2]
+    predict = ploop.make_predict_step(port, device="cpu")
+    with torch.no_grad():
+        want = port(to_device(aligned[1], "cpu"))
+    assert torch.equal(predict(aligned[1]), want)
+
+
+def _small_opt(tmp_path, **finetune):
+    opt = Config({
+        "seed": 7, "exp_dir": str(tmp_path), "model_version": "gat2",
+        "finetune": {
+            "data": {"name": "esol", "split": "random", "n_synthetic": 16},
+            "model": dict(SMALL, drop_ratio=0.1, act="relu",
+                          fthead="FTHead3"),
+            "target_type": "regr", "batch_size": 4, "n_epochs": 0,
+            **finetune},
+    })
+    return opt
+
+
+def test_run_finetune_refuses_what_it_does_not_run(tmp_path):
+    with pytest.raises(NotImplementedError, match="Queue A4"):
+        run_finetune(_small_opt(tmp_path, n_epochs=1), device="cpu")
+    with pytest.raises(NotImplementedError, match="bf16"):
+        run_finetune(_small_opt(tmp_path, dtype="bf16"), device="cpu")
+    with pytest.raises(NotImplementedError):
+        run_finetune(_small_opt(tmp_path, kernel={"fc": "attr"}),
+                     device="cpu")
+    if not torch.cuda.is_available():  # no quiet drop to the CPU
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run_finetune(_small_opt(tmp_path))
+
+
+def test_run_finetune_cpu_writes_predictions(tmp_path, capsys):
+    rmse, model = run_finetune(_small_opt(tmp_path, tcsr=True), device="cpu")
+    out = capsys.readouterr().out
+    assert "test rmse:" in out and "tcsr=True" in out
+    with open(tmp_path / "preds_seed_7.pkl", "rb") as f:
+        preds = pickle.load(f)
+    assert preds["pred"].shape == preds["y"].shape
+    assert preds["pred"].shape[0] > 0
+    assert np.isfinite(preds["pred"]).all()
+    np.testing.assert_allclose(
+        preds["rmse"], np.sqrt(np.mean((preds["y"] - preds["pred"]) ** 2)),
+        rtol=1e-6)
+    assert rmse == preds["rmse"]
+
+
+def _flat(d, prefix=""):
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def test_chip_smoke_opt_is_the_esol_config():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    esol = load_config(os.path.join(REPO, "configs/ft/esol.yaml")).to_dict()
+    assert cs.ESOL_CONFIG == esol
+    smoke = _flat(cs.smoke_opt().to_dict())
+    ref = _flat(esol)
+    assert set(smoke) == set(ref)
+    changed = {k for k in ref if smoke[k] != ref[k]}
+    assert changed == set(cs.SMOKE_OVERRIDES)
+    assert smoke["finetune.n_epochs"] == 0
