@@ -3,35 +3,54 @@
 
     python3 chip_smoke.py
 
-Drives the port's prediction path — the gat2 ESOL recipe
-(configs/ft/esol.yaml, full width: 4 layers, emb 128, 4 heads, FTHead3
-128/1024/1024/512, batch 16) with ``finetune.n_epochs=0`` on synthetic
-molecules — through ``run_finetune`` on the card, and holds every kernel of
-that path against its plain PyTorch version. Phases:
+Drives the port's main path — the gat2 ESOL recipe (configs/ft/esol.yaml,
+full width: 4 layers, emb 128, 4 heads, FTHead3 128/1024/1024/512, batch
+16, f32, Adam lr 1e-4) on synthetic molecules — through ``run_finetune`` on
+the card, first the prediction path (``finetune.n_epochs=0``), then
+training (``finetune.n_epochs=3``), and holds every kernel of that path
+against its plain PyTorch version. Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
   3. featurize the esol-config dataset (host);
   4. each kernel against its plain version on the card, at every level it
-     serves, with tensors captured from a real esol-config batch: max abs
-     and relative diff (limit 1e-4 of the output's scale), the kernel's and
-     the plain version's ms (CUDA events around each call, median of 50
-     after warm-up — host dispatch included), their device time per call
-     (torch.profiler's CUDA activity over 50 calls) and the bytes/operations
-     bound;
-  5. the main path: run_finetune on cuda with every launch count set to 0
-     just before it; each kernel must have launched layers × batches × 2
-     times (two levels each per layer), which also shows no GAT pass took
-     the segment path (that path raises on CUDA tensors); then a second
-     pass over the test batches times padding, copy and forward, and the
-     profiler gives one forward's device busy time and top ops;
+     serves, with tensors captured from layer 0 of a real esol-config batch
+     (the backward kernels get the forward kernel's out, m, den and a
+     cotangent drawn with numpy from a fixed seed): max abs and relative
+     diff of every output (limit 1e-4 of the output's scale; for a
+     backward output at least max|s|, see _scale_floor), the kernel's
+     and the plain version's ms (CUDA events around each wrapper call,
+     median of 50 after warm-up — host dispatch included), their device
+     time per call (torch.profiler's CUDA activity over 50 calls, the
+     wrapper's output fills included) and the bytes/operations bound;
+  5. the prediction path: run_finetune on cuda with every launch count set
+     to 0 just before it; each forward kernel must have launched layers ×
+     batches × 2 times (two levels each per layer) and no backward kernel,
+     which also shows no GAT pass took the segment path (that path raises
+     on CUDA tensors); then a second pass over the test batches times
+     padding, copy and forward, and the profiler gives one forward's device
+     busy time and top ops;
   6. the whole forward on the CPU (plain versions) and on the card
      (kernels) with the same weights and batch: predictions within 1e-3 of
-     their scale, finite, of shape (G, n_tasks).
+     their scale, finite, of shape (G, n_tasks);
+  7. the training path: run_finetune on cuda for 3 epochs with every launch
+     count set to 0 just before it; every epoch's train loss and the test
+     RMSE must be finite, the dense backward kernel must have launched
+     layers × 2 × train steps times and each forward kernel layers × 2 × (train
+     steps + epochs × val batches + test batches), counted from the
+     loaders' lengths — except the TCSR backward, which runs for the frag
+     level of the last layer only, (layers + 1) × train steps (see the
+     phase); prints each epoch's message-edges/s;
+  8. one train step (Adam) timed on the host clock and traced by the
+     profiler: device busy time and top ops;
+  9. one train step's loss and gradients on the CPU (plain versions) and on
+     the card (kernels), same carried weights and batch, dropout off: loss
+     and every parameter's gradient within 1e-3 of its scale.
 
-Prints a ``{"kernels": [...]}`` JSON line, and as the last line
-``{"ok": true, "device": {...}}``. Exits non-zero on any failure, without a
-CUDA device, or when run outside a checkout of the repository.
+Prints a ``{"kernels": [...]}`` JSON line (launches from the training path),
+and as the last line ``{"ok": true, "device": {...}}``. Exits non-zero on
+any failure, without a CUDA device, or when run outside a checkout of the
+repository.
 """
 
 from __future__ import annotations
@@ -43,6 +62,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple, Optional
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -74,11 +94,16 @@ ESOL_CONFIG = {
     },
 }
 
-# the smoke's overrides of ESOL_CONFIG (dotted path → value)
+# the smoke's overrides of ESOL_CONFIG (dotted path → value): the
+# prediction path, and on top of it the training path
 SMOKE_OVERRIDES = {
     "finetune.n_epochs": 0,
     "finetune.data.n_synthetic": 96,
     "exp_dir": os.path.join(REPO, "exps", "chip_smoke_esol"),
+}
+TRAIN_OVERRIDES = {
+    "finetune.n_epochs": 3,
+    "exp_dir": os.path.join(REPO, "exps", "chip_smoke_esol_train"),
 }
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor) flop/s
@@ -86,13 +111,15 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 REL_LIMIT = 1e-4
 FORWARD_REL_LIMIT = 1e-3
+GRAD_REL_LIMIT = 1e-3
 
 
-def smoke_opt():
+def smoke_opt(train: bool = False):
     from fragnet_tpu_torch.config import Config
 
     opt = Config(copy.deepcopy(ESOL_CONFIG))
-    for k, v in SMOKE_OVERRIDES.items():
+    for k, v in {**SMOKE_OVERRIDES,
+                 **(TRAIN_OVERRIDES if train else {})}.items():
         opt.set_path(k, v)
     return opt
 
@@ -135,9 +162,10 @@ def _device_ms(fn, n: int = 50) -> float:
     return total_us / 1e3 / n
 
 
-def _diff(k, p):
-    """(max abs diff, max abs diff / max|plain|) over entries that are not
-    the −1e30 empty-row marker; the markers must agree exactly."""
+def _diff(k, p, floor: float = 0.0):
+    """(max abs diff, max abs diff / max(max|plain|, floor)) over entries
+    that are not the −1e30 empty-row marker; the markers must agree
+    exactly."""
     import torch
 
     k, p = k.float(), p.float()
@@ -150,7 +178,19 @@ def _diff(k, p):
     if k.numel() == 0:
         return 0.0, 0.0
     err = float((k - p).abs().max())
-    return err, err / max(float(p.abs().max()), 1e-30)
+    return err, err / max(float(p.abs().max()), floor, 1e-30)
+
+
+def _scale_floor(name, args) -> float:
+    """The scale below which a backward output is round-off: max|s|. The
+    logit-gradient outputs (d_wd, d_ws, d_vc; d_wn, d_w_ea) are sums of
+    p·(d_p − s), which cancel exactly where a row's neighbours carry equal
+    features — as at layer 0 of the fconn level, whose node features
+    project one-hot connection types — leaving round-off of terms of size
+    |s|. 0 for a forward kernel."""
+    if KERNELS[name].fwd is None:
+        return 0.0
+    return float(args[10 if name == "tcsr_gat_bwd" else 8].abs().max())
 
 
 class _Capture:
@@ -244,13 +284,131 @@ def _dense_cost(args):
     return nbytes, flops
 
 
+def _tcsr_bwd_cost(args):
+    wn, nf, w_ea, src, dst, emask, meta, m, den, g, s, self_loops = args[:12]
+    N, HD = nf.shape
+    H = wn.shape[1] // 2
+    D = HD // H
+    E = src.shape[0]
+    n_edges = int((emask > 0).sum())
+    n_tiles = meta.ew_blk.shape[0]
+    # inputs read once (node arrays, m/den/s, g, the real edges' scalars,
+    # tile windows) + outputs written once (d_wn, d_nf, d_w_ea)
+    nbytes = 4 * (N * (2 * H + HD) + 3 * N * H + N * HD + n_edges * (H + 3)
+                  + 2 * n_tiles + N * (2 * H + HD) + E * H)
+    items = n_edges + (N if self_loops else 0)
+    flops = items * H * (4 * D + 10)
+    return nbytes, flops
+
+
+def _dense_bwd_cost(args):
+    planes, wd, ws, nf, vc, m, den, g, s = args[:9]
+    T, rows, tn = planes.shape
+    R = rows // tn - 1
+    N, H = wd.shape
+    HD = nf.shape[1]
+    D = HD // H
+    nnz = int((planes.view(T, R + 1, tn, tn)[:, 0] > 0).sum())
+    nbytes = 4 * (planes.numel() + 5 * N * H + 2 * N * HD + vc.numel()
+                  + 2 * N * H + N * HD + vc.numel())
+    flops = T * tn * tn * H * (2 * R + 6) + nnz * H * (4 * D + 2 * R + 6)
+    return nbytes, flops
+
+
 def _bound_ms(nbytes, flops):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_f = flops / F32_FLOPS * 1e3
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
+class Kernel(NamedTuple):
+    module: str              # fragnet_tpu_torch.ops module of the wrapper
+    counter: str             # its CudaKernel attribute (launch counter)
+    plain: str               # the plain version's name in that module
+    cost: Callable           # args -> (bytes, flops)
+    fwd: Optional[str]       # the forward kernel this is the backward of
+    source: str
+    replaces: str            # the TPU kernel, file:line
+
+
+# every kernel of the path, by wrapper name
+KERNELS = {
+    "tcsr_gat_fwd": Kernel("tcsr_gat", "KERNEL", "tcsr_gat_fwd_plain",
+                           _tcsr_cost, None,
+                           "fragnet_tpu_torch/csrc/tcsr_gat_fwd.cu",
+                           "fragnet_tpu/ops/pallas_gat.py:105"),
+    "tcsr_gat_bwd": Kernel("tcsr_gat", "KERNEL_BWD", "tcsr_gat_bwd_plain",
+                           _tcsr_bwd_cost, "tcsr_gat_fwd",
+                           "fragnet_tpu_torch/csrc/tcsr_gat_bwd.cu",
+                           "fragnet_tpu/ops/pallas_gat.py:199"),
+    "dense_gat_fwd": Kernel("dense_gat", "KERNEL", "dense_gat_fwd_plain",
+                            _dense_cost, None,
+                            "fragnet_tpu_torch/csrc/dense_gat_fwd.cu",
+                            "fragnet_tpu/ops/dense_gat.py:387"),
+    "dense_gat_bwd": Kernel("dense_gat", "KERNEL_BWD", "dense_gat_bwd_plain",
+                            _dense_bwd_cost, "dense_gat_fwd",
+                            "fragnet_tpu_torch/csrc/dense_gat_bwd.cu",
+                            "fragnet_tpu/ops/dense_gat.py:419"),
+}
+
+
+def _counter(name):
+    """(the wrapper's module, its CudaKernel with the launch count)."""
+    from fragnet_tpu_torch.ops import dense_gat, tcsr_gat
+
+    k = KERNELS[name]
+    mod = {"tcsr_gat": tcsr_gat, "dense_gat": dense_gat}[k.module]
+    return mod, getattr(mod, k.counter)
+
+
+def _reset_launches():
+    for name in KERNELS:
+        _counter(name)[1].launches = 0
+
+
+def _launches():
+    return {name: _counter(name)[1].launches for name in KERNELS}
+
+
+def bwd_kernel_args(fwd_name, args, kw, rng):
+    """The backward wrapper's arguments for one captured forward call: the
+    forward kernel's (out, m, den), a cotangent g of out drawn with numpy
+    and s = Σ_d g·out, spliced in before the flags as the wrappers take
+    them."""
+    import numpy as np
+    import torch
+
+    mod, _ = _counter(fwd_name)
+    out, m, den = getattr(mod, fwd_name)(*args, **kw)
+    N, HD = out.shape
+    H = m.shape[1]
+    g = torch.from_numpy(rng.standard_normal((N, HD)).astype(np.float32)
+                         ).to(out.device)
+    s = (g.view(N, H, -1) * out.view(N, H, -1)).sum(-1)
+    k = 7 if fwd_name == "tcsr_gat_fwd" else 5
+    return tuple(args[:k]) + (m, den, g, s) + tuple(args[k:])
+
+
+def _busy(prof):
+    """(device busy ms, [(kernel, ms), ...] by device time) of a profile:
+    the device-side kernel and copy rows only. A CPU op's self device time
+    repeats the time of the kernels it launched (a ctypes launch inside an
+    autograd Function, a GEMM under addmm), and a user annotation's device
+    range (``Optimizer.step``) spans kernels listed on their own, so
+    summing every row counts them twice."""
+    from torch.autograd import DeviceType
+
+    busy = [(e.key, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.self_device_time_total > 0]
+    busy.sort(key=lambda kv: -kv[1])
+    return sum(ms for _, ms in busy), busy
+
+
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -272,15 +430,20 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
 
     # ---- 2. build ---------------------------------------------------------
+    from fragnet_tpu_torch.data.batcher import BatchLoader
     from fragnet_tpu_torch.graphs.batch import to_device
-    from fragnet_tpu_torch.ops import _cuda, dense_gat, tcsr_gat
+    from fragnet_tpu_torch.graphs.hiergraph import pad_batch
+    from fragnet_tpu_torch.obs import read_scalars
+    from fragnet_tpu_torch.ops import _cuda
     from fragnet_tpu_torch.train.finetune import (build_model,
                                                   load_datasets,
                                                   run_finetune)
+    from fragnet_tpu_torch.train.loop import make_train_step, mse_loss
+    from fragnet_tpu_torch.train.optim import make_optimizer
+    from torch.profiler import ProfilerActivity, profile
 
-    kernels = {"tcsr_gat_fwd": tcsr_gat, "dense_gat_fwd": dense_gat}
     t0 = time.perf_counter()
-    logs = _cuda.build_all([m.KERNEL for m in kernels.values()], force=True)
+    logs = _cuda.build_all([_counter(n)[1] for n in KERNELS], force=True)
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({len(logs)} sources, nvcc in parallel)")
     for src, log in logs.items():
@@ -296,6 +459,7 @@ def main() -> int:
     print(f"featurization: {time.perf_counter() - t0:.2f} s "
           f"({len(train_g)}/{len(val_g)}/{len(test_g)} graphs)")
     bs = int(opt.finetune.batch_size)
+    n_layers = int(opt.finetune.model.num_layer)
     spec, windows, batch_np = smoke_batch(opt, datasets)
     dev = torch.device("cuda")
     batch = to_device(batch_np, dev)
@@ -305,29 +469,34 @@ def main() -> int:
 
     # ---- 4. kernel vs plain, at the shapes of a real batch ----------------
     calls = layer0_kernel_calls(opt, model, batch)
-    plain = {"tcsr_gat_fwd": tcsr_gat.tcsr_gat_fwd_plain,
-             "dense_gat_fwd": dense_gat.dense_gat_fwd_plain}
-    cost = {"tcsr_gat_fwd": _tcsr_cost, "dense_gat_fwd": _dense_cost}
+    rng = np.random.default_rng(0)
+    for name, k in KERNELS.items():
+        if k.fwd is not None:
+            calls[name] = [(lvl, bwd_kernel_args(k.fwd, a, kw, rng), {})
+                           for lvl, a, kw in calls[k.fwd]]
     report = {}
-    for name, mod in kernels.items():
+    for name, k in KERNELS.items():
+        mod, _ = _counter(name)
+        wrapper, plain = getattr(mod, name), getattr(mod, k.plain)
         per_level = []
         for lvl, args, kw in calls[name]:
-            wrapper = getattr(mod, name)
             got = wrapper(*args, **kw)
-            want = plain[name](*args, **kw)
+            want = plain(*args, **kw)
             torch.cuda.synchronize()
-            errs = [_diff(k, p) for k, p in zip(got, want)]
+            floor = _scale_floor(name, args)
+            errs = [_diff(k, p, floor) for k, p in zip(got, want)]
             err = max(e[0] for e in errs)
             rel = max(e[1] for e in errs)
             ms = _median_ms(lambda: wrapper(*args, **kw))
-            plain_ms = _median_ms(lambda: plain[name](*args, **kw))
+            plain_ms = _median_ms(lambda: plain(*args, **kw))
             dev_ms = _device_ms(lambda: wrapper(*args, **kw))
-            plain_dev_ms = _device_ms(lambda: plain[name](*args, **kw))
-            nbytes, flops = cost[name](args)
+            plain_dev_ms = _device_ms(lambda: plain(*args, **kw))
+            nbytes, flops = k.cost(args)
             bound, by = _bound_ms(nbytes, flops)
             shape = "x".join(str(s) for s in args[0].shape)
             print(f"{name} [{lvl}] in0={shape}: max_abs_err={err:.3e} "
-                  f"rel={rel:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"rel={rel:.3e} (worst of {len(errs)} outputs) "
+                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
                   f"device_ms={dev_ms:.4f} plain_device_ms={plain_dev_ms:.4f} "
                   f"bound_ms={bound:.5f} ({by}: {nbytes} B, {flops} flop)")
             if rel > REL_LIMIT:
@@ -340,33 +509,29 @@ def main() -> int:
                                   flops=flops))
         report[name] = per_level
 
-    # ---- 5. the main path -------------------------------------------------
-    for mod in kernels.values():
-        mod.KERNEL.launches = 0
+    # ---- 5. the prediction path -------------------------------------------
+    _reset_launches()
     t0 = time.perf_counter()
     rmse, ft_model = run_finetune(opt, datasets=datasets, device="cuda")
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
-    launches = {n: m.KERNEL.launches for n, m in kernels.items()}
-    n_layers = int(opt.finetune.model.num_layer)
-    expect = n_layers * len(windows) * 2
-    print(f"main path: test rmse {rmse:.5f} eval {eval_s:.2f} s "
+    launches = _launches()
+    expect = {n: (0 if k.fwd else n_layers * len(windows) * 2)
+              for n, k in KERNELS.items()}
+    print(f"prediction path: test rmse {rmse:.5f} eval {eval_s:.2f} s "
           f"({len(windows)} test batches)")
-    print("kernels: " + " ".join(f"{n}={c}" for n, c in launches.items())
-          + f" (expected {expect} each)")
-    if not (rmse == rmse and abs(rmse) < float("inf")):
+    print("kernels: " + " ".join(f"{n}={c} (expected {expect[n]})"
+                                 for n, c in launches.items()))
+    if not np.isfinite(rmse):
         raise AssertionError(f"test rmse is not finite: {rmse}")
     for n, c in launches.items():
-        if c != expect:
-            raise AssertionError(f"{n} launched {c} times on the main path, "
-                                 f"expected {expect}")
+        if c != expect[n]:
+            raise AssertionError(f"{n} launched {c} times on the prediction "
+                                 f"path, expected {expect[n]}")
 
     # where the eval's time goes: a second pass over the test batches, each
     # stage timed to a synchronize, then the forward's device time under
     # the profiler
-    from fragnet_tpu_torch.graphs.hiergraph import pad_batch
-    from torch.profiler import ProfilerActivity, profile
-
     t_pad = t_copy = t_fwd = 0.0
     for w in windows:
         t0 = time.perf_counter()
@@ -385,14 +550,11 @@ def main() -> int:
         with torch.no_grad():
             ft_model(tb)
         torch.cuda.synchronize()
-    busy = [(e.key, e.self_device_time_total / 1e3)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy.sort(key=lambda kv: -kv[1])
-    dev_busy = sum(ms for _, ms in busy)
+    dev_busy, busy = _busy(prof)
     print(f"eval breakdown ({len(windows)} batches): pad_batch "
           f"{t_pad * 1e3:.2f} ms, to_device {t_copy * 1e3:.2f} ms, forward "
           f"{t_fwd * 1e3:.2f} ms; one forward's device busy time "
-          f"{dev_busy:.3f} ms in {sum(1 for _ in busy)} op kinds, top: "
+          f"{dev_busy:.3f} ms in {len(busy)} kernel kinds, top: "
           + ", ".join(f"{k[:48]} {ms:.3f}" for k, ms in busy[:5]))
 
     # ---- 6. whole forward: CPU (plain versions) vs card (kernels) ---------
@@ -408,18 +570,146 @@ def main() -> int:
     if fwd_rel > FORWARD_REL_LIMIT:
         raise AssertionError("card and CPU predictions disagree")
 
-    sources = {"tcsr_gat_fwd": ("fragnet_tpu_torch/csrc/tcsr_gat_fwd.cu",
-                                "fragnet_tpu/ops/pallas_gat.py:105"),
-               "dense_gat_fwd": ("fragnet_tpu_torch/csrc/dense_gat_fwd.cu",
-                                 "fragnet_tpu/ops/dense_gat.py:387")}
+    # ---- 7. the training path ---------------------------------------------
+    topt = smoke_opt(train=True)
+    n_epochs = int(topt.finetune.n_epochs)
+    seed = int(topt.seed)
+    train_loader = BatchLoader(train_g, bs, spec=spec, shuffle=True,
+                               seed=seed, n_tasks=n_tasks)
+    n_train = len(train_loader)
+    n_val = len(BatchLoader(val_g, bs, spec=spec, n_tasks=n_tasks))
+    for _ in range(n_epochs):  # the run's shuffled epochs pack as counted
+        if len(list(train_loader._windows())) != n_train:
+            raise AssertionError("a train epoch packs more batches than "
+                                 "the loader's length")
+    steps = n_epochs * n_train
+    fwd_calls = n_layers * 2 * (steps + n_epochs * n_val + len(windows))
+    # backward: every layer's bond, fconn and atom pass, but the frag pass
+    # of the last layer only — each layer recomputes fragment features from
+    # atoms (gat2.py overwrites x_frags), so the earlier layers' frag
+    # outputs are off the loss's path and autograd never calls their
+    # backward (nor does JAX's, with its symbolic zero cotangents)
+    expect = {"tcsr_gat_fwd": fwd_calls, "dense_gat_fwd": fwd_calls,
+              "tcsr_gat_bwd": (n_layers + 1) * steps,
+              "dense_gat_bwd": n_layers * 2 * steps}
+    _reset_launches()
+    t0 = time.perf_counter()
+    rmse_t, tr_model = run_finetune(topt, datasets=datasets, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches_t = _launches()
+    scal = read_scalars(topt.exp_dir)
+    losses = [r["value"] for r in scal if r["tag"] == "train/loss"][-n_epochs:]
+    eps = [r["value"] for r in scal
+           if r["tag"] == "train/edges_per_sec"][-n_epochs:]
+    print(f"training path: {n_epochs} epochs x {n_train} train batches, "
+          f"{n_val} val, {len(windows)} test; test rmse {rmse_t:.5f}, "
+          f"train losses {[round(x, 5) for x in losses]}, run {train_s:.2f} s")
+    print("train message-edges/s per epoch: "
+          + ", ".join(f"{x / 1e6:.4f}M" for x in eps))
+    print("kernels: " + " ".join(f"{n}={c} (expected {expect[n]})"
+                                 for n, c in launches_t.items()))
+    if len(losses) != n_epochs or not np.isfinite(losses).all() \
+            or not np.isfinite(rmse_t):
+        raise AssertionError(f"training is not finite: losses {losses}, "
+                             f"test rmse {rmse_t}")
+    for n, c in launches_t.items():
+        if c != expect[n]:
+            raise AssertionError(f"{n} launched {c} times on the training "
+                                 f"path, expected {expect[n]}")
+
+    # ---- 8. one train step: host time and device busy time ----------------
+    train_np = pad_batch(next(iter(train_loader._windows())), spec,
+                         n_tasks=n_tasks)
+    step_model = copy.deepcopy(tr_model)
+    step_opt, _ = make_optimizer(step_model.parameters(), "adam", lr=1e-4)
+    step = make_train_step(step_model, step_opt, "mse", dev)
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(train_np)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(train_np)
+        torch.cuda.synchronize()
+    dev_busy, busy = _busy(prof)
+    wall = statistics.median(walls[1:])
+    ours = {n: sum(ms for key, ms in busy if f"{n}_kernel" in key)
+            for n in KERNELS}
+    print(f"train step (batch copy, forward, backward, Adam): wall "
+          f"{wall:.2f} ms (median of 5 after warm-up), device busy "
+          f"{dev_busy:.3f} ms ({100 * dev_busy / wall:.1f}%) in {len(busy)} "
+          f"kernel kinds; the port's kernels: "
+          + ", ".join(f"{n} {ms:.3f}" for n, ms in ours.items())
+          + "; top: " + ", ".join(f"{k[:48]} {ms:.3f}" for k, ms in busy[:10]))
+    # the same step in stages, each ended by a synchronize (host clock)
+    stages = {"copy": [], "forward+loss": [], "backward": [], "adam": []}
+    step_model.train()
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = to_device(train_np, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = mse_loss(step_model(b), b.y, b.graph_mask)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        step_opt.step()
+        step_opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for k, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            stages[k].append(dt * 1e3)
+    print("train step stages (host clock to a synchronize, median of 5): "
+          + ", ".join(f"{k} {statistics.median(v):.2f} ms"
+                      for k, v in stages.items()))
+
+    # ---- 9. one train step's gradients: CPU vs card -----------------------
+    def loss_and_grads(d):
+        m_d = copy.deepcopy(tr_model).to(d).eval()  # dropout off
+        b_d = to_device(train_np, d)
+        loss = mse_loss(m_d(b_d), b_d.y, b_d.graph_mask)
+        loss.backward()
+        return float(loss.detach()), {
+            n: (None if p.grad is None else p.grad.detach().cpu())
+            for n, p in m_d.named_parameters()}
+
+    l_gpu, g_gpu = loss_and_grads(dev)
+    l_cpu, g_cpu = loss_and_grads(torch.device("cpu"))
+    scale = max(float(g.abs().max()) for g in g_cpu.values() if g is not None)
+    worst, worst_name = abs(l_gpu - l_cpu) / abs(l_cpu), "loss"
+    for n, gc in g_cpu.items():
+        gg = g_gpu[n]
+        if (gc is None) != (gg is None):
+            raise AssertionError(f"{n}: gradient on one device only")
+        if gc is None:
+            continue
+        # a gradient at round-off level (≤ 1e-6 of the model's largest) is
+        # held to that level instead of its own scale
+        rel = float((gg - gc).abs().max()) / max(float(gc.abs().max()),
+                                                 1e-6 * scale)
+        if rel > worst:
+            worst, worst_name = rel, n
+    print(f"train step cpu vs gpu: loss {l_cpu:.6f} / {l_gpu:.6f}; worst "
+          f"relative diff {worst:.3e} ({worst_name}) over {len(g_cpu)} "
+          f"parameters (limit {GRAD_REL_LIMIT})")
+    if worst > GRAD_REL_LIMIT:
+        raise AssertionError("card and CPU gradients disagree")
+
     out = []
     for name, per_level in report.items():
         tot_bytes = sum(p["bytes"] for p in per_level)
         tot_flops = sum(p["flops"] for p in per_level)
         _, by = _bound_ms(tot_bytes, tot_flops)
         out.append({
-            "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": launches[name],
+            "name": name, "route": "cuda", "source": KERNELS[name].source,
+            "replaces": KERNELS[name].replaces, "launches": launches_t[name],
             "max_abs_err": max(p["max_abs_err"] for p in per_level),
             # one layer's two levels of one batch
             "ms": sum(p["ms"] for p in per_level),

@@ -13,9 +13,12 @@ pass is dense masked attention per (tn, tn) tile over host-built planes:
 
 Parts: ``build_dense_planes`` (host, numpy), the forward kernel wrapper
 ``dense_gat_fwd`` (csrc/dense_gat_fwd.cu, which replaces dense_gat.py:
-_fwd_kernel), its plain version ``dense_gat_fwd_plain``, and the
-summed-attention-by-source epilogue (dense_gat.py:848-864).
-Math contract: ops/segment.py:gat_attention_pass.
+_fwd_kernel) and its plain version ``dense_gat_fwd_plain``, the backward
+kernel wrapper ``dense_gat_bwd`` (csrc/dense_gat_bwd.cu, which replaces
+dense_gat.py:_bwd_kernel) and ``dense_gat_bwd_plain``, ``DenseGatFn`` joining
+the two as the autograd boundary (dense_gat.py:op_bwd), and the
+summed-attention-by-source epilogue (dense_gat.py:848-864) on detached
+tensors. Math contract: ops/segment.py:gat_attention_pass.
 """
 
 from __future__ import annotations
@@ -36,6 +39,9 @@ _I = ctypes.c_int
 KERNEL = _cuda.CudaKernel(
     "dense_gat_fwd.cu", "dense_gat_fwd",
     [_VP] * 8 + [_I] * 5 + [ctypes.c_float, _VP])
+KERNEL_BWD = _cuda.CudaKernel(
+    "dense_gat_bwd.cu", "dense_gat_bwd",
+    [_VP] * 13 + [_I] * 5 + [ctypes.c_float, _VP])
 
 _KERNEL_H = (1, 2, 4, 8)
 _KERNEL_TN = (32, 64, 128, 256)
@@ -109,6 +115,32 @@ def dense_gat_fwd_plain(planes, wd, ws, nf, vc, slope: float = 0.2):
     return out.reshape(N, H * D), m.reshape(N, H), den.reshape(N, H)
 
 
+def _check_cuda(name, planes, wd, ws, nf, vc, extra=()):
+    """Raise unless the kernels take these tensors; returns (T, tn, R, N,
+    H, HD). ``extra`` adds (name, tensor, shape) f32 arrays."""
+    if nf.device.type != "cuda":
+        raise ValueError(f"no {name} kernel for device {nf.device}")
+    T, rows, tn = planes.shape
+    R = rows // tn - 1
+    N, H = wd.shape
+    HD = nf.shape[1]
+    if H not in _KERNEL_H or tn not in _KERNEL_TN or HD % H or N != T * tn \
+            or rows % tn or R < 0 or R + 1 > 32:
+        raise ValueError(f"{name}: unsupported shapes planes="
+                         f"{tuple(planes.shape)} N={N} H={H} HD={HD} "
+                         f"(H in {_KERNEL_H}, tn in {_KERNEL_TN}, R < 32)")
+    for arg, t, shape in (("planes", planes, (T, rows, tn)),
+                          ("wd", wd, (N, H)), ("ws", ws, (N, H)),
+                          ("nf", nf, (N, HD)), ("vc", vc, (R + 1, H))
+                          ) + tuple(extra):
+        _cuda.check(t, arg, torch.float32, shape, nf.device)
+    smem = 4 * (tn * HD + 2 * tn * H + 2 * (R + 1) * H)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{name}: tile of {tn} x {HD} needs {smem} B "
+                         f"of shared memory (limit {_SMEM_LIMIT})")
+    return T, tn, R, N, H, HD
+
+
 def dense_gat_fwd(planes, wd, ws, nf, vc, slope: float = 0.2):
     """Forward kernel wrapper: (out (N, H*D), m (N, H), den (N, H)) f32.
 
@@ -116,27 +148,9 @@ def dense_gat_fwd(planes, wd, ws, nf, vc, slope: float = 0.2):
     (N, H*D) f32, ``vc`` (R+1, H) f32 — rows v[0..R-1], then c."""
     if nf.device.type == "cpu":
         return dense_gat_fwd_plain(planes, wd, ws, nf, vc, slope)
-    if nf.device.type != "cuda":
-        raise ValueError(f"no dense_gat_fwd kernel for device {nf.device}")
-    T, rows, tn = planes.shape
-    R = rows // tn - 1
-    N, H = wd.shape
-    HD = nf.shape[1]
-    if H not in _KERNEL_H or tn not in _KERNEL_TN or HD % H or N != T * tn \
-            or rows % tn or R < 0:
-        raise ValueError(f"dense_gat_fwd: unsupported shapes planes="
-                         f"{tuple(planes.shape)} N={N} H={H} HD={HD} "
-                         f"(H in {_KERNEL_H}, tn in {_KERNEL_TN})")
+    T, tn, R, N, H, HD = _check_cuda("dense_gat_fwd", planes, wd, ws, nf, vc)
     dev = nf.device
     f32 = torch.float32
-    for name, t, shape in (("planes", planes, (T, rows, tn)),
-                           ("wd", wd, (N, H)), ("ws", ws, (N, H)),
-                           ("nf", nf, (N, HD)), ("vc", vc, (R + 1, H))):
-        _cuda.check(t, name, f32, shape, dev)
-    smem = 4 * (tn * HD + tn * H + (R + 1) * H)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"dense_gat_fwd: tile of {tn} x {HD} needs {smem} B "
-                         f"of shared memory (limit {_SMEM_LIMIT})")
     out = torch.empty((N, HD), dtype=f32, device=dev)
     m = torch.empty((N, H), dtype=f32, device=dev)
     den = torch.empty((N, H), dtype=f32, device=dev)
@@ -145,6 +159,89 @@ def dense_gat_fwd(planes, wd, ws, nf, vc, slope: float = 0.2):
                   P(den), T, tn, H, HD // H, R, ctypes.c_float(slope),
                   _cuda.stream_ptr(dev))
     return out, m, den
+
+
+def dense_gat_bwd_plain(planes, wd, ws, nf, vc, m, den, g, s,
+                        slope: float = 0.2):
+    """Plain PyTorch version of the backward kernel, written out from the
+    formulas (not autograd of the plain forward, so the two check each
+    other): (d_wd (N, H), d_ws (N, H), d_nf (N, H*D) — the Pᵀg aggregation
+    only — and d_vc (R+1, H)) for the cotangent ``g`` (N, H*D) of out, with
+    ``s`` (N, H) = Σ_d g·out."""
+    T, rows, tn = planes.shape
+    R = rows // tn - 1
+    N, H = wd.shape
+    D = nf.shape[1] // H
+    pl = planes.view(T, R + 1, tn, tn)
+    keep = pl[:, 0, :, :, None] > 0                          # (T, i, j, 1)
+    zpre = wd.view(T, tn, 1, H) + ws.view(T, 1, tn, H)      # (T, i, j, H)
+    for r in range(R):
+        zpre = zpre + pl[:, r + 1, :, :, None] * vc[r]
+    zpre = zpre + vc[R]
+    deng = torch.where(den == 0.0, torch.ones_like(den), den).view(T, tn, 1, H)
+    expo = torch.where(keep, F.leaky_relu(zpre, slope) - m.view(T, tn, 1, H),
+                       torch.full_like(zpre, float("-inf")))
+    p = torch.exp(expo) / deng
+    g4 = g.view(T, tn, H, D)
+    d_p = torch.einsum("tihd,tjhd->tijh", g4, nf.view(T, tn, H, D))
+    fac = torch.where(zpre > 0, torch.ones_like(zpre),
+                      torch.full_like(zpre, slope))
+    dz = p * (d_p - s.view(T, tn, 1, H)) * fac
+    d_nf = torch.einsum("tijh,tihd->tjhd", p, g4).reshape(N, H * D)
+    d_vc = torch.stack([(dz * pl[:, r + 1, :, :, None]).sum((0, 1, 2))
+                        for r in range(R)] + [dz.sum((0, 1, 2))])
+    return (dz.sum(2).reshape(N, H), dz.sum(1).reshape(N, H), d_nf, d_vc)
+
+
+def dense_gat_bwd(planes, wd, ws, nf, vc, m, den, g, s, slope: float = 0.2):
+    """Backward kernel wrapper: (d_wd (N, H), d_ws (N, H), d_nf (N, H*D),
+    d_vc (R+1, H)) f32, from the forward's inputs, its (m, den), the
+    cotangent ``g`` (N, H*D) of out and ``s`` (N, H) = Σ_d g·out. The
+    kernel writes per-tile partials of d_vc; they are summed here."""
+    if nf.device.type == "cpu":
+        return dense_gat_bwd_plain(planes, wd, ws, nf, vc, m, den, g, s,
+                                   slope)
+    N, H = wd.shape
+    T, tn, R, N, H, HD = _check_cuda(
+        "dense_gat_bwd", planes, wd, ws, nf, vc,
+        extra=(("m", m, (N, H)), ("den", den, (N, H)),
+               ("g", g, tuple(nf.shape)), ("s", s, (N, H))))
+    dev = nf.device
+    f32 = torch.float32
+    d_wd = torch.empty((N, H), dtype=f32, device=dev)
+    d_ws = torch.empty((N, H), dtype=f32, device=dev)
+    d_nf = torch.empty((N, HD), dtype=f32, device=dev)
+    d_vc = torch.empty((T, R + 1, H), dtype=f32, device=dev)
+    P = _cuda.ptr
+    KERNEL_BWD.launch(P(planes), P(wd), P(ws), P(nf), P(vc), P(m), P(den),
+                      P(g), P(s), P(d_wd), P(d_ws), P(d_nf), P(d_vc), T, tn,
+                      H, HD // H, R, ctypes.c_float(slope),
+                      _cuda.stream_ptr(dev))
+    return d_wd, d_ws, d_nf, d_vc.sum(0)
+
+
+class DenseGatFn(torch.autograd.Function):
+    """(wd, ws, nf, vc) → (out, m, den) through the forward kernel over
+    ``planes``, with the backward kernel as its gradient (dense_gat.py:
+    775-809). ``m`` and ``den`` carry no gradient; ``planes`` gets none."""
+
+    @staticmethod
+    def forward(ctx, planes, wd, ws, nf, vc, slope):
+        out, m, den = dense_gat_fwd(planes, wd, ws, nf, vc, slope)
+        ctx.save_for_backward(planes, wd, ws, nf, vc, out, m, den)
+        ctx.slope = slope
+        ctx.mark_non_differentiable(m, den)
+        return out, m, den
+
+    @staticmethod
+    def backward(ctx, g_out, _g_m, _g_den):
+        planes, wd, ws, nf, vc, out, m, den = ctx.saved_tensors
+        N, H = wd.shape
+        g = g_out.float().contiguous()
+        s = (g.view(N, H, -1) * out.view(N, H, -1)).sum(-1)
+        d_wd, d_ws, d_nf, d_vc = dense_gat_bwd(planes, wd, ws, nf, vc, m, den,
+                                               g, s, ctx.slope)
+        return None, d_wd, d_ws, d_nf, d_vc, None
 
 
 def dense_gat_pass(
@@ -166,9 +263,13 @@ def dense_gat_pass(
     folds the embed Linear and the a_ea slice of the attention vector
     (model/layers.py:_fold_planes).
 
+    Differentiable w.r.t. the node features, ``v``, ``c`` and the attention
+    vector through ``DenseGatFn``.
+
     Returns (out (N,H,D), attn_by_src (N,H) or None); the attention vector
     (gat2.py:165-167 summed-by-source probabilities) is rebuilt from
-    (m, den) exactly as in tcsr_gat_pass, only when ``return_attention``."""
+    (m, den) exactly as in tcsr_gat_pass, only when ``return_attention``,
+    and carries no gradient."""
     N, H, D = node_feats_h.shape
     Da = edge_attr.shape[-1]
     nf32 = node_feats_h.float()
@@ -177,14 +278,16 @@ def dense_gat_pass(
     wd = torch.einsum("nhd,hd->nh", nf32, a_dst)
     ws = torch.einsum("nhd,hd->nh", nf32, a_src)
     vc = torch.cat([v.float(), c.float().reshape(1, H)], dim=0)
-    out, m, den = dense_gat_fwd(planes, wd.contiguous(), ws.contiguous(),
-                                nf32.reshape(N, H * D).contiguous(),
-                                vc.contiguous(), negative_slope)
+    out, m, den = DenseGatFn.apply(planes, wd.contiguous(), ws.contiguous(),
+                                   nf32.reshape(N, H * D).contiguous(),
+                                   vc.contiguous(), negative_slope)
     out = out.reshape(N, H, D).to(node_feats_h.dtype)
     if not return_attention:
         return out, None
+    # interpretability epilogue: detached inputs (the JAX stop_gradient)
+    wd, ws = wd.detach(), ws.detach()
     src_l, dst_l = src.long(), dst.long()
-    w_ea = edge_attr.float() @ a_ea.T
+    w_ea = edge_attr.detach().float() @ a_ea.detach().T
     den_s = torch.where(den == 0.0, torch.ones_like(den), den)
     z = F.leaky_relu(wd[dst_l] + ws[src_l] + w_ea, negative_slope)
     expo = torch.where(edge_mask.float()[:, None] > 0, z - m[dst_l],

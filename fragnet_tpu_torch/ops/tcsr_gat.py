@@ -1,7 +1,7 @@
 """Fused TCSR GAT pass — counterpart of fragnet_tpu/ops/pallas_gat.py.
 
 One GAT pass (math contract: ops/segment.py:gat_attention_pass) over the
-TCSR layout of ops/tcsr.py, in three parts:
+TCSR layout of ops/tcsr.py, in four parts:
 
   * ``prologue`` — the per-node and per-edge logit terms (pallas_gat.py:
     471-479): w_dst = nf·a_dst, w_src = nf·a_src per head, w_ea = ea·a_ea;
@@ -9,11 +9,18 @@ TCSR layout of ops/tcsr.py, in three parts:
     replaces pallas_gat.py:_fwd_kernel): segment-softmax aggregation per
     destination tile, self-loops folded in analytically; emits out, m, den.
     ``tcsr_gat_fwd_plain`` is the same function in plain PyTorch;
+  * ``tcsr_gat_bwd`` — the backward kernel (csrc/tcsr_gat_bwd.cu, which
+    replaces pallas_gat.py:_bwd_kernel): d_wn, d_nf (the p·g aggregation)
+    and d_w_ea from (m, den), with ``tcsr_gat_bwd_plain`` beside it;
+    ``TcsrGatFn`` joins the two as the autograd boundary (pallas_gat.py:
+    op_bwd), and the prologue stays plain torch, so autograd carries d_wn
+    and d_w_ea on to nf, ea and the attention vector;
   * the summed-attention-by-source epilogue (pallas_gat.py:598-622),
-    rebuilt from (m, den) with torch ops, only when asked for.
+    rebuilt from (m, den) with torch ops on detached tensors, only when
+    asked for.
 
-A CUDA tensor goes through the kernel or the call raises; only CPU tensors
-take the plain version.
+A CUDA tensor goes through the kernels or the call raises; only CPU tensors
+take the plain versions.
 """
 
 from __future__ import annotations
@@ -34,6 +41,9 @@ _I = ctypes.c_int
 KERNEL = _cuda.CudaKernel(
     "tcsr_gat_fwd.cu", "tcsr_gat_fwd",
     [_VP] * 11 + [_I] * 6 + [ctypes.c_float, _VP])
+KERNEL_BWD = _cuda.CudaKernel(
+    "tcsr_gat_bwd.cu", "tcsr_gat_bwd",
+    [_VP] * 15 + [_I] * 6 + [ctypes.c_float, _VP])
 
 # shared memory a block may use (H100: 227 KB); the kernel's block size and
 # widest row (csrc/tcsr_gat_fwd.cu kThreads, 32 * kMaxCols)
@@ -87,6 +97,31 @@ def tcsr_gat_fwd_plain(wn, nf, w_ea, src, dst, emask, meta: TileMeta,
     return (num / den_g[..., None]).reshape(N, HD), m, den
 
 
+def _check_cuda(name, wn, nf, w_ea, src, dst, emask, meta: TileMeta,
+                extra=()):
+    """Raise unless the kernels take these tensors; returns (N, HD, H, E,
+    n_tiles). ``extra`` adds (name, tensor, dtype, shape) node arrays."""
+    if nf.device.type != "cuda":
+        raise ValueError(f"no {name} kernel for device {nf.device}")
+    N, HD = nf.shape
+    H = wn.shape[1] // 2
+    E = src.shape[0]
+    tn, te = meta.tn, meta.te
+    if H <= 0 or HD % H or N % tn or E % te:
+        raise ValueError(f"{name}: bad shapes N={N} HD={HD} H={H} "
+                         f"E={E} tn={tn} te={te}")
+    n_tiles = N // tn
+    f32, i32 = torch.float32, torch.int32
+    for arg, t, dt, shape in (
+            ("wn", wn, f32, (N, 2 * H)), ("nf", nf, f32, (N, HD)),
+            ("w_ea", w_ea, f32, (E, H)), ("src", src, i32, (E,)),
+            ("dst", dst, i32, (E,)), ("emask", emask, f32, (E,)),
+            ("ew_blk", meta.ew_blk, i32, (n_tiles,)),
+            ("cw", meta.cw, i32, (n_tiles,))) + tuple(extra):
+        _cuda.check(t, arg, dt, shape, nf.device)
+    return N, HD, H, E, n_tiles
+
+
 def tcsr_gat_fwd(wn, nf, w_ea, src, dst, emask, meta: TileMeta,
                  self_loops: bool, slope: float = 0.2):
     """Forward kernel wrapper: (out (N, H*D), m (N, H), den (N, H)) f32.
@@ -97,45 +132,128 @@ def tcsr_gat_fwd(wn, nf, w_ea, src, dst, emask, meta: TileMeta,
     if nf.device.type == "cpu":
         return tcsr_gat_fwd_plain(wn, nf, w_ea, src, dst, emask, meta,
                                   self_loops, slope)
-    if nf.device.type != "cuda":
-        raise ValueError(f"no tcsr_gat_fwd kernel for device {nf.device}")
-    N, HD = nf.shape
-    H = wn.shape[1] // 2
-    E = src.shape[0]
-    tn, te = meta.tn, meta.te
-    if H <= 0 or HD % H or N % tn or E % te:
-        raise ValueError(f"tcsr_gat_fwd: bad shapes N={N} HD={HD} H={H} "
-                         f"E={E} tn={tn} te={te}")
-    n_tiles = N // tn
-    dev = nf.device
-    f32, i32 = torch.float32, torch.int32
-    for name, t, dt, shape in (
-            ("wn", wn, f32, (N, 2 * H)), ("nf", nf, f32, (N, HD)),
-            ("w_ea", w_ea, f32, (E, H)), ("src", src, i32, (E,)),
-            ("dst", dst, i32, (E,)), ("emask", emask, f32, (E,)),
-            ("ew_blk", meta.ew_blk, i32, (n_tiles,)),
-            ("cw", meta.cw, i32, (n_tiles,))):
-        _cuda.check(t, name, dt, shape, dev)
+    N, HD, H, E, n_tiles = _check_cuda("tcsr_gat_fwd", wn, nf, w_ea, src,
+                                       dst, emask, meta)
+    tn = meta.tn
     smem = 4 * (tn * HD + 2 * tn * H + _THREADS * (H + 2))
     if HD > _MAX_HD or smem > _SMEM_LIMIT:
         raise ValueError(f"tcsr_gat_fwd: tile of {tn} x {HD} needs {smem} B "
                          f"of shared memory (limit {_SMEM_LIMIT}) and "
                          f"H*D <= {_MAX_HD}")
-    out = torch.empty((N, HD), dtype=f32, device=dev)
-    m = torch.empty((N, H), dtype=f32, device=dev)
-    den = torch.empty((N, H), dtype=f32, device=dev)
+    dev = nf.device
+    out = torch.empty((N, HD), dtype=torch.float32, device=dev)
+    m = torch.empty((N, H), dtype=torch.float32, device=dev)
+    den = torch.empty((N, H), dtype=torch.float32, device=dev)
     P = _cuda.ptr
     KERNEL.launch(P(wn), P(nf), P(w_ea), P(src), P(dst), P(emask),
                   P(meta.ew_blk), P(meta.cw), P(out), P(m), P(den),
-                  n_tiles, tn, te, H, HD // H, int(bool(self_loops)),
+                  n_tiles, tn, meta.te, H, HD // H, int(bool(self_loops)),
                   ctypes.c_float(slope), _cuda.stream_ptr(dev))
     return out, m, den
+
+
+def tcsr_gat_bwd_plain(wn, nf, w_ea, src, dst, emask, meta: TileMeta, m, den,
+                       g, s, self_loops: bool, slope: float = 0.2):
+    """Plain PyTorch version of the backward kernel, written out from the
+    formulas (not autograd of the plain forward, so the two check each
+    other): (d_wn (N, 2H), d_nf (N, H*D), d_w_ea (E, H)) for the cotangent
+    ``g`` (N, H*D) of out, with ``s`` (N, H) = Σ_d g·out."""
+    N, HD = nf.shape
+    H = wn.shape[1] // 2
+    D = HD // H
+    keep = emask > 0
+    sk, dk = src[keep].long(), dst[keep].long()
+    den_g = torch.where(den == 0.0, torch.ones_like(den), den)
+    g3, nf3 = g.view(N, H, D), nf.view(N, H, D)
+
+    def grads(zpre, d_rows, s_rows):
+        p = torch.exp(F.leaky_relu(zpre, slope) - m[d_rows]) / den_g[d_rows]
+        d_p = (g3[d_rows] * nf3[s_rows]).sum(-1)
+        fac = torch.where(zpre > 0, torch.ones_like(zpre),
+                          torch.full_like(zpre, slope))
+        return p, p * (d_p - s[d_rows]) * fac
+
+    p, dz = grads(wn[dk, :H] + wn[sk, H:] + w_ea[keep], dk, sk)
+    d_w_ea = torch.zeros_like(w_ea)
+    d_w_ea[keep] = dz
+    d_dst = torch.zeros((N, H), dtype=dz.dtype, device=dz.device)
+    d_dst = d_dst.index_add(0, dk, dz)
+    d_src = torch.zeros_like(d_dst).index_add(0, sk, dz)
+    d_nf = torch.zeros_like(g3).index_add(0, sk, p[..., None] * g3[dk])
+    if self_loops:
+        n = torch.arange(N, device=nf.device)
+        p_s, dz_s = grads(wn[:, :H] + wn[:, H:], n, n)
+        d_dst, d_src = d_dst + dz_s, d_src + dz_s
+        d_nf = d_nf + p_s[..., None] * g3
+    return torch.cat([d_dst, d_src], dim=1), d_nf.reshape(N, HD), d_w_ea
+
+
+def tcsr_gat_bwd(wn, nf, w_ea, src, dst, emask, meta: TileMeta, m, den, g, s,
+                 self_loops: bool, slope: float = 0.2):
+    """Backward kernel wrapper: (d_wn (N, 2H), d_nf (N, H*D), d_w_ea (E, H))
+    f32, from the forward's inputs, its (m, den), the cotangent ``g`` (N,
+    H*D) of out and ``s`` (N, H) = Σ_d g·out. Masked edges get exactly 0."""
+    if nf.device.type == "cpu":
+        return tcsr_gat_bwd_plain(wn, nf, w_ea, src, dst, emask, meta, m, den,
+                                  g, s, self_loops, slope)
+    f32 = torch.float32
+    NH = (nf.shape[0], wn.shape[1] // 2)
+    N, HD, H, E, n_tiles = _check_cuda(
+        "tcsr_gat_bwd", wn, nf, w_ea, src, dst, emask, meta,
+        extra=(("m", m, f32, NH), ("den", den, f32, NH),
+               ("g", g, f32, tuple(nf.shape)), ("s", s, f32, NH)))
+    D = HD // H
+    if HD > _MAX_HD or H > 32 or not (32 % D == 0 if D <= 32
+                                      else D % 32 == 0):
+        raise ValueError(f"tcsr_gat_bwd: H={H} D={D} unsupported (H*D <= "
+                         f"{_MAX_HD}; D a divisor or a multiple of 32)")
+    dev = nf.device
+    d_wn = torch.zeros((N, 2 * H), dtype=f32, device=dev)
+    d_nf = torch.zeros((N, HD), dtype=f32, device=dev)
+    d_w_ea = torch.zeros((E, H), dtype=f32, device=dev)
+    P = _cuda.ptr
+    KERNEL_BWD.launch(P(wn), P(nf), P(w_ea), P(src), P(dst), P(emask),
+                      P(meta.ew_blk), P(meta.cw), P(m), P(den), P(g), P(s),
+                      P(d_wn), P(d_nf), P(d_w_ea), n_tiles, meta.tn, meta.te,
+                      H, D, int(bool(self_loops)), ctypes.c_float(slope),
+                      _cuda.stream_ptr(dev))
+    return d_wn, d_nf, d_w_ea
+
+
+class TcsrGatFn(torch.autograd.Function):
+    """(wn, nf, w_ea) → (out, m, den) through the forward kernel, with the
+    backward kernel as its gradient (pallas_gat.py:493-555). ``m`` and
+    ``den`` carry no gradient; ``emask`` and the metadata get none (JAX
+    returns zeros for emask)."""
+
+    @staticmethod
+    def forward(ctx, wn, nf, w_ea, src, dst, emask, meta, self_loops, slope):
+        out, m, den = tcsr_gat_fwd(wn, nf, w_ea, src, dst, emask, meta,
+                                   self_loops, slope)
+        ctx.save_for_backward(wn, nf, w_ea, src, dst, emask, out, m, den)
+        ctx.meta, ctx.self_loops, ctx.slope = meta, self_loops, slope
+        ctx.mark_non_differentiable(m, den)
+        return out, m, den
+
+    @staticmethod
+    def backward(ctx, g_out, _g_m, _g_den):
+        wn, nf, w_ea, src, dst, emask, out, m, den = ctx.saved_tensors
+        N, HD = nf.shape
+        H = wn.shape[1] // 2
+        g = g_out.float().contiguous()
+        s = (g.view(N, H, -1) * out.view(N, H, -1)).sum(-1)   # _hsum_xla
+        d_wn, d_nf, d_w_ea = tcsr_gat_bwd(wn, nf, w_ea, src, dst, emask,
+                                          ctx.meta, m, den, g, s,
+                                          ctx.self_loops, ctx.slope)
+        return d_wn, d_nf, d_w_ea, None, None, None, None, None, None
 
 
 def attention_by_source(wn, w_ea, src, dst, emask, m, den, self_loops: bool,
                         slope: float = 0.2) -> torch.Tensor:
     """Summed final probabilities by SOURCE (gat2.py:165-167), rebuilt from
-    the kernel's softmax state (pallas_gat.py:598-622)."""
+    the kernel's softmax state (pallas_gat.py:598-622). An interpretability
+    output: callers pass detached tensors (the JAX package's stop_gradient),
+    so it carries no gradient."""
     N = wn.shape[0]
     H = wn.shape[1] // 2
     src_l, dst_l = src.long(), dst.long()
@@ -169,17 +287,21 @@ def tcsr_gat_pass(
     """Fused GAT pass (same math as ops.segment.gat_attention_pass). Self-loops
     are folded in analytically when ``self_loops`` (the atom pass,
     gat2.py:179-185: appended after real edges with zero edge attrs).
+    Differentiable w.r.t. the node features, edge attrs and attention vector
+    through ``TcsrGatFn``.
 
     Returns ``(out (N,H,D), attn_by_src (N,H) or None)``; the attention
-    vector is computed only when ``return_attention``."""
+    vector is computed only when ``return_attention`` and carries no
+    gradient."""
     N, H, D = node_feats_h.shape
     wn, w_ea = prologue(node_feats_h, edge_attr, attn_vec)
     emask = edge_mask.float().contiguous()
-    out, m, den = tcsr_gat_fwd(
+    out, m, den = TcsrGatFn.apply(
         wn.contiguous(), node_feats_h.float().reshape(N, H * D).contiguous(),
         w_ea.contiguous(), src, dst, emask, meta, self_loops, negative_slope)
     out = out.reshape(N, H, D).to(node_feats_h.dtype)
     if not return_attention:
         return out, None
-    return out, attention_by_source(wn, w_ea, src, dst, emask, m, den,
-                                    self_loops, negative_slope)
+    return out, attention_by_source(wn.detach(), w_ea.detach(), src, dst,
+                                    emask, m, den, self_loops,
+                                    negative_slope)

@@ -1,4 +1,12 @@
-"""Carry weights from the JAX package into the port.
+"""Checkpoints of the port, and carrying weights from the JAX package into
+it (counterpart of fragnet_tpu/train/checkpoint.py).
+
+``save_params`` / ``load_params`` write and read a torch ``state_dict`` of
+f32 CPU tensors under the reference torch names (gat2.py), so a port
+checkpoint is exactly what ``fragnet_tpu.train.checkpoint.
+import_torch_state_dict`` reads, and a reference checkpoint loads here.
+Encoder transfer from a pretrain checkpoint comes with pretraining
+(ROADMAP.md Queue A7).
 
 ``state_dict_from_jax`` turns fragnet_tpu's flax params (a nested dict of
 numpy arrays, with or without the top-level ``"params"`` key) into the
@@ -16,8 +24,9 @@ Dense kernels (in, out) become Linear weights (out, in).
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -64,3 +73,23 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             arr = arr.T
         out[_torch_name(path)] = torch.from_numpy(np.array(arr, copy=True))
     return out
+
+
+def save_params(model_or_state_dict: Union[torch.nn.Module,
+                                           Mapping[str, torch.Tensor]],
+                path: str) -> None:
+    """Write the ``state_dict`` (of a module, or as given) to ``path`` with
+    ``torch.save``, every tensor as a detached CPU copy."""
+    sd = (model_or_state_dict.state_dict()
+          if isinstance(model_or_state_dict, torch.nn.Module)
+          else model_or_state_dict)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({k: v.detach().cpu() for k, v in sd.items()}, path)
+
+
+def load_params(model: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Load a ``state_dict`` written by ``save_params`` (or by the reference)
+    into ``model`` (strict names and shapes) on the model's device."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(sd, strict=True)
+    return model

@@ -8,7 +8,12 @@ per-level kernel policy, resolved in one place for every entry point.
   * ``tcsr``   — on by default on CUDA for the gat2 family, so batches carry
     TCSR tile metadata and tile-aligned dense planes (``align`` follows it,
     graphs/hiergraph.py:spec_for) and every GAT pass runs a kernel;
-  * ``kernel`` — the per-level KernelPolicy from ``kernel.*`` config keys.
+  * ``kernel`` — the per-level KernelPolicy from ``kernel.*`` config keys;
+  * ``cache``  — ``finetune.cache``: 'auto' and 'off' run uncached (the
+    train loader reshuffles molecules per epoch; the JAX package's
+    DeviceCacheLoader, which instead reshuffles the order of cached batches,
+    is not ported), 'on' raises (ROADMAP.md Queue A6). The JAX package also
+    runs uncached under 'auto' whenever the padded set exceeds its budget.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ class FastPath:
     tcsr: bool
     device: torch.device
     kernel: KernelPolicy = KernelPolicy()
+    cache: str = "off"
 
 
 def resolve_device(device: Union[str, torch.device, None] = None
@@ -54,6 +60,20 @@ def resolve_kernel_policy(section) -> KernelPolicy:
                         attr=bool(getk("attr", False)))
 
 
+def resolve_cache(section) -> str:
+    """The dataset-cache policy the port runs: always 'off' (see the module
+    docstring); 'on' raises."""
+    cache = str(section.get("cache", "auto")).lower()
+    if cache not in ("auto", "on", "off"):
+        raise ValueError(f"unknown cache policy {cache!r} (auto|on|off)")
+    if cache == "on":
+        raise NotImplementedError(
+            "finetune.cache=on: the device-resident dataset cache "
+            "(DeviceCacheLoader) is not ported yet (ROADMAP.md Queue A6); "
+            "use auto or off (both run uncached)")
+    return "off"
+
+
 def resolve(section, model_version: str = "gat2",
             device: Union[str, torch.device, None] = None) -> FastPath:
     """``section`` is the finetune config subtree (supports .get)."""
@@ -68,5 +88,16 @@ def resolve(section, model_version: str = "gat2",
     tcsr_default = dev.type == "cuda" and model_version in TCSR_FAMILIES
     tcsr = bool(section.get("tcsr", tcsr_default))
     return FastPath(tcsr=tcsr, device=dev,
-                    kernel=resolve_kernel_policy(section))
+                    kernel=resolve_kernel_policy(section),
+                    cache=resolve_cache(section))
+
+
+def epoch_message_edges(graphs, num_layer: int) -> float:
+    """Real message edges processed per epoch over all four graph levels
+    (incl. atom self-loops) × num_layer — the bench.py metric definition."""
+    total = 0
+    for g in graphs:
+        total += (g.n_edges + g.n_atoms + g.n_bg_edges
+                  + g.n_fconn + g.n_fc_edges)
+    return float(total) * num_layer
 

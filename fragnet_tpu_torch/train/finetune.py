@@ -4,13 +4,15 @@ fragnet/train/finetune/finetune_gat2.py).
 
 Usage:
     python -m fragnet_tpu_torch.train.finetune --config configs/ft/esol.yaml \
-        finetune.n_epochs=0 [k=v ...] [--device cuda|cpu]
+        [k=v ...] [--device cuda|cpu]
 
-This slice runs the prediction path: SMILES → graphs → tile-aligned padded
-batches with TCSR metadata and dense planes → FragNetFineTune forward → test
-RMSE and ``preds_seed_{seed}.pkl``. It needs ``finetune.n_epochs=0``:
-training (the backward kernels and Adam) is ROADMAP.md Queue A4, and any
-option this slice does not run raises instead of being ignored.
+The single-device finetune: SMILES → graphs → tile-aligned padded batches
+with TCSR metadata and dense planes → FragNetFineTune → masked loss →
+backward through the GAT kernels → Adam, with validation, early stopping
+and a checkpoint every epoch, then the test metric on the best parameters
+and ``preds_seed_{seed}.pkl``. ``finetune.n_epochs=0`` runs the prediction
+path alone. Any option the port does not run yet raises instead of being
+ignored (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import argparse
 import os
 import pickle
 import random
+import time
 from typing import Optional, Union
 
 import numpy as np
@@ -120,12 +123,6 @@ def load_datasets(opt):
 
 def _refuse_unported(opt) -> None:
     ft = opt.finetune
-    n_epochs = int(ft.get("n_epochs", 100))
-    if n_epochs > 0:
-        raise NotImplementedError(
-            f"finetune.n_epochs={n_epochs}: training is not ported yet — "
-            f"it needs the backward kernels and Adam (ROADMAP.md Queue A4); "
-            f"pass finetune.n_epochs=0 to run the prediction path")
     dist = opt.get("dist", None)
     if dist and dist.get("mode", "none") != "none":
         raise NotImplementedError(
@@ -146,14 +143,22 @@ def _refuse_unported(opt) -> None:
 
 def run_finetune(opt, quiet: bool = False, datasets=None,
                  device: Union[str, torch.device, None] = None):
-    """The single-device finetune run with ``finetune.n_epochs=0``: build the
-    model from ``seed``, predict the test split, print ``test rmse`` (or
-    ``roc_auc``) and write ``preds_seed_{seed}.pkl`` under ``exp_dir``.
-    Runs on CUDA unless ``device="cpu"``. Returns (metric value, model)."""
+    """The single-device finetune run (the JAX package's run_finetune,
+    fragnet_tpu/train/finetune.py:210-484, without its distributed,
+    bucketed and standardized branches): build the model from ``seed``,
+    train ``finetune.n_epochs`` epochs with Adam, validate, early-stop and
+    save ``exp_dir/ft.ckpt`` on each improvement, log ``scalars.jsonl``,
+    then test the best parameters, print ``test rmse`` (or ``roc_auc``) and
+    write ``preds_seed_{seed}.pkl``. Runs on CUDA unless ``device="cpu"``.
+    Returns (metric value, model holding the best parameters)."""
     from fragnet_tpu_torch.data.batcher import BatchLoader
     from fragnet_tpu_torch.graphs.hiergraph import spec_for
+    from fragnet_tpu_torch.obs import ScalarLogger, profile_trace
     from fragnet_tpu_torch.train import fastpath
+    from fragnet_tpu_torch.train.checkpoint import save_params
+    from fragnet_tpu_torch.train.earlystop import EarlyStopping
     from fragnet_tpu_torch.train.loop import TrainerFineTune
+    from fragnet_tpu_torch.train.optim import make_optimizer, make_schedule
 
     _refuse_unported(opt)
     ft = opt.finetune
@@ -169,22 +174,72 @@ def run_finetune(opt, quiet: bool = False, datasets=None,
     if not quiet:
         print(f"datasets: train={len(train_g)} val={len(val_g)} "
               f"test={len(test_g)} tasks={n_tasks} type={task}")
-        print(f"fastpath: tcsr={fp.tcsr} dtype=f32 device={fp.device}")
+        print(f"fastpath: tcsr={fp.tcsr} dtype=f32 cache={fp.cache} "
+              f"device={fp.device}")
 
     bs = int(ft.get("batch_size", 16))
     spec = spec_for(train_g + val_g + test_g, batch_size=bs, tcsr=fp.tcsr)
     model = build_model(opt, n_classes=n_tasks, policy=fp.kernel,
                         generator=torch.Generator().manual_seed(seed))
-    model = model.to(fp.device).eval()
+    model = model.to(fp.device)
 
+    train_loader = BatchLoader(train_g, bs, spec=spec, shuffle=True,
+                               seed=seed, n_tasks=n_tasks)
     # eval loaders hard-fail on oversized molecules instead of silently
     # shrinking the reported metric's denominator
+    val_loader = BatchLoader(val_g, bs, spec=spec, n_tasks=n_tasks,
+                             on_oversize="error")
     test_loader = BatchLoader(test_g, bs, spec=spec, n_tasks=n_tasks,
                               on_oversize="error")
-    trainer = TrainerFineTune(model, target_type=task, device=fp.device)
-    score, y, p = trainer.test(test_loader)
+
+    n_epochs = int(ft.get("n_epochs", 100))
+    lr = float(ft.get("lr", 1e-4))
+    sched = None
+    if ft.get("use_schedular", False):
+        sched = make_schedule("linear", lr,
+                              total_steps=n_epochs * max(1, len(train_loader)))
+    optimizer, scheduler = make_optimizer(model.parameters(), "adam", lr=lr,
+                                          schedule=sched)
+    trainer = TrainerFineTune(model, optimizer, target_type=task,
+                              device=fp.device, scheduler=scheduler)
+    ckpt_path = os.path.join(exp_dir, ft.get("chkpoint_name", "ft.ckpt"))
+    es = EarlyStopping(patience=int(ft.get("es_patience", 100)),
+                       path=ckpt_path, save_fn=save_params)
+    profile_dir = (os.path.join(exp_dir, "profile")
+                   if ft.get("profile", False) else None)
+    # throughput: real message edges over all 4 levels × layers (the
+    # bench.py metric), logged per epoch
+    epoch_edges = fastpath.epoch_message_edges(
+        train_g, num_layer=int(ft.model.get("num_layer", 4)))
+
     metric = "rmse" if task == "regr" else "roc_auc"
-    value = float(np.sqrt(score)) if task == "regr" else -score
+    with ScalarLogger(exp_dir) as logger:
+        t0 = time.time()
+        for epoch in range(n_epochs):
+            te0 = time.perf_counter()
+            with profile_trace(profile_dir if epoch == 1 else None):
+                train_loss = trainer.train_epoch(train_loader)
+            edges_per_sec = epoch_edges / max(time.perf_counter() - te0, 1e-9)
+            val_score = trainer.validate(val_loader)
+            es(val_score, model)
+            logger.log("train/loss", train_loss, epoch)
+            logger.log("train/edges_per_sec", edges_per_sec, epoch)
+            logger.log("val/score", val_score, epoch)
+            if not quiet and (epoch % 10 == 0 or epoch == n_epochs - 1):
+                print(f"epoch {epoch:4d} train_loss {train_loss:.5f} "
+                      f"val {val_score:.5f} best {-(es.best_score or 0):.5f} "
+                      f"{edges_per_sec / 1e6:.2f}M edges/s "
+                      f"[{time.time() - t0:.1f}s]")
+            if es.early_stop:
+                if not quiet:
+                    print(f"early stop at epoch {epoch}")
+                break
+
+        if es.best_params is not None:
+            model.load_state_dict(es.best_params)
+        score, y, p = trainer.test(test_loader)
+        value = float(np.sqrt(score)) if task == "regr" else -score
+        logger.log(f"test/{metric}", value, n_epochs)
     if not quiet:
         print(f"test {metric}: {value:.5f}")
     with open(os.path.join(exp_dir, f"preds_seed_{seed}.pkl"), "wb") as f:

@@ -1,6 +1,7 @@
-"""Eval steps, metrics and the eval half of the finetune trainer
-(counterpart of fragnet_tpu/train/loop.py; the train step, optimizer and
-TrainState come with training, ROADMAP.md Queue A4).
+"""Train and eval steps, metrics and the finetune trainer (counterpart of
+fragnet_tpu/train/loop.py). The model holds its parameters and the
+optimizer its state, so there is no TrainState: a step updates both in
+place.
 
 Re-designs fragnet/train/utils.py:307-637 (TrainerFineTune): masked losses
 that are exactly the reference's (MSE; masked BCE ignoring labels < −0.5 —
@@ -10,7 +11,7 @@ masked mean-per-task ROC-AUC, train/utils.py:480-492).
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Tuple, Union
+from typing import Callable, Iterable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -49,6 +50,34 @@ LOSSES = {"mse": mse_loss, "bce": bce_masked_loss}
 # ---------------------------------------------------------------------------
 # steps
 # ---------------------------------------------------------------------------
+
+def make_train_step(model: torch.nn.Module,
+                    optimizer: torch.optim.Optimizer,
+                    loss_name: str = "mse",
+                    device: Union[str, torch.device] = "cuda",
+                    scheduler=None) -> Callable:
+    """``train_step(batch) -> loss`` for a numpy HierGraphBatch: the batch
+    is moved to ``device``, the model runs in train mode (dropout on),
+    the masked loss is backpropagated, the optimizer steps (gradient
+    clipping, when the optimizer has it, runs in its step pre-hook —
+    train/optim.py), then the scheduler, and the gradients are dropped.
+    The loss comes back as a 0-d device tensor, so the step does not wait
+    for the device."""
+    loss_fn = LOSSES[loss_name]
+
+    def train_step(batch):
+        b = to_device(batch, device)
+        model.train()
+        loss = loss_fn(model(b), b.y, b.graph_mask)
+        loss.backward()
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+        optimizer.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    return train_step
+
 
 def make_eval_step(model: torch.nn.Module, loss_name: str = "mse",
                    device: Union[str, torch.device] = "cuda") -> Callable:
@@ -98,23 +127,40 @@ def mean_per_task_auc(y: np.ndarray, pred: np.ndarray) -> float:
 
 
 # ---------------------------------------------------------------------------
-# trainer (eval half)
+# trainer
 # ---------------------------------------------------------------------------
 
 class TrainerFineTune:
     """Epoch-level runner mirroring the reference trainer's API surface
-    (validate/test) on top of the eval step. The model holds its own
-    parameters, so the methods take only the batches.
+    (train/validate/test) on top of the steps. The model holds its own
+    parameters, so the methods take only the batches; ``train_epoch`` needs
+    an ``optimizer``.
 
     target_type: 'regr' (MSE / RMSE) or 'clsf' (masked BCE / −mean ROC-AUC).
     """
 
-    def __init__(self, model: torch.nn.Module, target_type: str = "regr",
-                 device: Union[str, torch.device] = "cuda"):
+    def __init__(self, model: torch.nn.Module,
+                 optimizer: Optional[torch.optim.Optimizer] = None,
+                 target_type: str = "regr",
+                 device: Union[str, torch.device] = "cuda",
+                 scheduler=None):
         self.model = model
         self.target_type = target_type
         loss = "mse" if target_type == "regr" else "bce"
+        self._train_step = (None if optimizer is None else make_train_step(
+            model, optimizer, loss, device, scheduler))
         self._eval_step = make_eval_step(model, loss, device)
+
+    def train_epoch(self, batches: Iterable) -> float:
+        """One pass of train steps; returns the mean step loss. The step
+        losses stay on the device and are fetched once, after the last
+        step (the JAX trainer syncs once per epoch too)."""
+        if self._train_step is None:
+            raise ValueError("TrainerFineTune was built without an optimizer")
+        losses = [self._train_step(batch) for batch in batches]
+        if not losses:
+            return 0.0
+        return float(torch.stack(losses).double().sum()) / len(losses)
 
     def validate(self, batches: Iterable) -> float:
         """Returns the score minimized by early stopping: mean loss for

@@ -7,8 +7,9 @@ one card.
 
 BASE_CSRC_DIR holds the other version's ``*.cu`` (for example the parent
 commit's ``fragnet_tpu_torch/csrc``, unpacked with ``git archive``). For
-every kernel whose source differs between the two, each level's layer-0
-inputs are timed in turns (base, change, change, base) × rounds, each turn
+every kernel of chip_smoke.KERNELS whose source differs between the two,
+each level's layer-0 inputs (for a backward kernel, built as chip_smoke.py
+builds them) are timed in turns (base, change, change, base) × rounds, each turn
 the device time of 50 calls (torch.profiler, as in chip_smoke.py); both
 versions are also held against the plain version (limit 1e-4 of scale).
 Prints one line per level and a JSON line of the medians.
@@ -32,6 +33,7 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=5)
     args = ap.parse_args()
 
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -40,19 +42,19 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import chip_smoke as cs
     from fragnet_tpu_torch.graphs.batch import to_device
-    from fragnet_tpu_torch.ops import _cuda, dense_gat, tcsr_gat
+    from fragnet_tpu_torch.ops import _cuda
     from fragnet_tpu_torch.train.finetune import build_model, load_datasets
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    mods = {"tcsr_gat_fwd": tcsr_gat, "dense_gat_fwd": dense_gat}
-    plain = {"tcsr_gat_fwd": tcsr_gat.tcsr_gat_fwd_plain,
-             "dense_gat_fwd": dense_gat.dense_gat_fwd_plain}
     pairs = {}
-    for name, mod in mods.items():
-        change = mod.KERNEL
+    for name in cs.KERNELS:
+        _mod, change = cs._counter(name)
         base_path = os.path.join(args.base_csrc, change.source)
+        if not os.path.exists(base_path):
+            print(f"{name}: no {change.source} in the base, skipped")
+            continue
         with open(change.path, "rb") as f, open(base_path, "rb") as g:
             if f.read() == g.read():
                 print(f"{name}: same source, skipped")
@@ -72,29 +74,37 @@ def main() -> int:
                         generator=torch.Generator().manual_seed(0))
     model = model.to("cuda").eval()
     calls = cs.layer0_kernel_calls(opt, model, to_device(batch_np, "cuda"))
+    rng = np.random.default_rng(0)
+    for name, k in cs.KERNELS.items():
+        if k.fwd is not None:
+            calls[name] = [(lvl, cs.bwd_kernel_args(k.fwd, a, kw, rng), {})
+                           for lvl, a, kw in calls[k.fwd]]
 
     summary = []
     for name, kern in pairs.items():
-        mod = mods[name]
+        mod, _ = cs._counter(name)
+        attr = cs.KERNELS[name].counter
         wrapper = getattr(mod, name)
+        plain = getattr(mod, cs.KERNELS[name].plain)
         for lvl, a, kw in calls[name]:
-            want = plain[name](*a, **kw)
+            want = plain(*a, **kw)
             times = {"base": [], "change": []}
             try:
                 for which in ("base", "change"):
-                    mod.KERNEL = kern[which]
-                    rel = max(cs._diff(k, p)[1]
+                    setattr(mod, attr, kern[which])
+                    floor = cs._scale_floor(name, a)
+                    rel = max(cs._diff(k, p, floor)[1]
                               for k, p in zip(wrapper(*a, **kw), want))
                     if rel > cs.REL_LIMIT:
                         raise AssertionError(f"{name} [{lvl}] {which}: "
                                              f"rel {rel:.3e}")
                 for _ in range(args.rounds):
                     for which in ("base", "change", "change", "base"):
-                        mod.KERNEL = kern[which]
+                        setattr(mod, attr, kern[which])
                         times[which].append(
                             cs._device_ms(lambda: wrapper(*a, **kw)))
             finally:
-                mod.KERNEL = kern["change"]
+                setattr(mod, attr, kern["change"])
             med = {k: statistics.median(v) for k, v in times.items()}
             wins = sum(c < b for b, c in zip(times["base"], times["change"]))
             print(f"{name} [{lvl}]: base {med['base']:.4f} ms, change "

@@ -7,9 +7,11 @@ with an H100 (no JAX needed there, hence ``--noconftest``):
 
 Inputs are random tile-local graphs made with numpy from a seed, at the
 esol model's head shapes (H = 4, D = 32) and both node tiles the batcher
-uses (128, 256). Tolerance: the kernels sum in another order than the plain
-versions (and K1 with shared-memory atomics, in an order that varies from
-run to run), so outputs agree to f32 rounding: |k - p| ≤ 1e-4 · max|p|.
+uses (128, 256); the backward kernels also get sources outside the
+destination tile (TCSR) and an empty tile. Tolerance: the kernels sum in
+another order than the plain versions (with atomics, in an order that
+varies from run to run), so outputs agree to f32 rounding:
+|k - p| ≤ 1e-4 · max|p|.
 """
 
 import dataclasses
@@ -32,9 +34,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _graph(rng, tn, n_tiles, deg, te, empty_tile=None):
-    """Tile-local edges sorted by dst, padded to a multiple of te."""
+def _graph(rng, tn, n_tiles, deg, te, empty_tile=None, cross=False):
+    """Tile-local edges sorted by dst, padded to a multiple of te; with
+    ``cross`` every third edge takes its source from the next tile."""
     src, dst = [], []
+    N = n_tiles * tn
     for t in range(n_tiles):
         if t == empty_tile:
             continue
@@ -43,7 +47,8 @@ def _graph(rng, tn, n_tiles, deg, te, empty_tile=None):
             i, j = (int(x) for x in rng.integers(0, tn, 2))
             if (i, j) not in seen:
                 seen.add((i, j))
-                src.append(t * tn + j)
+                off = tn if cross and len(src) % 3 == 0 else 0
+                src.append((t * tn + j + off) % N)
                 dst.append(t * tn + i)
     order = np.argsort(dst, kind="stable")
     n = len(order)
@@ -130,6 +135,99 @@ def test_dense_gat_fwd_matches_plain(cuda, tn, R):
     assert float(out[2 * tn:].abs().max()) == 0.0
 
 
+def _tcsr_case(cuda, rng, tn, self_loops):
+    H, D, te, n_tiles = 4, 32, 256, 3
+    src, dst, mask = _graph(rng, tn, n_tiles, 3, te, empty_tile=1,
+                            cross=True)
+    mask[3] = 0.0  # one masked real edge
+    N = n_tiles * tn
+    meta = build_tile_meta(src, dst, mask, N, tn=tn, te=te)
+    assert meta is not None and meta.k_src > 1
+    E = len(src)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    wn = T(rng.standard_normal((N, 2 * H)).astype(np.float32))
+    nf = T(rng.standard_normal((N, H * D)).astype(np.float32))
+    w_ea = T(rng.standard_normal((E, H)).astype(np.float32))
+    meta_t = dataclasses.replace(meta, ew_blk=T(meta.ew_blk), cw=T(meta.cw),
+                                 sw_tile=T(meta.sw_tile),
+                                 flat_slot=T(meta.flat_slot))
+    return (wn, nf, w_ea, T(src), T(dst), T(mask), meta_t, self_loops)
+
+
+@pytest.mark.parametrize("tn", [128, 256])
+@pytest.mark.parametrize("self_loops", [False, True])
+def test_tcsr_gat_bwd_matches_plain(cuda, tn, self_loops):
+    rng = np.random.default_rng(10 + tn + self_loops)
+    args = _tcsr_case(cuda, rng, tn, self_loops)
+    wn, nf = args[0], args[1]
+    N, HD = nf.shape
+    H = wn.shape[1] // 2
+    out, m, den = tcsr_gat.tcsr_gat_fwd(*args)
+    g = torch.from_numpy(rng.standard_normal((N, HD)).astype(np.float32)
+                         ).to(cuda)
+    s = (g.view(N, H, -1) * out.view(N, H, -1)).sum(-1)
+    n0 = tcsr_gat.KERNEL_BWD.launches
+    got = tcsr_gat.tcsr_gat_bwd(*args[:7], m, den, g, s, self_loops)
+    torch.cuda.synchronize()
+    assert tcsr_gat.KERNEL_BWD.launches == n0 + 1
+    want = tcsr_gat.tcsr_gat_bwd_plain(*args[:7], m, den, g, s, self_loops)
+    for k, p in zip(got, want):
+        _close(k, p)
+    d_w_ea = got[2]
+    assert float(d_w_ea[args[5] == 0].abs().max()) == 0.0  # masked edges
+    if not self_loops:  # the empty tile gets nothing as a destination
+        assert float(got[0][tn:2 * tn, :H].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("tn", [128, 256])
+@pytest.mark.parametrize("R", [1, 6])
+def test_dense_gat_bwd_matches_plain(cuda, tn, R):
+    rng = np.random.default_rng(20 + tn + R)
+    H, D, n_tiles = 4, 32, 3
+    src, dst, mask = _graph(rng, tn, n_tiles, 3, 32, empty_tile=2)
+    N = n_tiles * tn
+    ea = rng.standard_normal((len(src), R)).astype(np.float32)
+    planes = dense_gat.build_dense_planes(src, dst, mask, ea, N, tn=tn)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    args = (T(planes), T(rng.standard_normal((N, H)).astype(np.float32)),
+            T(rng.standard_normal((N, H)).astype(np.float32)),
+            T(rng.standard_normal((N, H * D)).astype(np.float32)),
+            T(rng.standard_normal((R + 1, H)).astype(np.float32)))
+    out, m, den = dense_gat.dense_gat_fwd(*args)
+    g = T(rng.standard_normal((N, H * D)).astype(np.float32))
+    s = (g.view(N, H, D) * out.view(N, H, D)).sum(-1)
+    n0 = dense_gat.KERNEL_BWD.launches
+    got = dense_gat.dense_gat_bwd(*args, m, den, g, s)
+    torch.cuda.synchronize()
+    assert dense_gat.KERNEL_BWD.launches == n0 + 1
+    want = dense_gat.dense_gat_bwd_plain(*args, m, den, g, s)
+    for k, p in zip(got, want):
+        _close(k, p)
+    for k in got[:3]:  # the empty tile
+        assert float(k[2 * tn:].abs().max()) == 0.0
+
+
+def test_tcsr_pass_gradients_match_cpu(cuda):
+    """The TCSR autograd boundary on the card against the same Function on
+    the CPU (plain versions): gradients w.r.t. wn, nf and w_ea."""
+    rng = np.random.default_rng(7)
+    args = _tcsr_case(cuda, rng, 128, True)
+    N, HD = args[1].shape
+    g = torch.from_numpy(rng.standard_normal((N, HD)).astype(np.float32))
+
+    def run(dev):
+        xs = [t.detach().to(dev).requires_grad_() for t in args[:3]]
+        src, dst, mask = (t.to(dev) for t in args[3:6])
+        meta = dataclasses.replace(args[6], **{
+            f: getattr(args[6], f).to(dev)
+            for f in ("ew_blk", "cw", "sw_tile", "flat_slot")})
+        out = tcsr_gat.TcsrGatFn.apply(*xs, src, dst, mask, meta, True, 0.2)
+        return torch.autograd.grad((out[0] * g.to(dev)).sum(), xs)
+
+    for k, p in zip(run(cuda), run(torch.device("cpu"))):
+        _close(k, p)
+
+
 def test_wrappers_refuse_bad_inputs(cuda):
     N, H, D, R, tn = 128, 4, 32, 1, 128
     planes = torch.zeros((1, (R + 1) * tn, tn), device=cuda)
@@ -140,3 +238,5 @@ def test_wrappers_refuse_bad_inputs(cuda):
         dense_gat.dense_gat_fwd(planes, wd, wd.double(), nf, vc)
     with pytest.raises(ValueError):
         dense_gat.dense_gat_fwd(planes, wd, wd, nf.t(), vc)
+    with pytest.raises(ValueError):  # s of the wrong shape
+        dense_gat.dense_gat_bwd(planes, wd, wd, nf, vc, wd, wd, nf, nf)

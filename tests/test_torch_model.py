@@ -1,9 +1,10 @@
 """The port's model and eval path against fragnet_tpu's, on the CPU: weights
-carried across with ``state_dict_from_jax``, FragNetFineTune predictions and
-all four attention vectors (aligned TCSR batch and segment path), the
-trainer's test RMSE, ``run_finetune`` with ``n_epochs=0``, and the opt dict
-that ``chip_smoke.py`` drives. Small model: 2 layers, emb 32, 4 heads.
-Tolerance: 1e-4 relative (f32 through two frameworks and ~10 ops deep)."""
+carried across with ``state_dict_from_jax``, FragNetFineTune predictions,
+all four attention vectors and every parameter gradient (aligned TCSR batch
+and segment path), the trainer's test RMSE, ``run_finetune`` with
+``n_epochs=0``, and the opt dict that ``chip_smoke.py`` drives. Small model:
+2 layers, emb 32, 4 heads. Tolerance: 1e-4 relative (f32 through two
+frameworks and ~10 ops deep)."""
 
 import dataclasses
 import importlib.util
@@ -23,6 +24,7 @@ from fragnet_tpu.graphs.hiergraph import spec_for as jax_spec_for
 from fragnet_tpu.model.finetune import FragNetFineTune as JaxModel
 from fragnet_tpu.train.checkpoint import import_torch_state_dict
 from fragnet_tpu.train.loop import TrainerFineTune as JaxTrainer
+from fragnet_tpu.train.loop import mse_loss as jax_mse
 from fragnet_tpu.train.optim import make_optimizer
 
 from fragnet_tpu_torch.chem import engine as port_engine
@@ -34,7 +36,7 @@ from fragnet_tpu_torch.graphs.hiergraph import pad_batch, spec_for
 from fragnet_tpu_torch.model.finetune import FragNetFineTune
 from fragnet_tpu_torch.train.checkpoint import state_dict_from_jax
 from fragnet_tpu_torch.train.finetune import run_finetune
-from fragnet_tpu_torch.train.loop import TrainerFineTune
+from fragnet_tpu_torch.train.loop import TrainerFineTune, mse_loss
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(num_layer=2, num_heads=4, emb_dim=32, h1=16, h2=16, h3=16,
@@ -123,6 +125,45 @@ def test_forward_and_attentions_match(aligned, carried, path):
         _close(getattr(attn_p, level), getattr(attn_j, level))
 
 
+@pytest.mark.parametrize("path", ["aligned-tcsr", "segment"])
+def test_parameter_gradients_match(aligned, carried, path):
+    """MSE of the carried model (eval mode: dropout off, gradients on): the
+    loss and every parameter's gradient against jax.grad, the grad tree
+    mapped through state_dict_from_jax (names and transposes)."""
+    model, params, port = carried
+    bj, bp = aligned
+    if path == "segment":
+        bj = dataclasses.replace(bj, **_NO_KERNELS)
+        bp = dataclasses.replace(bp, **_NO_KERNELS)
+
+    def loss(p):
+        return jax_mse(model.apply(p, bj, deterministic=True), bj.y,
+                       bj.graph_mask)
+
+    loss_j, grads_j = jax.value_and_grad(loss)(params)
+    want = state_dict_from_jax(jax.device_get(grads_j))
+    b = to_device(bp, "cpu")
+    port.zero_grad(set_to_none=True)
+    loss_p = mse_loss(port(b), b.y, b.graph_mask)
+    loss_p.backward()
+    try:
+        _close(loss_p, loss_j)
+        names = dict(port.named_parameters())
+        assert set(names) == set(want)
+        scale = max(float(w.abs().max()) for w in want.values())
+        for name, p in names.items():
+            got = torch.zeros_like(p) if p.grad is None else p.grad
+            if float(want[name].abs().max()) <= 1e-6 * scale:
+                # off the loss's path (layer 0's frag attention: the next
+                # layer recomputes fragment features from atoms): zero in
+                # both up to round-off
+                assert float(got.abs().max()) <= 1e-6 * scale, name
+            else:
+                _close(got, want[name])
+    finally:
+        port.zero_grad(set_to_none=True)
+
+
 def test_trainer_test_rmse_matches(ft_graphs, port_graphs, carried):
     model, params, port = carried
     sj = jax_spec_for(ft_graphs, batch_size=4)
@@ -177,8 +218,12 @@ def _small_opt(tmp_path, **finetune):
 
 
 def test_run_finetune_refuses_what_it_does_not_run(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue A4"):
-        run_finetune(_small_opt(tmp_path, n_epochs=1), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A6"):
+        run_finetune(_small_opt(tmp_path, cache="on"), device="cpu")
+    opt = _small_opt(tmp_path)
+    opt.set_path("dist", {"mode": "dp"})
+    with pytest.raises(NotImplementedError, match="dist.mode"):
+        run_finetune(opt, device="cpu")
     with pytest.raises(NotImplementedError, match="bf16"):
         run_finetune(_small_opt(tmp_path, dtype="bf16"), device="cpu")
     with pytest.raises(NotImplementedError):
@@ -221,9 +266,12 @@ def test_chip_smoke_opt_is_the_esol_config():
     spec.loader.exec_module(cs)
     esol = load_config(os.path.join(REPO, "configs/ft/esol.yaml")).to_dict()
     assert cs.ESOL_CONFIG == esol
-    smoke = _flat(cs.smoke_opt().to_dict())
     ref = _flat(esol)
-    assert set(smoke) == set(ref)
-    changed = {k for k in ref if smoke[k] != ref[k]}
-    assert changed == set(cs.SMOKE_OVERRIDES)
-    assert smoke["finetune.n_epochs"] == 0
+    for train, overrides, epochs in (
+            (False, cs.SMOKE_OVERRIDES, 0),
+            (True, {**cs.SMOKE_OVERRIDES, **cs.TRAIN_OVERRIDES}, 3)):
+        smoke = _flat(cs.smoke_opt(train=train).to_dict())
+        assert set(smoke) == set(ref)
+        changed = {k for k in ref if smoke[k] != ref[k]}
+        assert changed == set(overrides)
+        assert smoke["finetune.n_epochs"] == epochs
