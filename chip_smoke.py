@@ -22,7 +22,11 @@ against its plain PyTorch version. Phases:
      and the plain version's ms (CUDA events around each wrapper call,
      median of 50 after warm-up — host dispatch included), their device
      time per call (torch.profiler's CUDA activity over 50 calls, the
-     wrapper's output fills included) and the bytes/operations bound;
+     wrapper's output fills included) and the bytes/operations bound.
+     The fconn level is checked a second time with seeded node features
+     and edge attributes (seeded_fconn_call), each output against its own
+     scale; the TCSR backward's level also times the torch ops that do the
+     rest of the TPU kernel's work (k2_outside_fn);
   5. the prediction path: run_finetune on cuda with every launch count set
      to 0 just before it; each forward kernel must have launched layers ×
      batches × 2 times (two levels each per layer) and no backward kernel,
@@ -185,9 +189,8 @@ def _scale_floor(name, args) -> float:
     """The scale below which a backward output is round-off: max|s|. The
     logit-gradient outputs (d_wd, d_ws, d_vc; d_wn, d_w_ea) are sums of
     p·(d_p − s), which cancel exactly where a row's neighbours carry equal
-    features — as at layer 0 of the fconn level, whose node features
-    project one-hot connection types — leaving round-off of terms of size
-    |s|. 0 for a forward kernel."""
+    features — as at the fconn level of the smoke's batch, at every layer
+    — leaving round-off of terms of size |s|. 0 for a forward kernel."""
     if KERNELS[name].fwd is None:
         return 0.0
     return float(args[10 if name == "tcsr_gat_bwd" else 8].abs().max())
@@ -223,6 +226,8 @@ class _Capture:
 
 LEVELS = {"tcsr_gat_fwd": ["atom (self-loops)", "frag"],
           "dense_gat_fwd": ["bond (R=1)", "fconn (R=6)"]}
+# a level checked against the plain version but not timed
+SEEDED = "fconn (R=6), seeded nf and attrs"
 
 
 def smoke_batch(opt, datasets):
@@ -254,6 +259,57 @@ def layer0_kernel_calls(opt, model, batch):
         out[name] = [(lvl, a, kw) for lvl, (a, kw)
                      in zip(LEVELS[name], calls[:2])]
     return out
+
+
+def seeded_fconn_call(fconn_call, rng):
+    """The fconn forward call with its node features and its attribute
+    planes 1..R (at the plane-0 edges) drawn with numpy. In the smoke's
+    batch each fconn row's neighbours carry equal features and only plane 1
+    is nonzero, so there the backward's d_wd, d_ws and d_vc are round-off
+    and the forward's rank terms r >= 1 are never read; here all of them are
+    of the order of their inputs."""
+    import numpy as np
+    import torch
+
+    _lvl, args, kw = fconn_call
+    planes, wd, ws, nf, vc = args[:5]
+    T, rows, tn = planes.shape
+    R = rows // tn - 1
+    pl = planes.view(T, R + 1, tn, tn)
+    attrs = torch.from_numpy(rng.standard_normal((T, R, tn, tn)).astype(
+        np.float32)).to(planes.device)
+    attrs = torch.where(pl[:, :1] > 0, attrs, torch.zeros_like(attrs))
+    planes_s = torch.cat([pl[:, :1], attrs], dim=1).reshape(T, rows, tn)
+    nf_s = torch.from_numpy(rng.standard_normal(tuple(nf.shape)).astype(
+        np.float32)).to(nf.device)
+    return (SEEDED, (planes_s.contiguous(), wd, ws, nf_s, vc) + tuple(args[5:]),
+            kw)
+
+
+def k2_outside_fn(args, rng):
+    """A callable that runs, at the shapes of one TCSR backward call, the
+    part of the TPU backward kernel's work (pallas_gat.py:290-309: d_a_src
+    and the a_src term of d_nf) that the port leaves to autograd: the
+    transpose of the prologue's w_src = nf·a_src (ops/tcsr_gat.py:
+    prologue), given d_w_src = d_wn[:, H:]. Values are drawn with numpy;
+    the work does not depend on them."""
+    import numpy as np
+    import torch
+
+    wn, nf = args[:2]
+    N, HD = nf.shape
+    H = wn.shape[1] // 2
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(nf.device)
+
+    nf3 = nf.detach().view(N, H, HD // H).clone().requires_grad_()
+    a_src = draw(H, HD // H).requires_grad_()
+    w_src = torch.einsum("nhd,hd->nh", nf3, a_src)
+    d_w_src = draw(N, H)
+    return lambda: torch.autograd.grad(w_src, (nf3, a_src), d_w_src,
+                                       retain_graph=True)
 
 
 def _tcsr_cost(args):
@@ -470,6 +526,8 @@ def main() -> int:
     # ---- 4. kernel vs plain, at the shapes of a real batch ----------------
     calls = layer0_kernel_calls(opt, model, batch)
     rng = np.random.default_rng(0)
+    calls["dense_gat_fwd"].append(
+        seeded_fconn_call(calls["dense_gat_fwd"][1], rng))
     for name, k in KERNELS.items():
         if k.fwd is not None:
             calls[name] = [(lvl, bwd_kernel_args(k.fwd, a, kw, rng), {})
@@ -478,27 +536,43 @@ def main() -> int:
     for name, k in KERNELS.items():
         mod, _ = _counter(name)
         wrapper, plain = getattr(mod, name), getattr(mod, k.plain)
-        per_level = []
+        per_level, seeded_err = [], 0.0
         for lvl, args, kw in calls[name]:
             got = wrapper(*args, **kw)
             want = plain(*args, **kw)
             torch.cuda.synchronize()
-            floor = _scale_floor(name, args)
+            # the seeded case holds each output to its own scale
+            floor = 0.0 if lvl == SEEDED else _scale_floor(name, args)
             errs = [_diff(k, p, floor) for k, p in zip(got, want)]
             err = max(e[0] for e in errs)
             rel = max(e[1] for e in errs)
+            scales = ", ".join(f"{float(p.abs().max()):.2e}" for p in want)
+            if lvl == SEEDED:
+                print(f"{name} [{lvl}]: max_abs_err={err:.3e} rel={rel:.3e} "
+                      f"(worst of {len(errs)} outputs; output scales "
+                      f"{scales})")
+                if rel > REL_LIMIT:
+                    raise AssertionError(f"{name} [{lvl}] disagrees with its "
+                                         f"plain version: rel {rel:.3e}")
+                seeded_err = err
+                continue
             ms = _median_ms(lambda: wrapper(*args, **kw))
             plain_ms = _median_ms(lambda: plain(*args, **kw))
             dev_ms = _device_ms(lambda: wrapper(*args, **kw))
             plain_dev_ms = _device_ms(lambda: plain(*args, **kw))
             nbytes, flops = k.cost(args)
             bound, by = _bound_ms(nbytes, flops)
+            extra = {}
+            if name == "tcsr_gat_bwd":
+                extra["outside_device_ms"] = _device_ms(
+                    k2_outside_fn(args, rng))
             shape = "x".join(str(s) for s in args[0].shape)
             print(f"{name} [{lvl}] in0={shape}: max_abs_err={err:.3e} "
-                  f"rel={rel:.3e} (worst of {len(errs)} outputs) "
-                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"rel={rel:.3e} (worst of {len(errs)} outputs; output "
+                  f"scales {scales}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
                   f"device_ms={dev_ms:.4f} plain_device_ms={plain_dev_ms:.4f} "
-                  f"bound_ms={bound:.5f} ({by}: {nbytes} B, {flops} flop)")
+                  f"bound_ms={bound:.5f} ({by}: {nbytes} B, {flops} flop)"
+                  + "".join(f" {k_}={v:.4f}" for k_, v in extra.items()))
             if rel > REL_LIMIT:
                 raise AssertionError(f"{name} [{lvl}] disagrees with its "
                                      f"plain version: rel {rel:.3e}")
@@ -506,8 +580,8 @@ def main() -> int:
                                   ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
                                   plain_device_ms=plain_dev_ms,
                                   bound_ms=bound, bound_by=by, bytes=nbytes,
-                                  flops=flops))
-        report[name] = per_level
+                                  flops=flops, **extra))
+        report[name] = (per_level, seeded_err)
 
     # ---- 5. the prediction path -------------------------------------------
     _reset_launches()
@@ -703,14 +777,15 @@ def main() -> int:
         raise AssertionError("card and CPU gradients disagree")
 
     out = []
-    for name, per_level in report.items():
+    for name, (per_level, seeded_err) in report.items():
         tot_bytes = sum(p["bytes"] for p in per_level)
         tot_flops = sum(p["flops"] for p in per_level)
         _, by = _bound_ms(tot_bytes, tot_flops)
         out.append({
             "name": name, "route": "cuda", "source": KERNELS[name].source,
             "replaces": KERNELS[name].replaces, "launches": launches_t[name],
-            "max_abs_err": max(p["max_abs_err"] for p in per_level),
+            "max_abs_err": max([seeded_err]
+                               + [p["max_abs_err"] for p in per_level]),
             # one layer's two levels of one batch
             "ms": sum(p["ms"] for p in per_level),
             "plain_ms": sum(p["plain_ms"] for p in per_level),

@@ -9,7 +9,7 @@ per-level kernel policy, resolved in one place for every entry point.
     TCSR tile metadata and tile-aligned dense planes (``align`` follows it,
     graphs/hiergraph.py:spec_for) and every GAT pass runs a kernel;
   * ``kernel`` — the per-level KernelPolicy from ``kernel.*`` config keys;
-  * ``cache``  — ``finetune.cache``: 'auto' and 'off' run uncached (the
+  * ``finetune.cache`` — 'auto' and 'off' run uncached (the
     train loader reshuffles molecules per epoch; the JAX package's
     DeviceCacheLoader, which instead reshuffles the order of cached batches,
     is not ported), 'on' raises (ROADMAP.md Queue A6). The JAX package also
@@ -34,7 +34,6 @@ class FastPath:
     tcsr: bool
     device: torch.device
     kernel: KernelPolicy = KernelPolicy()
-    cache: str = "off"
 
 
 def resolve_device(device: Union[str, torch.device, None] = None
@@ -60,9 +59,9 @@ def resolve_kernel_policy(section) -> KernelPolicy:
                         attr=bool(getk("attr", False)))
 
 
-def resolve_cache(section) -> str:
-    """The dataset-cache policy the port runs: always 'off' (see the module
-    docstring); 'on' raises."""
+def resolve_cache(section) -> None:
+    """Checks ``finetune.cache``: the port always runs uncached (see the
+    module docstring), so 'on' raises."""
     cache = str(section.get("cache", "auto")).lower()
     if cache not in ("auto", "on", "off"):
         raise ValueError(f"unknown cache policy {cache!r} (auto|on|off)")
@@ -71,7 +70,6 @@ def resolve_cache(section) -> str:
             "finetune.cache=on: the device-resident dataset cache "
             "(DeviceCacheLoader) is not ported yet (ROADMAP.md Queue A6); "
             "use auto or off (both run uncached)")
-    return "off"
 
 
 def resolve(section, model_version: str = "gat2",
@@ -87,9 +85,9 @@ def resolve(section, model_version: str = "gat2",
         raise ValueError(f"unknown dtype {dname!r} (bf16|f32)")
     tcsr_default = dev.type == "cuda" and model_version in TCSR_FAMILIES
     tcsr = bool(section.get("tcsr", tcsr_default))
+    resolve_cache(section)
     return FastPath(tcsr=tcsr, device=dev,
-                    kernel=resolve_kernel_policy(section),
-                    cache=resolve_cache(section))
+                    kernel=resolve_kernel_policy(section))
 
 
 def epoch_message_edges(graphs, num_layer: int) -> float:

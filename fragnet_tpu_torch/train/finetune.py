@@ -174,7 +174,7 @@ def run_finetune(opt, quiet: bool = False, datasets=None,
     if not quiet:
         print(f"datasets: train={len(train_g)} val={len(val_g)} "
               f"test={len(test_g)} tasks={n_tasks} type={task}")
-        print(f"fastpath: tcsr={fp.tcsr} dtype=f32 cache={fp.cache} "
+        print(f"fastpath: tcsr={fp.tcsr} dtype=f32 cache=off "
               f"device={fp.device}")
 
     bs = int(ft.get("batch_size", 16))

@@ -58,9 +58,8 @@ def make_train_step(model: torch.nn.Module,
                     scheduler=None) -> Callable:
     """``train_step(batch) -> loss`` for a numpy HierGraphBatch: the batch
     is moved to ``device``, the model runs in train mode (dropout on),
-    the masked loss is backpropagated, the optimizer steps (gradient
-    clipping, when the optimizer has it, runs in its step pre-hook —
-    train/optim.py), then the scheduler, and the gradients are dropped.
+    the masked loss is backpropagated, the optimizer steps, then the
+    scheduler, and the gradients are dropped.
     The loss comes back as a 0-d device tensor, so the step does not wait
     for the device."""
     loss_fn = LOSSES[loss_name]

@@ -1,31 +1,19 @@
-"""Optimizers and LR schedules (counterpart of fragnet_tpu/train/optim.py,
-which builds them on optax).
+"""Optimizer and LR schedule of the finetune recipe (counterpart of
+fragnet_tpu/train/optim.py, which builds them on optax).
 
-Covers the reference's optimizer surface: plain Adam (finetune_gat2.py:257),
-AdamW / Adagrad factories and linear / cosine-with-warmup schedules
-(model/gat/extra_optimizers.py:13-152, gat2_pl.py:18-51). Where torch.optim
-and optax differ, the port follows optax, so that a run of the port and of
-the JAX package take the same steps:
-
-  * Adagrad — optax starts the accumulator at 0.1 and puts eps = 1e-7 inside
-    the rsqrt (``optax.scale_by_rss``); ``torch.optim.Adagrad`` starts at 0
-    and adds eps = 1e-10 outside the sqrt, so the port has its own
-    ``Adagrad``.
-  * gradient clipping — ``optax.clip_by_global_norm`` scales by
-    max_norm / ‖g‖ once ‖g‖ ≥ max_norm, with no +1e-6 in the denominator
-    (``torch.nn.utils.clip_grad_norm_`` has one).
-  * schedules — optax evaluates the schedule at the update count, 0 for the
-    first update; a ``LambdaLR`` over an optimizer whose base lr is 1.0 gives
-    each step exactly ``schedule(step)``.
-
-Adam, AdamW and SGD are ``torch.optim``'s: their updates are optax's up to
-rounding.
+Covers what ``run_finetune`` builds: plain Adam (finetune_gat2.py:257) with
+an optional linear ramp (finetune_gat2.py:259-261), plus SGD. The schedule
+follows optax: it is evaluated at the update count, 0 for the first update,
+and a ``LambdaLR`` over an optimizer whose base lr is 1.0 gives each step
+exactly ``schedule(step)``. Adam and SGD are ``torch.optim``'s: their updates
+are optax's up to rounding. The JAX package's AdamW, Adagrad, weight decay,
+gradient clipping and warmup schedules come with pretraining (ROADMAP.md
+Queue A7), their first caller.
 """
 
 from __future__ import annotations
 
-import math
-from typing import Callable, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Iterable, Optional, Tuple
 
 import torch
 
@@ -40,23 +28,6 @@ def _linear(init: float, end: float, steps: int) -> Schedule:
     return sched
 
 
-def _cosine(init: float, steps: int, alpha: float = 0.0) -> Schedule:
-    """optax.cosine_decay_schedule (exponent 1)."""
-    if steps <= 0:
-        raise ValueError(f"cosine decay needs positive steps, got {steps}")
-
-    def sched(count: int) -> float:
-        cos = 0.5 * (1.0 + math.cos(math.pi * min(count, steps) / steps))
-        return init * ((1.0 - alpha) * cos + alpha)
-    return sched
-
-
-def _join(first: Schedule, then: Schedule, boundary: int) -> Schedule:
-    """optax.join_schedules of two schedules."""
-    return lambda count: (first(count) if count < boundary
-                          else then(count - boundary))
-
-
 def make_schedule(
     name: Optional[str],
     base_lr: float,
@@ -65,105 +36,37 @@ def make_schedule(
     end_factor: float = 1.0 / 3.0,
 ) -> Optional[Schedule]:
     """The learning rate at each update count (0 for the first update), as
-    the JAX package's optax schedules give it; None for a constant rate.
+    the JAX package's optax schedule gives it; None for a constant rate.
 
     * ``None``/"constant" — constant LR (returns None)
-    * "linear"            — ramp end_factor·lr → lr (finetune_gat2.py:259-261)
-    * "cosine_warmup"     — linear warmup then cosine decay to 0
-    * "linear_warmup"     — linear warmup then linear decay to 0
+    * "linear"            — ramp end_factor·lr → lr over ``warmup_steps``
+                            updates, or total_steps // 20 when that is 0
+                            (finetune_gat2.py:259-261)
     """
     if name in (None, "constant"):
         return None
     if name == "linear":
         return _linear(base_lr * end_factor, base_lr,
                        max(1, warmup_steps or total_steps // 20))
-    warm = max(1, warmup_steps)
-    if name == "cosine_warmup":
-        return _join(_linear(0.0, base_lr, warm),
-                     _cosine(base_lr, max(2, total_steps) - warm), warm)
-    if name == "linear_warmup":
-        return _join(_linear(0.0, base_lr, warm),
-                     _linear(base_lr, 0.0, max(1, total_steps - warmup_steps)),
-                     warm)
-    raise ValueError(f"unknown schedule {name!r}")
-
-
-class Adagrad(torch.optim.Optimizer):
-    """``optax.adagrad``: sum_sq starts at ``initial_accumulator_value``;
-    p ← p − lr · g · rsqrt(sum_sq + eps) where sum_sq > 0 (else no step)."""
-
-    def __init__(self, params, lr: float = 1e-2,
-                 initial_accumulator_value: float = 0.1, eps: float = 1e-7):
-        super().__init__(params, dict(
-            lr=lr, initial_accumulator_value=initial_accumulator_value,
-            eps=eps))
-
-    @torch.no_grad()
-    def step(self, closure=None):
-        loss = None
-        if closure is not None:
-            with torch.enable_grad():
-                loss = closure()
-        for group in self.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                state = self.state[p]
-                if not state:
-                    state["sum_sq"] = torch.full_like(
-                        p, group["initial_accumulator_value"])
-                sum_sq = state["sum_sq"]
-                sum_sq.add_(p.grad * p.grad)
-                inv = torch.where(sum_sq > 0,
-                                  torch.rsqrt(sum_sq + group["eps"]),
-                                  torch.zeros_like(sum_sq))
-                p.add_(inv * p.grad, alpha=-group["lr"])
-        return loss
-
-
-def clip_by_global_norm_(params: Sequence[torch.Tensor],
-                         max_norm: float) -> None:
-    """``optax.clip_by_global_norm`` on the ``.grad`` of ``params``, in
-    place and without a host sync: g ← g / ‖g‖ · max_norm when ‖g‖ ≥
-    max_norm (‖g‖ over all gradients)."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
-        return
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-    for g in grads:
-        g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
+    raise ValueError(f"unknown schedule {name!r} (constant|linear)")
 
 
 def make_optimizer(
     params: Iterable[torch.nn.Parameter],
     name: str = "adam",
     lr: float = 1e-4,
-    weight_decay: float = 0.0,
     schedule: Optional[Schedule] = None,
-    grad_clip: Optional[float] = None,
 ) -> Tuple[torch.optim.Optimizer, Optional[torch.optim.lr_scheduler.LambdaLR]]:
     """(optimizer, scheduler or None) over ``params``. torch Adam defaults:
     b1=0.9 b2=0.999 eps=1e-8. With ``schedule`` the rate of update k is
-    ``schedule(k)`` (the scheduler steps once per update); with
-    ``grad_clip`` the optimizer clips the gradients by their global norm
-    just before each step (a step pre-hook, as optax chains the clip before
-    the update)."""
-    params: List[torch.nn.Parameter] = list(params)
+    ``schedule(k)`` (the scheduler steps once per update)."""
     base = 1.0 if schedule is not None else lr
     if name == "adam":
         opt = torch.optim.Adam(params, lr=base, betas=(0.9, 0.999), eps=1e-8)
-    elif name == "adamw":
-        opt = torch.optim.AdamW(params, lr=base, betas=(0.9, 0.999),
-                                eps=1e-8, weight_decay=weight_decay)
-    elif name == "adagrad":
-        opt = Adagrad(params, lr=base)
     elif name == "sgd":
         opt = torch.optim.SGD(params, lr=base)
     else:
-        raise ValueError(f"unknown optimizer {name!r}")
-    if grad_clip:
-        opt.register_step_pre_hook(
-            lambda _opt, _args, _kw: clip_by_global_norm_(params, grad_clip))
+        raise ValueError(f"unknown optimizer {name!r} (adam|sgd)")
     sched = (torch.optim.lr_scheduler.LambdaLR(opt, schedule)
              if schedule is not None else None)
     return opt, sched

@@ -1,9 +1,9 @@
-"""The port's training half against fragnet_tpu's, on the CPU: optimizers
-and schedules against optax on identical gradient sequences, the SGD
-trainer against the JAX trainer over two shuffled epochs, early stopping,
-``run_finetune`` with ``n_epochs > 0`` (its checkpoint, scalars and
-predictions, and the checkpoint opened in the JAX package), and the
-profiler trace. Small model: 2 layers, emb 32, 4 heads, dropout 0.
+"""The port's training half against fragnet_tpu's, on the CPU: the
+optimizers and the schedule against optax on identical gradient
+sequences, the SGD trainer against the JAX trainer over two shuffled
+epochs, early stopping, ``run_finetune`` with ``n_epochs > 0`` (its
+checkpoint, scalars and predictions, and the checkpoint opened in the JAX
+package), and the profiler trace. Small model: 2 layers, emb 32, 4 heads, dropout 0.
 Tolerances: 1e-6 for optimizer steps (f32 rounding of one update rule in
 two libraries), 1e-4 relative for anything through the model (as
 tests/test_torch_model.py)."""
@@ -63,26 +63,51 @@ def port_graphs(ft_graphs):
 # optimizers and schedules against optax
 # --------------------------------------------------------------------------
 
-_SCHEDULES = [None, "linear", "cosine_warmup", "linear_warmup"]
+# (schedule, total_steps, warmup_steps, end_factor): constant, and the
+# linear ramp over explicit warmup_steps and over the total_steps // 20
+# updates that run_finetune asks for
+_SCHEDULES = [
+    pytest.param(None, 40, 6, 1.0 / 3.0, id="None"),
+    pytest.param("linear", 40, 6, 1.0 / 3.0, id="linear"),
+    pytest.param("linear", 400, 0, 1.0 / 3.0, id="linear-total"),
+    pytest.param("linear", 40, 6, 0.5, id="linear-end-half"),
+    pytest.param("linear", 10, 0, 1.0 / 3.0, id="linear-short"),
+]
 
 
-@pytest.mark.parametrize("schedule", _SCHEDULES)
-def test_schedule_values_match_optax(schedule):
-    kw = dict(total_steps=40, warmup_steps=6)
+@pytest.mark.parametrize("schedule,total,warmup,end", _SCHEDULES)
+def test_schedule_values_match_optax(schedule, total, warmup, end):
+    kw = dict(total_steps=total, warmup_steps=warmup, end_factor=end)
     port = make_schedule(schedule, 0.01, **kw)
     ref = jax_optim.make_schedule(schedule, 0.01, **kw)
     if schedule is None:
         assert port is None and ref == 0.01
+        assert make_schedule("constant", 0.01, **kw) is None
         return
-    for step in range(50):
+    for step in range(total + 10):
         np.testing.assert_allclose(port(step), float(ref(step)),
                                    rtol=1e-6, atol=1e-9)
 
 
-@pytest.mark.parametrize("schedule", _SCHEDULES)
-@pytest.mark.parametrize("clip", [None, 0.5])
-@pytest.mark.parametrize("name", ["adam", "adamw", "adagrad", "sgd"])
-def test_optimizer_steps_match_optax(name, clip, schedule):
+@pytest.mark.parametrize("call", [
+    lambda: make_schedule("cosine_warmup", 0.01),
+    lambda: make_optimizer([torch.nn.Parameter(torch.zeros(1))], "adagrad"),
+], ids=["schedule", "optimizer"])
+def test_unported_optimizer_options_raise(call):
+    with pytest.raises(ValueError, match="unknown"):
+        call()
+
+
+# (name, schedule, lr); at lr 0.01 the ids are name-clip-schedule, clip None
+_OPTIMIZERS = [
+    pytest.param(name, sched, lr,
+                 id=f"{name}-None-{sched}" + ("" if lr == 0.01 else f"-{lr}"))
+    for lr in (0.01, 1e-4) for name in ("adam", "sgd")
+    for sched in (None, "linear")]
+
+
+@pytest.mark.parametrize("name,schedule,lr", _OPTIMIZERS)
+def test_optimizer_steps_match_optax(name, schedule, lr):
     """The same gradient sequence through optax and the port: parameters
     agree after every step."""
     rng = np.random.default_rng(0)
@@ -95,17 +120,14 @@ def test_optimizer_steps_match_optax(name, clip, schedule):
     # error at t = 1), an error in the update that scales with lr: at lr
     # 0.01 eight steps stay inside 1e-6, and each still moves a parameter
     # by far more than that
-    lr, wd = 0.01, 0.01
     kw = dict(total_steps=8, warmup_steps=2)
     tx = jax_optim.make_optimizer(
-        name, lr=lr, weight_decay=wd, grad_clip=clip,
-        schedule=jax_optim.make_schedule(schedule, lr, **kw))
+        name, lr=lr, schedule=jax_optim.make_schedule(schedule, lr, **kw))
     jp = {k: jnp.asarray(v) for k, v in init.items()}
     state = tx.init(jp)
     tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
           for k, v in init.items()}
-    opt, sched = make_optimizer(tp.values(), name, lr=lr, weight_decay=wd,
-                                grad_clip=clip,
+    opt, sched = make_optimizer(tp.values(), name, lr=lr,
                                 schedule=make_schedule(schedule, lr, **kw))
     assert (sched is None) == (schedule is None)
     for g in grads:
