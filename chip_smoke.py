@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — the gat2 ESOL recipe (configs/ft/esol.yaml,
-full width: 4 layers, emb 128, 4 heads, FTHead3 128/1024/1024/512, batch
-16, f32, Adam lr 1e-4) on synthetic molecules — through ``run_finetune`` on
-the card, first the prediction path (``finetune.n_epochs=0``), then
-training (``finetune.n_epochs=3``), and holds every kernel of that path
-against its plain PyTorch version. Phases:
+Drives the port's paths on the card and holds every kernel of them
+against its plain PyTorch version: the gat2 ESOL recipe
+(configs/ft/esol.yaml, full width: 4 layers, emb 128, 4 heads, FTHead3
+128/1024/1024/512, batch 16, f32, Adam lr 1e-4) on synthetic molecules
+through ``run_finetune`` — first the prediction path
+(``finetune.n_epochs=0``), then training (``finetune.n_epochs=3``) — and
+geometric pretraining (configs/pt/unimol.yaml, full width: 4 layers, emb
+128, 4 heads, drop 0.2, Adam lr 1e-4, f32) through ``run_pretrain`` and
+the packed transport. Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
@@ -49,16 +52,40 @@ against its plain PyTorch version. Phases:
      profiler: device busy time and top ops;
   9. one train step's loss and gradients on the CPU (plain versions) and on
      the card (kernels), same carried weights and batch, dropout off: loss
-     and every parameter's gradient within 1e-3 of its scale.
+     and every parameter's gradient within 1e-3 of its scale;
+ 10. the plane builder (K6) against its plain version, the host builder
+     and the library call (zeros + accumulating index_put_), exactly, at
+     the bond (R=1), fconn (R=6) and atom (R=0) levels of one batch at the
+     config's batch_size 512 (the 256 pretrain graphs, featurized in
+     spawned processes beside phases 3-9, repeated to 512), timed as in
+     phase 4, with the library call's time;
+ 11. the pretraining path: run_pretrain on cuda, uncached, 256 synthetic
+     molecules at batch 64 (so that each epoch has >= 3 train steps), 3
+     epochs validated every epoch; it must report the HBM packed tier, its
+     train and val losses must be finite and each kernel's launches must
+     equal the count derived from the loaders (pretrain_expect);
+ 12. the process-stream tier (no packed cache fits) for one epoch: the
+     spawned workers' batches drive the same counts;
+ 13. one pretrain train step at batch 512 from a packed buffer on the
+     card: wall time, stages each ended by a synchronize (unpack without
+     planes, K6 planes, forward + loss, backward, Adam), device busy time,
+     top ops and K6's share;
+ 14. one pretrain step's loss and gradients, card (packed buffer decoded
+     there, K6 planes) vs CPU (host batch, host planes), same weights (the
+     run's checkpoint), dropout off: within 1e-3 of each scale;
+ 15. run_finetune with pretrain.use on the run's checkpoint: every encoder
+     tensor of the finetune model equals the checkpoint's.
 
-Prints a ``{"kernels": [...]}`` JSON line (launches from the training path),
-and as the last line ``{"ok": true, "device": {...}}``. Exits non-zero on
-any failure, without a CUDA device, or when run outside a checkout of the
+Prints a ``{"kernels": [...]}`` JSON line (launches from the pretraining
+path of phase 11, and the finetune training path's beside them), and as
+the last line ``{"ok": true, "device": {...}}``. Exits non-zero on any
+failure, without a CUDA device, or when run outside a checkout of the
 repository.
 """
 
 from __future__ import annotations
 
+import atexit
 import copy
 import json
 import os
@@ -110,6 +137,54 @@ TRAIN_OVERRIDES = {
     "exp_dir": os.path.join(REPO, "exps", "chip_smoke_esol_train"),
 }
 
+# configs/pt/unimol.yaml as a dict; tests/test_torch_pretrain.py holds it
+# equal to load_config of the file
+PT_CONFIG = {
+    "seed": 42,
+    "exp_dir": "exps/pt/unimol",
+    "data_type": "exp1s",
+    "atom_features": 167,
+    "frag_features": 167,
+    "edge_features": 17,
+    "fedge_in": 6,
+    "fbond_edge_in": 6,
+    "pretrain": {
+        "model_version": "gat2",
+        "data_dir": None,
+        "n_synthetic": 256,
+        "num_conf": 1,
+        "model": {"num_layer": 4, "num_heads": 4, "drop_ratio": 0.2,
+                  "emb_dim": 128},
+        "batch_size": 512,
+        "lr": 1.0e-4,
+        "n_epochs": 100,
+        "es_patience": 200,
+        "val_every": 5,
+        "optimizer": "adam",
+        "compat_loss_overwrite": False,
+        "saved_checkpoint": None,
+        "chkpoint_name": "pt.ckpt",
+    },
+}
+# the pretraining path's overrides: uncached (so the packed transport runs),
+# batch 64 instead of 512 so that 256 molecules give >= 3 train steps per
+# epoch, 3 epochs validated every epoch
+PT_OVERRIDES = {
+    "pretrain.cache": "off",
+    "pretrain.batch_size": 64,
+    "pretrain.n_epochs": 3,
+    "pretrain.val_every": 1,
+    "exp_dir": os.path.join(REPO, "exps", "chip_smoke_pt"),
+}
+# on top of PT_OVERRIDES: no packed cache fits, so the spawned workers pack
+# every epoch (the process-stream tier), for one epoch
+STREAM_OVERRIDES = {
+    "pretrain.hbm_cache_gb": 0,
+    "pretrain.host_cache_gb": 0,
+    "pretrain.n_epochs": 1,
+    "exp_dir": os.path.join(REPO, "exps", "chip_smoke_pt_stream"),
+}
+
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor) flop/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -126,6 +201,66 @@ def smoke_opt(train: bool = False):
                  **(TRAIN_OVERRIDES if train else {})}.items():
         opt.set_path(k, v)
     return opt
+
+
+def pt_opt(*overrides):
+    from fragnet_tpu_torch.config import Config
+
+    opt = Config(copy.deepcopy(PT_CONFIG))
+    for ov in overrides:
+        for k, v in ov.items():
+            opt.set_path(k, v)
+    return opt
+
+
+def _pt_chunk(args):
+    """Featurize one chunk of pretrain SMILES (a spawned pool's task)."""
+    from fragnet_tpu_torch.data.datasets import PretrainData
+
+    smiles, data_type, num_conf, seed = args
+    return PretrainData(data_type=data_type, num_conf=num_conf
+                        ).get_pt_dataset(smiles, seed=seed)
+
+
+class PretrainGraphs:
+    """``train.pretrain.load_pretrain_graphs(opt)`` for the synthetic set,
+    featurized in ``workers`` spawned processes while the caller goes on
+    (each molecule is featurized alone from the same seed, so the graphs
+    and their order are the same); ``get()`` waits for them."""
+
+    def __init__(self, opt, workers: int):
+        import multiprocessing as mp
+
+        from fragnet_tpu_torch.data.synthetic import synthetic_dataset
+
+        seed = int(opt.seed)
+        smiles = list(synthetic_dataset(n=int(opt.pretrain.n_synthetic),
+                                        task="regression",
+                                        seed=seed)["smiles"])
+        step = (len(smiles) + workers - 1) // workers
+        jobs = [(smiles[i:i + step], opt.data_type,
+                 int(opt.pretrain.num_conf), seed)
+                for i in range(0, len(smiles), step)]
+        self.t0 = time.perf_counter()
+        self.workers = len(jobs)
+        self._pool = mp.get_context("spawn").Pool(len(jobs))
+        self._res = self._pool.map_async(_pt_chunk, jobs)
+
+    def close(self):
+        """Stop the featurizing processes (after ``get`` they are gone)."""
+        self._pool.terminate()
+        self._pool.join()
+
+    def get(self):
+        try:
+            parts = self._res.get(timeout=600)
+        except BaseException:
+            self._pool.terminate()
+            raise
+        finally:
+            self._pool.close()
+            self._pool.join()
+        return [g for part in parts for g in part]
 
 
 def _median_ms(fn, n: int = 50, warmup: int = 5) -> float:
@@ -371,6 +506,17 @@ def _dense_bwd_cost(args):
     return nbytes, flops
 
 
+def _planes_cost(args):
+    src, dst, emask, ea, n_nodes, meta = args[:6]
+    R = 0 if ea is None else ea.shape[1]
+    n_edges = int((emask > 0).sum())
+    # the planes written once + the kept edges' src, dst, mask and attrs
+    # read once + the tile windows; one add per plane value
+    nbytes = 4 * (n_nodes * (R + 1) * meta.tn + n_edges * (3 + R)
+                  + 2 * meta.ew_blk.shape[0])
+    return nbytes, n_edges * (R + 1)
+
+
 def _bound_ms(nbytes, flops):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_f = flops / F32_FLOPS * 1e3
@@ -405,7 +551,17 @@ KERNELS = {
                             _dense_bwd_cost, "dense_gat_fwd",
                             "fragnet_tpu_torch/csrc/dense_gat_bwd.cu",
                             "fragnet_tpu/ops/dense_gat.py:419"),
+    "build_dense_planes_device": Kernel(
+        "dense_gat", "KERNEL_PLANES", "build_dense_planes_device_plain",
+        _planes_cost, None, "fragnet_tpu_torch/csrc/dense_planes.cu",
+        "fragnet_tpu/ops/dense_gat.py:105"),
 }
+# the GAT kernels, which phase 4 captures from a finetune forward
+GAT_KERNELS = ("tcsr_gat_fwd", "tcsr_gat_bwd", "dense_gat_fwd",
+               "dense_gat_bwd")
+PLANES = "build_dense_planes_device"
+PLANE_LEVELS = {"dp_bond": "bond (R=1)", "dp_fc": "fconn (R=6)",
+                "dp_atom": "atom (R=0)"}
 
 
 def _counter(name):
@@ -462,6 +618,415 @@ def _busy(prof):
     busy.sort(key=lambda kv: -kv[1])
     return sum(ms for _, ms in busy), busy
 
+def plane_calls(graphs, batch_size: int, dev):
+    """The plane builder's calls on one packed batch of ``batch_size``
+    molecules (``graphs`` repeated as needed), decoded on the card: [(level,
+    args, host planes)] for the bond (R=1), fconn (R=6) and atom (R=0)
+    levels, with the host builder's planes of the same batch (pad_batch)."""
+    import torch
+
+    from fragnet_tpu_torch.data.batcher import BatchLoader
+    from fragnet_tpu_torch.data.packing import _DP_TM, unpack_batch
+    from fragnet_tpu_torch.graphs.hiergraph import pad_batch, spec_for
+
+    rep = graphs * (-(-batch_size // len(graphs)))
+    spec = spec_for(rep, batch_size=batch_size, tcsr=True)
+    loader = BatchLoader(rep, batch_size, spec=spec, with_targets=True,
+                         pack=True)
+    buf = next(iter(loader))
+    host = pad_batch(next(loader._windows()), spec, with_targets=True)
+    fields = unpack_batch(torch.from_numpy(buf).to(dev), loader.layout,
+                          planes=())
+    out = []
+    for lvl, src_f, dst_f, mask_f, ea_f, n_nodes, _tn in loader.layout.dp_specs:
+        if lvl in PLANE_LEVELS:
+            args = (getattr(fields, src_f), getattr(fields, dst_f),
+                    getattr(fields, mask_f),
+                    getattr(fields, ea_f) if ea_f else None, n_nodes,
+                    getattr(fields, _DP_TM[lvl]))
+            out.append((PLANE_LEVELS[lvl], args, getattr(host, lvl)))
+    if sorted(o[0] for o in out) != sorted(PLANE_LEVELS.values()):
+        raise AssertionError(f"batch {batch_size}: device planes for "
+                             f"{[o[0] for o in out]} only")
+    return out, int(host.graph_mask.sum())
+
+
+def planes_library_fn(args):
+    """One PyTorch call's worth of the same function (zeros, then one
+    accumulating index_put_ on indices computed beforehand) — the
+    yardstick, used nowhere in the port."""
+    import torch
+
+    from fragnet_tpu_torch.ops.dense_gat import _plane_edges
+
+    src, dst, emask, ea, n_nodes, meta = args
+    tn = meta.tn
+    R = 0 if ea is None else ea.shape[1]
+    k, t, di, sj = _plane_edges(src, dst, emask, n_nodes, meta)
+    vals = torch.ones((k.shape[0], R + 1), device=src.device)
+    if R:
+        vals[:, 1:] = ea[k]
+    r = torch.arange(R + 1, device=src.device)[None, :]
+    idx = (t[:, None], r, di[:, None], sj[:, None])
+    shape = (n_nodes // tn, R + 1, tn, tn)
+    return lambda: torch.zeros(shape, device=src.device).index_put_(
+        idx, vals, accumulate=True).view(shape[0], (R + 1) * tn, tn)
+
+
+def check_planes(calls):
+    """Phase 10: the plane builder against its plain version and the host
+    builder (exact), timed as phase 4 times the GAT kernels, with the
+    library call's time. Returns the per-level report."""
+    import numpy as np
+    import torch
+
+    from fragnet_tpu_torch.ops import dense_gat
+
+    k6 = dense_gat.build_dense_planes_device
+    plain = dense_gat.build_dense_planes_device_plain
+    per_level = []
+    for lvl, args, host in calls:
+        got, want = k6(*args), plain(*args)
+        lib = planes_library_fn(args)
+        torch.cuda.synchronize()
+        err = max(float((got - want).abs().max()),
+                  float(np.abs(got.cpu().numpy() - host).max()),
+                  float((lib() - got).abs().max()))
+        ms = _median_ms(lambda: k6(*args))
+        plain_ms = _median_ms(lambda: plain(*args))
+        lib_ms = _median_ms(lib)
+        dev_ms = _device_ms(lambda: k6(*args))
+        plain_dev_ms = _device_ms(lambda: plain(*args))
+        lib_dev_ms = _device_ms(lib)
+        nbytes, flops = _planes_cost(args)
+        bound, by = _bound_ms(nbytes, flops)
+        print(f"{PLANES} [{lvl}] planes={'x'.join(map(str, got.shape))} "
+              f"kept edges={int((args[2] > 0).sum())}: max_abs_err={err:.3e} "
+              f"(vs plain, host builder and library call; limit 0) "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+              f"device_ms={dev_ms:.4f} plain_device_ms={plain_dev_ms:.4f} "
+              f"library_device_ms={lib_dev_ms:.4f} bound_ms={bound:.5f} "
+              f"({by}: {nbytes} B, {flops} flop)")
+        if err != 0.0:
+            raise AssertionError(f"{PLANES} [{lvl}] is not exact: {err}")
+        per_level.append(dict(level=lvl, max_abs_err=err, rel_err=0.0, ms=ms,
+                              plain_ms=plain_ms, library_ms=lib_ms,
+                              device_ms=dev_ms, plain_device_ms=plain_dev_ms,
+                              library_device_ms=lib_dev_ms, bound_ms=bound,
+                              bound_by=by, bytes=nbytes, flops=flops,
+                              on_path=lvl != PLANE_LEVELS["dp_atom"]))
+    return per_level
+
+
+def pretrain_expect(popt, pgraphs, n_epochs: int, n_validations: int):
+    """Each kernel's launches on ``run_pretrain``'s packed path, derived
+    from the loaders: the train steps are the first (shuffled) epoch's
+    windows, replayed each epoch by the packed caches, and the process
+    stream's epochs have the same count here (one epoch, from epoch 0's
+    shuffle); every step and every validation batch runs 4 GAT passes per
+    layer — bond and fconn through the dense kernel (the decoded batches'
+    device planes, the validation batches' host planes, both checked
+    here), atom and frag through the TCSR kernel. K6 runs only in train
+    steps, once per plane level the policy reads (dp_bond, dp_fc): the
+    validation batches come with host planes. Backward: every layer's
+    bond, fconn and atom pass and the last layer's frag pass — the pretrain
+    head reads x_atoms, the pooled x_frags of the last layer and the bond
+    features e_edge, and each layer recomputes fragment features from
+    atoms, so the earlier frag passes are off the loss's path."""
+    from fragnet_tpu_torch.data.batcher import BatchLoader
+    from fragnet_tpu_torch.data.packing import plane_levels
+    from fragnet_tpu_torch.graphs.hiergraph import pad_batch, spec_for
+    from fragnet_tpu_torch.model.layers import KernelPolicy
+    from fragnet_tpu_torch.train.pretrain import split_graphs
+
+    seed, bs = int(popt.seed), int(popt.pretrain.batch_size)
+    L = int(popt.pretrain.model.num_layer)
+    train_g, val_g = split_graphs(pgraphs, seed)
+    spec = spec_for(pgraphs, batch_size=bs, tcsr=True)
+    probe = BatchLoader(train_g, bs, spec=spec, with_targets=True, pack=True)
+    next(iter(probe))
+    levels = [d[0] for d in probe.layout.dp_specs
+              if d[0] in plane_levels(KernelPolicy())]
+    if levels != ["dp_bond", "dp_fc"]:
+        raise AssertionError(f"device planes for {levels} only")
+    n_train = len(list(BatchLoader(train_g, bs, spec=spec, shuffle=True,
+                                   seed=seed)._windows()))
+    val_w = list(BatchLoader(val_g, bs, spec=spec)._windows())
+    for w in val_w:
+        hb = pad_batch(w, spec, with_targets=True)
+        if hb.dp_bond is None or hb.dp_fc is None:
+            raise AssertionError("a validation batch has no host planes")
+    steps = n_epochs * n_train
+    fwd = L * 2 * (steps + n_validations * len(val_w))
+    return {"tcsr_gat_fwd": fwd, "dense_gat_fwd": fwd,
+            "tcsr_gat_bwd": (L + 1) * steps, "dense_gat_bwd": 2 * L * steps,
+            PLANES: len(levels) * steps}, n_train, len(val_w)
+
+
+def drive_pretrain(popt, pgraphs, expect, tier: str):
+    """Run run_pretrain on the card with every launch count set to 0 just
+    before it; its printed tier, finite losses and each kernel's launches
+    against ``expect``. Returns (launches, checkpoint path)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from fragnet_tpu_torch.obs import read_scalars
+    from fragnet_tpu_torch.train.pretrain import run_pretrain
+
+    n_epochs = int(popt.pretrain.n_epochs)
+    text = io.StringIO()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        best, ckpt = run_pretrain(popt, device="cuda", graphs=pgraphs)
+    run_s = time.perf_counter() - t0
+    launches = _launches()
+    print(text.getvalue().rstrip())
+    scal = read_scalars(popt.exp_dir)
+    losses = [r["value"] for r in scal if r["tag"] == "train/loss"][-n_epochs:]
+    vals = [r["value"] for r in scal if r["tag"] == "val/loss"][-n_epochs:]
+    eps = [r["value"] for r in scal
+           if r["tag"] == "train/edges_per_sec"][-n_epochs:]
+    print(f"pretraining path [{tier}]: {n_epochs} epochs, run {run_s:.2f} s, "
+          f"train losses {[round(x, 5) for x in losses]}, val losses "
+          f"{[round(x, 5) for x in vals]}, best {best:.5f}")
+    print("train message-edges/s per epoch: "
+          + ", ".join(f"{x / 1e6:.4f}M" for x in eps))
+    print("kernels: " + " ".join(f"{n}={c} (expected {expect[n]})"
+                                 for n, c in launches.items()))
+    if f"packed {tier}" not in text.getvalue():
+        raise AssertionError(f"run_pretrain did not report the {tier} tier")
+    if len(losses) != n_epochs or len(vals) != n_epochs \
+            or not np.isfinite(losses + vals).all():
+        raise AssertionError(f"pretraining is not finite: train {losses}, "
+                             f"val {vals}")
+    for n, c in launches.items():
+        if c != expect[n]:
+            raise AssertionError(f"{n} launched {c} times on the pretraining "
+                                 f"path [{tier}], expected {expect[n]}")
+    return launches, ckpt
+
+
+def timed_pretrain_step(popt, calls_buf, dev):
+    """Phase 13: one pretrain train step at batch 512 from a packed buffer
+    on the card — wall time (median of 5 after a warm-up), its stages each
+    ended by a synchronize, and one step's device busy time and top ops
+    with the plane builder's share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fragnet_tpu_torch.data.packing import (add_planes, plane_levels,
+                                                unpack_batch)
+    from fragnet_tpu_torch.train.optim import make_optimizer
+    from fragnet_tpu_torch.train.pretrain import (build_pretrain_model,
+                                                  make_pretrain_step,
+                                                  pretrain_loss)
+
+    buf, layout = calls_buf
+    model = build_pretrain_model(
+        popt, generator=torch.Generator().manual_seed(0)).to(dev)
+    opt, _ = make_optimizer(model.parameters(), "adam", lr=1e-4)
+    step = make_pretrain_step(model, opt, layout=layout, device=dev)
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(buf)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls[1:])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(buf)
+        torch.cuda.synchronize()
+    dev_busy, busy = _busy(prof)
+    k6_ms = sum(ms for key, ms in busy if "dense_planes_kernel" in key)
+    ours = {n: sum(ms for key, ms in busy if f"{n}_kernel" in key)
+            for n in GAT_KERNELS}
+    print(f"pretrain step at batch 512 (packed buffer on the card: unpack, "
+          f"planes, forward, backward, Adam): wall {wall:.2f} ms (median of "
+          f"5 after warm-up), device busy {dev_busy:.3f} ms "
+          f"({100 * dev_busy / wall:.1f}%) in {len(busy)} kernel kinds; "
+          f"plane builder {k6_ms:.3f} ms "
+          f"({100 * k6_ms / max(dev_busy, 1e-9):.1f}% of "
+          f"busy); " + ", ".join(f"{n} {ms:.3f}" for n, ms in ours.items())
+          + "; top: " + ", ".join(f"{k[:48]} {ms:.3f}" for k, ms in busy[:10]))
+    levels = plane_levels(model.policy)
+    stages = {"unpack (no planes)": [], "K6 planes": [], "forward+loss": [],
+              "backward": [], "adam": []}
+    model.train()
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        b = unpack_batch(buf, layout, planes=())
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        b = add_planes(b, layout, levels)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        loss = pretrain_loss(model(b), b)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        loss.backward()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for k, a, z in zip(stages, t, t[1:]):
+            stages[k].append((z - a) * 1e3)
+    print("pretrain step stages (host clock to a synchronize, median of 5): "
+          + ", ".join(f"{k} {statistics.median(v):.2f} ms"
+                      for k, v in stages.items()))
+
+
+def pretrain_grads_card_vs_cpu(popt, pgraphs, ckpt, dev):
+    """Phase 14: one pretrain step's loss and gradients — on the card from
+    the packed buffer (decoded there, K6 planes), on the CPU from the
+    unpacked host batch with host planes; the same weights (the pretraining
+    run's checkpoint), dropout off."""
+    import copy as _copy
+
+    import torch
+
+    from fragnet_tpu_torch.data.batcher import BatchLoader
+    from fragnet_tpu_torch.data.packing import plane_levels, unpack_batch
+    from fragnet_tpu_torch.graphs.batch import to_device
+    from fragnet_tpu_torch.graphs.hiergraph import pad_batch, spec_for
+    from fragnet_tpu_torch.train.checkpoint import load_params
+    from fragnet_tpu_torch.train.pretrain import (build_pretrain_model,
+                                                  pretrain_loss, split_graphs)
+
+    bs = int(popt.pretrain.batch_size)
+    train_g, _ = split_graphs(pgraphs, int(popt.seed))
+    spec = spec_for(pgraphs, batch_size=bs, tcsr=True)
+    loader = BatchLoader(train_g, bs, spec=spec, with_targets=True, pack=True)
+    buf = next(iter(loader))
+    host = pad_batch(next(loader._windows()), spec, with_targets=True)
+    model = load_params(build_pretrain_model(popt), ckpt).eval()
+
+    def loss_and_grads(d, packed):
+        m = _copy.deepcopy(model).to(d)
+        if packed:
+            b = unpack_batch(torch.from_numpy(buf).to(d), loader.layout,
+                             plane_levels(m.policy))
+        else:
+            b = to_device(host, d)
+        loss = pretrain_loss(m(b), b)
+        loss.backward()
+        return float(loss.detach()), {
+            n: (None if p.grad is None else p.grad.detach().cpu())
+            for n, p in m.named_parameters()}
+
+    l_gpu, g_gpu = loss_and_grads(dev, packed=True)
+    l_cpu, g_cpu = loss_and_grads(torch.device("cpu"), packed=False)
+    return _grad_diff(l_cpu, l_gpu, g_cpu, g_gpu)
+
+
+def _grad_diff(l_cpu, l_gpu, g_cpu, g_gpu):
+    """(worst relative diff, its name): the loss against its own value,
+    each gradient against its own scale — a gradient at round-off level (≤
+    1e-6 of the model's largest) against that level."""
+    scale = max(float(g.abs().max()) for g in g_cpu.values() if g is not None)
+    worst, worst_name = abs(l_gpu - l_cpu) / abs(l_cpu), "loss"
+    for n, gc in g_cpu.items():
+        gg = g_gpu[n]
+        if (gc is None) != (gg is None):
+            raise AssertionError(f"{n}: gradient on one device only")
+        if gc is None:
+            continue
+        rel = float((gg - gc).abs().max()) / max(float(gc.abs().max()),
+                                                 1e-6 * scale)
+        if rel > worst:
+            worst, worst_name = rel, n
+    return worst, worst_name
+
+
+def pretrain_phases(dev, pending, datasets):
+    """Phases 10-15: the pretraining path. ``pending`` is the PretrainGraphs
+    featurizing the config's synthetic set. Returns (the plane builder's
+    per-level report, each kernel's launches on the pretraining path)."""
+    import torch
+
+    from fragnet_tpu_torch.data.batcher import BatchLoader
+    from fragnet_tpu_torch.train.finetune import run_finetune
+
+    popt = pt_opt(PT_OVERRIDES)
+    pgraphs = pending.get()
+    print(f"pretrain featurization: ready {time.perf_counter() - pending.t0:.2f}"
+          f" s after its start, beside phases 3-9 ({len(pgraphs)} graphs, "
+          f"{pending.workers} processes)")
+
+    # ---- 10. the plane builder at batch 512 -------------------------------
+    t0 = time.perf_counter()
+    big_bs = int(PT_CONFIG["pretrain"]["batch_size"])
+    calls, n_mols = plane_calls(pgraphs, big_bs, dev)
+    print(f"plane builder check at batch {big_bs} ({n_mols} molecules):")
+    k6_report = check_planes(calls)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 11. the pretraining path: HBM packed tier ------------------------
+    t0 = time.perf_counter()
+    n_epochs = int(popt.pretrain.n_epochs)
+    expect, n_train, n_val = pretrain_expect(popt, pgraphs, n_epochs,
+                                             n_epochs)
+    print(f"pretraining path: {n_train} train steps/epoch, {n_val} val "
+          f"batches/epoch at batch {popt.pretrain.batch_size}")
+    launches, ckpt = drive_pretrain(popt, pgraphs, expect, "HBM")
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 12. the process-stream tier, one epoch ---------------------------
+    t0 = time.perf_counter()
+    sopt = pt_opt(PT_OVERRIDES, STREAM_OVERRIDES)
+    s_expect, _, _ = pretrain_expect(sopt, pgraphs, 1, 1)
+    drive_pretrain(sopt, pgraphs, s_expect, "process stream")
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 13. one train step at batch 512 from a packed buffer -------------
+    t0 = time.perf_counter()
+    from fragnet_tpu_torch.graphs.hiergraph import spec_for
+
+    rep = pgraphs * (-(-big_bs // len(pgraphs)))
+    big = BatchLoader(rep, big_bs, spec=spec_for(rep, big_bs, tcsr=True),
+                      with_targets=True, pack=True)
+    dbuf = torch.from_numpy(next(iter(big))).to(dev)
+    timed_pretrain_step(popt, (dbuf, big.layout), dev)
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 14. one pretrain step's gradients: card vs CPU -------------------
+    t0 = time.perf_counter()
+    worst, worst_name = pretrain_grads_card_vs_cpu(popt, pgraphs, ckpt, dev)
+    print(f"pretrain step cpu vs gpu (packed + K6 planes on the card, host "
+          f"planes on the CPU): worst relative diff {worst:.3e} "
+          f"({worst_name}) (limit {GRAD_REL_LIMIT}); phase 14: "
+          f"{time.perf_counter() - t0:.1f} s")
+    if worst > GRAD_REL_LIMIT:
+        raise AssertionError("card and CPU pretrain gradients disagree")
+
+    # ---- 15. the encoder transfer into finetuning -------------------------
+    t0 = time.perf_counter()
+    fopt = smoke_opt()
+    for k, v in {"pretrain.use": True, "pretrain.chk": ckpt,
+                 "exp_dir": os.path.join(REPO, "exps",
+                                         "chip_smoke_transfer")}.items():
+        fopt.set_path(k, v)
+    _rmse, ft_model = run_finetune(fopt, quiet=True, datasets=datasets,
+                                   device="cuda")
+    sd = torch.load(ckpt, map_location="cpu", weights_only=True)
+    enc = {k: v for k, v in ft_model.state_dict().items()
+           if k.startswith("pretrain.")}
+    bad = [k for k, v in enc.items() if not torch.equal(v.cpu(), sd[k])]
+    print(f"transfer: {len(enc)} encoder tensors of the finetune model equal "
+          f"the pretrain checkpoint's: {not bad}; phase 15: "
+          f"{time.perf_counter() - t0:.1f} s")
+    if bad or not enc:
+        raise AssertionError(f"encoder transfer differs at {bad[:5]}")
+    return k6_report, launches
+
+
 
 def main() -> int:
     import numpy as np
@@ -508,6 +1073,10 @@ def main() -> int:
                 print(f"  {src}: {line.strip()}")
 
     # ---- 3. data ----------------------------------------------------------
+    # the pretraining set featurizes in spawned processes meanwhile
+    pending = PretrainGraphs(pt_opt(PT_OVERRIDES),
+                             workers=max(1, (os.cpu_count() or 2) - 1))
+    atexit.register(pending.close)  # a failing phase leaves none running
     opt = smoke_opt()
     t0 = time.perf_counter()
     datasets = load_datasets(opt)
@@ -528,12 +1097,14 @@ def main() -> int:
     rng = np.random.default_rng(0)
     calls["dense_gat_fwd"].append(
         seeded_fconn_call(calls["dense_gat_fwd"][1], rng))
-    for name, k in KERNELS.items():
+    for name in GAT_KERNELS:
+        k = KERNELS[name]
         if k.fwd is not None:
             calls[name] = [(lvl, bwd_kernel_args(k.fwd, a, kw, rng), {})
                            for lvl, a, kw in calls[k.fwd]]
     report = {}
-    for name, k in KERNELS.items():
+    for name in GAT_KERNELS:
+        k = KERNELS[name]
         mod, _ = _counter(name)
         wrapper, plain = getattr(mod, name), getattr(mod, k.plain)
         per_level, seeded_err = [], 0.0
@@ -590,7 +1161,7 @@ def main() -> int:
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     launches = _launches()
-    expect = {n: (0 if k.fwd else n_layers * len(windows) * 2)
+    expect = {n: (0 if k.fwd or n == PLANES else n_layers * len(windows) * 2)
               for n, k in KERNELS.items()}
     print(f"prediction path: test rmse {rmse:.5f} eval {eval_s:.2f} s "
           f"({len(windows)} test batches)")
@@ -656,6 +1227,9 @@ def main() -> int:
         if len(list(train_loader._windows())) != n_train:
             raise AssertionError("a train epoch packs more batches than "
                                  "the loader's length")
+    # finetune.cache=auto caches the loaders on the device: every epoch runs
+    # the cached batches of the first pass, n_train of them (checked above),
+    # and the val and test loaders' as many as their windows
     steps = n_epochs * n_train
     fwd_calls = n_layers * 2 * (steps + n_epochs * n_val + len(windows))
     # backward: every layer's bond, fconn and atom pass, but the frag pass
@@ -663,9 +1237,10 @@ def main() -> int:
     # atoms (gat2.py overwrites x_frags), so the earlier layers' frag
     # outputs are off the loss's path and autograd never calls their
     # backward (nor does JAX's, with its symbolic zero cotangents)
+    # no plane builder: the finetune batches carry host-built planes
     expect = {"tcsr_gat_fwd": fwd_calls, "dense_gat_fwd": fwd_calls,
               "tcsr_gat_bwd": (n_layers + 1) * steps,
-              "dense_gat_bwd": n_layers * 2 * steps}
+              "dense_gat_bwd": n_layers * 2 * steps, PLANES: 0}
     _reset_launches()
     t0 = time.perf_counter()
     rmse_t, tr_model = run_finetune(topt, datasets=datasets, device="cuda")
@@ -756,41 +1331,39 @@ def main() -> int:
 
     l_gpu, g_gpu = loss_and_grads(dev)
     l_cpu, g_cpu = loss_and_grads(torch.device("cpu"))
-    scale = max(float(g.abs().max()) for g in g_cpu.values() if g is not None)
-    worst, worst_name = abs(l_gpu - l_cpu) / abs(l_cpu), "loss"
-    for n, gc in g_cpu.items():
-        gg = g_gpu[n]
-        if (gc is None) != (gg is None):
-            raise AssertionError(f"{n}: gradient on one device only")
-        if gc is None:
-            continue
-        # a gradient at round-off level (≤ 1e-6 of the model's largest) is
-        # held to that level instead of its own scale
-        rel = float((gg - gc).abs().max()) / max(float(gc.abs().max()),
-                                                 1e-6 * scale)
-        if rel > worst:
-            worst, worst_name = rel, n
+    worst, worst_name = _grad_diff(l_cpu, l_gpu, g_cpu, g_gpu)
     print(f"train step cpu vs gpu: loss {l_cpu:.6f} / {l_gpu:.6f}; worst "
           f"relative diff {worst:.3e} ({worst_name}) over {len(g_cpu)} "
           f"parameters (limit {GRAD_REL_LIMIT})")
     if worst > GRAD_REL_LIMIT:
         raise AssertionError("card and CPU gradients disagree")
 
+    # ---- 10.-15. the pretraining path -------------------------------------
+    k6_report, launches_pt = pretrain_phases(dev, pending, datasets)
+    report[PLANES] = (k6_report, 0.0)
+
     out = []
     for name, (per_level, seeded_err) in report.items():
-        tot_bytes = sum(p["bytes"] for p in per_level)
-        tot_flops = sum(p["flops"] for p in per_level)
+        # a GAT kernel: one layer's two levels of one finetune batch; the
+        # plane builder: its two levels of one batch-512 pretrain step
+        on_path = [p for p in per_level if p.get("on_path", True)]
+        tot_bytes = sum(p["bytes"] for p in on_path)
+        tot_flops = sum(p["flops"] for p in on_path)
         _, by = _bound_ms(tot_bytes, tot_flops)
         out.append({
             "name": name, "route": "cuda", "source": KERNELS[name].source,
-            "replaces": KERNELS[name].replaces, "launches": launches_t[name],
+            "replaces": KERNELS[name].replaces,
+            "launches": launches_pt[name],
+            "launches_by_path": {"finetune_train": launches_t[name],
+                                 "pretrain": launches_pt[name]},
             "max_abs_err": max([seeded_err]
                                + [p["max_abs_err"] for p in per_level]),
-            # one layer's two levels of one batch
-            "ms": sum(p["ms"] for p in per_level),
-            "plain_ms": sum(p["plain_ms"] for p in per_level),
-            "bound_ms": sum(p["bound_ms"] for p in per_level),
-            "bound_by": by, "library_ms": None,
+            "ms": sum(p["ms"] for p in on_path),
+            "plain_ms": sum(p["plain_ms"] for p in on_path),
+            "bound_ms": sum(p["bound_ms"] for p in on_path),
+            "bound_by": by,
+            "library_ms": (sum(p["library_ms"] for p in on_path)
+                           if name == PLANES else None),
             "levels": per_level,
         })
     print(f"total: {time.perf_counter() - t_all:.1f} s")

@@ -1,8 +1,13 @@
-"""Static-shape batch loader: shuffling and padding to one PadSpec.
+"""Static-shape batch loader: shuffling and padding to one PadSpec, the
+packed single-buffer transport (data/packing.py) with threaded or spawned
+pack workers, and the dataset caches (counterpart of
+fragnet_tpu/data/batcher.py without BucketedBatchLoader).
 
 Replacement for torch DataLoader + collate_fn: every emitted batch has the
 shape of one PadSpec; molecules are packed greedily until a cap would
-overflow. Batches stay numpy; graphs/batch.py moves them to a device.
+overflow. Batches stay numpy until a device cache or the step moves them
+(graphs/batch.py); this module imports no torch at load time, so spawned
+pack workers stay light.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ class BatchLoader:
         with_targets: bool = False,
         drop_last: bool = False,
         on_oversize: str = "skip",
+        pack: bool = False,
     ):
         self.graphs = list(graphs)
         self.batch_size = batch_size
@@ -49,6 +55,11 @@ class BatchLoader:
         if on_oversize not in ("skip", "error"):
             raise ValueError(f"on_oversize={on_oversize!r} (skip|error)")
         self.on_oversize = on_oversize
+        # pack=True: emit single-buffer packed batches (data/packing.py),
+        # padded without dense planes (unpack_batch rebuilds them on the
+        # device); the layout is built from the first batch
+        self.pack = pack
+        self.layout = None
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -123,5 +134,325 @@ class BatchLoader:
 
     def __iter__(self) -> Iterator[HierGraphBatch]:
         for window in self._windows():
-            yield pad_batch(window, self.spec, n_tasks=self.n_tasks,
-                            with_targets=self.with_targets)
+            batch = pad_batch(window, self.spec, n_tasks=self.n_tasks,
+                              with_targets=self.with_targets,
+                              build_dense=not self.pack,
+                              strict_tcsr=self.pack and self.spec.tcsr)
+            if self.pack:
+                from fragnet_tpu_torch.data.packing import (_DP_LEVELS,
+                                                            build_layout,
+                                                            dp_level_ok,
+                                                            pack_batch)
+
+                validate = self.layout is None
+                if validate:
+                    # levels whose dense planes unpack_batch can rebuild on
+                    # the device for EVERY batch of this dataset (tile-local
+                    # + collision-free; packing.dp_level_ok)
+                    dp_levels = ()
+                    if self.spec.align and self.spec.tcsr:
+                        dp_levels = tuple(
+                            l for l in _DP_LEVELS
+                            if dp_level_ok(self.graphs, l,
+                                           self.spec.tn_of(l[3:])))
+                    self.layout = build_layout(batch, aligned=self.spec.align,
+                                               dp_levels=dp_levels)
+                batch = pack_batch(batch, self.layout, validate=validate)
+            yield batch
+
+    def _iter_packed_indexed(self, n_epochs: int, worker_id: int,
+                             n_workers: int):
+        """(global_index, packed bytes) for every batch assigned to this
+        worker over ``n_epochs`` epochs. Every worker walks the IDENTICAL
+        deterministic window sequence (cheap greedy sums) and pays
+        pad+pack only for its own stride — the multi-process pack path."""
+        if not self.pack or self.layout is None:
+            raise ValueError("packed iteration needs pack=True and a layout")
+        from fragnet_tpu_torch.data.packing import pack_batch
+
+        idx = 0
+        for _ in range(n_epochs):
+            for window in self._windows():
+                if idx % n_workers == worker_id:
+                    b = pad_batch(window, self.spec, n_tasks=self.n_tasks,
+                                  with_targets=self.with_targets,
+                                  build_dense=False,
+                                  strict_tcsr=self.spec.tcsr)
+                    yield (idx, pack_batch(b, self.layout).tobytes())
+                idx += 1
+
+    def prefetch(self, depth: int = 2) -> Iterator[HierGraphBatch]:
+        """Iterate with batches produced by a background thread into a
+        bounded queue, overlapping host padding/packing with the device's
+        work (the role of torch DataLoader workers in the reference,
+        finetune_gat2.py:240)."""
+        return _threaded(lambda: iter(self), depth)
+
+    def _host_copy(self) -> "BatchLoader":
+        """A loader with the same graphs, spec, shuffle state and layout —
+        what a spawned pack worker receives."""
+        host = BatchLoader(
+            self.graphs, self.batch_size, spec=self.spec, shuffle=self.shuffle,
+            seed=self.seed, n_tasks=self.n_tasks,
+            with_targets=self.with_targets, drop_last=self.drop_last,
+            on_oversize=self.on_oversize, pack=True)
+        host.layout = self.layout
+        return host
+
+    def stream(self, n_epochs: int, depth: int = 3, process: bool = False,
+               workers: int = 1) -> Iterator[HierGraphBatch]:
+        """``n_epochs`` epochs as ONE continuous background-producer stream —
+        no pipeline drain at epoch boundaries (each epoch reshuffles when
+        ``shuffle``). The pretraining shape: epochs are long, batches flow
+        back-to-back.
+
+        ``process=True`` (requires ``pack``) pads+packs in spawned worker
+        PROCESSES, so GIL-heavy numpy packing does not serialize with the
+        training loop's host dispatch. The workers import numpy-only modules
+        and never touch torch or CUDA; the step moves each buffer to the
+        device.
+
+        ``workers`` > 1 shards batches round-robin over that many pack
+        processes (each walks the same deterministic shuffle and packs every
+        k-th batch); the parent re-orders by global batch index."""
+        if not process:
+            def gen():
+                for _ in range(n_epochs):
+                    yield from self
+            yield from _threaded(gen, depth)
+            return
+
+        if not self.pack:
+            raise ValueError("process streaming requires pack=True "
+                             "(HierGraphBatch pickling would dominate)")
+        if self.layout is None:
+            next(iter(self))  # build the layout in the parent first
+        import multiprocessing as mp
+        import queue as _queue
+
+        # spawn, not fork: the parent may hold CUDA state and threads, under
+        # which fork() deadlocks; spawned workers re-import numpy-only code
+        # and receive the loader by pickle
+        ctx = mp.get_context("spawn")
+        workers = max(1, int(workers))
+        q = ctx.Queue(maxsize=max(depth, 2 * workers))
+        host = self._host_copy()
+        host._epoch = self._epoch
+        procs = [ctx.Process(target=_pack_worker,
+                             args=(host, q, n_epochs, w, workers), daemon=True)
+                 for w in range(workers)]
+        for p in procs:
+            p.start()
+        done_workers = 0
+        try:
+            pending: dict = {}
+            next_idx = 0
+            while done_workers < workers:
+                while next_idx in pending:
+                    yield pending.pop(next_idx)
+                    next_idx += 1
+                # bounded wait: a dead or stuck worker surfaces as an error,
+                # not as a hang of the training loop
+                try:
+                    item = q.get(timeout=300)
+                except _queue.Empty:
+                    alive = sum(p.is_alive() for p in procs)
+                    raise RuntimeError(
+                        f"pack workers produced nothing for 300s "
+                        f"(alive={alive}/{workers})") from None
+                if item is None:
+                    done_workers += 1
+                    continue
+                if isinstance(item, str):  # worker traceback
+                    raise RuntimeError(f"pack worker failed:\n{item}")
+                idx, raw = item
+                pending[idx] = np.frombuffer(raw, np.uint8)
+            while next_idx in pending:
+                yield pending.pop(next_idx)
+                next_idx += 1
+        finally:
+            # workers of a stream closed early (a consumer that stopped, a
+            # cache over budget) are still producing: stop them at once
+            for p in procs:
+                if done_workers < workers:
+                    p.terminate()
+                p.join(timeout=5)
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=5)
+
+
+def _threaded(make_iter, depth: int):
+    """Iterate ``make_iter()`` in a background thread through a bounded
+    queue; an exception in the thread is raised in the consumer."""
+    import queue as _queue
+    import threading
+
+    q: _queue.Queue = _queue.Queue(maxsize=depth)
+    done = object()
+
+    def worker():
+        try:
+            for b in make_iter():
+                q.put(b)
+            q.put(done)
+        except BaseException as exc:  # surfaced to the consumer below
+            q.put(exc)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is done:
+            return
+        if isinstance(item, BaseException):
+            raise item
+        yield item
+
+
+def _pack_worker(loader: "BatchLoader", q, n_epochs: int,
+                 worker_id: int = 0, n_workers: int = 1) -> None:
+    """Spawned packing worker — numpy only, never touches torch. Walks the
+    same deterministic shuffle as every other worker, pads+packs every
+    ``n_workers``-th batch, and tags each with its global index so the
+    parent can restore order."""
+    try:
+        for item in loader._iter_packed_indexed(n_epochs, worker_id,
+                                                n_workers):
+            q.put(item)
+        q.put(None)
+    except BaseException:
+        import traceback
+
+        q.put(traceback.format_exc())
+
+
+class PackedCacheLoader:
+    """Host-RAM cache of PACKED batches: pad+pack each batch ONCE (in
+    parallel pack workers), then every later epoch replays the uint8 buffers
+    in a reshuffled order — steady-state epochs skip the host padding and
+    packing, leaving only the transfer, which the step makes from pinned
+    memory (graphs/batch.py:PackedUploader). The streamed-pretrain steady
+    state for datasets that exceed the device cache but fit host RAM packed.
+
+    Batch COMPOSITION is fixed after the packing pass; only batch ORDER
+    reshuffles per epoch (as DeviceCacheLoader)."""
+
+    def __init__(self, loader: BatchLoader, seed: int = 0, workers: int = 1,
+                 max_bytes: Optional[int] = None):
+        if not loader.pack:
+            raise ValueError("PackedCacheLoader requires pack=True")
+        if loader.layout is None:
+            next(iter(loader))  # build the layout (advances shuffle state)
+            loader._epoch = max(0, loader._epoch - 1)
+        self.loader = loader
+        self.seed = seed
+        self._epoch = 0
+        self.bufs: List[np.ndarray] = []
+        host = loader._host_copy()
+        it = (host.stream(1, depth=2 * max(1, workers), process=True,
+                          workers=workers)
+              if workers > 1 else iter(host))
+        budget = max_bytes if max_bytes is not None else (8 << 30)
+        for buf in it:
+            self.bufs.append(np.asarray(buf))
+            if len(self.bufs) * loader.layout.total_bytes > budget:
+                raise MemoryError(
+                    f"packed dataset exceeds the host cache budget "
+                    f"({budget / 1e9:.1f} GB) — stream instead "
+                    f"(BatchLoader.stream)")
+
+    @property
+    def layout(self):
+        return self.loader.layout
+
+    def __len__(self) -> int:
+        return len(self.bufs)
+
+    def __iter__(self):
+        order = np.random.default_rng(self.seed + self._epoch).permutation(
+            len(self.bufs))
+        self._epoch += 1
+        for i in order:
+            yield self.bufs[i]
+
+    def stream(self, n_epochs: int):
+        """n_epochs as one continuous iterator. The buffers are in memory
+        and the step's copy does not block the host, so no prefetch thread
+        is needed (the JAX package's thread overlapped its device_put)."""
+        for _ in range(n_epochs):
+            yield from self
+
+
+class DevicePackedCacheLoader:
+    """Device-resident PACKED dataset: pack every batch once (parallel
+    workers), copy the uint8 buffers to ``device`` ONCE (one tensor, a row
+    per batch), and replay them in a reshuffled order per epoch — zero host
+    work and zero transfers in steady state; the step unpacks on the device
+    with the plane builder (ops/dense_gat.py). Packed batches are ~6x
+    smaller than padded ones, so this covers pretrain-scale datasets that
+    DeviceCacheLoader cannot hold. Composition is fixed after packing;
+    order reshuffles."""
+
+    def __init__(self, loader: BatchLoader, seed: int = 0, workers: int = 1,
+                 max_bytes: Optional[int] = None, device="cuda"):
+        import torch
+
+        host = PackedCacheLoader(loader, seed=seed, workers=workers,
+                                 max_bytes=max_bytes if max_bytes is not None
+                                 else (6 << 30))
+        self.loader = loader
+        self.seed = seed
+        self._epoch = 0
+        stacked = np.stack(host.bufs) if host.bufs else np.zeros(
+            (0, loader.layout.total_bytes), np.uint8)
+        host.bufs = []  # free the host copies as soon as they are stacked
+        self.bufs = torch.from_numpy(stacked).to(device)
+
+    @property
+    def layout(self):
+        return self.loader.layout
+
+    def __len__(self) -> int:
+        return int(self.bufs.shape[0])
+
+    def __iter__(self):
+        order = np.random.default_rng(self.seed + self._epoch).permutation(
+            len(self))
+        self._epoch += 1
+        for i in order:
+            yield self.bufs[int(i)]
+
+    def stream(self, n_epochs: int):
+        """n_epochs as one continuous iterator (the buffers are already on
+        the device — no prefetch machinery needed)."""
+        for _ in range(n_epochs):
+            yield from self
+
+
+class DeviceCacheLoader:
+    """Device-resident dataset: materializes every batch on ``device`` ONCE
+    and yields them in a shuffled order per epoch; the step's ``to_device``
+    then leaves them as they are. MoleculeNet-scale finetune sets fit
+    easily, so after the first epoch the input pipeline costs nothing.
+
+    Divergence note vs the reference DataLoader(shuffle=True): batch
+    COMPOSITION is fixed after the first pass; only batch ORDER reshuffles
+    (as the JAX package's, whose re-pad option ``reshuffle_every`` no entry
+    point sets)."""
+
+    def __init__(self, loader: BatchLoader, seed: int = 0, device="cuda"):
+        from fragnet_tpu_torch.graphs.batch import to_device
+
+        self.seed = seed
+        self._epoch = 0
+        self.batches: List = [to_device(b, device) for b in loader]
+
+    def __len__(self) -> int:
+        return len(self.batches)
+
+    def __iter__(self):
+        order = np.random.default_rng(self.seed + self._epoch).permutation(
+            len(self.batches))
+        self._epoch += 1
+        for i in order:
+            yield self.batches[i]

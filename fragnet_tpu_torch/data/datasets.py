@@ -1,13 +1,18 @@
 """Dataset creation + persistence.
 
-Reference: fragnet/dataset/dataset.py (FinetuneData:65-111,
-load_pickle_dataset:273-277) — SMILES + targets → conformer → FragmentedMol
-→ MolGraph arrays, with multiprocessing featurization and pickle
-persistence.
+Reference: fragnet/dataset/dataset.py (FinetuneData:65-111, get_pt_dataset:
+19-62, load_pickle_dataset:273-277, load_data_parts:280-292) — SMILES +
+targets → conformer → FragmentedMol → MolGraph arrays, with multiprocessing
+featurization and pickle shard persistence.
+
+Pickles written by the JAX package hold ``fragnet_tpu.graphs.build.MolGraph``
+objects; ``load_pickle_dataset`` maps that class to the port's MolGraph, so
+reading them never imports the JAX package.
 """
 
 from __future__ import annotations
 
+import glob
 import os
 import pickle
 from typing import List, Optional, Sequence
@@ -62,6 +67,38 @@ def build_graphs(
     return [g for g in out if g is not None]
 
 
+class PretrainData:
+    """SMILES → multi-conformer pretrain graphs with geometric targets and
+    force-field energy as y (reference get_pt_dataset, dataset.py:19-62)."""
+
+    def __init__(self, data_type: str = "exp1s", frag_type: str = "brics",
+                 num_conf: int = 1, max_iters: int = 200,
+                 compat_reference_targets: bool = False):
+        self.data_type = data_type
+        self.frag_type = frag_type
+        self.num_conf = num_conf
+        self.max_iters = max_iters
+        self.compat_reference_targets = compat_reference_targets
+
+    def get_pt_dataset(self, smiles: Sequence[str], seed: int = 42) -> List[MolGraph]:
+        builder = GraphBuilder(
+            self.data_type, add_dhangles=True,
+            compat_reference_targets=self.compat_reference_targets)
+        out = []
+        for s in smiles:
+            r = engine.mol_3d_multi(s, num_conf=self.num_conf, seed=seed,
+                                    max_iters=self.max_iters)
+            if r is None:
+                continue
+            mol, confs = r
+            for conf, energy in confs:
+                g = builder.build(mol, conf, [energy], smiles=s,
+                                  frag_type=self.frag_type)
+                if g is not None:
+                    out.append(g)
+        return out
+
+
 # ---------------------------------------------------------------------------
 # persistence (pickle shards, reference dataset/utils.py:41-43,121-156)
 # ---------------------------------------------------------------------------
@@ -72,6 +109,44 @@ def save_pickle_dataset(graphs: List[MolGraph], path: str) -> None:
         pickle.dump(graphs, f)
 
 
+class _GraphUnpickler(pickle.Unpickler):
+    """Reads the JAX package's MolGraph pickles as the port's MolGraph."""
+
+    def find_class(self, module, name):
+        if module == "fragnet_tpu.graphs.build" and name == "MolGraph":
+            return MolGraph
+        return super().find_class(module, name)
+
+
 def load_pickle_dataset(path: str) -> List[MolGraph]:
     with open(path, "rb") as f:
-        return pickle.load(f)
+        return _GraphUnpickler(f).load()
+
+
+def save_ds_parts(graphs: List[MolGraph], out_dir: str, name: str = "part",
+                  shard_size: int = 1000) -> None:
+    os.makedirs(out_dir, exist_ok=True)
+    for i in range(0, len(graphs), shard_size):
+        save_pickle_dataset(
+            graphs[i : i + shard_size],
+            os.path.join(out_dir, f"{name}_{i // shard_size:05d}.pkl"),
+        )
+
+
+def load_data_parts(dir_or_glob: str, dedup: bool = True) -> List[MolGraph]:
+    """Load shards; optionally dedup by SMILES (pretrain_gat2.py:133-135)."""
+    paths = (
+        sorted(glob.glob(os.path.join(dir_or_glob, "*.pkl")))
+        if os.path.isdir(dir_or_glob)
+        else sorted(glob.glob(dir_or_glob))
+    )
+    out: List[MolGraph] = []
+    seen = set()
+    for p in paths:
+        for g in load_pickle_dataset(p):
+            if dedup:
+                if g.smiles in seen:
+                    continue
+                seen.add(g.smiles)
+            out.append(g)
+    return out

@@ -11,7 +11,10 @@ pass is dense masked attention per (tn, tn) tile over host-built planes:
     z[i,j,h] = leaky(wd[i,h] + ws[j,h] + Σ_r EA_r[i,j]·v[r,h] + c[h])
     out[i]   = Σ_j softmax_j(z masked by adj)[i,j,h] · nf[j,h,:]
 
-Parts: ``build_dense_planes`` (host, numpy), the forward kernel wrapper
+Parts: ``build_dense_planes`` (host, numpy), the device plane builder
+``build_dense_planes_device`` (csrc/dense_planes.cu, which replaces
+dense_gat.py:_plane_builder_kernel) and its plain version
+``build_dense_planes_device_plain``, the forward kernel wrapper
 ``dense_gat_fwd`` (csrc/dense_gat_fwd.cu, which replaces dense_gat.py:
 _fwd_kernel) and its plain version ``dense_gat_fwd_plain``, the backward
 kernel wrapper ``dense_gat_bwd`` (csrc/dense_gat_bwd.cu, which replaces
@@ -42,6 +45,8 @@ KERNEL = _cuda.CudaKernel(
 KERNEL_BWD = _cuda.CudaKernel(
     "dense_gat_bwd.cu", "dense_gat_bwd",
     [_VP] * 13 + [_I] * 5 + [ctypes.c_float, _VP])
+KERNEL_PLANES = _cuda.CudaKernel(
+    "dense_planes.cu", "dense_planes", [_VP] * 7 + [_I] * 5 + [_VP])
 
 _KERNEL_H = (1, 2, 4, 8)
 _KERNEL_TN = (32, 64, 128, 256)
@@ -85,6 +90,95 @@ def build_dense_planes(
     for r in range(R):
         planes[t, (r + 1) * tn + di, sj] = a[:, r]
     return planes
+
+
+# --------------------------------------------------------------------------
+# device-side plane builder and its plain version
+# --------------------------------------------------------------------------
+
+_PLANES_R = (0, 1, 6)
+
+
+def _plane_edges(src, dst, edge_mask, n_nodes: int, meta):
+    """(edge ids, their tile, dst mod tn, src mod tn) of the edges that the
+    plane builder adds: inside their destination tile's TCSR edge window
+    (``ew_blk[t]`` .. ``ew_blk[t] + cw[t] - 1`` te-blocks), ``edge_mask > 0``,
+    both endpoints in that tile."""
+    tn, te = meta.tn, meta.te
+    T = n_nodes // tn
+    s, d = src.long(), dst.long()
+    t = d // tn
+    tc = t.clamp(0, max(T - 1, 0))
+    lo = meta.ew_blk.long()[tc] * te
+    hi = lo + meta.cw.long()[tc] * te
+    eids = torch.arange(src.shape[0], device=src.device)
+    keep = ((edge_mask > 0) & (t < T) & (s // tn == t) & (eids >= lo)
+            & (eids < hi))
+    k = keep.nonzero().squeeze(1)
+    return k, t[k], d[k] % tn, s[k] % tn
+
+
+def build_dense_planes_device_plain(src, dst, edge_mask, edge_attr,
+                                    n_nodes: int, meta):
+    """Plain PyTorch version of the plane builder: a zeros tensor, then one
+    accumulating ``index_put_`` of (1, ea[e, 0..R-1]) for every kept edge
+    of each tile's window. Same output as ``build_dense_planes_device``."""
+    tn = meta.tn
+    T = n_nodes // tn
+    R = 0 if edge_attr is None else int(edge_attr.shape[1])
+    k, t, di, sj = _plane_edges(src, dst, edge_mask, n_nodes, meta)
+    vals = torch.ones((k.shape[0], R + 1), dtype=torch.float32,
+                      device=src.device)
+    if R:
+        vals[:, 1:] = edge_attr[k].float()
+    planes = torch.zeros((T, R + 1, tn, tn), dtype=torch.float32,
+                         device=src.device)
+    r = torch.arange(R + 1, device=src.device)[None, :]
+    planes.index_put_((t[:, None], r, di[:, None], sj[:, None]), vals,
+                      accumulate=True)
+    return planes.reshape(T, (R + 1) * tn, tn)
+
+
+def build_dense_planes_device(src, dst, edge_mask, edge_attr, n_nodes: int,
+                              meta):
+    """The dense planes of one level, built on the batch's device from its
+    per-edge arrays over the level's ``TileMeta`` edge windows (the JAX
+    package's build_dense_planes_device, dense_gat.py:168): (n_tiles,
+    (R+1)*tn, tn) f32, the layout of ``build_dense_planes``, for R in
+    {0, 1, 6}. ``src``/``dst`` (E,) int32, ``edge_mask`` (E,) f32,
+    ``edge_attr`` (E, R) f32 or None (R = 0). On a CUDA tensor this launches
+    csrc/dense_planes.cu (which replaces dense_gat.py:_plane_builder_kernel);
+    on a CPU tensor it runs the plain version. Exact for batches that
+    packing.dp_level_ok admits (tile-local, no repeated (dst, src) slot)."""
+    if src.device.type == "cpu":
+        return build_dense_planes_device_plain(src, dst, edge_mask,
+                                               edge_attr, n_nodes, meta)
+    if src.device.type != "cuda":
+        raise ValueError(f"no dense_planes kernel for device {src.device}")
+    tn, te = meta.tn, meta.te
+    R = 0 if edge_attr is None else int(edge_attr.shape[1])
+    E = int(src.shape[0])
+    if R not in _PLANES_R or tn not in _KERNEL_TN or n_nodes % tn:
+        raise ValueError(f"dense_planes: unsupported R={R} tn={tn} "
+                         f"n_nodes={n_nodes} (R in {_PLANES_R}, tn in "
+                         f"{_KERNEL_TN}, n_nodes a multiple of tn)")
+    T = n_nodes // tn
+    dev = src.device
+    i32, f32 = torch.int32, torch.float32
+    for arg, t, dt, shape in (("src", src, i32, (E,)), ("dst", dst, i32, (E,)),
+                              ("edge_mask", edge_mask, f32, (E,)),
+                              ("ew_blk", meta.ew_blk, i32, (T,)),
+                              ("cw", meta.cw, i32, (T,))):
+        _cuda.check(t, arg, dt, shape, dev)
+    if R:
+        _cuda.check(edge_attr, "edge_attr", f32, (E, R), dev)
+    out = torch.empty((T, (R + 1) * tn, tn), dtype=f32, device=dev)
+    P = _cuda.ptr
+    KERNEL_PLANES.launch(P(src), P(dst), P(edge_mask),
+                         P(edge_attr) if R else ctypes.c_void_p(0),
+                         P(meta.ew_blk), P(meta.cw), P(out), T, tn, R, E, te,
+                         _cuda.stream_ptr(dev))
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -18,6 +18,8 @@ fragnet_tpu/train/checkpoint.py:_torch_key_to_flax maps the other way:
   pretrain/layers_{i}/{a_b,a,f,f_a_b} → pretrain.layers.{i}.{a_b,a,f,f_a_b}
   head/_MLPHead_0/predictor_{k}/*     → fthead.predictor.{k}.*
   head/{lin1,out,dense,out_proj}/*    → fthead.{lin1,out,dense,out_proj}.*
+  head/bl_reduce_layer/*              → head.bl_reduce_layer.*   (pretrain)
+  head/{bl,ba,da,FC}_layers/layers_{k}/* → head.{bl,ba,da,FC}_layers.{k}.*
 
 Dense kernels (in, out) become Linear weights (out, in).
 """
@@ -58,11 +60,19 @@ def _torch_name(path: Tuple[str, ...]) -> str:
     m = re.fullmatch(r"head/(lin1|out|dense|out_proj)/(kernel|bias)", key)
     if m:
         return f"fthead.{m.group(1)}.{_LEAF[m.group(2)]}"
+    m = re.fullmatch(r"head/bl_reduce_layer/(kernel|bias)", key)
+    if m:
+        return f"head.bl_reduce_layer.{_LEAF[m.group(1)]}"
+    m = re.fullmatch(r"head/(bl|ba|da|FC)_layers/layers_(\d+)/(kernel|bias)",
+                     key)
+    if m:
+        return f"head.{m.group(1)}_layers.{m.group(2)}.{_LEAF[m.group(3)]}"
     raise KeyError(f"no port parameter for flax param {key!r}")
 
 
 def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """fragnet_tpu FragNetFineTune params → the port's ``state_dict``
+    """fragnet_tpu FragNetFineTune or FragNetPreTrain params → the port's
+    ``state_dict``
     (f32 CPU tensors); raises KeyError on a param the port has no name
     for."""
     tree = params["params"] if "params" in params else params
@@ -92,4 +102,27 @@ def load_params(model: torch.nn.Module, path: str) -> torch.nn.Module:
     into ``model`` (strict names and shapes) on the model's device."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(sd, strict=True)
+    return model
+
+
+def transfer_pretrained_encoder(model: torch.nn.Module,
+                                pretrain_state: Mapping[str, torch.Tensor]
+                                ) -> torch.nn.Module:
+    """Copy the encoder — every ``pretrain.*`` entry — of a pretrain
+    ``state_dict`` (a port pretrain checkpoint) into
+    ``model`` (the JAX package's transfer_pretrained_encoder,
+    checkpoint.py:435). Every encoder entry of ``model`` must be present
+    with its shape; the head keeps its own parameters."""
+    own = model.state_dict()
+    enc = {k: v for k, v in pretrain_state.items() if k.startswith("pretrain.")}
+    want = {k for k in own if k.startswith("pretrain.")}
+    if set(enc) != want:
+        raise KeyError(f"encoder entries differ: missing "
+                       f"{sorted(want - set(enc))[:5]}, unexpected "
+                       f"{sorted(set(enc) - want)[:5]}")
+    for k, v in enc.items():
+        if tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"{k}: checkpoint {tuple(v.shape)} vs model "
+                             f"{tuple(own[k].shape)}")
+    model.load_state_dict(enc, strict=False)
     return model

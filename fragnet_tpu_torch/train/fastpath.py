@@ -9,11 +9,13 @@ per-level kernel policy, resolved in one place for every entry point.
     TCSR tile metadata and tile-aligned dense planes (``align`` follows it,
     graphs/hiergraph.py:spec_for) and every GAT pass runs a kernel;
   * ``kernel`` — the per-level KernelPolicy from ``kernel.*`` config keys;
-  * ``finetune.cache`` — 'auto' and 'off' run uncached (the
-    train loader reshuffles molecules per epoch; the JAX package's
-    DeviceCacheLoader, which instead reshuffles the order of cached batches,
-    is not ported), 'on' raises (ROADMAP.md Queue A6). The JAX package also
-    runs uncached under 'auto' whenever the padded set exceeds its budget.
+  * ``cache``  — the finetune/pretrain section's ``cache``: 'auto' wraps a
+    loader in DeviceCacheLoader (data/batcher.py) when its padded batches
+    fit ``CACHE_BUDGET_BYTES`` (the JAX package's 4 GB budget, not tuned
+    for the GPU), 'on' always does, 'off' never does (``maybe_cache``). A
+    cached loader fixes batch composition after its first pass and
+    reshuffles batch order per epoch, as the JAX package's does, so the two
+    packages draw the same batches from the same seed.
 """
 
 from __future__ import annotations
@@ -26,13 +28,18 @@ import torch
 from fragnet_tpu_torch.model.layers import KernelPolicy
 
 # model families whose layers consume TCSR tile metadata (FragNet core)
-TCSR_FAMILIES = frozenset({"gat2"})
+TCSR_FAMILIES = frozenset({"gat2", "gat2_masked", "gat2_masked2"})
+
+# device budget for dataset caching (the JAX package's conservative value;
+# leaves room for parameters, activations and workspace)
+CACHE_BUDGET_BYTES = 4 << 30
 
 
 @dataclasses.dataclass(frozen=True)
 class FastPath:
     tcsr: bool
     device: torch.device
+    cache: str = "auto"      # 'auto' | 'on' | 'off'
     kernel: KernelPolicy = KernelPolicy()
 
 
@@ -59,22 +66,17 @@ def resolve_kernel_policy(section) -> KernelPolicy:
                         attr=bool(getk("attr", False)))
 
 
-def resolve_cache(section) -> None:
-    """Checks ``finetune.cache``: the port always runs uncached (see the
-    module docstring), so 'on' raises."""
+def resolve_cache(section) -> str:
+    """The section's ``cache`` policy: 'auto', 'on' or 'off'."""
     cache = str(section.get("cache", "auto")).lower()
     if cache not in ("auto", "on", "off"):
         raise ValueError(f"unknown cache policy {cache!r} (auto|on|off)")
-    if cache == "on":
-        raise NotImplementedError(
-            "finetune.cache=on: the device-resident dataset cache "
-            "(DeviceCacheLoader) is not ported yet (ROADMAP.md Queue A6); "
-            "use auto or off (both run uncached)")
+    return cache
 
 
 def resolve(section, model_version: str = "gat2",
             device: Union[str, torch.device, None] = None) -> FastPath:
-    """``section`` is the finetune config subtree (supports .get)."""
+    """``section`` is the finetune/pretrain config subtree (supports .get)."""
     dev = resolve_device(device)
     dname = str(section.get("dtype", "f32")).lower()
     if dname in ("bf16", "bfloat16"):
@@ -85,9 +87,40 @@ def resolve(section, model_version: str = "gat2",
         raise ValueError(f"unknown dtype {dname!r} (bf16|f32)")
     tcsr_default = dev.type == "cuda" and model_version in TCSR_FAMILIES
     tcsr = bool(section.get("tcsr", tcsr_default))
-    resolve_cache(section)
-    return FastPath(tcsr=tcsr, device=dev,
+    return FastPath(tcsr=tcsr, device=dev, cache=resolve_cache(section),
                     kernel=resolve_kernel_policy(section))
+
+
+def padded_batch_bytes(spec, n_tasks: int = 1) -> int:
+    """Upper-bound bytes of one padded HierGraphBatch (f32/i32 leaves)."""
+    b = 0
+    b += spec.n_atoms * (167 + 1 + 1 + 1) * 4           # x_atoms, masks, segs
+    b += spec.n_edges * (2 + 17 + 1 + 17) * 4           # ei, attr, mask, nf
+    b += spec.n_bg_edges * (2 + 1 + 1) * 4
+    b += spec.n_frags * (167 + 1 + 1) * 4
+    b += spec.n_fconn * (2 + 6 + 1 + 6) * 4
+    b += spec.n_fc_edges * (2 + 6 + 1) * 4
+    b += spec.n_graphs * (n_tasks + 1) * 4
+    return b
+
+
+def maybe_cache(loader, device, spec=None, n_tasks: int = 1,
+                policy: str = "auto", seed: int = 0,
+                budget: int = CACHE_BUDGET_BYTES):
+    """Wrap a BatchLoader in DeviceCacheLoader on ``device`` when the padded
+    dataset fits the budget (or the policy forces it). Returns the loader
+    unchanged when caching is off or the set does not fit."""
+    if policy == "off":
+        return loader
+    if policy == "auto":
+        spec = spec if spec is not None else getattr(loader, "spec", None)
+        if spec is None:
+            return loader
+        if padded_batch_bytes(spec, n_tasks) * max(1, len(loader)) > budget:
+            return loader
+    from fragnet_tpu_torch.data.batcher import DeviceCacheLoader
+
+    return DeviceCacheLoader(loader, seed=seed, device=device)
 
 
 def epoch_message_edges(graphs, num_layer: int) -> float:

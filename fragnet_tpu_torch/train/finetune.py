@@ -135,10 +135,6 @@ def _refuse_unported(opt) -> None:
     if ft.get("standardize", False):
         raise NotImplementedError("finetune.standardize is not ported yet "
                                   "(ROADMAP.md Queue A10)")
-    pt = opt.get("pretrain", None)
-    if pt and pt.get("use", False):
-        raise NotImplementedError("pretrain.use: encoder transfer is not "
-                                  "ported yet (ROADMAP.md Queue A7)")
 
 
 def run_finetune(opt, quiet: bool = False, datasets=None,
@@ -146,6 +142,9 @@ def run_finetune(opt, quiet: bool = False, datasets=None,
     """The single-device finetune run (the JAX package's run_finetune,
     fragnet_tpu/train/finetune.py:210-484, without its distributed,
     bucketed and standardized branches): build the model from ``seed``,
+    load the encoder from a pretrain checkpoint when ``pretrain.use`` and
+    ``pretrain.chk`` are set, cache the loaders on the device as
+    ``finetune.cache`` says (``fastpath.maybe_cache``),
     train ``finetune.n_epochs`` epochs with Adam, validate, early-stop and
     save ``exp_dir/ft.ckpt`` on each improvement, log ``scalars.jsonl``,
     then test the best parameters, print ``test rmse`` (or ``roc_auc``) and
@@ -155,7 +154,8 @@ def run_finetune(opt, quiet: bool = False, datasets=None,
     from fragnet_tpu_torch.graphs.hiergraph import spec_for
     from fragnet_tpu_torch.obs import ScalarLogger, profile_trace
     from fragnet_tpu_torch.train import fastpath
-    from fragnet_tpu_torch.train.checkpoint import save_params
+    from fragnet_tpu_torch.train.checkpoint import (
+        save_params, transfer_pretrained_encoder)
     from fragnet_tpu_torch.train.earlystop import EarlyStopping
     from fragnet_tpu_torch.train.loop import TrainerFineTune
     from fragnet_tpu_torch.train.optim import make_optimizer, make_schedule
@@ -174,7 +174,7 @@ def run_finetune(opt, quiet: bool = False, datasets=None,
     if not quiet:
         print(f"datasets: train={len(train_g)} val={len(val_g)} "
               f"test={len(test_g)} tasks={n_tasks} type={task}")
-        print(f"fastpath: tcsr={fp.tcsr} dtype=f32 cache=off "
+        print(f"fastpath: tcsr={fp.tcsr} dtype=f32 cache={fp.cache} "
               f"device={fp.device}")
 
     bs = int(ft.get("batch_size", 16))
@@ -191,6 +191,24 @@ def run_finetune(opt, quiet: bool = False, datasets=None,
                              on_oversize="error")
     test_loader = BatchLoader(test_g, bs, spec=spec, n_tasks=n_tasks,
                               on_oversize="error")
+    # device-resident caching: after the first pass the input pipeline
+    # costs nothing (DeviceCacheLoader; reshuffles batch ORDER per epoch)
+    train_loader, val_loader, test_loader = (
+        fastpath.maybe_cache(ld, fp.device, spec=spec, n_tasks=n_tasks,
+                             policy=fp.cache, seed=seed + i)
+        for i, ld in enumerate((train_loader, val_loader, test_loader)))
+    # the JAX package draws an init batch here (model.init), which advances
+    # the train loader's shuffle state; drawing it too keeps both packages
+    # on the same batches from the same seed
+    next(iter(train_loader))
+
+    # pretrained encoder transfer (finetune_gat2.py:213-230)
+    pt = opt.get("pretrain", None)
+    if pt and pt.get("use", False) and pt.get("chk", None):
+        transfer_pretrained_encoder(
+            model, torch.load(pt.chk, map_location="cpu", weights_only=True))
+        if not quiet:
+            print(f"loaded pretrained encoder from {pt.chk}")
 
     n_epochs = int(ft.get("n_epochs", 100))
     lr = float(ft.get("lr", 1e-4))

@@ -129,6 +129,12 @@ def mean_per_task_auc(y: np.ndarray, pred: np.ndarray) -> float:
 # trainer
 # ---------------------------------------------------------------------------
 
+def _numpy(x) -> np.ndarray:
+    """A batch field as numpy, whether the batch is on the host or cached
+    on a device."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 class TrainerFineTune:
     """Epoch-level runner mirroring the reference trainer's API surface
     (train/validate/test) on top of the steps. The model holds its own
@@ -185,8 +191,8 @@ class TrainerFineTune:
         ys, ps = [], []
         for batch in batches:
             _, out = self._eval_step(batch)
-            mask = np.asarray(batch.graph_mask) > 0
-            y = np.asarray(batch.y)
+            mask = _numpy(batch.graph_mask) > 0
+            y = _numpy(batch.y)
             ys.append(y[mask])
             ps.append(out.cpu().numpy().reshape(y.shape)[mask])
         return np.concatenate(ys), np.concatenate(ps)

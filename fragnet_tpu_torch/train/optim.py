@@ -1,14 +1,15 @@
 """Optimizer and LR schedule of the finetune recipe (counterpart of
 fragnet_tpu/train/optim.py, which builds them on optax).
 
-Covers what ``run_finetune`` builds: plain Adam (finetune_gat2.py:257) with
-an optional linear ramp (finetune_gat2.py:259-261), plus SGD. The schedule
-follows optax: it is evaluated at the update count, 0 for the first update,
-and a ``LambdaLR`` over an optimizer whose base lr is 1.0 gives each step
-exactly ``schedule(step)``. Adam and SGD are ``torch.optim``'s: their updates
-are optax's up to rounding. The JAX package's AdamW, Adagrad, weight decay,
-gradient clipping and warmup schedules come with pretraining (ROADMAP.md
-Queue A7), their first caller.
+Covers what ``run_finetune`` and ``run_pretrain`` build: plain Adam
+(finetune_gat2.py:257) with an optional linear ramp (finetune_gat2.py:
+259-261), AdamW with an explicit weight decay, Adagrad, and SGD. The
+schedule follows optax: it is evaluated at the update count, 0 for the
+first update, and a ``LambdaLR`` over an optimizer whose base lr is 1.0
+gives each step exactly ``schedule(step)``. Adam, AdamW and SGD are
+``torch.optim``'s: their updates are optax's up to rounding. Adagrad is
+optax's (``OptaxAdagrad``), which torch's is not. The JAX package's
+gradient clipping and warmup schedules have no caller yet.
 """
 
 from __future__ import annotations
@@ -51,22 +52,62 @@ def make_schedule(
     raise ValueError(f"unknown schedule {name!r} (constant|linear)")
 
 
+class OptaxAdagrad(torch.optim.Optimizer):
+    """optax.adagrad: the accumulator of squared gradients starts at
+    ``initial_accumulator_value`` (0.1) and the update is
+    −lr · g · rsqrt(acc + eps) with eps = 1e-7 inside the root (torch's
+    Adagrad starts at 0 and adds eps outside the root)."""
+
+    def __init__(self, params, lr: float = 1e-2,
+                 initial_accumulator_value: float = 0.1, eps: float = 1e-7):
+        super().__init__(params, dict(lr=lr, eps=eps,
+                                      initial=initial_accumulator_value))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["sum"] = torch.full_like(p, group["initial"])
+                acc = st["sum"]
+                acc.addcmul_(p.grad, p.grad)
+                p.addcmul_(p.grad, torch.rsqrt(acc + group["eps"]),
+                           value=-group["lr"])
+        return loss
+
+
 def make_optimizer(
     params: Iterable[torch.nn.Parameter],
     name: str = "adam",
     lr: float = 1e-4,
     schedule: Optional[Schedule] = None,
+    weight_decay: float = 0.0,
 ) -> Tuple[torch.optim.Optimizer, Optional[torch.optim.lr_scheduler.LambdaLR]]:
     """(optimizer, scheduler or None) over ``params``. torch Adam defaults:
-    b1=0.9 b2=0.999 eps=1e-8. With ``schedule`` the rate of update k is
-    ``schedule(k)`` (the scheduler steps once per update)."""
+    b1=0.9 b2=0.999 eps=1e-8 (AdamW the same, with ``weight_decay``, which
+    optax applies as lr·wd·p — torch's decoupled decay). With ``schedule``
+    the rate of update k is ``schedule(k)`` (the scheduler steps once per
+    update)."""
     base = 1.0 if schedule is not None else lr
     if name == "adam":
         opt = torch.optim.Adam(params, lr=base, betas=(0.9, 0.999), eps=1e-8)
+    elif name == "adamw":
+        opt = torch.optim.AdamW(params, lr=base, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=weight_decay)
+    elif name == "adagrad":
+        opt = OptaxAdagrad(params, lr=base)
     elif name == "sgd":
         opt = torch.optim.SGD(params, lr=base)
     else:
-        raise ValueError(f"unknown optimizer {name!r} (adam|sgd)")
+        raise ValueError(f"unknown optimizer {name!r} "
+                         f"(adam|adamw|adagrad|sgd)")
     sched = (torch.optim.lr_scheduler.LambdaLR(opt, schedule)
              if schedule is not None else None)
     return opt, sched

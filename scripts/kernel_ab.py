@@ -8,11 +8,14 @@ one card.
 BASE_CSRC_DIR holds the other version's ``*.cu`` (for example the parent
 commit's ``fragnet_tpu_torch/csrc``, unpacked with ``git archive``). For
 every kernel of chip_smoke.KERNELS whose source differs between the two,
-each level's layer-0 inputs (for a backward kernel, built as chip_smoke.py
-builds them) are timed in turns (base, change, change, base) × rounds, each turn
-the device time of 50 calls (torch.profiler, as in chip_smoke.py); both
-versions are also held against the plain version (limit 1e-4 of scale).
-Prints one line per level and a JSON line of the medians.
+each level's inputs are timed in turns (base, change, change, base) ×
+rounds, each turn the device time of 50 calls (torch.profiler, as in
+chip_smoke.py): for a GAT kernel its layer-0 inputs of the esol batch (for
+a backward kernel, built as chip_smoke.py builds them), for the plane
+builder its bond, fconn and atom inputs of chip_smoke.py's batch-512
+pretrain batch. Both versions are also held against the plain version
+(limit 1e-4 of scale; the plane builder exactly). Prints one line per
+level and a JSON line of the medians.
 """
 
 from __future__ import annotations
@@ -67,18 +70,31 @@ def main() -> int:
     _cuda.build_all([k for p in pairs.values() for k in p.values()],
                     force=True)
 
-    opt = cs.smoke_opt()
-    datasets = load_datasets(opt)
-    _spec, _windows, batch_np = cs.smoke_batch(opt, datasets)
-    model = build_model(opt, n_classes=datasets[3],
-                        generator=torch.Generator().manual_seed(0))
-    model = model.to("cuda").eval()
-    calls = cs.layer0_kernel_calls(opt, model, to_device(batch_np, "cuda"))
-    rng = np.random.default_rng(0)
-    for name, k in cs.KERNELS.items():
-        if k.fwd is not None:
-            calls[name] = [(lvl, cs.bwd_kernel_args(k.fwd, a, kw, rng), {})
-                           for lvl, a, kw in calls[k.fwd]]
+    calls = {}
+    if set(pairs) & set(cs.GAT_KERNELS):
+        opt = cs.smoke_opt()
+        datasets = load_datasets(opt)
+        _spec, _windows, batch_np = cs.smoke_batch(opt, datasets)
+        model = build_model(opt, n_classes=datasets[3],
+                            generator=torch.Generator().manual_seed(0))
+        model = model.to("cuda").eval()
+        calls = cs.layer0_kernel_calls(opt, model,
+                                       to_device(batch_np, "cuda"))
+        rng = np.random.default_rng(0)
+        for name in cs.GAT_KERNELS:
+            k = cs.KERNELS[name]
+            if k.fwd is not None:
+                calls[name] = [(lvl, cs.bwd_kernel_args(k.fwd, a, kw, rng),
+                                {}) for lvl, a, kw in calls[k.fwd]]
+    if cs.PLANES in pairs:
+        graphs = cs.PretrainGraphs(cs.pt_opt(cs.PT_OVERRIDES),
+                                   workers=os.cpu_count() or 1).get()
+        big_bs = int(cs.PT_CONFIG["pretrain"]["batch_size"])
+        calls[cs.PLANES] = [(lvl, a, {}) for lvl, a, _host in
+                            cs.plane_calls(graphs, big_bs, "cuda")[0]]
+
+    def outputs(r):
+        return r if isinstance(r, tuple) else (r,)
 
     summary = []
     for name, kern in pairs.items():
@@ -87,15 +103,17 @@ def main() -> int:
         wrapper = getattr(mod, name)
         plain = getattr(mod, cs.KERNELS[name].plain)
         for lvl, a, kw in calls[name]:
-            want = plain(*a, **kw)
+            want = outputs(plain(*a, **kw))
             times = {"base": [], "change": []}
             try:
                 for which in ("base", "change"):
                     setattr(mod, attr, kern[which])
                     floor = cs._scale_floor(name, a)
                     rel = max(cs._diff(k, p, floor)[1]
-                              for k, p in zip(wrapper(*a, **kw), want))
-                    if rel > cs.REL_LIMIT:
+                              for k, p in zip(outputs(wrapper(*a, **kw)),
+                                              want))
+                    limit = 0.0 if name == cs.PLANES else cs.REL_LIMIT
+                    if rel > limit:
                         raise AssertionError(f"{name} [{lvl}] {which}: "
                                              f"rel {rel:.3e}")
                 for _ in range(args.rounds):

@@ -8,10 +8,11 @@ with an H100 (no JAX needed there, hence ``--noconftest``):
 Inputs are random tile-local graphs made with numpy from a seed, at the
 esol model's head shapes (H = 4, D = 32) and both node tiles the batcher
 uses (128, 256); the backward kernels also get sources outside the
-destination tile (TCSR) and an empty tile. Tolerance: the kernels sum in
-another order than the plain versions (with atomics, in an order that
+destination tile (TCSR) and an empty tile. Tolerance: the GAT kernels sum
+in another order than the plain versions (with atomics, in an order that
 varies from run to run), so outputs agree to f32 rounding:
-|k - p| ≤ 1e-4 · max|p|.
+|k - p| ≤ 1e-4 · max|p|. The plane builder adds at most one value per slot
+on tile-local graphs without repeated pairs, so it is held to equality.
 """
 
 import dataclasses
@@ -240,3 +241,92 @@ def test_wrappers_refuse_bad_inputs(cuda):
         dense_gat.dense_gat_fwd(planes, wd, wd, nf.t(), vc)
     with pytest.raises(ValueError):  # s of the wrong shape
         dense_gat.dense_gat_bwd(planes, wd, wd, nf, vc, wd, wd, nf, nf)
+
+
+@pytest.mark.parametrize("tn", [128, 256])
+@pytest.mark.parametrize("R", [0, 1, 6])
+def test_dense_planes_matches_plain_and_host(cuda, tn, R):
+    """The plane builder (K6) equals its plain version and the host builder
+    exactly, on a tile-local graph with an empty tile and a masked edge;
+    TCSR windows from build_tile_meta."""
+    rng = np.random.default_rng(30 + tn + R)
+    te, n_tiles = 256, 3
+    src, dst, mask = _graph(rng, tn, n_tiles, 3, te, empty_tile=1)
+    mask[5] = 0.0
+    N = n_tiles * tn
+    ea = rng.standard_normal((len(src), R)).astype(np.float32)
+    meta = build_tile_meta(src, dst, mask, N, tn=tn, te=te)
+    host = dense_gat.build_dense_planes(src, dst, mask, ea, N, tn=tn)
+    assert meta is not None and host is not None
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    meta_t = dataclasses.replace(meta, ew_blk=T(meta.ew_blk), cw=T(meta.cw),
+                                 sw_tile=T(meta.sw_tile),
+                                 flat_slot=T(meta.flat_slot))
+    args = (T(src), T(dst), T(mask), T(ea) if R else None, N, meta_t)
+    n0 = dense_gat.KERNEL_PLANES.launches
+    got = dense_gat.build_dense_planes_device(*args)
+    torch.cuda.synchronize()
+    assert dense_gat.KERNEL_PLANES.launches == n0 + 1
+    assert torch.equal(got, dense_gat.build_dense_planes_device_plain(*args))
+    assert np.array_equal(got.cpu().numpy(), host)
+
+
+def test_dense_planes_refuses_bad_inputs(cuda):
+    from fragnet_tpu_torch.ops.tcsr import TileMeta
+
+    E, tn = 256, 128
+    i32 = torch.zeros(E, dtype=torch.int32, device=cuda)
+    mask = torch.zeros(E, device=cuda)
+    one = torch.zeros(1, dtype=torch.int32, device=cuda)
+    meta = TileMeta(ew_blk=one, sw_tile=one, flat_slot=i32, cw=one + 1,
+                    tn=tn, te=256, n_chunks=1, k_src=1)
+    with pytest.raises(ValueError):  # R = 2 has no kernel
+        dense_gat.build_dense_planes_device(
+            i32, i32, mask, torch.zeros((E, 2), device=cuda), tn, meta)
+    with pytest.raises(ValueError):  # int64 indices
+        dense_gat.build_dense_planes_device(i32.long(), i32, mask, None, tn,
+                                            meta)
+
+
+def test_packed_batch_decodes_on_the_card(cuda):
+    """A packed buffer moved through pinned memory and decoded on the card
+    equals its decode on the CPU, field by field (the planes by K6)."""
+    from fragnet_tpu_torch.data import packing
+    from fragnet_tpu_torch.graphs.batch import PackedUploader
+
+    rng = np.random.default_rng(5)
+    tn, te = 128, 256
+    src, dst, mask = _graph(rng, tn, 2, 2, te)
+    N, E = 2 * tn, len(src)
+    meta = build_tile_meta(src, dst, mask, N, tn=tn, te=te)
+    ea = rng.standard_normal((E, 1)).astype(np.float32)
+    layout = packing.PackLayout(
+        entries=(packing.Entry("bg_src", packing.U16, 0, (E,), "int32"),
+                 packing.Entry("bg_dst", packing.U16, 2048, (E,), "int32"),
+                 packing.Entry("bg_mask", packing.I8, 4096, (E,), "float32"),
+                 packing.Entry("ea_bonds", packing.F32, 5120, (E, 1),
+                               "float32")),
+        total_bytes=8192, aliases=(), recompute_x_frags=(0, 0),
+        tm_static=(), dp_specs=())
+    assert 2 * E <= 2048 and 4 * E <= 8192 - 5120
+    buf = np.zeros(8192, np.uint8)
+    for e, arr in zip(layout.entries, (src.astype(np.uint16),
+                                       dst.astype(np.uint16),
+                                       mask.astype(np.int8), ea)):
+        raw = np.frombuffer(arr.tobytes(), np.uint8)
+        buf[e.offset:e.offset + raw.size] = raw
+    up = PackedUploader(cuda)
+    for _ in range(PackedUploader.DEPTH + 1):  # a pinned buffer is reused
+        dev_buf = up(buf)
+        assert dev_buf.device.type == "cuda"
+        got = [packing._decode(dev_buf, e).cpu() for e in layout.entries]
+        want = [packing._decode(torch.from_numpy(buf), e)
+                for e in layout.entries]
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    meta_t = dataclasses.replace(meta, ew_blk=T(meta.ew_blk), cw=T(meta.cw))
+    planes = dense_gat.build_dense_planes_device(
+        *(packing._decode(dev_buf, e) for e in layout.entries), N, meta_t)
+    assert np.array_equal(planes.cpu().numpy(), dense_gat.build_dense_planes(
+        src, dst, mask, ea, N, tn=tn))

@@ -119,7 +119,7 @@ def test_tile_meta_and_planes_match_on_random_graphs():
 
 def test_port_imports_no_jax():
     """Importing every fragnet_tpu_torch module (and chip_smoke) leaves no
-    jax*, flax* or fragnet_tpu.* entry in sys.modules."""
+    jax*, flax*, optax*, ml_dtypes or fragnet_tpu.* entry in sys.modules."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import fragnet_tpu_torch
@@ -129,7 +129,8 @@ def test_port_imports_no_jax():
             importlib.import_module(n)
         import chip_smoke
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                            "ml_dtypes")
                      or m == "fragnet_tpu" or m.startswith("fragnet_tpu."))
         print(len(names), bad)
         sys.exit(1 if bad or len(names) < 20 else 0)
@@ -143,14 +144,14 @@ def test_port_imports_no_jax():
 
 def test_port_sources_import_no_jax():
     """No import statement anywhere in the port or chip_smoke.py — lazy
-    ones inside functions included — names jax, flax, optax or
+    ones inside functions included — names jax, flax, optax, ml_dtypes or
     fragnet_tpu."""
     import ast
 
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, files in os.walk(os.path.join(REPO, "fragnet_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
-    banned = ("jax", "jaxlib", "flax", "optax", "fragnet_tpu")
+    banned = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "fragnet_tpu")
     for p in paths:
         with open(p) as f:
             tree = ast.parse(f.read())

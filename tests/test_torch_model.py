@@ -219,7 +219,7 @@ def _small_opt(tmp_path, **finetune):
 
 def test_run_finetune_refuses_what_it_does_not_run(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue A6"):
-        run_finetune(_small_opt(tmp_path, cache="on"), device="cpu")
+        run_finetune(_small_opt(tmp_path, n_buckets=2), device="cpu")
     opt = _small_opt(tmp_path)
     opt.set_path("dist", {"mode": "dp"})
     with pytest.raises(NotImplementedError, match="dist.mode"):
