@@ -1092,6 +1092,7 @@ def main() -> int:
                         generator=torch.Generator().manual_seed(0))
     model = model.to(dev).eval()
 
+    t_phase = time.perf_counter()
     # ---- 4. kernel vs plain, at the shapes of a real batch ----------------
     calls = layer0_kernel_calls(opt, model, batch)
     rng = np.random.default_rng(0)
@@ -1154,6 +1155,9 @@ def main() -> int:
                                   flops=flops, **extra))
         report[name] = (per_level, seeded_err)
 
+    print(f"phase 4: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+
     # ---- 5. the prediction path -------------------------------------------
     _reset_launches()
     t0 = time.perf_counter()
@@ -1202,6 +1206,9 @@ def main() -> int:
           f"{dev_busy:.3f} ms in {len(busy)} kernel kinds, top: "
           + ", ".join(f"{k[:48]} {ms:.3f}" for k, ms in busy[:5]))
 
+    print(f"phase 5: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+
     # ---- 6. whole forward: CPU (plain versions) vs card (kernels) ---------
     cpu_model = copy.deepcopy(ft_model).cpu().eval()
     with torch.no_grad():
@@ -1214,6 +1221,9 @@ def main() -> int:
           f"(limit {FORWARD_REL_LIMIT})")
     if fwd_rel > FORWARD_REL_LIMIT:
         raise AssertionError("card and CPU predictions disagree")
+
+    print(f"phase 6: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
 
     # ---- 7. the training path ---------------------------------------------
     topt = smoke_opt(train=True)
@@ -1267,6 +1277,9 @@ def main() -> int:
             raise AssertionError(f"{n} launched {c} times on the training "
                                  f"path, expected {expect[n]}")
 
+    print(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+
     # ---- 8. one train step: host time and device busy time ----------------
     train_np = pad_batch(next(iter(train_loader._windows())), spec,
                          n_tasks=n_tasks)
@@ -1319,6 +1332,9 @@ def main() -> int:
           + ", ".join(f"{k} {statistics.median(v):.2f} ms"
                       for k, v in stages.items()))
 
+    print(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+
     # ---- 9. one train step's gradients: CPU vs card -----------------------
     def loss_and_grads(d):
         m_d = copy.deepcopy(tr_model).to(d).eval()  # dropout off
@@ -1337,6 +1353,8 @@ def main() -> int:
           f"parameters (limit {GRAD_REL_LIMIT})")
     if worst > GRAD_REL_LIMIT:
         raise AssertionError("card and CPU gradients disagree")
+
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 10.-15. the pretraining path -------------------------------------
     k6_report, launches_pt = pretrain_phases(dev, pending, datasets)

@@ -18,7 +18,6 @@ import torch
 
 from fragnet_tpu.data.batcher import BatchLoader as JaxLoader
 from fragnet_tpu.data.datasets import PretrainData as JaxPretrainData
-from fragnet_tpu.data.packing import pack_batch as jax_pack_batch
 from fragnet_tpu.data.packing import unpack_batch as jax_unpack_batch
 from fragnet_tpu.graphs.hiergraph import spec_for as jax_spec_for
 from fragnet_tpu.ops import dense_gat as jax_dense_gat
