@@ -74,13 +74,37 @@ the packed transport. Phases:
      there, K6 planes) vs CPU (host batch, host planes), same weights (the
      run's checkpoint), dropout off: within 1e-3 of each scale;
  15. run_finetune with pretrain.use on the run's checkpoint: every encoder
-     tensor of the finetune model equals the checkpoint's.
+     tensor of the finetune model equals the checkpoint's;
+ 16. the dense-attr kernels (K7 forward, K8 backward, K9 emit) against
+     their plain versions, as in phase 4, with tensors captured from layer
+     0 of the esol batch under the dense-attr policy
+     (``finetune.kernel.attr=true finetune.kernel.fc=attr``) at the atom
+     (self-loops), fconn (the first tn rows of the R = 6 planes, a strided
+     view) and frag levels, plus a seeded case per level (numpy wd, ws, nf
+     and w_ea); K9 is held to equality and timed beside the library call
+     (one advanced-indexing gather on indices computed beforehand);
+ 17. the finetune training path under the dense-attr policy: run_finetune
+     on cuda for 3 epochs, every launch count set to 0 just before it;
+     losses and test RMSE finite, each kernel's launches equal to the count
+     derived from the loaders' batches and the planes each carries
+     (expected_launches: K7 three passes per layer, K4 the bond pass, K8 and
+     K9 every atom and fconn pass and the last layer's frag pass, K1 and K2
+     none when every batch has its planes);
+ 18. one train step under the dense-attr policy: loss and every gradient,
+     card (kernels) vs CPU (plain versions), within 1e-3 of each scale, and
+     its wall time, device busy time and per-kernel device time beside the
+     default policy's step of phase 8;
+ 19. the pretraining path under the dense-attr policy: run_pretrain on the
+     HBM packed tier for one epoch, K6 once per train step for each plane
+     level of the layout the policy reads (4 when dp_bond, dp_fc, dp_atom
+     and dp_frag all pass dp_level_ok), K7-K9 as derived; then one pretrain
+     step's gradients, card (K6 planes) vs CPU (host planes), within 1e-3.
 
 Prints a ``{"kernels": [...]}`` JSON line (launches from the pretraining
-path of phase 11, and the finetune training path's beside them), and as
-the last line ``{"ok": true, "device": {...}}``. Exits non-zero on any
-failure, without a CUDA device, or when run outside a checkout of the
-repository.
+path of phase 11 for K1-K6 and of phase 19 for K7-K9, every path's beside
+them), and as the last line ``{"ok": true, "device": {...}}``. Exits
+non-zero on any failure, without a CUDA device, or when run outside a
+checkout of the repository.
 """
 
 from __future__ import annotations
@@ -185,6 +209,21 @@ STREAM_OVERRIDES = {
     "exp_dir": os.path.join(REPO, "exps", "chip_smoke_pt_stream"),
 }
 
+# the dense-attr kernel policy: K7-K9 carry the atom, frag and fconn passes
+# (dotted keys of ESOL_CONFIG / PT_CONFIG under finetune. / pretrain.)
+ATTR_KERNEL = {"kernel.attr": True, "kernel.fc": "attr"}
+ATTR_TRAIN_OVERRIDES = {
+    **{f"finetune.{k}": v for k, v in ATTR_KERNEL.items()},
+    "exp_dir": os.path.join(REPO, "exps", "chip_smoke_esol_attr"),
+}
+# on top of PT_OVERRIDES: the pretraining path under the same policy, one
+# epoch
+ATTR_PT_OVERRIDES = {
+    **{f"pretrain.{k}": v for k, v in ATTR_KERNEL.items()},
+    "pretrain.n_epochs": 1,
+    "exp_dir": os.path.join(REPO, "exps", "chip_smoke_pt_attr"),
+}
+
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor) flop/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -193,12 +232,13 @@ FORWARD_REL_LIMIT = 1e-3
 GRAD_REL_LIMIT = 1e-3
 
 
-def smoke_opt(train: bool = False):
+def smoke_opt(train: bool = False, attr: bool = False):
     from fragnet_tpu_torch.config import Config
 
     opt = Config(copy.deepcopy(ESOL_CONFIG))
     for k, v in {**SMOKE_OVERRIDES,
-                 **(TRAIN_OVERRIDES if train else {})}.items():
+                 **(TRAIN_OVERRIDES if train else {}),
+                 **(ATTR_TRAIN_OVERRIDES if attr else {})}.items():
         opt.set_path(k, v)
     return opt
 
@@ -326,19 +366,21 @@ def _scale_floor(name, args) -> float:
     p·(d_p − s), which cancel exactly where a row's neighbours carry equal
     features — as at the fconn level of the smoke's batch, at every layer
     — leaving round-off of terms of size |s|. 0 for a forward kernel."""
-    if KERNELS[name].fwd is None:
-        return 0.0
-    return float(args[10 if name == "tcsr_gat_bwd" else 8].abs().max())
+    idx = {"tcsr_gat_bwd": 10, "dense_gat_bwd": 8,
+           "dense_attr_bwd": 12}.get(name)
+    return 0.0 if idx is None else float(args[idx].abs().max())
 
 
 class _Capture:
     """Records the arguments of every kernel-wrapper call of one forward
     (the wrappers are looked up through their modules at call time)."""
 
-    def __init__(self):
+    def __init__(self, names):
         from fragnet_tpu_torch.ops import dense_gat, tcsr_gat
 
-        self.mods = {"tcsr_gat_fwd": tcsr_gat, "dense_gat_fwd": dense_gat}
+        mods = {"tcsr_gat_fwd": tcsr_gat, "dense_gat_fwd": dense_gat,
+                "dense_attr_fwd": dense_gat}
+        self.mods = {n: mods[n] for n in names}
         self.calls = {k: [] for k in self.mods}
         self._orig = {}
 
@@ -359,8 +401,11 @@ class _Capture:
             setattr(mod, name, self._orig[name])
 
 
+# each forward kernel's levels in the order of one layer's calls
 LEVELS = {"tcsr_gat_fwd": ["atom (self-loops)", "frag"],
-          "dense_gat_fwd": ["bond (R=1)", "fconn (R=6)"]}
+          "dense_gat_fwd": ["bond (R=1)", "fconn (R=6)"],
+          "dense_attr_fwd": ["atom (self-loops)",
+                             "fconn (rows 0..tn of the R=6 planes)", "frag"]}
 # a level checked against the plain version but not timed
 SEEDED = "fconn (R=6), seeded nf and attrs"
 
@@ -379,20 +424,23 @@ def smoke_batch(opt, datasets):
     return spec, windows, pad_batch(windows[0], spec, n_tasks=n_tasks)
 
 
-def layer0_kernel_calls(opt, model, batch):
-    """{kernel: [(level, args, kwargs), ...]}: each kernel wrapper's calls in
-    layer 0 of one forward of ``model`` on ``batch``."""
+def layer0_kernel_calls(opt, model, batch,
+                        names=("tcsr_gat_fwd", "dense_gat_fwd")):
+    """{kernel: [(level, args, kwargs), ...]}: the calls of each of the
+    ``names`` forward wrappers in layer 0 of one forward of ``model`` on
+    ``batch``."""
     import torch
 
-    with _Capture() as cap, torch.no_grad():
+    with _Capture(names) as cap, torch.no_grad():
         model(batch)
     n_layers = int(opt.finetune.model.num_layer)
     out = {}
     for name, calls in cap.calls.items():
-        if len(calls) != 2 * n_layers:
+        per_layer = len(LEVELS[name])
+        if len(calls) != per_layer * n_layers:
             raise AssertionError(f"{name}: {len(calls)} calls in one forward")
         out[name] = [(lvl, a, kw) for lvl, (a, kw)
-                     in zip(LEVELS[name], calls[:2])]
+                     in zip(LEVELS[name], calls[:per_layer])]
     return out
 
 
@@ -419,6 +467,20 @@ def seeded_fconn_call(fconn_call, rng):
         np.float32)).to(nf.device)
     return (SEEDED, (planes_s.contiguous(), wd, ws, nf_s, vc) + tuple(args[5:]),
             kw)
+
+
+def seeded_attr_call(call, rng):
+    """A captured dense-attr forward call with its logit terms wd, ws, the
+    node features and w_ea drawn with numpy (the adjacency, the edges and
+    the windows kept): every output of K7-K9 is then of the order of its
+    inputs, whatever the smoke's features make cancel."""
+    import numpy as np
+    import torch
+
+    lvl, args, kw = call
+    drawn = tuple(torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(
+        np.float32)).to(t.device) for t in args[1:5])
+    return (f"{lvl}, seeded", (args[0],) + drawn + tuple(args[5:]), kw)
 
 
 def k2_outside_fn(args, rng):
@@ -506,6 +568,72 @@ def _dense_bwd_cost(args):
     return nbytes, flops
 
 
+def _attr_cost(args):
+    adj, wd, ws, nf, w_ea, src, dst, emask, meta, self_loops = args[:10]
+    T, tn, _ = adj.shape
+    N, H = wd.shape
+    HD = nf.shape[1]
+    nnz = int((adj > 0).sum())
+    n_edges = int((emask > 0).sum())
+    # the adjacency planes, wd, ws, nf, the real edges' w_ea and scalars and
+    # the tile windows read once; out, m, den written once
+    nbytes = 4 * (T * tn * tn + 2 * N * H + N * HD + n_edges * (H + 3)
+                  + 2 * T + N * (HD + 2 * H))
+    flops = (T * tn * tn * H * 5 + 2 * nnz * HD
+             + (2 * N * HD if self_loops else 0))
+    return nbytes, flops
+
+
+def _attr_bwd_cost(args):
+    (adj, wd, ws, nf, w_ea, src, dst, emask, meta, m, den, g, s,
+     self_loops) = args[:14]
+    T, tn, _ = adj.shape
+    N, H = wd.shape
+    HD = nf.shape[1]
+    D = HD // H
+    nnz = int((adj > 0).sum())
+    n_edges = int((emask > 0).sum())
+    # inputs read once (adjacency, wd, ws, m, den, s, nf, g, the real
+    # edges' w_ea and scalars, windows) + outputs written once (d_wd, d_ws,
+    # d_wself, d_nf, the d_zpre planes)
+    nbytes = 4 * (T * tn * tn + 5 * N * H + 2 * N * HD + n_edges * (H + 3)
+                  + 2 * T + 3 * N * H + N * HD + T * H * tn * tn)
+    flops = (T * tn * tn * H * 6 + nnz * H * (4 * D + 6)
+             + (N * H * (4 * D + 10) if self_loops else 0))
+    return nbytes, flops
+
+
+def _emit_cost(args):
+    dz, src, dst, emask, meta = args[:5]
+    T, Htn, tn = dz.shape
+    H = Htn // tn
+    E = src.shape[0]
+    n_kept = int(_emit_index(args)[0].shape[0])
+    # every edge's src, dst and mask read, the counted edges' H plane values
+    # read, (E, H) written; one product per counted value
+    nbytes = 4 * (3 * E + 2 * T + n_kept * H + E * H)
+    return nbytes, n_kept * H
+
+
+def _emit_index(args):
+    from fragnet_tpu_torch.ops.dense_gat import _plane_edges
+
+    dz, src, dst, emask, meta = args[:5]
+    return _plane_edges(src, dst, emask, dz.shape[0] * dz.shape[2], meta)
+
+
+def emit_library_fn(args):
+    """K9's yardstick: one advanced-indexing gather of the d_zpre planes at
+    the counted edges' slots, on indices computed beforehand (used nowhere
+    in the port). Returns (callable, edge ids) — the gather's rows are
+    d_wea[ids] / emask[ids]."""
+    dz = args[0]
+    T, Htn, tn = dz.shape
+    k, t, di, sj = _emit_index(args)
+    planes = dz.view(T, Htn // tn, tn, tn)
+    return (lambda: planes[t, :, di, sj]), k
+
+
 def _planes_cost(args):
     src, dst, emask, ea, n_nodes, meta = args[:6]
     R = 0 if ea is None else ea.shape[1]
@@ -555,10 +683,27 @@ KERNELS = {
         "dense_gat", "KERNEL_PLANES", "build_dense_planes_device_plain",
         _planes_cost, None, "fragnet_tpu_torch/csrc/dense_planes.cu",
         "fragnet_tpu/ops/dense_gat.py:105"),
+    "dense_attr_fwd": Kernel("dense_gat", "KERNEL_ATTR",
+                             "dense_attr_fwd_plain", _attr_cost, None,
+                             "fragnet_tpu_torch/csrc/dense_attr_fwd.cu",
+                             "fragnet_tpu/ops/dense_gat.py:216"),
+    "dense_attr_bwd": Kernel("dense_gat", "KERNEL_ATTR_BWD",
+                             "dense_attr_bwd_plain", _attr_bwd_cost,
+                             "dense_attr_fwd",
+                             "fragnet_tpu_torch/csrc/dense_attr_bwd.cu",
+                             "fragnet_tpu/ops/dense_gat.py:276"),
+    "dense_attr_emit": Kernel("dense_gat", "KERNEL_ATTR_EMIT",
+                              "dense_attr_emit_plain", _emit_cost,
+                              "dense_attr_fwd",
+                              "fragnet_tpu_torch/csrc/dense_attr_emit.cu",
+                              "fragnet_tpu/ops/dense_gat.py:359"),
 }
-# the GAT kernels, which phase 4 captures from a finetune forward
+# the GAT kernels of the default policy, which phase 4 captures from a
+# finetune forward, and the dense-attr kernels, which phase 16 captures
 GAT_KERNELS = ("tcsr_gat_fwd", "tcsr_gat_bwd", "dense_gat_fwd",
                "dense_gat_bwd")
+ATTR_KERNELS = ("dense_attr_fwd", "dense_attr_bwd", "dense_attr_emit")
+EMIT = "dense_attr_emit"
 PLANES = "build_dense_planes_device"
 PLANE_LEVELS = {"dp_bond": "bond (R=1)", "dp_fc": "fconn (R=6)",
                 "dp_atom": "atom (R=0)"}
@@ -597,8 +742,122 @@ def bwd_kernel_args(fwd_name, args, kw, rng):
     g = torch.from_numpy(rng.standard_normal((N, HD)).astype(np.float32)
                          ).to(out.device)
     s = (g.view(N, H, -1) * out.view(N, H, -1)).sum(-1)
-    k = 7 if fwd_name == "tcsr_gat_fwd" else 5
+    k = {"tcsr_gat_fwd": 7, "dense_gat_fwd": 5, "dense_attr_fwd": 9}[fwd_name]
     return tuple(args[:k]) + (m, den, g, s) + tuple(args[k:])
+
+
+def _planes_of(batch):
+    """The dense-plane levels a (host or device) batch carries."""
+    return {lvl for lvl in ("dp_bond", "dp_fc", "dp_atom", "dp_frag")
+            if getattr(batch, lvl) is not None}
+
+
+def expected_launches(policy, n_layers: int, batches):
+    """Each GAT kernel's launches for ``batches`` = [(plane levels the
+    batch carries, forwards, train steps)] under a KernelPolicy: per
+    forward each layer runs the bond, fconn, atom and frag passes, each
+    through the dense kernel its policy names when the batch has that
+    level's planes, else through the TCSR kernel (model/layers.py:
+    _gat_dispatch); per train step the backward of every layer's bond,
+    fconn and atom pass and of the last layer's frag pass (each layer
+    recomputes fragment features from atoms, so the earlier frag outputs
+    are off the loss's path). The plane builder is counted by the caller."""
+    mode = {"dp_bond": policy.bond, "dp_fc": policy.fc,
+            "dp_atom": "attr" if policy.attr else "tcsr",
+            "dp_frag": "attr" if policy.attr else "tcsr"}
+    bwd_passes = {"dp_bond": n_layers, "dp_fc": n_layers,
+                  "dp_atom": n_layers, "dp_frag": 1}
+    kernels = {"planes": ("dense_gat_fwd", ("dense_gat_bwd",)),
+               "attr": ("dense_attr_fwd", ("dense_attr_bwd",
+                                           "dense_attr_emit")),
+               "tcsr": ("tcsr_gat_fwd", ("tcsr_gat_bwd",))}
+    out = {n: 0 for n in KERNELS}
+    for have, n_fwd, n_steps in batches:
+        for lvl, m in mode.items():
+            fwd, bwds = kernels[m if lvl in have else "tcsr"]
+            out[fwd] += n_layers * n_fwd
+            for b in bwds:
+                out[b] += bwd_passes[lvl] * n_steps
+    return out
+
+
+def _outputs(r):
+    return r if isinstance(r, tuple) else (r,)
+
+
+def check_kernels(names, calls, rng):
+    """Phases 4 and 16: each kernel in ``names`` against its plain version
+    on the card at every captured level of ``calls`` ({kernel: [(level,
+    args, kwargs)]}): max abs and relative diff of every output (limit 1e-4
+    of the output's scale, for a backward output at least max|s|; the emit
+    kernel, a gather, exactly), and for a level that is not a seeded case
+    the wrapper's and the plain version's ms and device ms, the bound, and
+    the torch ops around K2 / the library call beside K9. A seeded level
+    holds each output to its own scale and is not timed. Returns {kernel:
+    (per-level report, worst seeded max abs err)}."""
+    import torch
+
+    report = {}
+    for name in names:
+        k = KERNELS[name]
+        mod, _ = _counter(name)
+        wrapper, plain = getattr(mod, name), getattr(mod, k.plain)
+        limit = 0.0 if name == EMIT else REL_LIMIT
+        per_level, seeded_err = [], 0.0
+        for lvl, args, kw in calls[name]:
+            got = _outputs(wrapper(*args, **kw))
+            want = _outputs(plain(*args, **kw))
+            torch.cuda.synchronize()
+            seeded = "seeded" in lvl
+            floor = 0.0 if seeded else _scale_floor(name, args)
+            errs = [_diff(k_, p, floor) for k_, p in zip(got, want)]
+            err = max(e[0] for e in errs)
+            rel = max(e[1] for e in errs)
+            scales = ", ".join(f"{float(p.abs().max()):.2e}" for p in want)
+            if seeded:
+                print(f"{name} [{lvl}]: max_abs_err={err:.3e} rel={rel:.3e} "
+                      f"(worst of {len(errs)} outputs; output scales "
+                      f"{scales}; limit {limit})")
+                if rel > limit:
+                    raise AssertionError(f"{name} [{lvl}] disagrees with its "
+                                         f"plain version: rel {rel:.3e}")
+                seeded_err = max(seeded_err, err)
+                continue
+            ms = _median_ms(lambda: wrapper(*args, **kw))
+            plain_ms = _median_ms(lambda: plain(*args, **kw))
+            dev_ms = _device_ms(lambda: wrapper(*args, **kw))
+            plain_dev_ms = _device_ms(lambda: plain(*args, **kw))
+            nbytes, flops = k.cost(args)
+            bound, by = _bound_ms(nbytes, flops)
+            extra = {}
+            if name == "tcsr_gat_bwd":
+                extra["outside_device_ms"] = _device_ms(
+                    k2_outside_fn(args, rng))
+            if name == EMIT:
+                lib, ids = emit_library_fn(args)
+                if not torch.equal(lib() * args[3][ids, None], got[0][ids]):
+                    raise AssertionError(f"{name} [{lvl}]: the library "
+                                         f"gather disagrees")
+                extra["library_ms"] = _median_ms(lib)
+                extra["library_device_ms"] = _device_ms(lib)
+            shape = "x".join(str(s) for s in args[0].shape)
+            print(f"{name} [{lvl}] in0={shape}: max_abs_err={err:.3e} "
+                  f"rel={rel:.3e} (worst of {len(errs)} outputs; output "
+                  f"scales {scales}; limit {limit}) ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} device_ms={dev_ms:.4f} "
+                  f"plain_device_ms={plain_dev_ms:.4f} "
+                  f"bound_ms={bound:.5f} ({by}: {nbytes} B, {flops} flop)"
+                  + "".join(f" {k_}={v:.4f}" for k_, v in extra.items()))
+            if rel > limit:
+                raise AssertionError(f"{name} [{lvl}] disagrees with its "
+                                     f"plain version: rel {rel:.3e}")
+            per_level.append(dict(level=lvl, max_abs_err=err, rel_err=rel,
+                                  ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+                                  plain_device_ms=plain_dev_ms,
+                                  bound_ms=bound, bound_by=by, bytes=nbytes,
+                                  flops=flops, **extra))
+        report[name] = (per_level, seeded_err)
+    return report
 
 
 def _busy(prof):
@@ -617,6 +876,96 @@ def _busy(prof):
             and e.self_device_time_total > 0]
     busy.sort(key=lambda kv: -kv[1])
     return sum(ms for _, ms in busy), busy
+
+def timed_train_step(model, train_np, dev, label: str):
+    """Phases 8 and 18: one finetune train step (batch copy, forward,
+    backward, Adam) of a copy of ``model`` on ``train_np``: wall time
+    (median of 5 after a warm-up), one step's device busy time and each
+    port kernel's device time under the profiler, and the step in stages
+    each ended by a synchronize. Returns {wall, busy, kernels}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fragnet_tpu_torch.graphs.batch import to_device
+    from fragnet_tpu_torch.train.loop import make_train_step, mse_loss
+    from fragnet_tpu_torch.train.optim import make_optimizer
+
+    step_model = copy.deepcopy(model)
+    step_opt, _ = make_optimizer(step_model.parameters(), "adam", lr=1e-4)
+    step = make_train_step(step_model, step_opt, "mse", dev)
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(train_np)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(train_np)
+        torch.cuda.synchronize()
+    dev_busy, busy = _busy(prof)
+    wall = statistics.median(walls[1:])
+    ours = {n: sum(ms for key, ms in busy if f"{n}_kernel" in key)
+            for n in KERNELS}
+    print(f"train step [{label} policy] (batch copy, forward, backward, "
+          f"Adam): wall {wall:.2f} ms (median of 5 after warm-up), device "
+          f"busy {dev_busy:.3f} ms ({100 * dev_busy / wall:.1f}%) in "
+          f"{len(busy)} kernel kinds; the port's kernels: "
+          + ", ".join(f"{n} {ms:.3f}" for n, ms in ours.items())
+          + "; top: " + ", ".join(f"{k[:48]} {ms:.3f}" for k, ms in busy[:10]))
+    # the same step in stages, each ended by a synchronize (host clock)
+    stages = {"copy": [], "forward+loss": [], "backward": [], "adam": []}
+    step_model.train()
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = to_device(train_np, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = mse_loss(step_model(b), b.y, b.graph_mask)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        step_opt.step()
+        step_opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for k, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            stages[k].append(dt * 1e3)
+    print(f"train step stages [{label} policy] (host clock to a "
+          f"synchronize, median of 5): "
+          + ", ".join(f"{k} {statistics.median(v):.2f} ms"
+                      for k, v in stages.items()))
+    return {"wall": wall, "busy": dev_busy, "kernels": ours}
+
+
+def train_grads_card_vs_cpu(model, train_np, dev):
+    """Phases 9 and 18: one train step's loss and every parameter's
+    gradient of ``model`` on ``train_np``, on the card (kernels) and on the
+    CPU (plain versions), dropout off. Returns (loss cpu, loss card, worst
+    relative diff, its name, number of parameters)."""
+    import torch
+
+    from fragnet_tpu_torch.graphs.batch import to_device
+    from fragnet_tpu_torch.train.loop import mse_loss
+
+    def loss_and_grads(d):
+        m_d = copy.deepcopy(model).to(d).eval()  # dropout off
+        b_d = to_device(train_np, d)
+        loss = mse_loss(m_d(b_d), b_d.y, b_d.graph_mask)
+        loss.backward()
+        return float(loss.detach()), {
+            n: (None if p.grad is None else p.grad.detach().cpu())
+            for n, p in m_d.named_parameters()}
+
+    l_gpu, g_gpu = loss_and_grads(dev)
+    l_cpu, g_cpu = loss_and_grads(torch.device("cpu"))
+    worst, worst_name = _grad_diff(l_cpu, l_gpu, g_cpu, g_gpu)
+    return l_cpu, l_gpu, worst, worst_name, len(g_cpu)
+
 
 def plane_calls(graphs, batch_size: int, dev):
     """The plane builder's calls on one packed batch of ``batch_size``
@@ -719,48 +1068,52 @@ def check_planes(calls):
 
 
 def pretrain_expect(popt, pgraphs, n_epochs: int, n_validations: int):
-    """Each kernel's launches on ``run_pretrain``'s packed path, derived
-    from the loaders: the train steps are the first (shuffled) epoch's
-    windows, replayed each epoch by the packed caches, and the process
-    stream's epochs have the same count here (one epoch, from epoch 0's
-    shuffle); every step and every validation batch runs 4 GAT passes per
-    layer — bond and fconn through the dense kernel (the decoded batches'
-    device planes, the validation batches' host planes, both checked
-    here), atom and frag through the TCSR kernel. K6 runs only in train
-    steps, once per plane level the policy reads (dp_bond, dp_fc): the
-    validation batches come with host planes. Backward: every layer's
-    bond, fconn and atom pass and the last layer's frag pass — the pretrain
-    head reads x_atoms, the pooled x_frags of the last layer and the bond
-    features e_edge, and each layer recomputes fragment features from
-    atoms, so the earlier frag passes are off the loss's path."""
+    """Each kernel's launches on ``run_pretrain``'s packed path under the
+    run's kernel policy, derived from the loaders: the train steps are the
+    first (shuffled) epoch's windows, replayed each epoch by the packed
+    caches, and the process stream's epochs have the same count here (one
+    epoch, from epoch 0's shuffle). A decoded train batch carries device
+    planes for the levels of the layout's dp_specs that the policy reads,
+    a validation batch its host planes (both checked here); every batch
+    runs its passes as ``expected_launches`` counts them (the pretrain head
+    reads x_atoms, the pooled x_frags of the last layer and the bond
+    features e_edge, so the backward is that of finetuning). K6 runs only
+    in train steps, once per plane level of the decoded batch: the
+    validation batches come with host planes. Returns (counts, train steps
+    per epoch, validation batches, the decoded batches' plane levels)."""
     from fragnet_tpu_torch.data.batcher import BatchLoader
     from fragnet_tpu_torch.data.packing import plane_levels
     from fragnet_tpu_torch.graphs.hiergraph import pad_batch, spec_for
     from fragnet_tpu_torch.model.layers import KernelPolicy
+    from fragnet_tpu_torch.train.fastpath import resolve_kernel_policy
     from fragnet_tpu_torch.train.pretrain import split_graphs
 
     seed, bs = int(popt.seed), int(popt.pretrain.batch_size)
     L = int(popt.pretrain.model.num_layer)
+    policy = resolve_kernel_policy(popt.pretrain)
     train_g, val_g = split_graphs(pgraphs, seed)
     spec = spec_for(pgraphs, batch_size=bs, tcsr=True)
     probe = BatchLoader(train_g, bs, spec=spec, with_targets=True, pack=True)
     next(iter(probe))
     levels = [d[0] for d in probe.layout.dp_specs
-              if d[0] in plane_levels(KernelPolicy())]
-    if levels != ["dp_bond", "dp_fc"]:
+              if d[0] in plane_levels(policy)]
+    if policy == KernelPolicy() and levels != ["dp_bond", "dp_fc"]:
         raise AssertionError(f"device planes for {levels} only")
     n_train = len(list(BatchLoader(train_g, bs, spec=spec, shuffle=True,
                                    seed=seed)._windows()))
     val_w = list(BatchLoader(val_g, bs, spec=spec)._windows())
+    val_have = []
     for w in val_w:
-        hb = pad_batch(w, spec, with_targets=True)
-        if hb.dp_bond is None or hb.dp_fc is None:
+        have = _planes_of(pad_batch(w, spec, with_targets=True))
+        if not {"dp_bond", "dp_fc"} <= have:
             raise AssertionError("a validation batch has no host planes")
+        val_have.append(have)
     steps = n_epochs * n_train
-    fwd = L * 2 * (steps + n_validations * len(val_w))
-    return {"tcsr_gat_fwd": fwd, "dense_gat_fwd": fwd,
-            "tcsr_gat_bwd": (L + 1) * steps, "dense_gat_bwd": 2 * L * steps,
-            PLANES: len(levels) * steps}, n_train, len(val_w)
+    expect = expected_launches(
+        policy, L, [(set(levels), steps, steps)]
+        + [(h, n_validations, 0) for h in val_have])
+    expect[PLANES] = len(levels) * steps
+    return expect, n_train, len(val_w), levels
 
 
 def drive_pretrain(popt, pgraphs, expect, tier: str):
@@ -884,10 +1237,11 @@ def timed_pretrain_step(popt, calls_buf, dev):
 
 
 def pretrain_grads_card_vs_cpu(popt, pgraphs, ckpt, dev):
-    """Phase 14: one pretrain step's loss and gradients — on the card from
-    the packed buffer (decoded there, K6 planes), on the CPU from the
-    unpacked host batch with host planes; the same weights (the pretraining
-    run's checkpoint), dropout off."""
+    """Phases 14 and 19: one pretrain step's loss and gradients under the
+    run's kernel policy — on the card from the packed buffer (decoded
+    there, K6 planes), on the CPU from the unpacked host batch with host
+    planes; the same weights (the pretraining run's checkpoint), dropout
+    off."""
     import copy as _copy
 
     import torch
@@ -897,6 +1251,7 @@ def pretrain_grads_card_vs_cpu(popt, pgraphs, ckpt, dev):
     from fragnet_tpu_torch.graphs.batch import to_device
     from fragnet_tpu_torch.graphs.hiergraph import pad_batch, spec_for
     from fragnet_tpu_torch.train.checkpoint import load_params
+    from fragnet_tpu_torch.train.fastpath import resolve_kernel_policy
     from fragnet_tpu_torch.train.pretrain import (build_pretrain_model,
                                                   pretrain_loss, split_graphs)
 
@@ -906,7 +1261,8 @@ def pretrain_grads_card_vs_cpu(popt, pgraphs, ckpt, dev):
     loader = BatchLoader(train_g, bs, spec=spec, with_targets=True, pack=True)
     buf = next(iter(loader))
     host = pad_batch(next(loader._windows()), spec, with_targets=True)
-    model = load_params(build_pretrain_model(popt), ckpt).eval()
+    model = load_params(build_pretrain_model(
+        popt, policy=resolve_kernel_policy(popt.pretrain)), ckpt).eval()
 
     def loss_and_grads(d, packed):
         m = _copy.deepcopy(model).to(d)
@@ -971,8 +1327,8 @@ def pretrain_phases(dev, pending, datasets):
     # ---- 11. the pretraining path: HBM packed tier ------------------------
     t0 = time.perf_counter()
     n_epochs = int(popt.pretrain.n_epochs)
-    expect, n_train, n_val = pretrain_expect(popt, pgraphs, n_epochs,
-                                             n_epochs)
+    expect, n_train, n_val, _ = pretrain_expect(popt, pgraphs, n_epochs,
+                                                n_epochs)
     print(f"pretraining path: {n_train} train steps/epoch, {n_val} val "
           f"batches/epoch at batch {popt.pretrain.batch_size}")
     launches, ckpt = drive_pretrain(popt, pgraphs, expect, "HBM")
@@ -981,7 +1337,7 @@ def pretrain_phases(dev, pending, datasets):
     # ---- 12. the process-stream tier, one epoch ---------------------------
     t0 = time.perf_counter()
     sopt = pt_opt(PT_OVERRIDES, STREAM_OVERRIDES)
-    s_expect, _, _ = pretrain_expect(sopt, pgraphs, 1, 1)
+    s_expect = pretrain_expect(sopt, pgraphs, 1, 1)[0]
     drive_pretrain(sopt, pgraphs, s_expect, "process stream")
     print(f"phase 12: {time.perf_counter() - t0:.1f} s")
 
@@ -1024,7 +1380,174 @@ def pretrain_phases(dev, pending, datasets):
           f"{time.perf_counter() - t0:.1f} s")
     if bad or not enc:
         raise AssertionError(f"encoder transfer differs at {bad[:5]}")
-    return k6_report, launches
+    return k6_report, launches, pgraphs
+
+
+def attr_kernel_calls(n_tasks, batch, rng):
+    """Phase 16's inputs: {kernel: [(level, args, kwargs)]} for K7, K8 and
+    K9 — layer 0's dense-attr calls of one forward of the esol-config
+    model under the dense-attr policy on ``batch`` (atom, fconn, frag), a
+    seeded case per level, the backward's arguments as phase 4 builds them
+    (the forward kernel's out, m, den and a seeded cotangent) and the emit's
+    (K8's d_zpre planes)."""
+    import torch
+
+    from fragnet_tpu_torch.ops import dense_gat
+    from fragnet_tpu_torch.train.fastpath import resolve_kernel_policy
+    from fragnet_tpu_torch.train.finetune import build_model
+
+    aopt = smoke_opt(attr=True)
+    model = build_model(aopt, n_classes=n_tasks,
+                        policy=resolve_kernel_policy(aopt.finetune),
+                        generator=torch.Generator().manual_seed(0))
+    model = model.to(batch.x_atoms.device).eval()
+    fwd = layer0_kernel_calls(aopt, model, batch,
+                              names=("dense_attr_fwd",))["dense_attr_fwd"]
+    if fwd[1][1][0].is_contiguous():
+        raise AssertionError("the fconn adjacency is not the strided view "
+                             "of the R=6 planes")
+    fwd += [seeded_attr_call(c, rng) for c in fwd]
+    bwd = [(lvl, bwd_kernel_args("dense_attr_fwd", a, kw, rng), {})
+           for lvl, a, kw in fwd]
+    emit = [(lvl, (dense_gat.dense_attr_bwd(*a)[4],) + tuple(a[5:9]), {})
+            for lvl, a, _ in bwd]
+    return {"dense_attr_fwd": fwd, "dense_attr_bwd": bwd, EMIT: emit}
+
+
+def finetune_expect(fopt, datasets, spec, test_windows):
+    """Each kernel's launches on ``run_finetune``'s path for ``fopt`` (its
+    kernel policy and epochs; 0 epochs is the prediction path), derived
+    from the loaders: under finetune.cache=auto the loaders are cached on
+    the device, so every epoch runs the train batches of the first
+    (shuffled) pass and the val batches, and the test batches run once;
+    each batch's passes are counted by ``expected_launches`` from the host
+    planes it carries (no plane builder). Returns (counts, train batches,
+    val batches, batches without atom, frag or fconn planes)."""
+    from fragnet_tpu_torch.data.batcher import BatchLoader
+    from fragnet_tpu_torch.graphs.hiergraph import pad_batch
+    from fragnet_tpu_torch.train.fastpath import resolve_kernel_policy
+
+    ft = fopt.finetune
+    n_epochs, seed = int(ft.n_epochs), int(fopt.seed)
+    bs, L = int(ft.batch_size), int(ft.model.num_layer)
+    train_g, val_g, _test_g, n_tasks, _task = datasets
+    first = list(BatchLoader(train_g, bs, spec=spec, shuffle=True, seed=seed,
+                             n_tasks=n_tasks)._windows())
+    val_w = list(BatchLoader(val_g, bs, spec=spec, n_tasks=n_tasks)._windows())
+    batches = []
+    for ws, n_fwd, n_steps in ((first, n_epochs, n_epochs),
+                               (val_w, n_epochs, 0), (test_windows, 1, 0)):
+        for w in ws:
+            batches.append((_planes_of(pad_batch(w, spec, n_tasks=n_tasks)),
+                            n_fwd, n_steps))
+    lacking = sum(1 for have, _, _ in batches
+                  if not {"dp_atom", "dp_frag", "dp_fc"} <= have)
+    return (expected_launches(resolve_kernel_policy(ft), L, batches),
+            len(first), len(val_w), lacking)
+
+
+def finetune_attr_path(datasets, spec, test_windows):
+    """Phase 17: run_finetune on cuda for 3 epochs under the dense-attr
+    policy, every launch count set to 0 just before it; each kernel's
+    launches against the count derived from the loaders' batches (the
+    cached train batches of the first pass, replayed each epoch, the val
+    batches each epoch, the test batches once) and the planes each batch
+    carries (finetune_expect). Returns (launches, the trained model)."""
+    import numpy as np
+
+    from fragnet_tpu_torch.obs import read_scalars
+    from fragnet_tpu_torch.train.fastpath import resolve_kernel_policy
+    from fragnet_tpu_torch.train.finetune import run_finetune
+
+    aopt = smoke_opt(train=True, attr=True)
+    n_epochs = int(aopt.finetune.n_epochs)
+    expect, n_train, n_val, lacking = finetune_expect(aopt, datasets, spec,
+                                                      test_windows)
+    print(f"dense-attr finetune path: "
+          f"{resolve_kernel_policy(aopt.finetune)}; {n_train} train, "
+          f"{n_val} val, {len(test_windows)} test batches, {lacking} "
+          f"without atom, frag or fconn planes")
+    if any(expect[n] == 0 for n in ATTR_KERNELS):
+        raise AssertionError(f"no dense-attr launch expected: {expect}")
+    _reset_launches()
+    t0 = time.perf_counter()
+    rmse, model = run_finetune(aopt, datasets=datasets, device="cuda")
+    run_s = time.perf_counter() - t0
+    launches = _launches()
+    scal = read_scalars(aopt.exp_dir)
+    losses = [r["value"] for r in scal if r["tag"] == "train/loss"][-n_epochs:]
+    eps = [r["value"] for r in scal
+           if r["tag"] == "train/edges_per_sec"][-n_epochs:]
+    print(f"dense-attr training path: test rmse {rmse:.5f}, train losses "
+          f"{[round(x, 5) for x in losses]}, run {run_s:.2f} s; train "
+          f"message-edges/s per epoch: "
+          + ", ".join(f"{x / 1e6:.4f}M" for x in eps))
+    print("kernels: " + " ".join(f"{n}={c} (expected {expect[n]})"
+                                 for n, c in launches.items()))
+    if len(losses) != n_epochs or not np.isfinite(losses).all() \
+            or not np.isfinite(rmse):
+        raise AssertionError(f"dense-attr training is not finite: losses "
+                             f"{losses}, test rmse {rmse}")
+    for n, c in launches.items():
+        if c != expect[n]:
+            raise AssertionError(f"{n} launched {c} times on the dense-attr "
+                                 f"training path, expected {expect[n]}")
+    return launches, model
+
+
+def attr_phases(dev, datasets, spec, windows, batch, train_np, step_default,
+                pgraphs, rng):
+    """Phases 16-19: the dense-attr kernel policy. Returns (K7-K9's kernel
+    report, launches on the finetune path, launches on the pretraining
+    path)."""
+    # ---- 16. K7, K8, K9 against their plain versions ----------------------
+    t0 = time.perf_counter()
+    report = check_kernels(ATTR_KERNELS,
+                           attr_kernel_calls(datasets[3], batch, rng), rng)
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 17. the finetune training path under the dense-attr policy -------
+    t0 = time.perf_counter()
+    launches_ft, model = finetune_attr_path(datasets, spec, windows)
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 18. one dense-attr train step: time, and gradients card vs CPU ---
+    t0 = time.perf_counter()
+    step_attr = timed_train_step(model, train_np, dev, "dense-attr")
+    print(f"train step, dense-attr vs default policy: wall "
+          f"{step_attr['wall']:.2f} / {step_default['wall']:.2f} ms, device "
+          f"busy {step_attr['busy']:.3f} / {step_default['busy']:.3f} ms; "
+          "per kernel (ms, dense-attr / default): "
+          + ", ".join(f"{n} {step_attr['kernels'][n]:.3f} / "
+                      f"{step_default['kernels'][n]:.3f}" for n in KERNELS))
+    l_cpu, l_gpu, worst, worst_name, n_par = train_grads_card_vs_cpu(
+        model, train_np, dev)
+    print(f"dense-attr train step cpu vs gpu: loss {l_cpu:.6f} / "
+          f"{l_gpu:.6f}; worst relative diff {worst:.3e} ({worst_name}) "
+          f"over {n_par} parameters (limit {GRAD_REL_LIMIT}); phase 18: "
+          f"{time.perf_counter() - t0:.1f} s")
+    if worst > GRAD_REL_LIMIT:
+        raise AssertionError("card and CPU dense-attr gradients disagree")
+
+    # ---- 19. the pretraining path under the dense-attr policy -------------
+    t0 = time.perf_counter()
+    popt = pt_opt(PT_OVERRIDES, ATTR_PT_OVERRIDES)
+    expect, n_train, n_val, levels = pretrain_expect(popt, pgraphs, 1, 1)
+    print(f"dense-attr pretraining path: {n_train} train steps, {n_val} val "
+          f"batches at batch {popt.pretrain.batch_size}; device planes per "
+          f"train step: {levels} (K6 {len(levels)} launches per step)")
+    if any(expect[n] == 0 for n in ATTR_KERNELS):
+        raise AssertionError(f"no dense-attr launch expected: {expect}")
+    launches_pt, ckpt = drive_pretrain(popt, pgraphs, expect, "HBM")
+    worst, worst_name = pretrain_grads_card_vs_cpu(popt, pgraphs, ckpt, dev)
+    print(f"dense-attr pretrain step cpu vs gpu (packed + K6 planes on the "
+          f"card, host planes on the CPU): worst relative diff {worst:.3e} "
+          f"({worst_name}) (limit {GRAD_REL_LIMIT}); phase 19: "
+          f"{time.perf_counter() - t0:.1f} s")
+    if worst > GRAD_REL_LIMIT:
+        raise AssertionError("card and CPU dense-attr pretrain gradients "
+                             "disagree")
+    return report, launches_ft, launches_pt
 
 
 
@@ -1059,8 +1582,6 @@ def main() -> int:
     from fragnet_tpu_torch.train.finetune import (build_model,
                                                   load_datasets,
                                                   run_finetune)
-    from fragnet_tpu_torch.train.loop import make_train_step, mse_loss
-    from fragnet_tpu_torch.train.optim import make_optimizer
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
@@ -1084,7 +1605,6 @@ def main() -> int:
     print(f"featurization: {time.perf_counter() - t0:.2f} s "
           f"({len(train_g)}/{len(val_g)}/{len(test_g)} graphs)")
     bs = int(opt.finetune.batch_size)
-    n_layers = int(opt.finetune.model.num_layer)
     spec, windows, batch_np = smoke_batch(opt, datasets)
     dev = torch.device("cuda")
     batch = to_device(batch_np, dev)
@@ -1103,57 +1623,7 @@ def main() -> int:
         if k.fwd is not None:
             calls[name] = [(lvl, bwd_kernel_args(k.fwd, a, kw, rng), {})
                            for lvl, a, kw in calls[k.fwd]]
-    report = {}
-    for name in GAT_KERNELS:
-        k = KERNELS[name]
-        mod, _ = _counter(name)
-        wrapper, plain = getattr(mod, name), getattr(mod, k.plain)
-        per_level, seeded_err = [], 0.0
-        for lvl, args, kw in calls[name]:
-            got = wrapper(*args, **kw)
-            want = plain(*args, **kw)
-            torch.cuda.synchronize()
-            # the seeded case holds each output to its own scale
-            floor = 0.0 if lvl == SEEDED else _scale_floor(name, args)
-            errs = [_diff(k, p, floor) for k, p in zip(got, want)]
-            err = max(e[0] for e in errs)
-            rel = max(e[1] for e in errs)
-            scales = ", ".join(f"{float(p.abs().max()):.2e}" for p in want)
-            if lvl == SEEDED:
-                print(f"{name} [{lvl}]: max_abs_err={err:.3e} rel={rel:.3e} "
-                      f"(worst of {len(errs)} outputs; output scales "
-                      f"{scales})")
-                if rel > REL_LIMIT:
-                    raise AssertionError(f"{name} [{lvl}] disagrees with its "
-                                         f"plain version: rel {rel:.3e}")
-                seeded_err = err
-                continue
-            ms = _median_ms(lambda: wrapper(*args, **kw))
-            plain_ms = _median_ms(lambda: plain(*args, **kw))
-            dev_ms = _device_ms(lambda: wrapper(*args, **kw))
-            plain_dev_ms = _device_ms(lambda: plain(*args, **kw))
-            nbytes, flops = k.cost(args)
-            bound, by = _bound_ms(nbytes, flops)
-            extra = {}
-            if name == "tcsr_gat_bwd":
-                extra["outside_device_ms"] = _device_ms(
-                    k2_outside_fn(args, rng))
-            shape = "x".join(str(s) for s in args[0].shape)
-            print(f"{name} [{lvl}] in0={shape}: max_abs_err={err:.3e} "
-                  f"rel={rel:.3e} (worst of {len(errs)} outputs; output "
-                  f"scales {scales}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"device_ms={dev_ms:.4f} plain_device_ms={plain_dev_ms:.4f} "
-                  f"bound_ms={bound:.5f} ({by}: {nbytes} B, {flops} flop)"
-                  + "".join(f" {k_}={v:.4f}" for k_, v in extra.items()))
-            if rel > REL_LIMIT:
-                raise AssertionError(f"{name} [{lvl}] disagrees with its "
-                                     f"plain version: rel {rel:.3e}")
-            per_level.append(dict(level=lvl, max_abs_err=err, rel_err=rel,
-                                  ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
-                                  plain_device_ms=plain_dev_ms,
-                                  bound_ms=bound, bound_by=by, bytes=nbytes,
-                                  flops=flops, **extra))
-        report[name] = (per_level, seeded_err)
+    report = check_kernels(GAT_KERNELS, calls, rng)
 
     print(f"phase 4: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
@@ -1165,8 +1635,7 @@ def main() -> int:
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     launches = _launches()
-    expect = {n: (0 if k.fwd or n == PLANES else n_layers * len(windows) * 2)
-              for n, k in KERNELS.items()}
+    expect = finetune_expect(opt, datasets, spec, windows)[0]
     print(f"prediction path: test rmse {rmse:.5f} eval {eval_s:.2f} s "
           f"({len(windows)} test batches)")
     print("kernels: " + " ".join(f"{n}={c} (expected {expect[n]})"
@@ -1231,26 +1700,11 @@ def main() -> int:
     seed = int(topt.seed)
     train_loader = BatchLoader(train_g, bs, spec=spec, shuffle=True,
                                seed=seed, n_tasks=n_tasks)
-    n_train = len(train_loader)
-    n_val = len(BatchLoader(val_g, bs, spec=spec, n_tasks=n_tasks))
+    expect, n_train, n_val, _ = finetune_expect(topt, datasets, spec, windows)
     for _ in range(n_epochs):  # the run's shuffled epochs pack as counted
         if len(list(train_loader._windows())) != n_train:
             raise AssertionError("a train epoch packs more batches than "
                                  "the loader's length")
-    # finetune.cache=auto caches the loaders on the device: every epoch runs
-    # the cached batches of the first pass, n_train of them (checked above),
-    # and the val and test loaders' as many as their windows
-    steps = n_epochs * n_train
-    fwd_calls = n_layers * 2 * (steps + n_epochs * n_val + len(windows))
-    # backward: every layer's bond, fconn and atom pass, but the frag pass
-    # of the last layer only — each layer recomputes fragment features from
-    # atoms (gat2.py overwrites x_frags), so the earlier layers' frag
-    # outputs are off the loss's path and autograd never calls their
-    # backward (nor does JAX's, with its symbolic zero cotangents)
-    # no plane builder: the finetune batches carry host-built planes
-    expect = {"tcsr_gat_fwd": fwd_calls, "dense_gat_fwd": fwd_calls,
-              "tcsr_gat_bwd": (n_layers + 1) * steps,
-              "dense_gat_bwd": n_layers * 2 * steps, PLANES: 0}
     _reset_launches()
     t0 = time.perf_counter()
     rmse_t, tr_model = run_finetune(topt, datasets=datasets, device="cuda")
@@ -1283,73 +1737,16 @@ def main() -> int:
     # ---- 8. one train step: host time and device busy time ----------------
     train_np = pad_batch(next(iter(train_loader._windows())), spec,
                          n_tasks=n_tasks)
-    step_model = copy.deepcopy(tr_model)
-    step_opt, _ = make_optimizer(step_model.parameters(), "adam", lr=1e-4)
-    step = make_train_step(step_model, step_opt, "mse", dev)
-    walls = []
-    for _ in range(6):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(train_np)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(train_np)
-        torch.cuda.synchronize()
-    dev_busy, busy = _busy(prof)
-    wall = statistics.median(walls[1:])
-    ours = {n: sum(ms for key, ms in busy if f"{n}_kernel" in key)
-            for n in KERNELS}
-    print(f"train step (batch copy, forward, backward, Adam): wall "
-          f"{wall:.2f} ms (median of 5 after warm-up), device busy "
-          f"{dev_busy:.3f} ms ({100 * dev_busy / wall:.1f}%) in {len(busy)} "
-          f"kernel kinds; the port's kernels: "
-          + ", ".join(f"{n} {ms:.3f}" for n, ms in ours.items())
-          + "; top: " + ", ".join(f"{k[:48]} {ms:.3f}" for k, ms in busy[:10]))
-    # the same step in stages, each ended by a synchronize (host clock)
-    stages = {"copy": [], "forward+loss": [], "backward": [], "adam": []}
-    step_model.train()
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        b = to_device(train_np, dev)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        loss = mse_loss(step_model(b), b.y, b.graph_mask)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        loss.backward()
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        step_opt.step()
-        step_opt.zero_grad(set_to_none=True)
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
-        for k, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
-            stages[k].append(dt * 1e3)
-    print("train step stages (host clock to a synchronize, median of 5): "
-          + ", ".join(f"{k} {statistics.median(v):.2f} ms"
-                      for k, v in stages.items()))
+    step_default = timed_train_step(tr_model, train_np, dev, "default")
 
     print(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
 
     # ---- 9. one train step's gradients: CPU vs card -----------------------
-    def loss_and_grads(d):
-        m_d = copy.deepcopy(tr_model).to(d).eval()  # dropout off
-        b_d = to_device(train_np, d)
-        loss = mse_loss(m_d(b_d), b_d.y, b_d.graph_mask)
-        loss.backward()
-        return float(loss.detach()), {
-            n: (None if p.grad is None else p.grad.detach().cpu())
-            for n, p in m_d.named_parameters()}
-
-    l_gpu, g_gpu = loss_and_grads(dev)
-    l_cpu, g_cpu = loss_and_grads(torch.device("cpu"))
-    worst, worst_name = _grad_diff(l_cpu, l_gpu, g_cpu, g_gpu)
+    l_cpu, l_gpu, worst, worst_name, n_par = train_grads_card_vs_cpu(
+        tr_model, train_np, dev)
     print(f"train step cpu vs gpu: loss {l_cpu:.6f} / {l_gpu:.6f}; worst "
-          f"relative diff {worst:.3e} ({worst_name}) over {len(g_cpu)} "
+          f"relative diff {worst:.3e} ({worst_name}) over {n_par} "
           f"parameters (limit {GRAD_REL_LIMIT})")
     if worst > GRAD_REL_LIMIT:
         raise AssertionError("card and CPU gradients disagree")
@@ -1357,13 +1754,21 @@ def main() -> int:
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 10.-15. the pretraining path -------------------------------------
-    k6_report, launches_pt = pretrain_phases(dev, pending, datasets)
+    k6_report, launches_pt, pgraphs = pretrain_phases(dev, pending, datasets)
     report[PLANES] = (k6_report, 0.0)
 
+    # ---- 16.-19. the dense-attr kernel policy ------------------------------
+    attr_report, launches_fa, launches_pa = attr_phases(
+        dev, datasets, spec, windows, batch, train_np, step_default, pgraphs,
+        rng)
+    report.update(attr_report)
+
+    paths = {"finetune_train": launches_t, "pretrain": launches_pt,
+             "finetune_attr_train": launches_fa, "pretrain_attr": launches_pa}
     out = []
     for name, (per_level, seeded_err) in report.items():
-        # a GAT kernel: one layer's two levels of one finetune batch; the
-        # plane builder: its two levels of one batch-512 pretrain step
+        # a GAT kernel: one layer's levels of one finetune batch; the plane
+        # builder: its two levels of one batch-512 pretrain step
         on_path = [p for p in per_level if p.get("on_path", True)]
         tot_bytes = sum(p["bytes"] for p in on_path)
         tot_flops = sum(p["flops"] for p in on_path)
@@ -1371,9 +1776,9 @@ def main() -> int:
         out.append({
             "name": name, "route": "cuda", "source": KERNELS[name].source,
             "replaces": KERNELS[name].replaces,
-            "launches": launches_pt[name],
-            "launches_by_path": {"finetune_train": launches_t[name],
-                                 "pretrain": launches_pt[name]},
+            "launches": (launches_pa if name in ATTR_KERNELS
+                         else launches_pt)[name],
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": max([seeded_err]
                                + [p["max_abs_err"] for p in per_level]),
             "ms": sum(p["ms"] for p in on_path),
@@ -1381,7 +1786,7 @@ def main() -> int:
             "bound_ms": sum(p["bound_ms"] for p in on_path),
             "bound_by": by,
             "library_ms": (sum(p["library_ms"] for p in on_path)
-                           if name == PLANES else None),
+                           if name in (PLANES, EMIT) else None),
             "levels": per_level,
         })
     print(f"total: {time.perf_counter() - t_all:.1f} s")

@@ -17,10 +17,11 @@ copy (graphs/batch.py:PackedUploader) and decoded there:
     windows and an i32 ``flat_slot``;
   * the dense planes are not transported: ``unpack_batch`` rebuilds the
     levels listed in ``layout.dp_specs`` that the kernel policy reads
-    (``dp_bond`` and ``dp_fc`` under the default policy) with the device
-    plane builder (ops/dense_gat.py:build_dense_planes_device). The
-    adjacency-only ``dp_atom`` / ``dp_frag`` planes, which only the
-    dense-attr mode reads (its kernels are not ported), stay None.
+    (``plane_levels``: ``dp_bond`` and ``dp_fc`` under the default policy,
+    and the adjacency-only ``dp_atom`` / ``dp_frag`` at R = 0 under
+    ``attr=True``) with the device plane builder
+    (ops/dense_gat.py:build_dense_planes_device); a level the policy does
+    not read stays None.
 
 Differences from the JAX package, none of which changes a decoded value:
 
@@ -149,11 +150,14 @@ def dp_level_ok(graphs, level: str, tn: int) -> bool:
 
 
 def plane_levels(policy) -> Tuple[str, ...]:
-    """The dense-plane levels a ``KernelPolicy`` reads: ``dp_bond`` under
-    ``bond="planes"``, ``dp_fc`` under ``fc="planes"``."""
-    return tuple(lvl for lvl, mode in (("dp_bond", policy.bond),
-                                       ("dp_fc", policy.fc))
-                 if mode == "planes")
+    """The dense-plane levels a ``KernelPolicy`` reads, in ``_DP_LEVELS``
+    order: ``dp_bond`` under ``bond="planes"``, ``dp_fc`` under ``fc`` in
+    {"planes", "attr"} (the dense-attr pass reads its adjacency rows),
+    ``dp_atom`` and ``dp_frag`` under ``attr=True``."""
+    read = {"dp_bond": policy.bond == "planes",
+            "dp_fc": policy.fc in ("planes", "attr"),
+            "dp_atom": bool(policy.attr), "dp_frag": bool(policy.attr)}
+    return tuple(lvl for lvl in _DP_LEVELS if read[lvl])
 
 
 def _align(n: int) -> int:

@@ -5,9 +5,10 @@ Re-designs fragnet/model/gat/gat2.py:40-330 (FragNetLayerA.forward): five
 passes (bond-graph GAT → atom-graph GAT with self-loops → atom→frag pooling
 → fconn-graph GAT → frag-graph GAT) over static-shape padded tensors. Every
 GAT pass goes through ``_gat_dispatch``: the dense planes kernel
-(ops/dense_gat.py) or the fused TCSR kernel (ops/tcsr_gat.py) when the batch
-carries their metadata, else — on the CPU only — the segment path
-(ops/segment.py). The attention vectors are computed only when asked for.
+(ops/dense_gat.py), the dense-attr kernel (same module), or the fused TCSR
+kernel (ops/tcsr_gat.py) as the kernel policy and the batch's metadata
+select, else — on the CPU only — the segment path (ops/segment.py). The
+attention vectors are computed only when asked for.
 
 Parameter names are the reference torch names (gat2.py): projection_b/a/fb,
 edge_attr_bond_embed, edge_attr_fbond_embed and the attention vectors
@@ -24,7 +25,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
-from fragnet_tpu_torch.ops.dense_gat import dense_gat_pass
+from fragnet_tpu_torch.ops.dense_gat import (dense_attr_gat_pass,
+                                             dense_gat_pass)
 from fragnet_tpu_torch.ops.segment import gat_attention_pass, segment_sum
 from fragnet_tpu_torch.ops.tcsr import TileMeta
 from fragnet_tpu_torch.ops.tcsr_gat import tcsr_gat_pass
@@ -40,9 +42,8 @@ class KernelPolicy:
     * ``fc``: "planes" | "attr" | "tcsr".
     * ``attr``: atom/frag levels use the dense-attr kernel instead of TCSR.
 
-    The dense-attr kernels (fragnet_tpu/ops/dense_gat.py:216,276,359) are
-    not ported yet (ROADMAP.md Queue B4), so ``fc="attr"`` and ``attr=True``
-    raise NotImplementedError."""
+    A level whose batch carries no planes for the selected dense kernel
+    goes to the TCSR kernel, as in the JAX package."""
 
     bond: str = "planes"
     fc: str = "planes"
@@ -59,10 +60,6 @@ class KernelPolicy:
             raise ValueError(f"kernel.bond={self.bond!r} (planes|tcsr)")
         if self.fc not in ("planes", "attr", "tcsr"):
             raise ValueError(f"kernel.fc={self.fc!r} (planes|attr|tcsr)")
-        if self.fc == "attr" or self.attr:
-            raise NotImplementedError(
-                "kernel.fc='attr' / kernel.attr=true need the dense-attr "
-                "kernels, not ported yet (ROADMAP.md Queue B4)")
 
 
 def torch_linear_init_(w: torch.Tensor, fan_in: int,
@@ -112,7 +109,7 @@ def _gat_dispatch(
     num_nodes: int,
     tm: Optional[TileMeta],
     dp: Optional[torch.Tensor],  # dense planes
-    mode: str,                   # "planes" | "tcsr"
+    mode: str,                   # "planes" | "attr" | "tcsr"
     fold=None,                   # (v, c) folded edge-attr term (planes mode)
     self_loops: bool = False,
     seg=None,                    # (src, dst, attr, mask) for the segment
@@ -121,14 +118,23 @@ def _gat_dispatch(
     need_attn: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One GAT pass through whichever kernel the batch metadata + policy
-    select: the dense planes kernel, else the fused TCSR kernel, else — for
-    CPU tensors only — the segment path. A CUDA tensor with neither kernel's
-    metadata raises. Math contract for every branch:
-    ops/segment.py:gat_attention_pass (reference gat2.py:137-169)."""
+    select (the JAX package's ladder, fragnet_tpu/model/layers.py:180-190):
+    the dense planes kernel, the dense-attr kernel over the adjacency plane
+    (``dp`` itself at R = 0, else its first tn rows of each tile), else the
+    fused TCSR kernel, else — for CPU tensors only — the segment path. A
+    CUDA tensor with neither kernel's metadata raises. Math contract for
+    every branch: ops/segment.py:gat_attention_pass (reference
+    gat2.py:137-169)."""
     if mode == "planes" and dp is not None and fold is not None:
         v, c = fold
         return dense_gat_pass(nf, dp, v, c, ea, src, dst, mask, avec,
                               return_attention=need_attn)
+    if mode == "attr" and dp is not None and isinstance(tm, TileMeta):
+        tn = dp.shape[2]
+        adj = dp if dp.shape[1] == tn else dp[:, :tn, :]
+        return dense_attr_gat_pass(nf, ea, src, dst, mask, avec, adj, tm,
+                                   self_loops=self_loops,
+                                   return_attention=need_attn)
     if isinstance(tm, TileMeta):
         return tcsr_gat_pass(nf, ea, src, dst, mask, avec, tm,
                              self_loops=self_loops,
@@ -239,8 +245,9 @@ class FragNetLayer(nn.Module):
         nf_a = self.projection_a(x_atoms).reshape(A, H, atom_out_ph)
         atom_out_feats, attn_atoms = _gat_dispatch(
             nf_a, new_bond_features, batch.edge_src, batch.edge_dst,
-            edge_mask, self.a, num_nodes=A, tm=batch.tm_atom, dp=None,
-            mode="tcsr", self_loops=True, seg=seg, need_attn=need_attn)
+            edge_mask, self.a, num_nodes=A, tm=batch.tm_atom,
+            dp=batch.dp_atom, mode="attr" if pol.attr else "tcsr",
+            self_loops=True, seg=seg, need_attn=need_attn)
         x_atoms_new = atom_out_feats.reshape(A, -1) * batch.atom_mask[:, None]
 
         # ---- pass 3: atom → fragment pooling (gat2.py:234) ----------------
@@ -271,7 +278,8 @@ class FragNetLayer(nn.Module):
         frag_out, attn_frags = _gat_dispatch(
             nf_f, new_fbond_features, batch.frag_src, batch.frag_dst,
             batch.fconn_mask, self.f, num_nodes=F_, tm=batch.tm_frag,
-            dp=None, mode="tcsr", need_attn=need_attn)
+            dp=batch.dp_frag, mode="attr" if pol.attr else "tcsr",
+            need_attn=need_attn)
         x_frags_new = frag_out.reshape(F_, -1) * batch.frag_mask[:, None]
 
         attn = None

@@ -141,9 +141,11 @@ def stream_ptr(device: torch.device) -> ctypes.c_void_p:
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
-          device: torch.device) -> None:
+          device: torch.device, inner_contiguous: bool = False) -> None:
     """Raise unless ``t`` has the dtype, shape and device a kernel expects
-    and is contiguous."""
+    and is contiguous — or, with ``inner_contiguous``, contiguous in every
+    dimension but the first, whose stride the kernel takes as an argument
+    (at least the size of one slice)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -151,5 +153,11 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if inner_contiguous and t.dim() > 0:
+        if t.shape[0] and (not t[0].is_contiguous()
+                           or t.stride(0) < t[0].numel()):
+            raise ValueError(f"{name} has strides {t.stride()}: each slice "
+                             f"of the first dimension must be contiguous "
+                             f"and apart from the others")
+    elif not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")

@@ -21,7 +21,19 @@ kernel wrapper ``dense_gat_bwd`` (csrc/dense_gat_bwd.cu, which replaces
 dense_gat.py:_bwd_kernel) and ``dense_gat_bwd_plain``, ``DenseGatFn`` joining
 the two as the autograd boundary (dense_gat.py:op_bwd), and the
 summed-attention-by-source epilogue (dense_gat.py:848-864) on detached
-tensors. Math contract: ops/segment.py:gat_attention_pass.
+tensors.
+
+The dense-attr section serves the levels whose edge-attr logit term is
+dynamic (atom and frag, and fconn under the policy ``fc="attr"``): the
+forward kernel wrapper ``dense_attr_fwd`` (csrc/dense_attr_fwd.cu, which
+replaces dense_gat.py:_attr_fwd_kernel) with ``dense_attr_fwd_plain``, the
+backward kernel wrapper ``dense_attr_bwd`` (csrc/dense_attr_bwd.cu, which
+replaces dense_gat.py:_attr_bwd_kernel) with ``dense_attr_bwd_plain``, the
+emit kernel wrapper ``dense_attr_emit`` (csrc/dense_attr_emit.cu, which
+replaces dense_gat.py:_attr_emit_kernel) with ``dense_attr_emit_plain``,
+``DenseAttrGatFn`` joining them as the autograd boundary
+(dense_gat.py:584-628), and ``dense_attr_gat_pass`` with its epilogue
+(dense_gat.py:632-686). Math contract: ops/segment.py:gat_attention_pass.
 """
 
 from __future__ import annotations
@@ -47,6 +59,15 @@ KERNEL_BWD = _cuda.CudaKernel(
     [_VP] * 13 + [_I] * 5 + [ctypes.c_float, _VP])
 KERNEL_PLANES = _cuda.CudaKernel(
     "dense_planes.cu", "dense_planes", [_VP] * 7 + [_I] * 5 + [_VP])
+_LL = ctypes.c_longlong
+KERNEL_ATTR = _cuda.CudaKernel(
+    "dense_attr_fwd.cu", "dense_attr_fwd",
+    [_VP] * 13 + [_LL] + [_I] * 7 + [ctypes.c_float, _VP])
+KERNEL_ATTR_BWD = _cuda.CudaKernel(
+    "dense_attr_bwd.cu", "dense_attr_bwd",
+    [_VP] * 19 + [_LL] + [_I] * 7 + [ctypes.c_float, _VP])
+KERNEL_ATTR_EMIT = _cuda.CudaKernel(
+    "dense_attr_emit.cu", "dense_attr_emit", [_VP] * 7 + [_I] * 5 + [_VP])
 
 _KERNEL_H = (1, 2, 4, 8)
 _KERNEL_TN = (32, 64, 128, 256)
@@ -389,3 +410,336 @@ def dense_gat_pass(
     p = torch.exp(expo) / den_s[dst_l]
     attn = torch.zeros((N, H), dtype=torch.float32, device=wd.device)
     return out, attn.index_add(0, src_l, p)
+
+
+# --------------------------------------------------------------------------
+# dynamic-edge-attr variant (atom / frag levels, and fconn under fc="attr")
+# --------------------------------------------------------------------------
+#
+# The atom and frag passes carry dynamic per-edge logit terms (w_ea = new
+# bond features · a_ea, gat2.py:186-204, 283-316), so no plane of them can be
+# built ahead. The kernels take the level's adjacency plane and its per-edge
+# arrays and find each edge of a tile over the level's TCSR edge windows;
+# self-loops (the atom pass, gat2.py:179-185) are folded in analytically.
+
+def _attr_w(w_ea, src, dst, emask, meta, T: int):
+    """(T, tn, tn, H) W planes: w_ea[e] at the local (dst, src) slot of every
+    edge that the kernels count (``_plane_edges``), 0 elsewhere."""
+    tn = meta.tn
+    k, t, di, sj = _plane_edges(src, dst, emask, T * tn, meta)
+    W = torch.zeros((T, tn, tn, w_ea.shape[1]), dtype=torch.float32,
+                    device=w_ea.device)
+    return W.index_put_((t, di, sj), w_ea[k].float(), accumulate=True)
+
+
+def _attr_logits(adj, wd, ws, w_ea, src, dst, emask, meta, slope):
+    """(zpre (T, i, j, H), z masked to −1e30 off the adjacency, adj as
+    (T, i, j, 1), zs_pre (T, i, H) = wd + ws) for the plain versions."""
+    T, tn, _ = adj.shape
+    H = wd.shape[1]
+    zpre = (wd.view(T, tn, 1, H) + ws.view(T, 1, tn, H)
+            + _attr_w(w_ea, src, dst, emask, meta, T))
+    a4 = adj.unsqueeze(-1)
+    z = torch.where(a4 > 0, F.leaky_relu(zpre, slope),
+                    torch.full_like(zpre, _NEG))
+    return zpre, z, a4, (wd + ws).view(T, tn, H)
+
+
+def dense_attr_fwd_plain(adj, wd, ws, nf, w_ea, src, dst, emask, meta,
+                         self_loops: bool, slope: float = 0.2):
+    """Plain PyTorch version of the dense-attr forward kernel: same inputs,
+    same (out (N, H*D), m (N, H), den (N, H))."""
+    T, tn, _ = adj.shape
+    N, H = wd.shape
+    D = nf.shape[1] // H
+    zpre, z, a4, zs_pre = _attr_logits(adj, wd, ws, w_ea, src, dst, emask,
+                                       meta, slope)
+    m = z.amax(dim=2)                                       # (T, i, H)
+    if self_loops:
+        zs = F.leaky_relu(zs_pre, slope)
+        m = torch.maximum(m, zs)
+    p = torch.exp(z - m[:, :, None, :]) * a4
+    den = p.sum(dim=2)
+    nf4 = nf.view(T, tn, H, D)
+    out = torch.einsum("tijh,tjhd->tihd", p, nf4)
+    if self_loops:
+        ps = torch.exp(zs - m)
+        den = den + ps
+        out = out + ps[..., None] * nf4
+    deng = torch.where(den == 0.0, torch.ones_like(den), den)
+    out = out / deng[..., None]
+    return out.reshape(N, H * D), m.reshape(N, H), den.reshape(N, H)
+
+
+def dense_attr_bwd_plain(adj, wd, ws, nf, w_ea, src, dst, emask, meta, m,
+                         den, g, s, self_loops: bool, slope: float = 0.2):
+    """Plain PyTorch version of the dense-attr backward kernel, written out
+    from the formulas (not autograd of the plain forward, so the two check
+    each other): (d_wd (N, H) row sums of d_zpre, d_ws (N, H) column sums,
+    d_wself (N, H) the self-loop logit gradient — 0 without self-loops —,
+    d_nf (N, H*D) = Pᵀg + ps·g, and the d_zpre planes (T, H*tn, tn), 0 off
+    the adjacency) for the cotangent ``g`` (N, H*D) of out, with ``s``
+    (N, H) = Σ_d g·out."""
+    T, tn, _ = adj.shape
+    N, H = wd.shape
+    D = nf.shape[1] // H
+    zpre, z, a4, zs_pre = _attr_logits(adj, wd, ws, w_ea, src, dst, emask,
+                                       meta, slope)
+    m3, s3 = m.view(T, tn, H), s.view(T, tn, H)
+    deng = torch.where(den == 0.0, torch.ones_like(den), den).view(T, tn, H)
+    expo = torch.where(a4 > 0, z - m3[:, :, None, :],
+                       torch.full_like(z, float("-inf")))
+    p = torch.exp(expo) * a4 / deng[:, :, None, :]
+    g4, nf4 = g.view(T, tn, H, D), nf.view(T, tn, H, D)
+    d_p = torch.einsum("tihd,tjhd->tijh", g4, nf4)
+    fac = torch.where(zpre > 0, torch.ones_like(zpre),
+                      torch.full_like(zpre, slope))
+    dz = p * (d_p - s3[:, :, None, :]) * fac * a4
+    d_nf = torch.einsum("tijh,tihd->tjhd", p, g4)
+    if self_loops:
+        ps = torch.exp(F.leaky_relu(zs_pre, slope) - m3) / deng
+        d_ps = (g4 * nf4).sum(-1)
+        fac_s = torch.where(zs_pre > 0, torch.ones_like(zs_pre),
+                            torch.full_like(zs_pre, slope))
+        d_wself = ps * (d_ps - s3) * fac_s
+        d_nf = d_nf + ps[..., None] * g4
+    else:
+        d_wself = torch.zeros_like(m3)
+    planes = dz.permute(0, 3, 1, 2).reshape(T, H * tn, tn)
+    return (dz.sum(2).reshape(N, H), dz.sum(1).reshape(N, H),
+            d_wself.reshape(N, H), d_nf.reshape(N, H * D), planes)
+
+
+def dense_attr_emit_plain(dz, src, dst, emask, meta):
+    """Plain PyTorch version of the emit kernel: (E, H) f32, d_wea[e, h] =
+    dz[t, h*tn + dst mod tn, src mod tn] · emask[e] for every edge that the
+    kernels count, 0 for every other edge."""
+    T, Htn, tn = dz.shape
+    H = Htn // tn
+    k, t, di, sj = _plane_edges(src, dst, emask, T * tn, meta)
+    out = torch.zeros((src.shape[0], H), dtype=torch.float32,
+                      device=dz.device)
+    out[k] = dz.view(T, H, tn, tn)[t, :, di, sj] * emask[k, None]
+    return out
+
+
+def _check_attr(name, adj, wd, nf, src, meta, extra=()):
+    """Raise unless the dense-attr kernels take these tensors; returns
+    (T, tn, N, H, HD, E). ``adj`` may be the first tn rows of each tile of
+    a taller planes tensor (its tile stride is passed to the kernel);
+    ``extra`` adds (name, tensor, dtype, shape)."""
+    dev = nf.device
+    if dev.type != "cuda":
+        raise ValueError(f"no {name} kernel for device {dev}")
+    T, tn, tn2 = adj.shape
+    N, H = wd.shape
+    HD = nf.shape[1]
+    E = src.shape[0]
+    if H not in _KERNEL_H or tn not in _KERNEL_TN or tn2 != tn or HD % H \
+            or N != T * tn or tn != meta.tn:
+        raise ValueError(f"{name}: unsupported shapes adj={tuple(adj.shape)} "
+                         f"N={N} H={H} HD={HD} meta.tn={meta.tn} (H in "
+                         f"{_KERNEL_H}, tn in {_KERNEL_TN}, N = n_tiles * tn)")
+    _cuda.check(adj, "adj", torch.float32, (T, tn, tn), dev,
+                inner_contiguous=True)
+    i32, f32 = torch.int32, torch.float32
+    for arg, t, dt, shape in (("wd", wd, f32, (N, H)),
+                              ("nf", nf, f32, (N, HD)),
+                              ("src", src, i32, (E,)),
+                              ("ew_blk", meta.ew_blk, i32, (T,)),
+                              ("cw", meta.cw, i32, (T,))) + tuple(extra):
+        _cuda.check(t, arg, dt, shape, dev)
+    return T, tn, N, H, HD, E
+
+
+def _edge_extra(E, H, w_ea, dst, emask):
+    f32 = torch.float32
+    return (("w_ea", w_ea, f32, (E, H)), ("dst", dst, torch.int32, (E,)),
+            ("emask", emask, f32, (E,)))
+
+
+def dense_attr_fwd(adj, wd, ws, nf, w_ea, src, dst, emask, meta,
+                   self_loops: bool, slope: float = 0.2):
+    """Dense-attr forward kernel wrapper (csrc/dense_attr_fwd.cu, which
+    replaces dense_gat.py:_attr_fwd_kernel): (out (N, H*D), m (N, H), den
+    (N, H)) f32.
+
+    ``adj`` (n_tiles, tn, tn) f32 adjacency planes, contiguous within each
+    tile (the fconn level passes ``dp_fc[:, :tn, :]`` as it is); ``wd`` /
+    ``ws`` (N, H), ``nf`` (N, H*D), ``w_ea`` (E, H) f32; ``src`` / ``dst``
+    (E,) int32, ``emask`` (E,) f32; ``meta`` holds ``ew_blk`` and ``cw``
+    (n_tiles,) int32 tensors on the same device. At most one counted edge
+    per (dst, src) slot (packing.dp_level_ok)."""
+    if nf.device.type == "cpu":
+        return dense_attr_fwd_plain(adj, wd, ws, nf, w_ea, src, dst, emask,
+                                    meta, self_loops, slope)
+    N, H = wd.shape
+    T, tn, N, H, HD, E = _check_attr(
+        "dense_attr_fwd", adj, wd, nf, src, meta,
+        extra=(("ws", ws, torch.float32, (N, H)),)
+        + _edge_extra(src.shape[0], H, w_ea, dst, emask))
+    dev = nf.device
+    f32 = torch.float32
+    out = torch.empty((N, HD), dtype=f32, device=dev)
+    m = torch.empty((N, H), dtype=f32, device=dev)
+    den = torch.empty((N, H), dtype=f32, device=dev)
+    P = _cuda.ptr
+    KERNEL_ATTR.launch(P(adj), P(wd), P(ws), P(nf), P(w_ea), P(src), P(dst),
+                       P(emask), P(meta.ew_blk), P(meta.cw), P(out), P(m),
+                       P(den), adj.stride(0), T, tn, H, HD // H, E, meta.te,
+                       int(bool(self_loops)), ctypes.c_float(slope),
+                       _cuda.stream_ptr(dev))
+    return out, m, den
+
+
+def dense_attr_bwd(adj, wd, ws, nf, w_ea, src, dst, emask, meta, m, den, g,
+                   s, self_loops: bool, slope: float = 0.2):
+    """Dense-attr backward kernel wrapper (csrc/dense_attr_bwd.cu, which
+    replaces dense_gat.py:_attr_bwd_kernel): (d_wd, d_ws, d_wself (N, H),
+    d_nf (N, H*D), d_zpre planes (n_tiles, H*tn, tn)) f32, from the
+    forward's inputs, its (m, den), the cotangent ``g`` (N, H*D) of out and
+    ``s`` (N, H) = Σ_d g·out. The kernel adds the column sums d_ws and d_nf
+    from several blocks per tile, so those two start as zeros; it writes
+    every slot of the planes (0 off the adjacency)."""
+    if nf.device.type == "cpu":
+        return dense_attr_bwd_plain(adj, wd, ws, nf, w_ea, src, dst, emask,
+                                    meta, m, den, g, s, self_loops, slope)
+    N, H = wd.shape
+    HD = nf.shape[1]
+    f32 = torch.float32
+    T, tn, N, H, HD, E = _check_attr(
+        "dense_attr_bwd", adj, wd, nf, src, meta,
+        extra=(("ws", ws, f32, (N, H)), ("m", m, f32, (N, H)),
+               ("den", den, f32, (N, H)), ("g", g, f32, (N, HD)),
+               ("s", s, f32, (N, H)))
+        + _edge_extra(src.shape[0], H, w_ea, dst, emask))
+    dev = nf.device
+    d_wd = torch.empty((N, H), dtype=f32, device=dev)
+    d_ws = torch.zeros((N, H), dtype=f32, device=dev)
+    d_wself = torch.empty((N, H), dtype=f32, device=dev)
+    d_nf = torch.zeros((N, HD), dtype=f32, device=dev)
+    dz = torch.empty((T, H * tn, tn), dtype=f32, device=dev)
+    P = _cuda.ptr
+    KERNEL_ATTR_BWD.launch(
+        P(adj), P(wd), P(ws), P(nf), P(w_ea), P(src), P(dst), P(emask),
+        P(meta.ew_blk), P(meta.cw), P(m), P(den), P(g), P(s), P(d_wd),
+        P(d_ws), P(d_wself), P(d_nf), P(dz), adj.stride(0), T, tn, H, HD // H,
+        E, meta.te, int(bool(self_loops)), ctypes.c_float(slope),
+        _cuda.stream_ptr(dev))
+    return d_wd, d_ws, d_wself, d_nf, dz
+
+
+def dense_attr_emit(dz, src, dst, emask, meta):
+    """Emit kernel wrapper (csrc/dense_attr_emit.cu, which replaces
+    dense_gat.py:_attr_emit_kernel and op_bwd's flat_slot gather): the
+    per-edge logit gradient d_wea (E, H) f32 from the d_zpre planes ``dz``
+    (n_tiles, H*tn, tn) — dz at each counted edge's slot times its mask, 0
+    for every other edge."""
+    if dz.device.type == "cpu":
+        return dense_attr_emit_plain(dz, src, dst, emask, meta)
+    dev = dz.device
+    if dev.type != "cuda":
+        raise ValueError(f"no dense_attr_emit kernel for device {dev}")
+    T, Htn, tn = dz.shape
+    H = Htn // tn
+    E = src.shape[0]
+    if tn != meta.tn or Htn % tn:
+        raise ValueError(f"dense_attr_emit: planes {tuple(dz.shape)} do not "
+                         f"match meta.tn={meta.tn}")
+    i32, f32 = torch.int32, torch.float32
+    for arg, t, dt, shape in (("dz", dz, f32, (T, Htn, tn)),
+                              ("src", src, i32, (E,)),
+                              ("dst", dst, i32, (E,)),
+                              ("emask", emask, f32, (E,)),
+                              ("ew_blk", meta.ew_blk, i32, (T,)),
+                              ("cw", meta.cw, i32, (T,))):
+        _cuda.check(t, arg, dt, shape, dev)
+    d_wea = torch.empty((E, H), dtype=f32, device=dev)
+    P = _cuda.ptr
+    KERNEL_ATTR_EMIT.launch(P(dz), P(src), P(dst), P(emask), P(meta.ew_blk),
+                            P(meta.cw), P(d_wea), T, tn, H, E, meta.te,
+                            _cuda.stream_ptr(dev))
+    return d_wea
+
+
+class DenseAttrGatFn(torch.autograd.Function):
+    """(wd, ws, nf, w_ea) → (out, m, den) through the dense-attr forward
+    kernel, with the backward kernel and the emit kernel as its gradient
+    (dense_gat.py:584-628). The self-loop terms join d_wd and d_ws here, as
+    op_bwd adds them; ``m`` and ``den`` carry no gradient; the adjacency,
+    the edge arrays and the metadata get none."""
+
+    @staticmethod
+    def forward(ctx, adj, wd, ws, nf, w_ea, src, dst, emask, meta,
+                self_loops, slope):
+        out, m, den = dense_attr_fwd(adj, wd, ws, nf, w_ea, src, dst, emask,
+                                     meta, self_loops, slope)
+        ctx.save_for_backward(adj, wd, ws, nf, w_ea, src, dst, emask, out, m,
+                              den)
+        ctx.meta, ctx.self_loops, ctx.slope = meta, self_loops, slope
+        ctx.mark_non_differentiable(m, den)
+        return out, m, den
+
+    @staticmethod
+    def backward(ctx, g_out, _g_m, _g_den):
+        adj, wd, ws, nf, w_ea, src, dst, emask, out, m, den = ctx.saved_tensors
+        N, H = wd.shape
+        g = g_out.float().contiguous()
+        s = (g.view(N, H, -1) * out.view(N, H, -1)).sum(-1)
+        d_wd, d_ws, d_wself, d_nf, dz = dense_attr_bwd(
+            adj, wd, ws, nf, w_ea, src, dst, emask, ctx.meta, m, den, g, s,
+            ctx.self_loops, ctx.slope)
+        d_wea = dense_attr_emit(dz, src, dst, emask, ctx.meta)
+        if ctx.self_loops:
+            d_wd, d_ws = d_wd + d_wself, d_ws + d_wself
+        return (None, d_wd, d_ws, d_nf, d_wea, None, None, None, None, None,
+                None)
+
+
+def dense_attr_gat_pass(
+    node_feats_h: torch.Tensor,   # (N, H, D)
+    edge_attr: torch.Tensor,      # (E, Da) dynamic per-edge attrs
+    src: torch.Tensor,            # (E,) int32
+    dst: torch.Tensor,
+    edge_mask: torch.Tensor,
+    attn_vec: torch.Tensor,       # (H, 2D + Da) — [dst | ea | src]
+    adj_planes: torch.Tensor,     # (N//tn, tn, tn) f32 adjacency
+    meta,                         # ops.tcsr.TileMeta (edge windows reused)
+    self_loops: bool = False,
+    negative_slope: float = 0.2,
+    return_attention: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Dense-tile GAT pass for dynamic edge attrs (the JAX package's
+    dense_attr_gat_pass, dense_gat.py:632; atom / frag levels, gat2.py:
+    178-224 / 283-316, and fconn under ``fc="attr"``). The per-edge logit
+    term w_ea = ea · a_eaᵀ and wd / ws = nf · a_dst / a_src are plain torch,
+    so autograd carries the kernels' d_wea, d_wd and d_ws on to ea, nf and
+    the attention vector. Self-loops (zero edge attrs, gat2.py:179-185) are
+    folded in analytically for every node. ``adj_planes`` may be a view with
+    a larger tile stride (the first tn rows of the fconn planes).
+
+    Returns (out (N,H,D), attn_by_src (N,H) or None); the attention vector
+    (gat2.py:165-167 summed-by-source probabilities, dense_gat.py:668-686)
+    is rebuilt from (m, den) on detached tensors only when
+    ``return_attention``."""
+    from fragnet_tpu_torch.ops.tcsr_gat import attention_by_source
+
+    N, H, D = node_feats_h.shape
+    Da = edge_attr.shape[-1]
+    nf32 = node_feats_h.float()
+    a32 = attn_vec.float()
+    a_dst, a_ea, a_src = a32[:, :D], a32[:, D:D + Da], a32[:, D + Da:]
+    wd = torch.einsum("nhd,hd->nh", nf32, a_dst)
+    ws = torch.einsum("nhd,hd->nh", nf32, a_src)
+    w_ea = edge_attr.float() @ a_ea.T                        # (E, H)
+    emask = edge_mask.float().contiguous()
+    out, m, den = DenseAttrGatFn.apply(
+        adj_planes, wd.contiguous(), ws.contiguous(),
+        nf32.reshape(N, H * D).contiguous(), w_ea.contiguous(), src, dst,
+        emask, meta, bool(self_loops), negative_slope)
+    out = out.reshape(N, H, D).to(node_feats_h.dtype)
+    if not return_attention:
+        return out, None
+    wn = torch.cat([wd.detach(), ws.detach()], dim=-1)
+    return out, attention_by_source(wn, w_ea.detach(), src, dst, emask, m,
+                                    den, self_loops, negative_slope)

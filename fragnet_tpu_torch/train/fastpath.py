@@ -57,8 +57,10 @@ def resolve_device(device: Union[str, torch.device, None] = None
 
 def resolve_kernel_policy(section) -> KernelPolicy:
     """Per-level kernel strategy from the config subtree's ``kernel.*`` keys
-    (``kernel.bond=planes|tcsr``, ``kernel.fc=planes|tcsr``,
-    ``kernel.attr=false``)."""
+    (``kernel.bond=planes|tcsr``, ``kernel.fc=planes|attr|tcsr``,
+    ``kernel.attr=true|false``); ``bond=attr`` is refused by KernelPolicy.
+    Config keys only: the JAX package's ``FRAGNET_DENSE_*`` environment
+    overrides are not carried over."""
     ksec = section.get("kernel", {}) if hasattr(section, "get") else {}
     getk = ksec.get if hasattr(ksec, "get") else (lambda k, d: d)
     return KernelPolicy(bond=str(getk("bond", "planes")),

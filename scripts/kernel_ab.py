@@ -11,10 +11,12 @@ every kernel of chip_smoke.KERNELS whose source differs between the two,
 each level's inputs are timed in turns (base, change, change, base) ×
 rounds, each turn the device time of 50 calls (torch.profiler, as in
 chip_smoke.py): for a GAT kernel its layer-0 inputs of the esol batch (for
-a backward kernel, built as chip_smoke.py builds them), for the plane
-builder its bond, fconn and atom inputs of chip_smoke.py's batch-512
-pretrain batch. Both versions are also held against the plain version
-(limit 1e-4 of scale; the plane builder exactly). Prints one line per
+a backward kernel, built as chip_smoke.py builds them; for the dense-attr
+kernels K7-K9 the atom, fconn and frag inputs of phase 16, under the
+dense-attr policy), for the plane builder its bond, fconn and atom inputs
+of chip_smoke.py's batch-512 pretrain batch. Both versions are also held
+against the plain version (limit 1e-4 of scale; the plane builder and the
+emit kernel exactly). Prints one line per
 level and a JSON line of the medians.
 """
 
@@ -71,30 +73,33 @@ def main() -> int:
                     force=True)
 
     calls = {}
-    if set(pairs) & set(cs.GAT_KERNELS):
+    gat = set(cs.GAT_KERNELS) | set(cs.ATTR_KERNELS)
+    if set(pairs) & gat:
         opt = cs.smoke_opt()
         datasets = load_datasets(opt)
         _spec, _windows, batch_np = cs.smoke_batch(opt, datasets)
+        batch = to_device(batch_np, "cuda")
+        rng = np.random.default_rng(0)
+    if set(pairs) & set(cs.GAT_KERNELS):
         model = build_model(opt, n_classes=datasets[3],
                             generator=torch.Generator().manual_seed(0))
         model = model.to("cuda").eval()
-        calls = cs.layer0_kernel_calls(opt, model,
-                                       to_device(batch_np, "cuda"))
-        rng = np.random.default_rng(0)
+        calls = cs.layer0_kernel_calls(opt, model, batch)
         for name in cs.GAT_KERNELS:
             k = cs.KERNELS[name]
             if k.fwd is not None:
                 calls[name] = [(lvl, cs.bwd_kernel_args(k.fwd, a, kw, rng),
                                 {}) for lvl, a, kw in calls[k.fwd]]
+    if set(pairs) & set(cs.ATTR_KERNELS):
+        calls.update({n: [c for c in cl if "seeded" not in c[0]] for n, cl
+                      in cs.attr_kernel_calls(datasets[3], batch,
+                                              rng).items()})
     if cs.PLANES in pairs:
         graphs = cs.PretrainGraphs(cs.pt_opt(cs.PT_OVERRIDES),
                                    workers=os.cpu_count() or 1).get()
         big_bs = int(cs.PT_CONFIG["pretrain"]["batch_size"])
         calls[cs.PLANES] = [(lvl, a, {}) for lvl, a, _host in
                             cs.plane_calls(graphs, big_bs, "cuda")[0]]
-
-    def outputs(r):
-        return r if isinstance(r, tuple) else (r,)
 
     summary = []
     for name, kern in pairs.items():
@@ -103,16 +108,17 @@ def main() -> int:
         wrapper = getattr(mod, name)
         plain = getattr(mod, cs.KERNELS[name].plain)
         for lvl, a, kw in calls[name]:
-            want = outputs(plain(*a, **kw))
+            want = cs._outputs(plain(*a, **kw))
             times = {"base": [], "change": []}
             try:
                 for which in ("base", "change"):
                     setattr(mod, attr, kern[which])
                     floor = cs._scale_floor(name, a)
                     rel = max(cs._diff(k, p, floor)[1]
-                              for k, p in zip(outputs(wrapper(*a, **kw)),
+                              for k, p in zip(cs._outputs(wrapper(*a, **kw)),
                                               want))
-                    limit = 0.0 if name == cs.PLANES else cs.REL_LIMIT
+                    limit = (0.0 if name in (cs.PLANES, cs.EMIT)
+                             else cs.REL_LIMIT)
                     if rel > limit:
                         raise AssertionError(f"{name} [{lvl}] {which}: "
                                              f"rel {rel:.3e}")

@@ -13,6 +13,10 @@ in another order than the plain versions (with atomics, in an order that
 varies from run to run), so outputs agree to f32 rounding:
 |k - p| ≤ 1e-4 · max|p|. The plane builder adds at most one value per slot
 on tile-local graphs without repeated pairs, so it is held to equality.
+The dense-attr kernels (K7-K9) are checked at every node tile their
+wrappers take (32, 64, 128, 256), with and without self-loops, on
+adjacency planes that are contiguous or the first tn rows of R = 6 planes
+(the fconn level's strided view).
 """
 
 import dataclasses
@@ -330,3 +334,115 @@ def test_packed_batch_decodes_on_the_card(cuda):
         *(packing._decode(dev_buf, e) for e in layout.entries), N, meta_t)
     assert np.array_equal(planes.cpu().numpy(), dense_gat.build_dense_planes(
         src, dst, mask, ea, N, tn=tn))
+
+
+def _attr_case(cuda, rng, tn, self_loops, strided=False):
+    """Dense-attr kernel inputs on a tile-local graph with an empty tile and
+    a masked real edge: (adj, wd, ws, nf, w_ea, src, dst, emask, meta,
+    self_loops)."""
+    H, D, te, n_tiles = 4, 32, 256, 3
+    src, dst, mask = _graph(rng, tn, n_tiles, 3, te, empty_tile=1)
+    mask[4] = 0.0
+    N, E = n_tiles * tn, len(src)
+    meta = build_tile_meta(src, dst, mask, N, tn=tn, te=te)
+    R = 6 if strided else 0
+    planes = dense_gat.build_dense_planes(
+        src, dst, mask, rng.standard_normal((E, R)).astype(np.float32), N,
+        tn=tn)
+    assert meta is not None and planes is not None
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    adj = T(planes)[:, :tn, :]
+    assert adj.is_contiguous() != strided
+    meta_t = dataclasses.replace(meta, ew_blk=T(meta.ew_blk), cw=T(meta.cw),
+                                 sw_tile=T(meta.sw_tile),
+                                 flat_slot=T(meta.flat_slot))
+    draw = lambda *shape: T(rng.standard_normal(shape).astype(np.float32))
+    return (adj, draw(N, H), draw(N, H), draw(N, H * D), draw(E, H), T(src),
+            T(dst), T(mask), meta_t, self_loops)
+
+
+@pytest.mark.parametrize("tn", [32, 64, 128, 256])
+@pytest.mark.parametrize("self_loops", [False, True])
+def test_dense_attr_fwd_matches_plain(cuda, tn, self_loops):
+    rng = np.random.default_rng(40 + tn + self_loops)
+    args = _attr_case(cuda, rng, tn, self_loops, strided=tn == 128)
+    n0 = dense_gat.KERNEL_ATTR.launches
+    out, m, den = dense_gat.dense_attr_fwd(*args)
+    torch.cuda.synchronize()
+    assert dense_gat.KERNEL_ATTR.launches == n0 + 1
+    out_p, m_p, den_p = dense_gat.dense_attr_fwd_plain(*args)
+    _close(out, out_p)
+    _close(den, den_p)
+    _close_m(m, m_p)
+    if not self_loops:  # the empty tile: m = -1e30, den = 0, out = 0
+        assert float(out[tn:2 * tn].abs().max()) == 0.0
+        assert bool((m[tn:2 * tn] == -1e30).all())
+
+
+@pytest.mark.parametrize("tn", [32, 64, 128, 256])
+@pytest.mark.parametrize("self_loops", [False, True])
+def test_dense_attr_bwd_and_emit_match_plain(cuda, tn, self_loops):
+    """K8's five outputs (the d_zpre planes at every slot: both write 0 off
+    the adjacency) and K9's per-edge gradient against the plain versions;
+    the masked edge and the padding edges get exactly 0."""
+    rng = np.random.default_rng(50 + tn + self_loops)
+    args = _attr_case(cuda, rng, tn, self_loops, strided=tn == 128)
+    nf = args[3]
+    N, HD = nf.shape
+    H = args[1].shape[1]
+    out, m, den = dense_gat.dense_attr_fwd(*args)
+    g = torch.from_numpy(rng.standard_normal((N, HD)).astype(np.float32)
+                         ).to(cuda)
+    s = (g.view(N, H, -1) * out.view(N, H, -1)).sum(-1)
+    bargs = args[:9] + (m, den, g, s, self_loops)
+    n0 = dense_gat.KERNEL_ATTR_BWD.launches
+    got = dense_gat.dense_attr_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert dense_gat.KERNEL_ATTR_BWD.launches == n0 + 1
+    want = dense_gat.dense_attr_bwd_plain(*bargs)
+    for k, p in zip(got, want):
+        _close(k, p)
+    eargs = (want[4],) + args[5:9]
+    n0 = dense_gat.KERNEL_ATTR_EMIT.launches
+    d_wea = dense_gat.dense_attr_emit(*eargs)
+    torch.cuda.synchronize()
+    assert dense_gat.KERNEL_ATTR_EMIT.launches == n0 + 1
+    assert torch.equal(d_wea, dense_gat.dense_attr_emit_plain(*eargs))
+    assert float(d_wea[args[7] == 0].abs().max()) == 0.0
+
+
+def test_dense_attr_pass_gradients_match_cpu(cuda):
+    """DenseAttrGatFn on the card (K7, K8, K9) against the same Function on
+    the CPU (plain versions), with self-loops, on the strided adjacency:
+    out and the gradients w.r.t. wd, ws, nf and w_ea."""
+    rng = np.random.default_rng(60)
+    args = _attr_case(cuda, rng, 128, True, strided=True)
+    N, HD = args[3].shape
+    g = torch.from_numpy(rng.standard_normal((N, HD)).astype(np.float32))
+
+    def run(dev):
+        xs = [t.detach().to(dev).requires_grad_() for t in args[1:5]]
+        adj = args[0].to(dev)
+        src, dst, mask = (t.to(dev) for t in args[5:8])
+        meta = dataclasses.replace(args[8], **{
+            f: getattr(args[8], f).to(dev)
+            for f in ("ew_blk", "cw", "sw_tile", "flat_slot")})
+        out = dense_gat.DenseAttrGatFn.apply(adj, *xs, src, dst, mask, meta,
+                                             True, 0.2)[0]
+        grads = torch.autograd.grad((out * g.to(dev)).sum(), xs)
+        return (out.detach(),) + grads
+
+    for k, p in zip(run(cuda), run(torch.device("cpu"))):
+        _close(k, p)
+
+
+def test_dense_attr_wrappers_refuse_bad_inputs(cuda):
+    rng = np.random.default_rng(61)
+    args = _attr_case(cuda, rng, 64, False)
+    with pytest.raises(ValueError):  # a transposed adjacency
+        dense_gat.dense_attr_fwd(args[0].transpose(1, 2), *args[1:])
+    with pytest.raises(ValueError):  # int64 indices
+        dense_gat.dense_attr_fwd(*args[:5], args[5].long(), *args[6:])
+    meta96 = dataclasses.replace(args[8], tn=96)
+    with pytest.raises(ValueError):  # no kernel for tn = 96
+        dense_gat.dense_attr_fwd(*args[:8], meta96, False)

@@ -1,8 +1,10 @@
 """The port's model and eval path against fragnet_tpu's, on the CPU: weights
 carried across with ``state_dict_from_jax``, FragNetFineTune predictions,
-all four attention vectors and every parameter gradient (aligned TCSR batch
-and segment path), the trainer's test RMSE, ``run_finetune`` with
-``n_epochs=0``, and the opt dict that ``chip_smoke.py`` drives. Small model:
+all four attention vectors and every parameter gradient (aligned TCSR batch,
+the same batch under the dense-attr kernel policy, and the segment path),
+the trainer's test RMSE, ``run_finetune`` with ``n_epochs=0`` and, under the
+dense-attr policy, one epoch, and the opt dict that ``chip_smoke.py``
+drives. Small model:
 2 layers, emb 32, 4 heads. Tolerance: 1e-4 relative (f32 through two
 frameworks and ~10 ops deep)."""
 
@@ -22,6 +24,8 @@ from fragnet_tpu.data.batcher import BatchLoader as JaxLoader
 from fragnet_tpu.graphs.hiergraph import pad_batch as jax_pad_batch
 from fragnet_tpu.graphs.hiergraph import spec_for as jax_spec_for
 from fragnet_tpu.model.finetune import FragNetFineTune as JaxModel
+from fragnet_tpu.model.layers import KernelPolicy as JaxPolicy
+from fragnet_tpu.model.layers import set_kernel_policy
 from fragnet_tpu.train.checkpoint import import_torch_state_dict
 from fragnet_tpu.train.loop import TrainerFineTune as JaxTrainer
 from fragnet_tpu.train.loop import mse_loss as jax_mse
@@ -34,6 +38,7 @@ from fragnet_tpu_torch.graphs.batch import to_device
 from fragnet_tpu_torch.graphs.build import GraphBuilder as PortBuilder
 from fragnet_tpu_torch.graphs.hiergraph import pad_batch, spec_for
 from fragnet_tpu_torch.model.finetune import FragNetFineTune
+from fragnet_tpu_torch.model.layers import KernelPolicy
 from fragnet_tpu_torch.train.checkpoint import state_dict_from_jax
 from fragnet_tpu_torch.train.finetune import run_finetune
 from fragnet_tpu_torch.train.loop import TrainerFineTune, mse_loss
@@ -92,6 +97,35 @@ def carried(aligned):
     return model, params, port.eval()
 
 
+@pytest.fixture
+def path_models(aligned, carried, request):
+    """(JAX model, params, port model, JAX batch, port batch) for the
+    parametrised path: "aligned-tcsr" (default policy), "aligned-attr"
+    (KernelPolicy(attr=True, fc="attr") in both packages, the JAX one
+    installed process-wide and restored afterwards) or "segment" (no kernel
+    metadata)."""
+    model, params, port = carried
+    bj, bp = aligned
+    path = request.param
+    if path == "segment":
+        bj = dataclasses.replace(bj, **_NO_KERNELS)
+        bp = dataclasses.replace(bp, **_NO_KERNELS)
+    if path != "aligned-attr":
+        yield model, params, port, bj, bp
+        return
+    assert bp.dp_atom is not None and bp.dp_frag is not None
+    attr = FragNetFineTune(**SMALL, policy=KernelPolicy(attr=True, fc="attr"))
+    attr.load_state_dict(port.state_dict(), strict=True)
+    set_kernel_policy(JaxPolicy(attr=True, fc="attr"))
+    try:
+        yield model, params, attr.eval(), bj, bp
+    finally:
+        set_kernel_policy(JaxPolicy())
+
+
+_PATHS = ["aligned-tcsr", "aligned-attr", "segment"]
+
+
 @pytest.mark.parametrize("fthead", ["FTHead1", "FTHead3", "FTHead4"])
 def test_state_dict_round_trip(aligned, fthead):
     model = JaxModel(**SMALL, fthead=fthead)
@@ -107,13 +141,9 @@ def test_state_dict_round_trip(aligned, fthead):
     port.load_state_dict(sd, strict=True)  # every port param is named
 
 
-@pytest.mark.parametrize("path", ["aligned-tcsr", "segment"])
-def test_forward_and_attentions_match(aligned, carried, path):
-    model, params, port = carried
-    bj, bp = aligned
-    if path == "segment":
-        bj = dataclasses.replace(bj, **_NO_KERNELS)
-        bp = dataclasses.replace(bp, **_NO_KERNELS)
+@pytest.mark.parametrize("path_models", _PATHS, indirect=True)
+def test_forward_and_attentions_match(path_models):
+    model, params, port, bj, bp = path_models
     pred_j, attn_j = model.apply(params, bj, deterministic=True,
                                  return_attentions=True)
     with torch.no_grad():
@@ -125,16 +155,12 @@ def test_forward_and_attentions_match(aligned, carried, path):
         _close(getattr(attn_p, level), getattr(attn_j, level))
 
 
-@pytest.mark.parametrize("path", ["aligned-tcsr", "segment"])
-def test_parameter_gradients_match(aligned, carried, path):
+@pytest.mark.parametrize("path_models", _PATHS, indirect=True)
+def test_parameter_gradients_match(path_models):
     """MSE of the carried model (eval mode: dropout off, gradients on): the
     loss and every parameter's gradient against jax.grad, the grad tree
     mapped through state_dict_from_jax (names and transposes)."""
-    model, params, port = carried
-    bj, bp = aligned
-    if path == "segment":
-        bj = dataclasses.replace(bj, **_NO_KERNELS)
-        bp = dataclasses.replace(bp, **_NO_KERNELS)
+    model, params, port, bj, bp = path_models
 
     def loss(p):
         return jax_mse(model.apply(p, bj, deterministic=True), bj.y,
@@ -226,8 +252,8 @@ def test_run_finetune_refuses_what_it_does_not_run(tmp_path):
         run_finetune(opt, device="cpu")
     with pytest.raises(NotImplementedError, match="bf16"):
         run_finetune(_small_opt(tmp_path, dtype="bf16"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        run_finetune(_small_opt(tmp_path, kernel={"fc": "attr"}),
+    with pytest.raises(ValueError, match="bond='attr' is refused"):
+        run_finetune(_small_opt(tmp_path, kernel={"bond": "attr"}),
                      device="cpu")
     if not torch.cuda.is_available():  # no quiet drop to the CPU
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -247,6 +273,39 @@ def test_run_finetune_cpu_writes_predictions(tmp_path, capsys):
         preds["rmse"], np.sqrt(np.mean((preds["y"] - preds["pred"]) ** 2)),
         rtol=1e-6)
     assert rmse == preds["rmse"]
+
+
+def test_run_finetune_cpu_attr_policy_trains(tmp_path):
+    """One epoch under the dense-attr kernel policy on the CPU (the plain
+    versions of K7-K9 carry the atom, frag and fconn passes)."""
+    from fragnet_tpu_torch.ops import dense_gat, tcsr_gat
+
+    calls = {"attr": 0, "tcsr": 0}
+    origs = {"attr": (dense_gat, "dense_attr_fwd_plain"),
+             "tcsr": (tcsr_gat, "tcsr_gat_fwd_plain")}
+    saved = {k: getattr(mod, name) for k, (mod, name) in origs.items()}
+
+    def counting(key):
+        def rec(*a, **kw):
+            calls[key] += 1
+            return saved[key](*a, **kw)
+        return rec
+
+    for k, (mod, name) in origs.items():
+        setattr(mod, name, counting(k))
+    try:
+        rmse, model = run_finetune(
+            _small_opt(tmp_path, tcsr=True, n_epochs=1,
+                       kernel={"attr": True, "fc": "attr"}), device="cpu")
+    finally:
+        for k, (mod, name) in origs.items():
+            setattr(mod, name, saved[k])
+    assert model.pretrain.layers[0].policy == KernelPolicy(attr=True,
+                                                           fc="attr")
+    assert np.isfinite(rmse)
+    # every batch of these molecules carries atom, frag and fconn planes
+    assert calls["tcsr"] == 0
+    assert calls["attr"] > 0 and calls["attr"] % (3 * SMALL["num_layer"]) == 0
 
 
 def _flat(d, prefix=""):
@@ -275,3 +334,11 @@ def test_chip_smoke_opt_is_the_esol_config():
         changed = {k for k in ref if smoke[k] != ref[k]}
         assert changed == set(overrides)
         assert smoke["finetune.n_epochs"] == epochs
+    from fragnet_tpu_torch.train.fastpath import resolve_kernel_policy
+
+    attr = cs.smoke_opt(train=True, attr=True)
+    assert resolve_kernel_policy(attr.finetune) == KernelPolicy(attr=True,
+                                                                fc="attr")
+    assert _flat(attr.to_dict())["finetune.n_epochs"] == 3
+    assert resolve_kernel_policy(cs.smoke_opt(train=True).finetune) == \
+        KernelPolicy()

@@ -185,6 +185,34 @@ def test_unpack_planes_follow_the_policy(pt_graphs):
     assert packing.plane_levels(KernelPolicy()) == ("dp_bond", "dp_fc")
 
 
+def test_unpack_attr_policy_rebuilds_adjacency_planes(pt_graphs):
+    """Under the dense-attr policy the packed path reads four plane levels;
+    ``unpack_batch`` (on the CPU: K6's plain version) rebuilds dp_atom and
+    dp_frag at R = 0 equal to the host builder's planes of the same batch,
+    and dp_bond / dp_fc as before."""
+    from fragnet_tpu_torch.graphs.hiergraph import pad_batch
+    from fragnet_tpu_torch.model.layers import KernelPolicy
+
+    _jg, pg = pt_graphs
+    spec = _aligned(pg)
+    lp = BatchLoader(pg, 4, spec=spec, with_targets=True, pack=True)
+    policy = KernelPolicy(attr=True, fc="attr")
+    levels = packing.plane_levels(policy)
+    assert levels == ("dp_bond", "dp_fc", "dp_atom", "dp_frag")
+    assert packing.plane_levels(KernelPolicy(bond="tcsr", fc="tcsr",
+                                             attr=True)) == ("dp_atom",
+                                                             "dp_frag")
+    for buf, window in zip(lp, lp._windows()):
+        assert [d[0] for d in lp.layout.dp_specs] == list(levels)
+        up = packing.unpack_batch(torch.from_numpy(buf), lp.layout, levels)
+        host = pad_batch(window, spec, with_targets=True)
+        for lvl in levels:
+            want = getattr(host, lvl)
+            assert want is not None, lvl
+            np.testing.assert_array_equal(getattr(up, lvl).numpy(), want,
+                                          err_msg=lvl)
+
+
 def test_pack_refusals(port_graphs):
     b = next(iter(BatchLoader(port_graphs, 4, spec=_plain(port_graphs))))
     with pytest.raises(NotImplementedError, match="compact"):

@@ -386,3 +386,11 @@ def test_chip_smoke_pt_config_is_the_yaml():
     spec.loader.exec_module(cs)
     assert cs.PT_CONFIG == load_config(
         os.path.join(REPO, "configs/pt/unimol.yaml")).to_dict()
+    from fragnet_tpu_torch.model.layers import KernelPolicy
+    from fragnet_tpu_torch.train.fastpath import resolve_kernel_policy
+
+    popt = cs.pt_opt(cs.PT_OVERRIDES, cs.ATTR_PT_OVERRIDES)
+    assert resolve_kernel_policy(popt.pretrain) == KernelPolicy(attr=True,
+                                                                fc="attr")
+    assert resolve_kernel_policy(cs.pt_opt(cs.PT_OVERRIDES).pretrain) == \
+        KernelPolicy()
