@@ -8,8 +8,10 @@ against its plain PyTorch version: the gat2 ESOL recipe
 (configs/ft/esol.yaml, full width: 4 layers, emb 128, 4 heads, FTHead3
 128/1024/1024/512, batch 16, f32, Adam lr 1e-4) on synthetic molecules
 through ``run_finetune`` — first the prediction path
-(``finetune.n_epochs=0``), then training (``finetune.n_epochs=3``) — and
-geometric pretraining (configs/pt/unimol.yaml, full width: 4 layers, emb
+(``finetune.n_epochs=0``), then training (``finetune.n_epochs=3``), then
+data-parallel and edge-partitioned training on torch.distributed (two
+ranks sharing the card over gloo, and one rank over NCCL) — and geometric
+pretraining (configs/pt/unimol.yaml, full width: 4 layers, emb
 128, 4 heads, drop 0.2, Adam lr 1e-4, f32) through ``run_pretrain`` and
 the packed transport. Phases:
 
@@ -98,10 +100,37 @@ the packed transport. Phases:
      HBM packed tier for one epoch, K6 once per train step for each plane
      level of the layout the policy reads (4 when dp_bond, dp_fc, dp_atom
      and dp_frag all pass dp_level_ok), K7-K9 as derived; then one pretrain
-     step's gradients, card (K6 planes) vs CPU (host planes), within 1e-3.
+     step's gradients, card (K6 planes) vs CPU (host planes), within 1e-3;
+ 20. K3 (the edge-partitioned forward and backward) against its plain
+     versions, as in phase 4, on each of two shards' layer-0 inputs at the
+     bond, atom, fconn and frag levels (captured in the ranks of phase 22's
+     step from the smoke's first train batch under run_finetune's EP spec,
+     tn 128, te 256), plus a seeded case per level (numpy wn, nf, w_ea);
+     the backward gets the forward's max as m and numpy cotangents dU, dV
+     (limit 1e-4 of each output's scale, at least max|dV|);
+ 21. the edge-partitioned finetune path: run_finetune with dist.mode=ep
+     over 2 ranks spawned on the one card (gloo) for 3 epochs; in every
+     rank the losses and test RMSE are finite and equal to the other's,
+     and the launches equal the count derived from its loaders (ep_expect:
+     K3's forward 4 × layers per forward, its backward 3 × layers + 1 per
+     train step, nothing else);
+ 22. one EP train step on 2 ranks (carried weights, dropout off) against
+     the single-device card step on the same batch (TCSR metadata, K1/K2):
+     loss, prediction, the four attention vectors and every averaged
+     gradient within 1e-3 of each scale; each rank's step wall time,
+     device busy time, K3 device time and the collectives' host time
+     beside phase 8's single-device step;
+ 23. the data-parallel finetune path: dist.mode=dp over 2 ranks (gloo) for
+     3 epochs, as phase 21, each rank's K1, K2, K4, K5 launches derived
+     from its micro-batches (dp_expect); one DP step's averaged gradients
+     against the mean of the two micro-batches' single-device card
+     gradients, within 1e-3;
+ 24. both modes for one epoch as one rank over NCCL (the backend checked),
+     launch counts derived as in phases 21 and 23.
 
 Prints a ``{"kernels": [...]}`` JSON line (launches from the pretraining
-path of phase 11 for K1-K6 and of phase 19 for K7-K9, every path's beside
+path of phase 11 for K1-K6, of phase 19 for K7-K9 and of phase 21's rank 0
+for K3, every path's — each rank's for phases 21, 23 and 24 — beside
 them), and as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero on any failure, without a CUDA device, or when run outside a
 checkout of the repository.
@@ -361,13 +390,14 @@ def _diff(k, p, floor: float = 0.0):
 
 
 def _scale_floor(name, args) -> float:
-    """The scale below which a backward output is round-off: max|s|. The
-    logit-gradient outputs (d_wd, d_ws, d_vc; d_wn, d_w_ea) are sums of
-    p·(d_p − s), which cancel exactly where a row's neighbours carry equal
-    features — as at the fconn level of the smoke's batch, at every layer
-    — leaving round-off of terms of size |s|. 0 for a forward kernel."""
+    """The scale below which a backward output is round-off: max|s| (for
+    K3's backward s = −dV). The logit-gradient outputs (d_wd, d_ws, d_vc;
+    d_wn, d_w_ea) are sums of p·(d_p − s), which cancel exactly where a
+    row's neighbours carry equal features — as at the fconn level of the
+    smoke's batch, at every layer — leaving round-off of terms of size |s|.
+    0 for a forward kernel."""
     idx = {"tcsr_gat_bwd": 10, "dense_gat_bwd": 8,
-           "dense_attr_bwd": 12}.get(name)
+           "dense_attr_bwd": 12, "tcsr_gat_ep_bwd": 10}.get(name)
     return 0.0 if idx is None else float(args[idx].abs().max())
 
 
@@ -554,6 +584,39 @@ def _tcsr_bwd_cost(args):
     return nbytes, flops
 
 
+def _ep_cost(args):
+    wn, nf, w_ea, src, dst, emask, meta, rank = args[:8]
+    HD = nf.shape[1]
+    H = wn.shape[1] // 2
+    D = HD // H
+    Tg = meta.n_tiles_grid
+    Ng = Tg * meta.tn
+    n_edges = int((emask > 0).sum())
+    # as _tcsr_cost over the shard's kept edges and its Ng grid rows: the
+    # grid's node arrays, the edges' scalars and the windows read once, the
+    # grid's out, m, den written once
+    nbytes = 4 * (Ng * (2 * H + HD) + n_edges * (H + 3) + 2 * Tg
+                  + Ng * (HD + 2 * H))
+    flops = n_edges * H * (2 * D + 6) + Ng * HD
+    return nbytes, flops
+
+
+def _ep_bwd_cost(args):
+    wn, nf, w_ea, src, dst, emask, meta, rank, m, dU, dV = args[:11]
+    HD = nf.shape[1]
+    H = wn.shape[1] // 2
+    D = HD // H
+    Es = src.shape[0]
+    Tg = meta.n_tiles_grid
+    Ng = Tg * meta.tn
+    n_edges = int((emask > 0).sum())
+    # as _tcsr_bwd_cost over the shard's kept edges and its grid rows
+    nbytes = 4 * (Ng * (2 * H + HD) + 3 * Ng * H + Ng * HD
+                  + n_edges * (H + 3) + 2 * Tg + Ng * (2 * H + HD) + Es * H)
+    flops = n_edges * H * (4 * D + 10)
+    return nbytes, flops
+
+
 def _dense_bwd_cost(args):
     planes, wd, ws, nf, vc, m, den, g, s = args[:9]
     T, rows, tn = planes.shape
@@ -697,12 +760,24 @@ KERNELS = {
                               "dense_attr_fwd",
                               "fragnet_tpu_torch/csrc/dense_attr_emit.cu",
                               "fragnet_tpu/ops/dense_gat.py:359"),
+    "tcsr_gat_ep_fwd": Kernel("tcsr_gat", "KERNEL_EP",
+                              "tcsr_gat_ep_fwd_plain", _ep_cost, None,
+                              "fragnet_tpu_torch/csrc/tcsr_gat_fwd.cu",
+                              "fragnet_tpu/ops/pallas_gat.py:635"),
+    "tcsr_gat_ep_bwd": Kernel("tcsr_gat", "KERNEL_EP_BWD",
+                              "tcsr_gat_ep_bwd_plain", _ep_bwd_cost,
+                              "tcsr_gat_ep_fwd",
+                              "fragnet_tpu_torch/csrc/tcsr_gat_bwd.cu",
+                              "fragnet_tpu/ops/pallas_gat.py:635"),
 }
 # the GAT kernels of the default policy, which phase 4 captures from a
 # finetune forward, and the dense-attr kernels, which phase 16 captures
 GAT_KERNELS = ("tcsr_gat_fwd", "tcsr_gat_bwd", "dense_gat_fwd",
                "dense_gat_bwd")
 ATTR_KERNELS = ("dense_attr_fwd", "dense_attr_bwd", "dense_attr_emit")
+EP_KERNELS = ("tcsr_gat_ep_fwd", "tcsr_gat_ep_bwd")
+# layer 0's edge-partitioned passes, in call order
+EP_LEVELS = ["bond", "atom (self-loops in the combine)", "fconn", "frag"]
 EMIT = "dense_attr_emit"
 PLANES = "build_dense_planes_device"
 PLANE_LEVELS = {"dp_bond": "bond (R=1)", "dp_fc": "fconn (R=6)",
@@ -1551,6 +1626,387 @@ def attr_phases(dev, datasets, spec, windows, batch, train_np, step_default,
 
 
 
+EP_SHARDS = 2
+DIST_TIMEOUTS = {"dist.timeout_s": 120, "dist.join_timeout_s": 600}
+
+
+def dist_opt(mode: str, n_ranks: int, n_epochs: int):
+    """The smoke's training config under ``dist.mode=mode`` over
+    ``n_ranks`` ranks for ``n_epochs`` epochs, in its own exp_dir."""
+    opt = smoke_opt(train=True)
+    for k, v in {"dist.mode": mode, "dist.n_devices": n_ranks,
+                 "finetune.n_epochs": n_epochs, **DIST_TIMEOUTS,
+                 "exp_dir": os.path.join(REPO, "exps",
+                                         f"chip_smoke_{mode}{n_ranks}")
+                 }.items():
+        opt.set_path(k, v)
+    return opt
+
+
+def ep_spec(datasets, bs: int, n_ranks: int, tn: int = 128, te: int = 256):
+    """run_finetune's spec under dist.mode=ep on the card."""
+    from fragnet_tpu_torch.graphs.hiergraph import spec_for
+
+    train_g, val_g, test_g, _, _ = datasets
+    return spec_for(train_g + val_g + test_g, batch_size=bs,
+                    multiple=max(tn, te) * n_ranks)
+
+
+def ep_expect(opt, datasets, n_ranks: int):
+    """Each kernel's launches in every rank of run_finetune under
+    dist.mode=ep, derived from its loaders: the train loader's shuffle
+    advances two epochs in the width probe (pin_ep_widths) and one for the
+    init batch, so training runs epochs 3.. of it; every rank runs every
+    batch. K3's forward runs all four levels of every layer per forward,
+    its backward every layer's bond, atom and fconn pass and the last
+    layer's frag pass per train step (the earlier frag outputs are off the
+    loss's path); nothing else launches."""
+    from fragnet_tpu_torch.data.batcher import BatchLoader
+
+    ft = opt.finetune
+    bs, L, seed = int(ft.batch_size), int(ft.model.num_layer), int(opt.seed)
+    train_g, val_g, test_g, n_tasks, _ = datasets
+    spec = ep_spec(datasets, bs, n_ranks)
+    tl = BatchLoader(train_g, bs, spec=spec, shuffle=True, seed=seed)
+    for _ in range(3):
+        list(tl._windows())
+    steps = sum(len(list(tl._windows())) for _ in range(int(ft.n_epochs)))
+    fwds = (steps + int(ft.n_epochs) * len(list(BatchLoader(
+        val_g, bs, spec=spec)._windows()))
+        + len(list(BatchLoader(test_g, bs, spec=spec)._windows())))
+    out = {n: 0 for n in KERNELS}
+    out["tcsr_gat_ep_fwd"] = 4 * L * fwds
+    out["tcsr_gat_ep_bwd"] = (3 * L + 1) * steps
+    return out, steps
+
+
+def dp_expect(opt, datasets, spec, n_ranks: int):
+    """Each rank's kernel launches in run_finetune under dist.mode=dp,
+    derived from its DPBatchLoaders (the init batch takes the train
+    loader's first shuffle; no cache, so every epoch re-windows): every
+    micro-batch counted by ``expected_launches`` from the planes it
+    carries. Returns ([counts per rank], train steps)."""
+    from fragnet_tpu_torch.dist.data_parallel import (DPBatchLoader,
+                                                      stack_for_dp)
+
+    ft = opt.finetune
+    bs, L, seed = int(ft.batch_size), int(ft.model.num_layer), int(opt.seed)
+    n_epochs = int(ft.n_epochs)
+    train_g, val_g, test_g, n_tasks, _ = datasets
+    tl = DPBatchLoader(train_g, bs, n_ranks, spec, shuffle=True, seed=seed)
+    tl.windows()
+    train_w = [w for _ in range(n_epochs) for w in tl.windows()]
+    val_w = DPBatchLoader(val_g, bs, n_ranks, spec).windows()
+    test_w = DPBatchLoader(test_g, bs, n_ranks, spec).windows()
+    from fragnet_tpu_torch.train.fastpath import resolve_kernel_policy
+
+    policy = resolve_kernel_policy(ft)
+    out = []
+    for r in range(n_ranks):
+        def planes(w):
+            return _planes_of(stack_for_dp(w, n_ranks, spec, r,
+                                           n_tasks=n_tasks))
+        batches = ([(planes(w), 1, 1) for w in train_w]
+                   + [(planes(w), n_epochs, 0) for w in val_w]
+                   + [(planes(w), 1, 0) for w in test_w])
+        out.append(expected_launches(policy, L, batches))
+    return out, len(train_w)
+
+
+def _rank_launches(report):
+    """A rank report's launches (by launcher symbol) by KERNELS name."""
+    return {n: report["launches"].get(_counter(n)[1].symbol, 0)
+            for n in KERNELS}
+
+
+def drive_dist(opt, datasets, expects, label: str, backend: str):
+    """run_finetune under opt's dist.mode on the card, every count in this
+    process set to 0 just before it: each rank's losses and test RMSE
+    finite and equal across the ranks, its launches equal to ``expects``
+    [rank], its backend ``backend``. Several ranks run in spawned
+    processes, so this one launches nothing; one runs here. Returns [each
+    rank's launches]."""
+    import numpy as np
+
+    from fragnet_tpu_torch.train.finetune import run_finetune
+
+    reports = []
+    _reset_launches()
+    t0 = time.perf_counter()
+    rmse, _model = run_finetune(opt, datasets=datasets, device="cuda",
+                                rank_reports=reports)
+    run_s = time.perf_counter() - t0
+    out = []
+    for r in reports:
+        got = _rank_launches(r)
+        exp = expects[r["rank"]]
+        print(f"{label} rank {r['rank']} ({r['backend']}, {r['device']}): "
+              f"test rmse {r['value']:.6f}, train losses "
+              f"{[round(x, 6) for x in r['train_loss']]}, val "
+              f"{[round(x, 6) for x in r['val_score']]}; kernels: "
+              + " ".join(f"{n}={c} (expected {exp[n]})"
+                         for n, c in got.items() if c or exp[n]))
+        vals = r["train_loss"] + r["val_score"] + [r["value"]]
+        if not np.isfinite(vals).all() or len(r["train_loss"]) != int(
+                opt.finetune.n_epochs):
+            raise AssertionError(f"{label} rank {r['rank']} is not finite: "
+                                 f"{vals}")
+        for n, c in got.items():
+            if c != exp[n]:
+                raise AssertionError(f"{label} rank {r['rank']}: {n} launched "
+                                     f"{c} times, expected {exp[n]}")
+        out.append(got)
+    first = reports[0]
+    for r in reports[1:]:
+        if (r["value"], r["train_loss"], r["val_score"]) != (
+                first["value"], first["train_loss"], first["val_score"]):
+            raise AssertionError(f"{label}: ranks disagree")
+    if rmse != first["value"] or first["backend"] != backend or (
+            len(reports) > 1 and any(_launches().values())):
+        raise AssertionError(f"{label}: backend {first['backend']}, or the "
+                             f"launching process ran kernels or returned "
+                             f"another value")
+    print(f"{label}: {len(reports)} ranks over {first['backend']}, run "
+          f"{run_s:.2f} s (spawn and rank start-up included)")
+    return out
+
+
+def ep_kernel_calls(captured, rng):
+    """Phase 20's inputs: {kernel: [(level, args, kwargs)]} — each rank's
+    layer-0 K3 forward calls (bond, atom, fconn, frag) captured in phase
+    22's ranks, a seeded case per level (numpy wn, nf and w_ea on the same
+    edges), and the backward's arguments: the forward's max (0 on empty
+    rows) as m, numpy cotangents dU, dV."""
+    import numpy as np
+    import torch
+
+    from fragnet_tpu_torch.ops import tcsr_gat
+
+    def draw(t):
+        return torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(
+            np.float32)).to(t.device)
+
+    fwd = []
+    for rank, calls in enumerate(captured):
+        for lvl, (args, kw) in zip(EP_LEVELS, calls):
+            fwd.append((f"{lvl}, shard {rank}", tuple(args), kw))
+    fwd += [(f"{lvl}, seeded", tuple(draw(t) for t in a[:3]) + tuple(a[3:]),
+             kw) for lvl, a, kw in fwd]
+    bwd = []
+    for lvl, a, kw in fwd:
+        _out, m, _den = tcsr_gat.tcsr_gat_ep_fwd(*a, **kw)
+        m = torch.where(m <= -1e29, torch.zeros_like(m), m)
+        dU = draw(_out)
+        bwd.append((lvl, tuple(a[:8]) + (m, dU, draw(m)) + tuple(a[8:]), kw))
+    return {"tcsr_gat_ep_fwd": fwd, "tcsr_gat_ep_bwd": bwd}
+
+
+def ep_dp_phases(dev, datasets, spec, train_np, step_default, rng):
+    """Phases 20-24: edge-partitioned and data-parallel finetuning on
+    torch.distributed. Returns (K3's kernel report, {path: [launches per
+    rank]})."""
+    import dataclasses
+
+    import torch
+
+    from fragnet_tpu_torch.dist import checks
+    from fragnet_tpu_torch.dist.data_parallel import (DPBatchLoader,
+                                                      stack_for_dp)
+    from fragnet_tpu_torch.dist.launch import run_ranks
+    from fragnet_tpu_torch.graphs.batch import to_device
+    from fragnet_tpu_torch.ops.tcsr import build_tile_meta
+    from fragnet_tpu_torch.train.loop import mse_loss
+
+    topt = smoke_opt(train=True)
+    train_g, _val_g, _test_g, n_tasks, _ = datasets
+    bs = int(topt.finetune.batch_size)
+    S = EP_SHARDS
+    kw, sd = smoke_weights(datasets)
+    plain_np, ep_np, espec = ep_train_batch(datasets)
+    runs = {}
+
+    # ---- 20 + 22. one EP train step on 2 ranks (layer 0's K3 inputs) ------
+    t0 = time.perf_counter()
+    res = ep_step_ranks(kw, sd, ep_np)
+    step_s = time.perf_counter() - t0
+    print(f"phase 22's EP step on {S} ranks (spawn included), which captures "
+          f"phase 20's inputs: {step_s:.1f} s")
+    t0 = time.perf_counter()
+    report = check_kernels(EP_KERNELS, ep_kernel_calls(
+        [r["calls"] for r in res], rng), rng)
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 21. the EP finetune path, 2 ranks on one card over gloo ---------
+    t0 = time.perf_counter()
+    eopt = dist_opt("ep", S, int(topt.finetune.n_epochs))
+    expect, steps = ep_expect(eopt, datasets, S)
+    print(f"EP finetune path: {S} ranks, {steps} train steps, "
+          f"spec {espec.n_atoms}/{espec.n_edges}/{espec.n_bg_edges} atom/"
+          f"bond/bond-graph edge slots")
+    runs["finetune_ep"] = drive_dist(eopt, datasets, [expect] * S,
+                                     "EP finetune", "gloo")
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 22. EP gradients vs the single-device card step -------------------
+    t0 = time.perf_counter()
+    ref_np = dataclasses.replace(plain_np, **{
+        lvl: build_tile_meta(s_, d_, m_, n_, tn=128, te=256) for lvl, (
+            s_, d_, m_, n_) in {
+            "tm_atom": (plain_np.edge_src, plain_np.edge_dst,
+                        plain_np.edge_mask, espec.n_atoms),
+            "tm_bond": (plain_np.bg_src, plain_np.bg_dst, plain_np.bg_mask,
+                        espec.n_edges),
+            "tm_frag": (plain_np.frag_src, plain_np.frag_dst,
+                        plain_np.fconn_mask, espec.n_frags),
+            "tm_fc": (plain_np.fc_src, plain_np.fc_dst, plain_np.fc_mask,
+                      espec.n_fconn)}.items()})
+    model = build_model_cpu(topt, n_tasks).to(dev).eval()
+    b = to_device(ref_np, dev)
+    pred, attn = model(b, return_attentions=True)
+    loss_t = mse_loss(pred, b.y, b.graph_mask)
+    loss_t.backward()
+    loss = float(loss_t.detach())
+    grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+             for n, p in model.named_parameters()}
+    worst, worst_name = 0.0, ""
+    for r in res:
+        pairs = [("pred", r["pred"], pred.detach().cpu())] + [
+            (f"attn {k}", r["attn"][k], getattr(attn, k).cpu())
+            for k in r["attn"]] + [
+            (n, torch.zeros_like(g) if r["grads"][n] is None
+             else r["grads"][n], g) for n, g in grads.items()]
+        for name, got, want in pairs:
+            rel = float((got - want).abs().max()) / max(
+                float(want.abs().max()), 1e-30)
+            if rel > worst:
+                worst, worst_name = rel, name
+        if abs(r["loss"] - loss) > GRAD_REL_LIMIT * loss:
+            raise AssertionError(f"EP loss {r['loss']} vs {loss}")
+    print(f"EP step vs single-device card step (same batch and weights, "
+          f"dropout off): loss {res[0]['loss']:.6f} / {loss:.6f}; "
+          f"worst relative diff {worst:.3e} ({worst_name}) over the "
+          f"prediction, 4 attention vectors and {len(grads)} gradients "
+          f"(limit {GRAD_REL_LIMIT})")
+    if worst > GRAD_REL_LIMIT:
+        raise AssertionError("EP and single-device gradients disagree")
+    for r in res:
+        print(f"EP train step rank (2 ranks, gloo, one card): wall "
+              f"{r['wall_ms']:.2f} ms (median of 5), device busy "
+              f"{r['busy_ms']:.3f} ms, K3 device {r['k3_device_ms']:.3f} ms, "
+              f"collectives (host) {r['collectives_ms']:.2f} ms; "
+              f"single-device step (phase 8): wall "
+              f"{step_default['wall']:.2f} ms, device busy "
+              f"{step_default['busy']:.3f} ms")
+    print(f"phase 22: {step_s + time.perf_counter() - t0:.1f} s")
+
+    # ---- 23. the DP finetune path, 2 ranks over gloo, and its gradients ----
+    t0 = time.perf_counter()
+    dopt = dist_opt("dp", S, int(topt.finetune.n_epochs))
+    expects, steps = dp_expect(dopt, datasets, spec, S)
+    print(f"DP finetune path: {S} ranks, {steps} train steps")
+    runs["finetune_dp"] = drive_dist(dopt, datasets, expects, "DP finetune",
+                                     "gloo")
+    kw0 = dict(kw, drop_ratio=0.0)
+    dres = run_ranks(checks.dp_step_rank, S,
+                     (kw0, sd, train_g, spec, bs, 1e-4, "cuda"),
+                     device="cuda", timeout_s=120, join_timeout_s=600,
+                     workdir=os.path.join(REPO, "exps"))
+    win = DPBatchLoader(train_g, bs, S, spec).windows()[0]
+    mean = {}
+    for r in range(S):
+        m_r = build_model_cpu(topt, n_tasks).to(dev)
+        m_r.load_state_dict(sd)
+        m_r.eval()
+        b_r = to_device(stack_for_dp(win, S, spec, r, n_tasks=n_tasks), dev)
+        mse_loss(m_r(b_r), b_r.y, b_r.graph_mask).backward()
+        for n, p in m_r.named_parameters():
+            g = torch.zeros_like(p) if p.grad is None else p.grad
+            mean[n] = mean.get(n, 0) + g.cpu() / S
+    worst, worst_name = 0.0, ""
+    for r in dres:
+        for n, want in mean.items():
+            got = r["grads"][n]
+            got = torch.zeros_like(want) if got is None else got
+            rel = float((got - want).abs().max()) / max(
+                float(want.abs().max()), 1e-30)
+            if rel > worst:
+                worst, worst_name = rel, n
+    print(f"DP step's averaged gradients vs the mean of the micro-batches' "
+          f"single-device card gradients: worst relative diff {worst:.3e} "
+          f"({worst_name}) over {len(mean)} parameters (limit "
+          f"{GRAD_REL_LIMIT})")
+    if worst > GRAD_REL_LIMIT:
+        raise AssertionError("DP gradients disagree with the mean")
+    print(f"phase 23: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 24. NCCL at world size 1 ------------------------------------------
+    t0 = time.perf_counter()
+    e1 = dist_opt("ep", 1, 1)
+    runs["finetune_ep_nccl"] = drive_dist(e1, datasets,
+                                          [ep_expect(e1, datasets, 1)[0]],
+                                          "EP finetune, 1 rank", "nccl")
+    d1 = dist_opt("dp", 1, 1)
+    runs["finetune_dp_nccl"] = drive_dist(
+        d1, datasets, dp_expect(d1, datasets, spec, 1)[0],
+        "DP finetune, 1 rank", "nccl")
+    print(f"phase 24: {time.perf_counter() - t0:.1f} s")
+    return report, runs
+
+
+def smoke_weights(datasets):
+    """(FragNetFineTune's arguments for the smoke's esol model, its seeded
+    weights on the CPU)."""
+    from fragnet_tpu_torch.train.finetune import model_kwargs
+
+    opt = smoke_opt(train=True)
+    model = build_model_cpu(opt, datasets[3])
+    return (model_kwargs(opt, datasets[3]),
+            {k: v.detach().cpu() for k, v in model.state_dict().items()})
+
+
+def ep_train_batch(datasets):
+    """The smoke's first train window padded under run_finetune's EP spec:
+    (without kernel metadata, with 2-shard EPTileMeta at tn 128, te 256,
+    the spec)."""
+    from fragnet_tpu_torch.data.batcher import BatchLoader
+    from fragnet_tpu_torch.dist.edge_partition import with_ep_tile_meta
+    from fragnet_tpu_torch.graphs.hiergraph import pad_batch
+
+    opt = smoke_opt(train=True)
+    train_g, n_tasks = datasets[0], datasets[3]
+    bs, seed = int(opt.finetune.batch_size), int(opt.seed)
+    espec = ep_spec(datasets, bs, EP_SHARDS)
+    window = next(BatchLoader(train_g, bs, spec=espec, shuffle=True,
+                              seed=seed)._windows())
+    plain_np = pad_batch(window, espec, n_tasks=n_tasks)
+    ep_np, ok = with_ep_tile_meta(plain_np, EP_SHARDS, tn=128, te=256)
+    if not ok:
+        raise AssertionError("the smoke's train batch has no EP tile meta")
+    return plain_np, ep_np, espec
+
+
+def ep_step_ranks(kw, sd, ep_np):
+    """One EP train step of the esol model on ``ep_np`` in EP_SHARDS ranks
+    spawned on the card (dist/checks.py:ep_card_step_rank): each rank's
+    result, layer 0's K3 forward calls included."""
+    from fragnet_tpu_torch.dist import checks
+    from fragnet_tpu_torch.dist.launch import run_ranks
+
+    return run_ranks(checks.ep_card_step_rank, EP_SHARDS, (kw, sd, ep_np),
+                     device="cuda", timeout_s=120, join_timeout_s=600,
+                     workdir=os.path.join(REPO, "exps"))
+
+
+def build_model_cpu(opt, n_tasks):
+    """The smoke's esol model, seeded, on the CPU."""
+    import torch
+
+    from fragnet_tpu_torch.train.finetune import build_model
+
+    return build_model(opt, n_classes=n_tasks,
+                       generator=torch.Generator().manual_seed(0))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1763,8 +2219,16 @@ def main() -> int:
         rng)
     report.update(attr_report)
 
+    # ---- 20.-24. edge-partitioned and data-parallel finetuning -------------
+    ep_report, dist_runs = ep_dp_phases(dev, datasets, spec, train_np,
+                                        step_default, rng)
+    report.update(ep_report)
+
     paths = {"finetune_train": launches_t, "pretrain": launches_pt,
              "finetune_attr_train": launches_fa, "pretrain_attr": launches_pa}
+    for run, per_rank in dist_runs.items():
+        for r, counts in enumerate(per_rank):
+            paths[f"{run}_rank{r}"] = counts
     out = []
     for name, (per_level, seeded_err) in report.items():
         # a GAT kernel: one layer's levels of one finetune batch; the plane
@@ -1777,6 +2241,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": KERNELS[name].source,
             "replaces": KERNELS[name].replaces,
             "launches": (launches_pa if name in ATTR_KERNELS
+                         else dist_runs["finetune_ep"][0] if name in EP_KERNELS
                          else launches_pt)[name],
             "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": max([seeded_err]

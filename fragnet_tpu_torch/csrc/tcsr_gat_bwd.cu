@@ -57,8 +57,9 @@ __device__ __forceinline__ float leaky(float x, float slope) {
 
 // One gradient item, computed by one warp: a kept edge e (dst d, src s), or
 // with e < 0 the self-loop of node d (s == d, no edge-attr term).
+// m, den, g and s_in are read at row dr (d, less the grid's first row).
 __device__ __forceinline__ void grad_item(
-    int e, int d, int s, int lane,
+    int e, int d, int dr, int s, int lane,
     const float* __restrict__ wn, const float* __restrict__ nf,
     const float* __restrict__ w_ea, const float* __restrict__ m,
     const float* __restrict__ den, const float* __restrict__ g,
@@ -71,11 +72,11 @@ __device__ __forceinline__ void grad_item(
   if (lane < H) {
     float zp = wn[(size_t)d * 2 * H + lane] + wn[(size_t)s * 2 * H + H + lane];
     if (e >= 0) zp += w_ea[(size_t)e * H + lane];
-    const float dg = den[(size_t)d * H + lane];
-    p = expf(leaky(zp, slope) - m[(size_t)d * H + lane])
+    const float dg = den[(size_t)dr * H + lane];
+    p = expf(leaky(zp, slope) - m[(size_t)dr * H + lane])
         / (dg == 0.f ? 1.f : dg);
     pf = p * (zp > 0.f ? 1.f : slope);
-    sd = s_in[(size_t)d * H + lane];
+    sd = s_in[(size_t)dr * H + lane];
   }
   float gv[kMaxCols], dp[kMaxCols];
 #pragma unroll
@@ -84,7 +85,7 @@ __device__ __forceinline__ void grad_item(
     gv[k] = 0.f;
     dp[k] = 0.f;
     if (c < HD) {
-      gv[k] = g[(size_t)d * HD + c];
+      gv[k] = g[(size_t)dr * HD + c];
       dp[k] = gv[k] * nf[(size_t)s * HD + c];
     }
   }
@@ -142,18 +143,20 @@ __global__ void __launch_bounds__(kThreads) tcsr_gat_bwd_kernel(
     const int* __restrict__ src,       // (E,)
     const int* __restrict__ dst,       // (E,)
     const float* __restrict__ emask,   // (E,)
-    const int* __restrict__ ew_blk,    // (n_tiles,)
-    const int* __restrict__ cw,        // (n_tiles,)
-    const float* __restrict__ m,       // (N, H)
-    const float* __restrict__ den,     // (N, H)
-    const float* __restrict__ g,       // (N, H*D)
-    const float* __restrict__ s_in,    // (N, H)
+    const int* __restrict__ t0,        // (1,) first grid tile, or null: 0
+    const int* __restrict__ ew_blk,    // (n_grid,)
+    const int* __restrict__ cw,        // (n_grid,)
+    const float* __restrict__ m,       // (n_grid * tn, H)
+    const float* __restrict__ den,     // (n_grid * tn, H)
+    const float* __restrict__ g,       // (n_grid * tn, H*D)
+    const float* __restrict__ s_in,    // (n_grid * tn, H)
     float* __restrict__ d_wn,          // (N, 2H), zeroed
     float* __restrict__ d_nf,          // (N, H*D), zeroed
     float* __restrict__ d_w_ea,        // (E, H), zeroed
     int tn, int te, int H, int D, int self_loops, float slope) {
   const int t = blockIdx.x;
-  const int node0 = t * tn;
+  const int r0 = (t0 ? t0[0] : 0) * tn;  // absolute node of grid row 0
+  const int node0 = r0 + t * tn;
   const int e_lo = ew_blk[t] * te;
   const int e_hi = e_lo + cw[t] * te;
   const int lane = threadIdx.x & 31;
@@ -163,14 +166,33 @@ __global__ void __launch_bounds__(kThreads) tcsr_gat_bwd_kernel(
   for (int e = e_lo + wg; e < e_hi; e += n_warps) {
     const int d = dst[e];
     if (d < node0 || d >= node0 + tn || !(emask[e] > 0.f)) continue;
-    grad_item(e, d, src[e], lane, wn, nf, w_ea, m, den, g, s_in, d_wn, d_nf,
-              d_w_ea, H, D, slope);
+    grad_item(e, d, d - r0, src[e], lane, wn, nf, w_ea, m, den, g, s_in,
+              d_wn, d_nf, d_w_ea, H, D, slope);
   }
   if (self_loops) {
     for (int i = wg; i < tn; i += n_warps)
-      grad_item(-1, node0 + i, node0 + i, lane, wn, nf, w_ea, m, den, g,
-                s_in, d_wn, d_nf, d_w_ea, H, D, slope);
+      grad_item(-1, node0 + i, node0 + i - r0, node0 + i, lane, wn, nf,
+                w_ea, m, den, g, s_in, d_wn, d_nf, d_w_ea, H, D, slope);
   }
+}
+
+int launch(const void* wn, const void* nf, const void* w_ea, const void* src,
+           const void* dst, const void* emask, const void* t0,
+           const void* ew_blk, const void* cw, const void* m, const void* den,
+           const void* g, const void* s, void* d_wn, void* d_nf, void* d_w_ea,
+           int n_grid, int tn, int te, int H, int D, int self_loops,
+           float slope, void* stream) {
+  const bool d_ok = D > 0 && (D <= 32 ? 32 % D == 0 : D % 32 == 0);
+  if (H <= 0 || H > 32 || !d_ok || H * D > 32 * kMaxCols)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(n_grid, kSplit);
+  tcsr_gat_bwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)wn, (const float*)nf, (const float*)w_ea,
+      (const int*)src, (const int*)dst, (const float*)emask,
+      (const int*)t0, (const int*)ew_blk, (const int*)cw, (const float*)m,
+      (const float*)den, (const float*)g, (const float*)s, (float*)d_wn,
+      (float*)d_nf, (float*)d_w_ea, tn, te, H, D, self_loops, slope);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -181,19 +203,27 @@ extern "C" int tcsr_gat_bwd(
     const void* m, const void* den, const void* g, const void* s,
     void* d_wn, void* d_nf, void* d_w_ea, int n_tiles, int tn, int te,
     int H, int D, int self_loops, float slope, void* stream) {
-  const bool d_ok = D > 0 && (D <= 32 ? 32 % D == 0 : D % 32 == 0);
-  if (H <= 0 || H > 32 || !d_ok || H * D > 32 * kMaxCols)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid(n_tiles, kSplit);
-  tcsr_gat_bwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)wn, (const float*)nf, (const float*)w_ea,
-      (const int*)src, (const int*)dst, (const float*)emask,
-      (const int*)ew_blk, (const int*)cw, (const float*)m,
-      (const float*)den, (const float*)g, (const float*)s, (float*)d_wn,
-      (float*)d_nf, (float*)d_w_ea, tn, te, H, D, self_loops, slope);
-  return (int)cudaGetLastError();
+  return launch(wn, nf, w_ea, src, dst, emask, nullptr, ew_blk, cw, m, den,
+                g, s, d_wn, d_nf, d_w_ea, n_tiles, tn, te, H, D, self_loops,
+                slope, stream);
+}
+
+// K3's backward: one shard's grid of n_grid tiles from tile *t0 (device);
+// m, den, g, s hold the grid's n_grid * tn rows.
+extern "C" int tcsr_gat_ep_bwd(
+    const void* wn, const void* nf, const void* w_ea, const void* src,
+    const void* dst, const void* emask, const void* t0, const void* ew_blk,
+    const void* cw, const void* m, const void* den, const void* g,
+    const void* s, void* d_wn, void* d_nf, void* d_w_ea, int n_grid, int tn,
+    int te, int H, int D, float slope, void* stream) {
+  return launch(wn, nf, w_ea, src, dst, emask, t0, ew_blk, cw, m, den, g, s,
+                d_wn, d_nf, d_w_ea, n_grid, tn, te, H, D, 0, slope, stream);
 }
 
 extern "C" const char* tcsr_gat_bwd_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+extern "C" const char* tcsr_gat_ep_bwd_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -31,6 +31,18 @@
 // per edge). The shared-memory float atomics make the summation order vary
 // between runs (last-bit differences, well inside the 1e-4 relative check
 // against the plain version).
+//
+// tcsr_gat_ep_fwd (K3's forward) is the same kernel on one edge shard of
+// the edge-partitioned pass. It replaces the TPU kernel built by
+// fragnet_tpu/ops/pallas_gat.py:_make_ep_op (l.635) — _fwd_kernel at
+// n_tiles_grid = Tg, reading the absolute tile t0 + t (l.116) — and entered
+// through pallas_gat_pass_ep (l.750). The grid is the shard's Tg tiles
+// starting at tile t0 (read from device memory, so the caller never waits
+// for it); the edge arrays and the windows ew_blk / cw are the shard's,
+// node arrays stay whole, and row i of out, m, den holds absolute node
+// t0 * tn + i. No self-loops: the combine adds them once. What bounds it is
+// what bounds the whole-batch kernel, on 1/S of the edges; the grid is
+// smaller still, so launch latency weighs more.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,11 +75,12 @@ __global__ void __launch_bounds__(kThreads, 1) tcsr_gat_fwd_kernel(
     const int* __restrict__ src,       // (E,)
     const int* __restrict__ dst,       // (E,)
     const float* __restrict__ emask,   // (E,)
-    const int* __restrict__ ew_blk,    // (n_tiles,)
-    const int* __restrict__ cw,        // (n_tiles,)
-    float* __restrict__ out,           // (N, H*D)
-    float* __restrict__ m_out,         // (N, H)
-    float* __restrict__ den_out,       // (N, H)
+    const int* __restrict__ t0,        // (1,) first grid tile, or null: 0
+    const int* __restrict__ ew_blk,    // (n_grid,)
+    const int* __restrict__ cw,        // (n_grid,)
+    float* __restrict__ out,           // (n_grid * tn, H*D)
+    float* __restrict__ m_out,         // (n_grid * tn, H)
+    float* __restrict__ den_out,       // (n_grid * tn, H)
     int tn, int te, int H, int D, int self_loops, float slope) {
   extern __shared__ float smem[];
   const int HD = H * D;
@@ -79,7 +92,8 @@ __global__ void __launch_bounds__(kThreads, 1) tcsr_gat_fwd_kernel(
   int* st_src = st_dl + kThreads;                            // kThreads
 
   const int t = blockIdx.x;
-  const int node0 = t * tn;
+  const int node0 = ((t0 ? t0[0] : 0) + t) * tn;  // absolute first node
+  const size_t row0 = (size_t)t * tn;             // its output row
   const int e_lo = ew_blk[t] * te;
   const int e_hi = e_lo + cw[t] * te;
   const int tid = threadIdx.x;
@@ -188,12 +202,32 @@ __global__ void __launch_bounds__(kThreads, 1) tcsr_gat_fwd_kernel(
   for (int i = tid; i < tn * HD; i += kThreads) {
     const int n = i / HD, h = (i - n * HD) / D;
     const float dn = den[n * H + h];
-    out[(size_t)node0 * HD + i] = num[i] / (dn == 0.f ? 1.f : dn);
+    out[row0 * HD + i] = num[i] / (dn == 0.f ? 1.f : dn);
   }
   for (int i = tid; i < tn * H; i += kThreads) {
-    m_out[(size_t)node0 * H + i] = m[i];
-    den_out[(size_t)node0 * H + i] = den[i];
+    m_out[row0 * H + i] = m[i];
+    den_out[row0 * H + i] = den[i];
   }
+}
+
+int launch(const void* wn, const void* nf, const void* w_ea, const void* src,
+           const void* dst, const void* emask, const void* t0,
+           const void* ew_blk, const void* cw, void* out, void* m, void* den,
+           int n_grid, int tn, int te, int H, int D, int self_loops,
+           float slope, void* stream) {
+  if (H * D > 32 * kMaxCols) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * ((size_t)tn * H * D + 2 * (size_t)tn * H
+                                       + (size_t)kThreads * (H + 2));
+  cudaError_t err = cudaFuncSetAttribute(
+      tcsr_gat_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  tcsr_gat_fwd_kernel<<<n_grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)wn, (const float*)nf, (const float*)w_ea,
+      (const int*)src, (const int*)dst, (const float*)emask,
+      (const int*)t0, (const int*)ew_blk, (const int*)cw, (float*)out,
+      (float*)m, (float*)den, tn, te, H, D, self_loops, slope);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -203,21 +237,24 @@ extern "C" int tcsr_gat_fwd(
     const void* dst, const void* emask, const void* ew_blk, const void* cw,
     void* out, void* m, void* den, int n_tiles, int tn, int te, int H,
     int D, int self_loops, float slope, void* stream) {
-  if (H * D > 32 * kMaxCols) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)tn * H * D + 2 * (size_t)tn * H
-                                       + (size_t)kThreads * (H + 2));
-  cudaError_t err = cudaFuncSetAttribute(
-      tcsr_gat_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  tcsr_gat_fwd_kernel<<<n_tiles, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)wn, (const float*)nf, (const float*)w_ea,
-      (const int*)src, (const int*)dst, (const float*)emask,
-      (const int*)ew_blk, (const int*)cw, (float*)out, (float*)m,
-      (float*)den, tn, te, H, D, self_loops, slope);
-  return (int)cudaGetLastError();
+  return launch(wn, nf, w_ea, src, dst, emask, nullptr, ew_blk, cw, out, m,
+                den, n_tiles, tn, te, H, D, self_loops, slope, stream);
+}
+
+// K3's forward: one shard's grid of n_grid tiles from tile *t0 (device).
+extern "C" int tcsr_gat_ep_fwd(
+    const void* wn, const void* nf, const void* w_ea, const void* src,
+    const void* dst, const void* emask, const void* t0, const void* ew_blk,
+    const void* cw, void* out, void* m, void* den, int n_grid, int tn,
+    int te, int H, int D, float slope, void* stream) {
+  return launch(wn, nf, w_ea, src, dst, emask, t0, ew_blk, cw, out, m, den,
+                n_grid, tn, te, H, D, 0, slope, stream);
 }
 
 extern "C" const char* tcsr_gat_fwd_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+extern "C" const char* tcsr_gat_ep_fwd_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -3,8 +3,9 @@ torch tensors on a device, and the host→device move of a packed batch
 buffer (data/packing.py).
 
 Every array field becomes a tensor of the same dtype (f32 stays f32, i32
-stays i32 — the kernels take int32 indices); the ``TileMeta`` of each level
-carries its arrays as tensors too, and its static widths unchanged. ``None``
+stays i32 — the kernels take int32 indices); the ``TileMeta`` (or
+``EPTileMeta``) of each level carries its arrays as tensors too, and its
+static widths unchanged. ``None``
 stays ``None``, so the layer's dispatch sees exactly which kernel metadata
 the batch has. A batch already on the target device (a device-cached batch,
 data/batcher.py:DeviceCacheLoader) is returned as it is.
@@ -21,7 +22,6 @@ import torch
 from fragnet_tpu_torch.graphs.hiergraph import HierGraphBatch
 
 _TM_FIELDS = ("tm_atom", "tm_bond", "tm_frag", "tm_fc")
-_TM_ARRAYS = ("ew_blk", "sw_tile", "flat_slot", "cw")
 
 
 def _device(device: Union[str, torch.device]) -> torch.device:
@@ -51,8 +51,10 @@ def to_device(batch: HierGraphBatch,
         if v is None:
             kw[f.name] = None
         elif f.name in _TM_FIELDS:
-            kw[f.name] = dataclasses.replace(
-                v, **{a: _tensor(getattr(v, a), device) for a in _TM_ARRAYS})
+            kw[f.name] = dataclasses.replace(v, **{
+                a.name: _tensor(getattr(v, a.name), device)
+                for a in dataclasses.fields(v)
+                if isinstance(getattr(v, a.name), (np.ndarray, torch.Tensor))})
         else:
             kw[f.name] = _tensor(v, device)
     return HierGraphBatch(**kw)

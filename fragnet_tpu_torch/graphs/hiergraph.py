@@ -349,7 +349,8 @@ def fits(graphs: Sequence, spec: PadSpec) -> bool:
 def pad_batch(graphs: Sequence, spec: PadSpec, n_tasks: int = 1,
               with_targets: bool = False,
               build_dense: bool = True,
-              strict_tcsr: bool = False) -> HierGraphBatch:
+              strict_tcsr: bool = False,
+              template=None) -> HierGraphBatch:
     """Concatenate molecules with index offsets (collate semantics,
     data.py:877-948) and pad every dimension to the spec.
 
@@ -367,15 +368,16 @@ def pad_batch(graphs: Sequence, spec: PadSpec, n_tasks: int = 1,
     G, A, E = spec.n_graphs, spec.n_atoms, spec.n_edges
     F, C = spec.n_frags, spec.n_fconn
     EB, EC = spec.n_bg_edges, spec.n_fc_edges
-    fd_atom = graphs[0].x_atoms.shape[1]
+    ref = graphs[0] if graphs else template
+    fd_atom = ref.x_atoms.shape[1]
 
     x_atoms = np.zeros((A, fd_atom), np.float32)
     edge_src = np.zeros((E,), np.int32)
     edge_dst = np.zeros((E,), np.int32)
-    edge_attr = np.zeros((E, graphs[0].edge_attr.shape[1]), np.float32)
+    edge_attr = np.zeros((E, ref.edge_attr.shape[1]), np.float32)
     atom_mask = np.zeros((A,), np.float32)
     edge_mask = np.zeros((E,), np.float32)
-    nf_bonds = np.zeros((E, graphs[0].nf_bonds.shape[1]), np.float32)
+    nf_bonds = np.zeros((E, ref.nf_bonds.shape[1]), np.float32)
     bg_src = np.zeros((EB,), np.int32)
     bg_dst = np.zeros((EB,), np.int32)
     ea_bonds = np.zeros((EB, 1), np.float32)
@@ -402,10 +404,10 @@ def pad_batch(graphs: Sequence, spec: PadSpec, n_tasks: int = 1,
     dh_angl = np.zeros((E, 1), np.float32) if with_targets else None
     protein = None
     gene_expr = None
-    if graphs and graphs[0].protein is not None:
-        protein = np.zeros((G, graphs[0].protein.shape[-1]), np.int32)
-    if graphs and graphs[0].gene_expr is not None:
-        gene_expr = np.zeros((G, graphs[0].gene_expr.shape[-1]), np.float32)
+    if ref.protein is not None:
+        protein = np.zeros((G, ref.protein.shape[-1]), np.int32)
+    if ref.gene_expr is not None:
+        gene_expr = np.zeros((G, ref.gene_expr.shape[-1]), np.float32)
 
     # vectorized collate: per-field concatenation + one write into the
     # padded buffer (a per-graph × per-field Python assignment loop was the
@@ -449,11 +451,12 @@ def pad_batch(graphs: Sequence, spec: PadSpec, n_tasks: int = 1,
     dest_f = _ranges(f_off, nf)
     dest_c = _ranges(c_off, nc)
 
-    def cat(field):
-        return np.concatenate([getattr(g, field) for g in graphs])
+    def cat(field, axis=0):
+        return np.concatenate([getattr(g, field) for g in graphs] or [
+            np.take(getattr(ref, field), [], axis=axis)], axis=axis)
 
     x_atoms[dest_a] = cat("x_atoms")
-    ei = np.concatenate([g.edge_index for g in graphs], axis=1)
+    ei = cat("edge_index", axis=1)
     rep_ae = np.repeat(a_off[:-1], ne)  # per-edge atom offset
     edge_src[dest_e] = ei[0] + rep_ae
     edge_dst[dest_e] = ei[1] + rep_ae
@@ -464,7 +467,7 @@ def pad_batch(graphs: Sequence, spec: PadSpec, n_tasks: int = 1,
     nf_bonds[dest_e] = cat("nf_bonds")
     # reference unpacks `target, source = edge_index_bonds_graph`
     # (gat2.py:138): row 0 is the aggregation target → our *_dst.
-    eib = np.concatenate([g.ei_bonds for g in graphs], axis=1)
+    eib = cat("ei_bonds", axis=1)
     rep_eb = np.repeat(e_off[:-1], neb)
     bg_dst[:Teb] = eib[0] + rep_eb
     bg_src[:Teb] = eib[1] + rep_eb
@@ -473,7 +476,7 @@ def pad_batch(graphs: Sequence, spec: PadSpec, n_tasks: int = 1,
 
     x_frags[dest_f] = cat("x_frags")
     # `source, target = frag_index` (gat2.py:283): row 0 is the source.
-    fi = np.concatenate([g.frag_index for g in graphs], axis=1)
+    fi = cat("frag_index", axis=1)
     rep_fc = np.repeat(f_off[:-1], nc)
     frag_src[dest_c] = fi[0] + rep_fc
     frag_dst[dest_c] = fi[1] + rep_fc
@@ -483,7 +486,7 @@ def pad_batch(graphs: Sequence, spec: PadSpec, n_tasks: int = 1,
 
     nf_fbonds[dest_c] = cat("nf_fbonds")
     # `target, source = edge_index_fbond_graph` (gat2.py:239).
-    eif = np.concatenate([g.ei_fbonds for g in graphs], axis=1)
+    eif = cat("ei_fbonds", axis=1)
     rep_cf = np.repeat(c_off[:-1], nec)
     fc_dst[:Tec] = eif[0] + rep_cf
     fc_src[:Tec] = eif[1] + rep_cf
@@ -499,7 +502,8 @@ def pad_batch(graphs: Sequence, spec: PadSpec, n_tasks: int = 1,
         y[gi, : yv.shape[0]] = yv
     graph_mask[:n] = 1.0
 
-    if with_targets and all(g.bnd_lngth is not None for g in graphs):
+    if with_targets and graphs and all(g.bnd_lngth is not None
+                                       for g in graphs):
         bnd_lngth[dest_e] = cat("bnd_lngth")
         dh_angl[dest_e] = cat("dh_angl")
         bnd_angl[dest_a] = cat("bnd_angl")
@@ -510,9 +514,9 @@ def pad_batch(graphs: Sequence, spec: PadSpec, n_tasks: int = 1,
                 bnd_lngth[e0:e0 + int(ne[gi])] = g.bnd_lngth
                 dh_angl[e0:e0 + int(ne[gi])] = g.dh_angl
                 bnd_angl[a0:a0 + int(na[gi])] = g.bnd_angl
-    if protein is not None:
+    if protein is not None and n:
         protein[:n] = np.stack([g.protein for g in graphs])
-    if gene_expr is not None:
+    if gene_expr is not None and n:
         gene_expr[:n] = np.stack([g.gene_expr for g in graphs])
 
     tcsr_kw = {}

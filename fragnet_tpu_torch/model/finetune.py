@@ -18,7 +18,8 @@ from fragnet_tpu_torch.ops.segment import segment_sum
 class FragNetFineTune(nn.Module):
     """The flagship finetune model (gat2.py:758-826). Parameters are drawn
     from ``generator`` (a seeded ``torch.Generator``) on the CPU; move the
-    module to its device afterwards."""
+    module to its device afterwards. ``ep`` (an EPContext) makes the encoder
+    edge-partitioned; the parameters are the same."""
 
     def __init__(self, n_classes: int = 1, atom_features: int = 167,
                  frag_features: int = 167, edge_features: int = 17,
@@ -28,7 +29,7 @@ class FragNetFineTune(nn.Module):
                  h3: int = 256, h4: int = 256, act: str = "celu",
                  emb_dim: int = 128, fthead: str = "FTHead3",
                  policy: KernelPolicy = KernelPolicy(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, ep=None):
         super().__init__()
         g = generator
         self.pretrain = FragNet(
@@ -36,7 +37,7 @@ class FragNetFineTune(nn.Module):
             atom_features=atom_features, frag_features=frag_features,
             edge_features=edge_features, fedge_in=fedge_in,
             fbond_edge_in=fbond_edge_in, num_heads=num_heads, policy=policy,
-            generator=g)
+            generator=g, ep=ep)
         cls = FTHEADS[fthead]
         in_dim = 2 * emb_dim  # pooled atoms ‖ pooled frags
         if fthead in ("FTHead1", "FTHead2"):

@@ -8,6 +8,9 @@ fragnet_tpu/model/fragnet.py):
     edge/fedge features back as both line-graph node features and edge attrs
     (gat2.py:420-434);
   * ReLU + dropout between layers, applied to all four streams.
+
+``ep`` (an EPContext, dist/edge_partition.py) builds edge-partitioned
+layers (the JAX package's ``ep_axis``).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ class FragNet(nn.Module):
                  frag_features: int = 167, edge_features: int = 17,
                  fedge_in: int = 6, fbond_edge_in: int = 6,
                  num_heads: int = 4, policy: KernelPolicy = KernelPolicy(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, ep=None):
         super().__init__()
         self.drop = nn.Dropout(drop_ratio)
         self.layers = nn.ModuleList([
@@ -41,6 +44,7 @@ class FragNet(nn.Module):
                 num_heads=num_heads,
                 policy=policy,
                 generator=generator,
+                ep=ep,
             )
             for i in range(num_layer)
         ])

@@ -7,7 +7,10 @@ passes (bond-graph GAT → atom-graph GAT with self-loops → atom→frag poolin
 GAT pass goes through ``_gat_dispatch``: the dense planes kernel
 (ops/dense_gat.py), the dense-attr kernel (same module), or the fused TCSR
 kernel (ops/tcsr_gat.py) as the kernel policy and the batch's metadata
-select, else — on the CPU only — the segment path (ops/segment.py). The
+select, else — on the CPU only — the segment path (ops/segment.py). A
+layer built with an ``EPContext`` runs edge-partitioned (dist/
+edge_partition.py): each rank passes its shard of every level's edges to
+the K3 pass (ops/tcsr_gat.py:tcsr_gat_pass_ep), node state replicated. The
 attention vectors are computed only when asked for.
 
 Parameter names are the reference torch names (gat2.py): projection_b/a/fb,
@@ -28,8 +31,8 @@ import torch.nn as nn
 from fragnet_tpu_torch.ops.dense_gat import (dense_attr_gat_pass,
                                              dense_gat_pass)
 from fragnet_tpu_torch.ops.segment import gat_attention_pass, segment_sum
-from fragnet_tpu_torch.ops.tcsr import TileMeta
-from fragnet_tpu_torch.ops.tcsr_gat import tcsr_gat_pass
+from fragnet_tpu_torch.ops.tcsr import EPTileMeta, TileMeta
+from fragnet_tpu_torch.ops.tcsr_gat import tcsr_gat_pass, tcsr_gat_pass_ep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,15 +119,31 @@ def _gat_dispatch(
                                  # path (the atom level appends explicit
                                  # self-loop rows there)
     need_attn: bool = False,
+    ep=None,                     # EPContext: edge-partitioned pass
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One GAT pass through whichever kernel the batch metadata + policy
-    select (the JAX package's ladder, fragnet_tpu/model/layers.py:180-190):
+    select (the JAX package's ladder, fragnet_tpu/model/layers.py:171-190):
+    under ``ep`` the K3 pass on this rank's edge shard, which needs
+    EPTileMeta (the segment EP path is not ported); else
     the dense planes kernel, the dense-attr kernel over the adjacency plane
     (``dp`` itself at R = 0, else its first tn rows of each tile), else the
     fused TCSR kernel, else — for CPU tensors only — the segment path. A
     CUDA tensor with neither kernel's metadata raises. Math contract for
     every branch: ops/segment.py:gat_attention_pass (reference
     gat2.py:137-169)."""
+    if ep is not None:
+        if isinstance(tm, EPTileMeta):
+            return tcsr_gat_pass_ep(nf, ea, src, dst, mask, avec, tm,
+                                    ep.rank, ep.group, self_loops=self_loops,
+                                    return_attention=need_attn)
+        if nf.device.type != "cpu":
+            raise RuntimeError(
+                f"edge-partitioned GAT pass on {nf.device} without "
+                f"EPTileMeta: the segment path runs on the CPU only; attach "
+                f"it with dist/edge_partition.py:with_ep_tile_meta")
+        raise NotImplementedError(
+            "the edge-partitioned segment path (dist.tcsr=false) is not "
+            "ported yet (ROADMAP.md Queue A12): attach EPTileMeta")
     if mode == "planes" and dp is not None and fold is not None:
         v, c = fold
         return dense_gat_pass(nf, dp, v, c, ea, src, dst, mask, avec,
@@ -176,20 +195,24 @@ class LayerAttn:
 
 
 class FragNetLayer(nn.Module):
-    """One four-level message-passing layer (f32)."""
+    """One four-level message-passing layer (f32). With ``ep`` (an
+    EPContext) it runs edge-partitioned: the batch holds this rank's slice
+    of the edge fields (dist/edge_partition.py:ep_local_batch) and every GAT
+    pass is the K3 pass."""
 
     def __init__(self, atom_in: int = 128, atom_out: int = 128,
                  edge_in: int = 128, edge_out: int = 128,
                  fedge_in: int = 128, bond_edge_in: int = 1,
                  fbond_edge_in: int = 6, num_heads: int = 4,
                  policy: KernelPolicy = KernelPolicy(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, ep=None):
         super().__init__()
         H = num_heads
         self.num_heads = H
         self.atom_out = atom_out
         self.edge_out = edge_out
         self.policy = policy
+        self.ep = ep
         eph = edge_out // H
         aph = atom_out // H
         g = generator
@@ -207,6 +230,7 @@ class FragNetLayer(nn.Module):
                 need_attn: bool = False):
         H = self.num_heads
         pol = self.policy
+        ep = self.ep
         edge_out_ph = self.edge_out // H
         atom_out_ph = self.atom_out // H
         edge_mask = batch.edge_mask
@@ -218,7 +242,7 @@ class FragNetLayer(nn.Module):
         ea_b = self.edge_attr_bond_embed(batch.ea_bonds)          # (EB, Dp)
         nf_b = self.projection_b(nf_bonds).reshape(E, H, edge_out_ph)
         fold_b = None
-        if pol.bond == "planes" and batch.dp_bond is not None:
+        if ep is None and pol.bond == "planes" and batch.dp_bond is not None:
             # raw bond-graph edge attr is the 1-dim cos-angle → rank-1 fold
             fold_b = _fold_planes(self.edge_attr_bond_embed,
                                   batch.ea_bonds.shape[1], self.a_b,
@@ -226,7 +250,7 @@ class FragNetLayer(nn.Module):
         bond_out, attn_bonds = _gat_dispatch(
             nf_b, ea_b, batch.bg_src, batch.bg_dst, batch.bg_mask, self.a_b,
             num_nodes=E, tm=batch.tm_bond, dp=batch.dp_bond, mode=pol.bond,
-            fold=fold_b, need_attn=need_attn)
+            fold=fold_b, need_attn=need_attn, ep=ep)
         new_bond_features = bond_out.reshape(E, -1) * edge_mask[:, None]
 
         # ---- pass 2: atom-graph GAT with self-loops (gat2.py:178-224) ----
@@ -234,7 +258,14 @@ class FragNetLayer(nn.Module):
         # (gat2.py:179-185); the kernel folds them in analytically, so the
         # appended arrays are built only for the segment path
         seg = None
-        if batch.tm_atom is None:
+        ea_a, mask_a = new_bond_features, edge_mask
+        if ep is not None:
+            # this rank's slice of the replicated bond features; the
+            # self-loops are folded in the combine
+            Es = batch.edge_src.shape[0]
+            ea_a = new_bond_features[ep.rank * Es:(ep.rank + 1) * Es]
+            mask_a = edge_mask[ep.rank * Es:(ep.rank + 1) * Es]
+        elif batch.tm_atom is None:
             sl = torch.arange(A, dtype=batch.edge_src.dtype,
                               device=x_atoms.device)
             seg = (torch.cat([batch.edge_src, sl]),
@@ -244,10 +275,10 @@ class FragNetLayer(nn.Module):
                    torch.cat([edge_mask, edge_mask.new_ones((A,))]))
         nf_a = self.projection_a(x_atoms).reshape(A, H, atom_out_ph)
         atom_out_feats, attn_atoms = _gat_dispatch(
-            nf_a, new_bond_features, batch.edge_src, batch.edge_dst,
-            edge_mask, self.a, num_nodes=A, tm=batch.tm_atom,
-            dp=batch.dp_atom, mode="attr" if pol.attr else "tcsr",
-            self_loops=True, seg=seg, need_attn=need_attn)
+            nf_a, ea_a, batch.edge_src, batch.edge_dst, mask_a, self.a,
+            num_nodes=A, tm=batch.tm_atom, dp=batch.dp_atom,
+            mode="attr" if pol.attr else "tcsr", self_loops=True, seg=seg,
+            need_attn=need_attn, ep=ep)
         x_atoms_new = atom_out_feats.reshape(A, -1) * batch.atom_mask[:, None]
 
         # ---- pass 3: atom → fragment pooling (gat2.py:234) ----------------
@@ -260,7 +291,7 @@ class FragNetLayer(nn.Module):
         ea_fb = self.edge_attr_fbond_embed(batch.ea_fbonds)
         nf_fb = self.projection_fb(nf_fbonds).reshape(C, H, edge_out_ph)
         fold_f = None
-        if pol.fc == "planes" and batch.dp_fc is not None:
+        if ep is None and pol.fc == "planes" and batch.dp_fc is not None:
             # raw fconn attrs are the 6-dim connection one-hot sums → rank-6
             fold_f = _fold_planes(self.edge_attr_fbond_embed,
                                   batch.ea_fbonds.shape[1], self.f_a_b,
@@ -268,18 +299,22 @@ class FragNetLayer(nn.Module):
         fbond_out, attn_fbonds = _gat_dispatch(
             nf_fb, ea_fb, batch.fc_src, batch.fc_dst, batch.fc_mask,
             self.f_a_b, num_nodes=C, tm=batch.tm_fc, dp=batch.dp_fc,
-            mode=pol.fc, fold=fold_f, need_attn=need_attn)
+            mode=pol.fc, fold=fold_f, need_attn=need_attn, ep=ep)
         new_fbond_features = (fbond_out.reshape(C, -1)
                               * batch.fconn_mask[:, None])
 
         # ---- pass 5: frag-graph GAT (gat2.py:283-316) ---------------------
         # fragment node features enter per head WITHOUT projection
         nf_f = x_frags.reshape(F_, H, -1)
+        ea_f, mask_f = new_fbond_features, batch.fconn_mask
+        if ep is not None:
+            Cs = batch.frag_src.shape[0]
+            ea_f = new_fbond_features[ep.rank * Cs:(ep.rank + 1) * Cs]
+            mask_f = batch.fconn_mask[ep.rank * Cs:(ep.rank + 1) * Cs]
         frag_out, attn_frags = _gat_dispatch(
-            nf_f, new_fbond_features, batch.frag_src, batch.frag_dst,
-            batch.fconn_mask, self.f, num_nodes=F_, tm=batch.tm_frag,
-            dp=batch.dp_frag, mode="attr" if pol.attr else "tcsr",
-            need_attn=need_attn)
+            nf_f, ea_f, batch.frag_src, batch.frag_dst, mask_f, self.f,
+            num_nodes=F_, tm=batch.tm_frag, dp=batch.dp_frag,
+            mode="attr" if pol.attr else "tcsr", need_attn=need_attn, ep=ep)
         x_frags_new = frag_out.reshape(F_, -1) * batch.frag_mask[:, None]
 
         attn = None

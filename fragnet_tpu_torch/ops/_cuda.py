@@ -5,7 +5,9 @@ shared library with a plain C interface and loaded with ``ctypes``; no
 PyTorch header is compiled, so a build takes seconds. Libraries go to
 ``fragnet_tpu_torch/_build/`` (git-ignored), named by a hash of the source,
 and are built on first use. ``build_all`` starts one ``nvcc`` per source at
-once.
+once. One source may export several launchers (a kernel and its
+edge-partitioned entry point); each has its own ``CudaKernel`` and launch
+count, and they share the library.
 
 Every exported launcher takes device pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launch; the wrapper
@@ -31,6 +33,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
+# every CudaKernel of the port's own sources, in the order of definition
+REGISTRY: List["CudaKernel"] = []
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -51,6 +57,8 @@ class CudaKernel:
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence,
                  csrc: str = CSRC):
+        if csrc == CSRC:
+            REGISTRY.append(self)
         self.source = source
         self.csrc = csrc
         self.symbol = symbol
@@ -101,12 +109,12 @@ class CudaKernel:
 
 
 def _run_builds(kernels: Sequence[CudaKernel]) -> Dict[str, str]:
-    """Compile the given kernels' sources concurrently; returns each
-    source's compiler output (ptxas register/spill report)."""
+    """Compile the given kernels' sources concurrently, each library once;
+    returns each source's compiler output (ptxas register/spill report)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = []
-    for k in kernels:
-        so = k.so_path()
+    by_so = {k.so_path(): k for k in kernels}
+    for so, k in by_so.items():
         tmp = f"{so}.{os.getpid()}.tmp"
         procs.append((k, so, tmp, subprocess.Popen(
             k.compile_command(tmp), stdout=subprocess.PIPE,
@@ -130,6 +138,11 @@ def build_all(kernels: Sequence[CudaKernel],
     ``force``), one nvcc per source, all started together."""
     todo = [k for k in kernels if force or not os.path.exists(k.so_path())]
     return _run_builds(todo) if todo else {}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every port kernel's launch count, by launcher symbol."""
+    return {k.symbol: k.launches for k in REGISTRY}
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

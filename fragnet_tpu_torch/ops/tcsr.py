@@ -17,7 +17,9 @@ pass to *gather* per-edge gradients instead of scattering them.
 
 Replaces the torch-scatter CSR machinery of the reference (gat2.py:153,162);
 the layout itself has no reference analog — it exists so every memory access
-in the hot kernel is a contiguous window load.
+in the hot kernel is a contiguous window load. ``EPTileMeta`` /
+``build_ep_tile_meta`` give the same per edge shard of the edge-partitioned
+mode (copied from fragnet_tpu/ops/tcsr.py:169-306).
 """
 
 from __future__ import annotations
@@ -147,4 +149,146 @@ def build_tile_meta(
         flat_slot=flat.astype(np.int32),
         cw=cw.astype(np.int32),
         tn=tn, te=te, n_chunks=int(n_chunks), k_src=int(k_src),
+    )
+
+
+# ---------------------------------------------------------------------------
+# edge-partitioned TCSR (the K3 kernels under torch.distributed,
+# dist/edge_partition.py)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class EPTileMeta:
+    """Per-SHARD TCSR metadata for the edge-partitioned pass.
+
+    Edges are split into ``n_shards`` contiguous ranges, one per rank;
+    because the batcher packs edges sorted by destination, each shard's
+    destinations cover a contiguous tile range [t0, t0 + n_tiles_grid). The
+    shard's kernel therefore runs a RESTRICTED grid of ``n_tiles_grid`` dst
+    tiles — per-shard work scales ~1/S — and the caller adds its
+    (n_tiles_grid·tn)-row outputs at t0·tn in the cross-shard softmax
+    combine (ops/tcsr_gat.py:tcsr_gat_pass_ep). Every rank holds every
+    shard's rows, so each knows the others' t0 without a collective.
+    """
+
+    t0: np.ndarray         # (S, 1) i32 — first dst tile of each shard's grid
+    ew_blk: np.ndarray     # (S, Tg) i32 — edge-window starts, LOCAL Te-blocks
+    sw_tile: np.ndarray    # (S, Tg) i32 — src-window starts, GLOBAL Tn-tiles
+    flat_slot: np.ndarray  # (S, Es) i32 — local edge → local tiled slot
+    cw: np.ndarray         # (S, Tg) i32 — real Te-chunks per grid tile (≥1)
+    tn: int
+    te: int
+    n_chunks: int
+    k_src: int
+    n_tiles_grid: int
+
+
+def build_ep_tile_meta(
+    src: np.ndarray,
+    dst: np.ndarray,
+    edge_mask: np.ndarray,
+    n_nodes: int,
+    n_shards: int,
+    tn: int = 128,
+    te: int = 256,
+    n_chunks: Optional[int] = None,
+    k_src: Optional[int] = None,
+    n_tiles_grid: Optional[int] = None,
+) -> Optional["EPTileMeta"]:
+    """Per-shard TCSR metadata, or None when the layout assumptions fail.
+    Requires the global edge count divisible by n_shards·te and n_nodes by
+    tn."""
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    E = len(src)
+    if E % n_shards:
+        return None
+    Es = E // n_shards
+    if n_nodes % tn or Es % te or n_nodes < tn or Es < te:
+        return None
+    n_tiles = n_nodes // tn
+    n_eblk_l = Es // te
+    eids = np.arange(Es, dtype=np.int64)
+
+    shards = []
+    max_span = 1
+    for s in range(n_shards):
+        sl = slice(s * Es, (s + 1) * Es)
+        keep = np.asarray(edge_mask[sl]) > 0
+        tile_of = np.where(keep, dst[sl] // tn, -1)
+        if (tile_of >= 0).any():
+            t_lo = int(tile_of[tile_of >= 0].min())
+            t_hi = int(tile_of.max())
+        else:
+            t_lo = t_hi = 0
+        shards.append((src[sl], keep, tile_of, t_lo, t_hi))
+        max_span = max(max_span, t_hi - t_lo + 1)
+
+    Tg = min(int(n_tiles_grid), n_tiles) if n_tiles_grid is not None \
+        else max_span
+    if max_span > Tg or Tg > n_tiles:
+        return None
+
+    ew = np.zeros((n_shards, Tg), np.int64)
+    sw = np.zeros((n_shards, Tg), np.int64)
+    t0s = np.zeros((n_shards,), np.int64)
+    max_c, max_k = 1, 1
+    for s, (src_l, keep, tile_of, t_lo, t_hi) in enumerate(shards):
+        t0 = min(t_lo, n_tiles - Tg)
+        t0s[s] = t0
+        for t in range(Tg):
+            ids = np.nonzero(tile_of == t0 + t)[0]
+            if len(ids) == 0:
+                continue
+            ew[s, t] = int(ids.min()) // te
+            sw[s, t] = int(src_l[ids].min()) // tn
+            max_c = max(max_c, int(ids.max()) // te - int(ew[s, t]) + 1)
+            max_k = max(max_k, int(src_l[ids].max()) // tn - int(sw[s, t]) + 1)
+
+    # pinned widths clamp to the array bounds (bounds are spec-static, so
+    # the clamped statics stay uniform across batches)
+    if n_chunks is None:
+        n_chunks = max_c
+    else:
+        n_chunks = min(int(n_chunks), n_eblk_l)
+        if max_c > n_chunks:
+            return None
+    if k_src is None:
+        k_src = max_k
+    else:
+        k_src = min(int(k_src), n_tiles)
+        if max_k > k_src:
+            return None
+    if n_chunks > n_eblk_l or k_src > n_tiles:
+        return None
+    ew = np.minimum(ew, n_eblk_l - n_chunks)
+    sw = np.minimum(sw, n_tiles - k_src)
+
+    flat = np.zeros((n_shards, Es), np.int64)
+    cw = np.ones((n_shards, Tg), np.int64)
+    for s, (src_l, keep, tile_of, *_rest) in enumerate(shards):
+        t_loc = np.where(keep, tile_of - t0s[s], 0)
+        t_cl = np.clip(t_loc, 0, Tg - 1)
+        if keep.any():
+            if ((t_loc[keep] < 0) | (t_loc[keep] >= Tg)).any():
+                return None
+            lo = ew[s][t_cl] * te
+            if (keep & ((eids < lo) | (eids >= lo + n_chunks * te))).any():
+                return None
+            s_lo = sw[s][t_cl] * tn
+            if (keep & ((src_l < s_lo) | (src_l >= s_lo + k_src * tn))).any():
+                return None
+            np.maximum.at(cw[s], t_loc[keep],
+                          (eids[keep] - ew[s][t_loc[keep]] * te) // te + 1)
+        f = t_loc * (n_chunks * te) + (eids - ew[s][t_cl] * te)
+        flat[s] = np.where(keep, f, 0)
+
+    return EPTileMeta(
+        t0=t0s.reshape(n_shards, 1).astype(np.int32),
+        ew_blk=ew.astype(np.int32),
+        sw_tile=sw.astype(np.int32),
+        flat_slot=flat.astype(np.int32),
+        cw=cw.astype(np.int32),
+        tn=tn, te=te, n_chunks=int(n_chunks), k_src=int(k_src),
+        n_tiles_grid=int(Tg),
     )

@@ -17,7 +17,12 @@ TCSR layout of ops/tcsr.py, in four parts:
     and d_w_ea on to nf, ea and the attention vector;
   * the summed-attention-by-source epilogue (pallas_gat.py:598-622),
     rebuilt from (m, den) with torch ops on detached tensors, only when
-    asked for.
+    asked for;
+  * the edge-partitioned pass ``tcsr_gat_pass_ep`` (pallas_gat.py:
+    625-869): K3's forward and backward (``tcsr_gat_ep_fwd`` /
+    ``tcsr_gat_ep_bwd``, entry points of the same two sources) on one edge
+    shard per rank, with the cross-shard softmax combine in torch around
+    them.
 
 A CUDA tensor goes through the kernels or the call raises; only CPU tensors
 take the plain versions.
@@ -32,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from fragnet_tpu_torch.ops import _cuda
-from fragnet_tpu_torch.ops.tcsr import TileMeta
+from fragnet_tpu_torch.ops.tcsr import EPTileMeta, TileMeta
 
 _NEG = -1e30
 _VP = ctypes.c_void_p
@@ -305,3 +310,262 @@ def tcsr_gat_pass(
     return out, attention_by_source(wn.detach(), w_ea.detach(), src, dst,
                                     emask, m, den, self_loops,
                                     negative_slope)
+
+
+# --------------------------------------------------------------------------
+# edge-partitioned pass (K3): one edge shard per rank, node state replicated
+# (pallas_gat.py:625-869, dist/edge_partition.py)
+# --------------------------------------------------------------------------
+
+KERNEL_EP = _cuda.CudaKernel(
+    "tcsr_gat_fwd.cu", "tcsr_gat_ep_fwd",
+    [_VP] * 12 + [_I] * 5 + [ctypes.c_float, _VP])
+KERNEL_EP_BWD = _cuda.CudaKernel(
+    "tcsr_gat_bwd.cu", "tcsr_gat_ep_bwd",
+    [_VP] * 16 + [_I] * 5 + [ctypes.c_float, _VP])
+
+
+def _grid_rows(meta: EPTileMeta, rank: int) -> Tuple[int, int]:
+    """(first grid row t0·tn, grid rows Ng) of shard ``rank``, as host ints
+    (the plain versions' view; the kernels read t0 on the device)."""
+    return int(meta.t0[rank, 0]) * meta.tn, meta.n_tiles_grid * meta.tn
+
+
+def tcsr_gat_ep_fwd_plain(wn, nf, w_ea, src, dst, emask, meta: EPTileMeta,
+                          rank: int, slope: float = 0.2):
+    """Plain PyTorch version of K3's forward: the whole-batch forward over
+    this shard's edges (no self-loops), cut to the shard's grid rows
+    [t0·tn, t0·tn + Ng) — every kept edge of the shard has its destination
+    there (build_ep_tile_meta checks it)."""
+    r0, Ng = _grid_rows(meta, rank)
+    out, m, den = tcsr_gat_fwd_plain(wn, nf, w_ea, src, dst, emask, None,
+                                     False, slope)
+    return out[r0:r0 + Ng], m[r0:r0 + Ng], den[r0:r0 + Ng]
+
+
+def _check_ep(name, wn, nf, w_ea, src, dst, emask, meta: EPTileMeta,
+              rank: int, extra=()):
+    """Raise unless K3 takes these tensors; returns (N, HD, H, Ng) and the
+    shard's (t0, ew_blk, cw) rows."""
+    if nf.device.type != "cuda":
+        raise ValueError(f"no {name} kernel for device {nf.device}")
+    N, HD = nf.shape
+    H = wn.shape[1] // 2
+    Es = src.shape[0]
+    S, Tg = meta.ew_blk.shape
+    tn, te = meta.tn, meta.te
+    if H <= 0 or HD % H or HD > _MAX_HD or N % tn or Es % te \
+            or not 0 <= rank < S:
+        raise ValueError(f"{name}: bad shapes N={N} HD={HD} H={H} Es={Es} "
+                         f"tn={tn} te={te} rank={rank} of {S} shards")
+    f32, i32 = torch.float32, torch.int32
+    for arg, t, dt, shape in (
+            ("wn", wn, f32, (N, 2 * H)), ("nf", nf, f32, (N, HD)),
+            ("w_ea", w_ea, f32, (Es, H)), ("src", src, i32, (Es,)),
+            ("dst", dst, i32, (Es,)), ("emask", emask, f32, (Es,)),
+            ("t0", meta.t0, i32, (S, 1)), ("ew_blk", meta.ew_blk, i32,
+                                            (S, Tg)),
+            ("cw", meta.cw, i32, (S, Tg))) + tuple(extra):
+        _cuda.check(t, arg, dt, shape, nf.device)
+    return (N, HD, H, Tg * tn), (meta.t0[rank], meta.ew_blk[rank],
+                                  meta.cw[rank])
+
+
+def tcsr_gat_ep_fwd(wn, nf, w_ea, src, dst, emask, meta: EPTileMeta,
+                    rank: int, slope: float = 0.2):
+    """K3 forward wrapper: (out_l (Ng, H*D), m_l (Ng, H), den_l (Ng, H)) f32
+    for shard ``rank`` — its ``src``/``dst``/``emask`` (Es,) and ``w_ea``
+    (Es, H) against the whole ``wn`` (N, 2H) and ``nf`` (N, H*D); row i is
+    node t0·tn + i. ``meta`` holds every shard's rows as int32 tensors on
+    the same device."""
+    if nf.device.type == "cpu":
+        return tcsr_gat_ep_fwd_plain(wn, nf, w_ea, src, dst, emask, meta,
+                                     rank, slope)
+    (N, HD, H, Ng), (t0, ew, cw) = _check_ep(
+        "tcsr_gat_ep_fwd", wn, nf, w_ea, src, dst, emask, meta, rank)
+    tn = meta.tn
+    smem = 4 * (tn * HD + 2 * tn * H + _THREADS * (H + 2))
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"tcsr_gat_ep_fwd: tile of {tn} x {HD} needs {smem} "
+                         f"B of shared memory (limit {_SMEM_LIMIT})")
+    dev = nf.device
+    out = torch.empty((Ng, HD), dtype=torch.float32, device=dev)
+    m = torch.empty((Ng, H), dtype=torch.float32, device=dev)
+    den = torch.empty((Ng, H), dtype=torch.float32, device=dev)
+    P = _cuda.ptr
+    KERNEL_EP.launch(P(wn), P(nf), P(w_ea), P(src), P(dst), P(emask), P(t0),
+                     P(ew), P(cw), P(out), P(m), P(den), meta.n_tiles_grid,
+                     tn, meta.te, H, HD // H, ctypes.c_float(slope),
+                     _cuda.stream_ptr(dev))
+    return out, m, den
+
+
+def tcsr_gat_ep_bwd_plain(wn, nf, w_ea, src, dst, emask, meta: EPTileMeta,
+                          rank: int, m, dU, dV, slope: float = 0.2):
+    """Plain PyTorch version of K3's backward, from the formulas: the
+    gradient of the shard's U = Σ_e exp(z − m[dst])·nf[src] and V = Σ_e
+    exp(z − m[dst]) (grid rows, ``m`` (Ng, H) the global max there) for
+    cotangents ``dU`` (Ng, H*D), ``dV`` (Ng, H) — the whole-batch backward
+    with m ← m, den ← 1, g ← dU, s ← −dV on the shard's edges, its rows
+    placed at t0·tn. Returns (d_wn (N, 2H), d_nf (N, H*D), d_w_ea (Es, H))."""
+    r0, Ng = _grid_rows(meta, rank)
+    N, HD = nf.shape
+    H = wn.shape[1] // 2
+
+    def whole(rows, width):
+        full = rows.new_zeros((N, width))
+        full[r0:r0 + Ng] = rows
+        return full
+
+    ones = torch.ones((N, H), dtype=torch.float32, device=nf.device)
+    return tcsr_gat_bwd_plain(wn, nf, w_ea, src, dst, emask, None,
+                              whole(m, H), ones, whole(dU, HD),
+                              whole(-dV, H), False, slope)
+
+
+def tcsr_gat_ep_bwd(wn, nf, w_ea, src, dst, emask, meta: EPTileMeta,
+                    rank: int, m, dU, dV, slope: float = 0.2):
+    """K3 backward wrapper: (d_wn (N, 2H), d_nf (N, H*D), d_w_ea (Es, H))
+    f32, the gradient of shard ``rank``'s U, V for the cotangents ``dU``
+    (Ng, H*D) and ``dV`` (Ng, H) given the global max ``m`` (Ng, H) at its
+    grid rows. Masked edges get exactly 0."""
+    if nf.device.type == "cpu":
+        return tcsr_gat_ep_bwd_plain(wn, nf, w_ea, src, dst, emask, meta,
+                                     rank, m, dU, dV, slope)
+    f32 = torch.float32
+    Ng, H, HD = meta.n_tiles_grid * meta.tn, wn.shape[1] // 2, nf.shape[1]
+    (N, HD, H, Ng), (t0, ew, cw) = _check_ep(
+        "tcsr_gat_ep_bwd", wn, nf, w_ea, src, dst, emask, meta, rank,
+        extra=(("m", m, f32, (Ng, H)), ("dU", dU, f32, (Ng, HD)),
+               ("dV", dV, f32, (Ng, H))))
+    D = HD // H
+    if H > 32 or not (32 % D == 0 if D <= 32 else D % 32 == 0):
+        raise ValueError(f"tcsr_gat_ep_bwd: H={H} D={D} unsupported (D a "
+                         f"divisor or a multiple of 32)")
+    dev = nf.device
+    ones = torch.ones((Ng, H), dtype=f32, device=dev)
+    neg_dv = -dV
+    d_wn = torch.zeros((N, 2 * H), dtype=f32, device=dev)
+    d_nf = torch.zeros((N, HD), dtype=f32, device=dev)
+    d_w_ea = torch.zeros((src.shape[0], H), dtype=f32, device=dev)
+    P = _cuda.ptr
+    KERNEL_EP_BWD.launch(P(wn), P(nf), P(w_ea), P(src), P(dst), P(emask),
+                         P(t0), P(ew), P(cw), P(m), P(ones), P(dU),
+                         P(neg_dv), P(d_wn), P(d_nf), P(d_w_ea),
+                         meta.n_tiles_grid, meta.tn, meta.te, H, D,
+                         ctypes.c_float(slope), _cuda.stream_ptr(dev))
+    return d_wn, d_nf, d_w_ea
+
+
+class TcsrGatEpFn(torch.autograd.Function):
+    """The shard's un-normalised softmax sums (pallas_gat.py:local_unnorm,
+    l.690-746): (wn, nf, w_ea) → (U_l (Ng, H*D), V_l (Ng, H)) given the
+    global max ``m`` (Ng, H) at the grid rows and K3's forward stats, which
+    carry no gradient. The forward is an elementwise rescale of the stats;
+    the backward is K3's backward kernel."""
+
+    @staticmethod
+    def forward(ctx, wn, nf, w_ea, src, dst, emask, meta, rank, m, stats,
+                slope):
+        out_l, m_l, den_l = stats
+        scale = torch.where(m_l > _NEG / 2, torch.exp(m_l - m),
+                            torch.zeros_like(m_l))
+        V = den_l * scale
+        Ng, H = V.shape
+        U = (out_l.view(Ng, H, -1) * V[..., None]).reshape(Ng, -1)
+        ctx.save_for_backward(wn, nf, w_ea, src, dst, emask, m)
+        ctx.meta, ctx.rank, ctx.slope = meta, rank, slope
+        return U, V
+
+    @staticmethod
+    def backward(ctx, dU, dV):
+        wn, nf, w_ea, src, dst, emask, m = ctx.saved_tensors
+        d_wn, d_nf, d_w_ea = tcsr_gat_ep_bwd(
+            wn, nf, w_ea, src, dst, emask, ctx.meta, ctx.rank, m,
+            dU.float().contiguous(), dV.float().contiguous(), ctx.slope)
+        return (d_wn, d_nf, d_w_ea) + (None,) * 8
+
+
+def tcsr_gat_pass_ep(
+    node_feats_h: torch.Tensor,   # (N, H, D) — replicated node state
+    edge_attr: torch.Tensor,      # (Es, Da) — THIS shard's edge attrs
+    src: torch.Tensor,            # (Es,) int32, absolute node ids
+    dst: torch.Tensor,            # (Es,) int32
+    edge_mask: torch.Tensor,      # (Es,)
+    attn_vec: torch.Tensor,       # (H, 2D + Da)
+    meta: EPTileMeta,             # every shard's rows
+    rank: int,
+    group=None,                   # the process group (None: the default)
+    self_loops: bool = False,
+    negative_slope: float = 0.2,
+    return_attention: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Edge-partitioned GAT pass (pallas_gat.py:pallas_gat_pass_ep): every
+    rank of ``group`` calls it with its own edge shard; returns the
+    replicated (out (N,H,D), attn_by_src (N,H) or None), the same as
+    tcsr_gat_pass over all the shards' edges.
+
+    K3's forward gives the shard's softmax stats on its grid rows; the
+    global max is the scatter-max of every shard's (an all-gather, no
+    gradient); ``TcsrGatEpFn`` rescales the stats into the shard's
+    un-normalised sums U_l, V_l, which one differentiable all-gather
+    (dist/edge_partition.py:all_gather_rows — its backward all-reduces the
+    cotangent and keeps the rank's block) brings to every rank for one
+    index-add; the analytic self-loop term is added once there. Gradient
+    convention: every rank computes the same loss, and the caller averages
+    every parameter gradient over the ranks (dist/data_parallel.py:
+    average_gradients)."""
+    from fragnet_tpu_torch.dist.data_parallel import all_gather, all_reduce
+    from fragnet_tpu_torch.dist.edge_partition import all_gather_rows
+
+    N, H, D = node_feats_h.shape
+    HD = H * D
+    S = meta.ew_blk.shape[0]
+    Ng = meta.n_tiles_grid * meta.tn
+    wn, w_ea = prologue(node_feats_h, edge_attr, attn_vec)
+    wn, w_ea = wn.contiguous(), w_ea.contiguous()
+    nf = node_feats_h.float().reshape(N, HD).contiguous()
+    emask = edge_mask.float().contiguous()
+
+    # 1. the shard's softmax stats (values only)
+    with torch.no_grad():
+        stats = tcsr_gat_ep_fwd(wn.detach(), nf.detach(), w_ea.detach(), src,
+                                dst, emask, meta, rank, negative_slope)
+
+    # 2. global max: scatter-max of every shard's grid rows (no gradient)
+    rows = (meta.t0.long().reshape(S, 1) * meta.tn
+            + torch.arange(Ng, device=nf.device)).reshape(-1)
+    with torch.no_grad():
+        m_all = all_gather(stats[1], group).reshape(S * Ng, H)
+        if self_loops:
+            M = F.leaky_relu(wn[:, :H] + wn[:, H:], negative_slope)
+        else:
+            M = torch.full((N, H), _NEG, dtype=torch.float32,
+                           device=nf.device)
+        M = M.scatter_reduce(0, rows[:, None].expand(-1, H), m_all, "amax")
+        Mg = torch.where(M <= _NEG / 2, torch.zeros_like(M), M)
+    own = rows[rank * Ng:(rank + 1) * Ng]
+
+    # 3. the shard's un-normalised sums, gathered with their gradient
+    U_l, V_l = TcsrGatEpFn.apply(wn, nf, w_ea, src, dst, emask, meta, rank,
+                                 Mg[own].contiguous(), stats, negative_slope)
+    UV = all_gather_rows(torch.cat([U_l, V_l], dim=1), rank, group)
+    UV = UV.reshape(S * Ng, HD + H)
+    NUM = nf.new_zeros((N, HD)).index_add(0, rows, UV[:, :HD])
+    DEN = nf.new_zeros((N, H)).index_add(0, rows, UV[:, HD:])
+    if self_loops:
+        es = torch.exp(F.leaky_relu(wn[:, :H] + wn[:, H:], negative_slope)
+                       - Mg)
+        DEN = DEN + es
+        NUM = NUM + (es[..., None] * nf.view(N, H, D)).reshape(N, HD)
+    DENg = torch.where(DEN == 0.0, torch.ones_like(DEN), DEN)
+    out = (NUM.view(N, H, D) / DENg[..., None]).to(node_feats_h.dtype)
+    if not return_attention:
+        return out, None
+    # attention epilogue (pallas_gat.py:855-869): each shard's edges by
+    # source, summed over the ranks; the self-loop term added once
+    with torch.no_grad():
+        attn = attention_by_source(wn, w_ea, src, dst, emask, Mg, DEN,
+                                   self_loops and rank == 0, negative_slope)
+        attn = all_reduce(attn, group)
+    return out, attn

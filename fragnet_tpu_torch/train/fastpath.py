@@ -7,7 +7,11 @@ per-level kernel policy, resolved in one place for every entry point.
   * ``dtype``  — f32 only in this slice (bf16 raises, ROADMAP.md);
   * ``tcsr``   — on by default on CUDA for the gat2 family, so batches carry
     TCSR tile metadata and tile-aligned dense planes (``align`` follows it,
-    graphs/hiergraph.py:spec_for) and every GAT pass runs a kernel;
+    graphs/hiergraph.py:spec_for) and every GAT pass runs a kernel. That
+    holds under ``dist.mode=dp`` too (the JAX package turns TCSR off there
+    and runs the segment path, which the port has on the CPU only). Under
+    ``dist.mode=ep`` it means per-shard EPTileMeta and is on for every
+    device, since the segment EP path is not ported;
   * ``kernel`` — the per-level KernelPolicy from ``kernel.*`` config keys;
   * ``cache``  — the finetune/pretrain section's ``cache``: 'auto' wraps a
     loader in DeviceCacheLoader (data/batcher.py) when its padded batches
@@ -77,8 +81,10 @@ def resolve_cache(section) -> str:
 
 
 def resolve(section, model_version: str = "gat2",
-            device: Union[str, torch.device, None] = None) -> FastPath:
-    """``section`` is the finetune/pretrain config subtree (supports .get)."""
+            device: Union[str, torch.device, None] = None,
+            dist_mode: str = "none") -> FastPath:
+    """``section`` is the finetune/pretrain config subtree (supports .get);
+    ``dist_mode`` the run's ``dist.mode`` (none|dp|ep)."""
     dev = resolve_device(device)
     dname = str(section.get("dtype", "f32")).lower()
     if dname in ("bf16", "bfloat16"):
@@ -87,7 +93,8 @@ def resolve(section, model_version: str = "gat2",
             "(ROADMAP.md, later items: bf16)")
     if dname not in ("f32", "fp32", "float32"):
         raise ValueError(f"unknown dtype {dname!r} (bf16|f32)")
-    tcsr_default = dev.type == "cuda" and model_version in TCSR_FAMILIES
+    tcsr_default = model_version in TCSR_FAMILIES and (
+        dev.type == "cuda" or dist_mode == "ep")
     tcsr = bool(section.get("tcsr", tcsr_default))
     return FastPath(tcsr=tcsr, device=dev, cache=resolve_cache(section),
                     kernel=resolve_kernel_policy(section))

@@ -6,13 +6,18 @@ Usage:
     python -m fragnet_tpu_torch.train.finetune --config configs/ft/esol.yaml \
         [k=v ...] [--device cuda|cpu]
 
-The single-device finetune: SMILES → graphs → tile-aligned padded batches
-with TCSR metadata and dense planes → FragNetFineTune → masked loss →
-backward through the GAT kernels → Adam, with validation, early stopping
-and a checkpoint every epoch, then the test metric on the best parameters
-and ``preds_seed_{seed}.pkl``. ``finetune.n_epochs=0`` runs the prediction
-path alone. Any option the port does not run yet raises instead of being
-ignored (ROADMAP.md).
+    torchrun --nproc_per_node=2 -m fragnet_tpu_torch.train.finetune \
+        --config configs/ft/esol.yaml dist.mode=ep [k=v ...]
+
+The finetune: SMILES → graphs → tile-aligned padded batches with TCSR
+metadata and dense planes → FragNetFineTune → masked loss → backward
+through the GAT kernels → Adam, with validation, early stopping and a
+checkpoint every epoch, then the test metric on the best parameters and
+``preds_seed_{seed}.pkl``. ``finetune.n_epochs=0`` runs the prediction path
+alone. ``dist.mode=dp`` trains data-parallel and ``dist.mode=ep``
+edge-partitioned over ``dist.n_devices`` ranks (started by ``torchrun`` or
+by the entry point itself). Any option the port does not run yet raises
+instead of being ignored (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -35,20 +40,16 @@ def seed_everything(seed: int) -> None:
     torch.manual_seed(seed)
 
 
-def build_model(opt, n_classes: int, policy=None,
-                generator: Optional[torch.Generator] = None):
-    """The gat2 FragNetFineTune from the config; other model families are
-    not ported yet (ROADMAP.md Queue A9)."""
-    from fragnet_tpu_torch.model.finetune import FragNetFineTune
-    from fragnet_tpu_torch.model.layers import KernelPolicy
-
+def model_kwargs(opt, n_classes: int) -> dict:
+    """FragNetFineTune's arguments for the config's gat2 model; other model
+    families are not ported yet (ROADMAP.md Queue A9)."""
     mv = opt.get("model_version", "gat2")
     if mv != "gat2":
         raise NotImplementedError(
             f"model_version={mv!r} is not ported yet (ROADMAP.md Queue A9); "
             f"the port has gat2")
     m = opt.finetune.model
-    return FragNetFineTune(
+    return dict(
         n_classes=n_classes,
         atom_features=opt.get("atom_features", 167),
         frag_features=opt.get("frag_features", 167),
@@ -63,9 +64,19 @@ def build_model(opt, n_classes: int, policy=None,
         h3=m.get("h3", 256), h4=m.get("h4", 256),
         act=m.get("act", "relu"),
         fthead=m.get("fthead", "FTHead3"),
-        policy=policy or KernelPolicy(),
-        generator=generator,
     )
+
+
+def build_model(opt, n_classes: int, policy=None,
+                generator: Optional[torch.Generator] = None, ep=None):
+    """The gat2 FragNetFineTune from the config (model_kwargs),
+    edge-partitioned with ``ep`` (an EPContext)."""
+    from fragnet_tpu_torch.model.finetune import FragNetFineTune
+    from fragnet_tpu_torch.model.layers import KernelPolicy
+
+    return FragNetFineTune(**model_kwargs(opt, n_classes),
+                           policy=policy or KernelPolicy(),
+                           generator=generator, ep=ep)
 
 
 def load_datasets(opt):
@@ -121,13 +132,24 @@ def load_datasets(opt):
     return make(tr), make(va), make(te), len(tcols), task
 
 
-def _refuse_unported(opt) -> None:
-    ft = opt.finetune
+def _dist_mode(opt) -> str:
     dist = opt.get("dist", None)
-    if dist and dist.get("mode", "none") != "none":
+    mode = str(dist.get("mode", "none")) if dist else "none"
+    if mode not in ("none", "dp", "ep"):
+        raise ValueError(f"dist.mode={mode!r} (none|dp|ep)")
+    return mode
+
+
+def _refuse_unported(opt, device) -> None:
+    ft = opt.finetune
+    dist = opt.get("dist", None) or {}
+    if _dist_mode(opt) == "ep" and not dist.get("tcsr", ft.get("tcsr", True)):
         raise NotImplementedError(
-            f"dist.mode={dist.get('mode')!r} is not ported yet "
-            f"(ROADMAP.md Queue A11/A12)")
+            "dist.mode=ep with dist.tcsr=false (the edge-partitioned segment "
+            "path) is not ported yet (ROADMAP.md Queue A12)")
+    if dist.get("multihost", False) and str(device) == "cpu":
+        raise NotImplementedError("dist.multihost on the CPU is not ported; "
+                                  "start the ranks with torchrun")
     if int(ft.get("n_buckets", 1)) > 1:
         raise NotImplementedError("finetune.n_buckets > 1 (bucketed "
                                   "loaders) is not ported yet (ROADMAP.md "
@@ -137,19 +159,120 @@ def _refuse_unported(opt) -> None:
                                   "(ROADMAP.md Queue A10)")
 
 
+class _Silent:
+    """The scalar logger of a rank other than 0: logs nothing."""
+
+    def log(self, *args) -> None:
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
 def run_finetune(opt, quiet: bool = False, datasets=None,
-                 device: Union[str, torch.device, None] = None):
-    """The single-device finetune run (the JAX package's run_finetune,
-    fragnet_tpu/train/finetune.py:210-484, without its distributed,
-    bucketed and standardized branches): build the model from ``seed``,
-    load the encoder from a pretrain checkpoint when ``pretrain.use`` and
-    ``pretrain.chk`` are set, cache the loaders on the device as
-    ``finetune.cache`` says (``fastpath.maybe_cache``),
-    train ``finetune.n_epochs`` epochs with Adam, validate, early-stop and
-    save ``exp_dir/ft.ckpt`` on each improvement, log ``scalars.jsonl``,
-    then test the best parameters, print ``test rmse`` (or ``roc_auc``) and
-    write ``preds_seed_{seed}.pkl``. Runs on CUDA unless ``device="cpu"``.
-    Returns (metric value, model holding the best parameters)."""
+                 device: Union[str, torch.device, None] = None,
+                 rank_reports: Optional[list] = None):
+    """The finetune run (the JAX package's run_finetune,
+    fragnet_tpu/train/finetune.py:210-484, without its bucketed and
+    standardized branches): build the model from ``seed``, load the encoder
+    from a pretrain checkpoint when ``pretrain.use`` and ``pretrain.chk``
+    are set, train ``finetune.n_epochs`` epochs with Adam, validate,
+    early-stop and save ``exp_dir/ft.ckpt`` on each improvement, log
+    ``scalars.jsonl``, then test the best parameters, print ``test rmse``
+    (or ``roc_auc``) and write ``preds_seed_{seed}.pkl``. Runs on CUDA
+    unless ``device="cpu"``. Returns (metric value, model holding the best
+    parameters).
+
+    ``dist.mode``: ``none`` runs on one device, caching the loaders on it as
+    ``finetune.cache`` says (``fastpath.maybe_cache``); ``dp`` (data
+    parallel) and ``ep`` (edge-partitioned, the K3 kernels) run
+    ``dist.n_devices`` ranks of a process group. Inside a group (torchrun's
+    RANK environment, or one the caller joined) this process runs its rank;
+    otherwise it starts the ranks itself (dist/launch.py; one in this
+    process, more spawned), returns rank 0's result, and appends each
+    rank's report (value, losses, backend, kernel launches) to
+    ``rank_reports`` when given. Rank 0 alone prints and writes files."""
+    import torch.distributed as tdist
+
+    mode = _dist_mode(opt)
+    _refuse_unported(opt, device)
+    if mode == "none":
+        return _run(opt, quiet, datasets, device, None)[:2]
+    if not tdist.is_initialized() and "RANK" not in os.environ:
+        return _launch(opt, quiet, datasets, device, rank_reports)
+    from fragnet_tpu_torch.dist.data_parallel import initialize_distributed
+
+    dist = opt.dist
+    info = initialize_distributed(
+        device=device or "cuda",
+        timeout_s=float(dist.get("timeout_s", 300)))
+    return _run(opt, quiet, datasets, device, info)[:2]
+
+
+def _n_ranks(opt, device) -> int:
+    n = int(opt.dist.get("n_devices", 0))
+    if n:
+        return n
+    return torch.cuda.device_count() if str(device) != "cpu" else 1
+
+
+def _launch(opt, quiet, datasets, device, rank_reports):
+    """Start the run's ranks (dist/launch.py) and return rank 0's (value,
+    model), the model rebuilt here from rank 0's best parameters."""
+    from fragnet_tpu_torch.dist.data_parallel import backend_for
+    from fragnet_tpu_torch.dist.launch import run_ranks
+    from fragnet_tpu_torch.train.fastpath import (resolve_device,
+                                                  resolve_kernel_policy)
+
+    dev = resolve_device(device)
+    n = _n_ranks(opt, dev)
+    if datasets is None:
+        datasets = load_datasets(opt)  # once, not in every rank
+    if not quiet:
+        print(f"dist: mode={opt.dist.mode} ranks={n} "
+              f"backend={backend_for(n, dev.type)} device={dev.type}")
+    exp_dir = opt.get("exp_dir", "exps/tmp")
+    results = run_ranks(
+        _finetune_rank, n, (opt.to_dict(), quiet, datasets, dev.type),
+        device=dev, timeout_s=float(opt.dist.get("timeout_s", 300)),
+        join_timeout_s=float(opt.dist.get("join_timeout_s", 3600)),
+        workdir=exp_dir)
+    if rank_reports is not None:
+        rank_reports.extend({k: v for k, v in r.items() if k != "state_dict"}
+                            for r in results)
+    model = build_model(opt, n_classes=datasets[3],
+                        policy=resolve_kernel_policy(opt.finetune))
+    model.load_state_dict(results[0]["state_dict"])
+    return results[0]["value"], model.to(dev)
+
+
+def _finetune_rank(opt_dict, quiet, datasets, device):
+    """One rank of a launched run: run_finetune inside the group; returns
+    its report (rank 0's carries the best parameters, on the CPU)."""
+    from fragnet_tpu_torch.config import Config
+    from fragnet_tpu_torch.dist.data_parallel import initialize_distributed
+    from fragnet_tpu_torch.ops import _cuda
+
+    opt = Config(opt_dict)
+    info = initialize_distributed(device=device)
+    before = _cuda.launch_counts()
+    value, model, history = _run(opt, quiet, datasets, device, info)
+    after = _cuda.launch_counts()
+    return {"rank": info.rank, "backend": info.backend,
+            "device": str(info.device), "value": value, **history,
+            "launches": {k: n - before.get(k, 0) for k, n in after.items()},
+            "state_dict": ({k: v.detach().cpu()
+                            for k, v in model.state_dict().items()}
+                           if info.rank == 0 else None)}
+
+
+def _run(opt, quiet, datasets, device, info):
+    """The run on one device (``info`` None) or as one rank of a group
+    (``info``: dist/data_parallel.py:DistInfo). Returns (value, model,
+    history of the train losses and val scores)."""
     from fragnet_tpu_torch.data.batcher import BatchLoader
     from fragnet_tpu_torch.graphs.hiergraph import spec_for
     from fragnet_tpu_torch.obs import ScalarLogger, profile_trace
@@ -160,43 +283,93 @@ def run_finetune(opt, quiet: bool = False, datasets=None,
     from fragnet_tpu_torch.train.loop import TrainerFineTune
     from fragnet_tpu_torch.train.optim import make_optimizer, make_schedule
 
-    _refuse_unported(opt)
     ft = opt.finetune
+    mode = "none" if info is None else _dist_mode(opt)
+    rank, S = (0, 1) if info is None else (info.rank, info.world_size)
+    lead = rank == 0
+    say = lead and not quiet
     fp = fastpath.resolve(ft, model_version=opt.get("model_version", "gat2"),
-                          device=device)
+                          device=device if info is None else info.device,
+                          dist_mode=mode)
     seed = int(opt.get("seed", 42))
     seed_everything(seed)
     exp_dir = opt.get("exp_dir", "exps/tmp")
-    os.makedirs(exp_dir, exist_ok=True)
+    if lead:
+        os.makedirs(exp_dir, exist_ok=True)
 
     train_g, val_g, test_g, n_tasks, task = (
         datasets if datasets is not None else load_datasets(opt))
-    if not quiet:
+    if say:
         print(f"datasets: train={len(train_g)} val={len(val_g)} "
               f"test={len(test_g)} tasks={n_tasks} type={task}")
         print(f"fastpath: tcsr={fp.tcsr} dtype=f32 cache={fp.cache} "
               f"device={fp.device}")
 
     bs = int(ft.get("batch_size", 16))
-    spec = spec_for(train_g + val_g + test_g, batch_size=bs, tcsr=fp.tcsr)
+    ep = None
+    if mode == "ep":
+        from fragnet_tpu_torch.dist.edge_partition import EPContext
+
+        # the K3 kernels need node counts % tn and edge counts % (S·te):
+        # dist.tile sets both, dist.tile_tn / dist.tile_te each (on CUDA
+        # the single-device kernels' tiles, 8 on the CPU as in the JAX
+        # package off the TPU)
+        cuda = fp.device.type == "cuda"
+        ep_tn = int(opt.dist.get("tile_tn",
+                                 opt.dist.get("tile", 128 if cuda else 8)))
+        ep_te = int(opt.dist.get("tile_te",
+                                 opt.dist.get("tile", 256 if cuda else 8)))
+        spec = spec_for(train_g + val_g + test_g, batch_size=bs,
+                        multiple=max(ep_tn, ep_te) * S)
+        ep = EPContext(rank, S)
+    else:
+        spec = spec_for(train_g + val_g + test_g, batch_size=bs,
+                        tcsr=fp.tcsr)
     model = build_model(opt, n_classes=n_tasks, policy=fp.kernel,
-                        generator=torch.Generator().manual_seed(seed))
+                        generator=torch.Generator().manual_seed(seed), ep=ep)
     model = model.to(fp.device)
 
-    train_loader = BatchLoader(train_g, bs, spec=spec, shuffle=True,
-                               seed=seed, n_tasks=n_tasks)
-    # eval loaders hard-fail on oversized molecules instead of silently
-    # shrinking the reported metric's denominator
-    val_loader = BatchLoader(val_g, bs, spec=spec, n_tasks=n_tasks,
-                             on_oversize="error")
-    test_loader = BatchLoader(test_g, bs, spec=spec, n_tasks=n_tasks,
-                              on_oversize="error")
-    # device-resident caching: after the first pass the input pipeline
-    # costs nothing (DeviceCacheLoader; reshuffles batch ORDER per epoch)
-    train_loader, val_loader, test_loader = (
-        fastpath.maybe_cache(ld, fp.device, spec=spec, n_tasks=n_tasks,
-                             policy=fp.cache, seed=seed + i)
-        for i, ld in enumerate((train_loader, val_loader, test_loader)))
+    if mode == "dp":
+        # this rank's micro-batch of every window of bs × S graphs
+        from fragnet_tpu_torch.dist.data_parallel import DPBatchLoader
+
+        train_loader = DPBatchLoader(train_g, bs, S, spec, rank=rank,
+                                     shuffle=True, seed=seed,
+                                     n_tasks=n_tasks)
+        val_loader = DPBatchLoader(val_g, bs, S, spec, rank=rank,
+                                   n_tasks=n_tasks, on_oversize="error")
+        test_loader = DPBatchLoader(test_g, bs, S, spec, rank=rank,
+                                    n_tasks=n_tasks, on_oversize="error")
+    else:
+        train_loader = BatchLoader(train_g, bs, spec=spec, shuffle=True,
+                                   seed=seed, n_tasks=n_tasks)
+        # eval loaders hard-fail on oversized molecules instead of silently
+        # shrinking the reported metric's denominator
+        val_loader = BatchLoader(val_g, bs, spec=spec, n_tasks=n_tasks,
+                                 on_oversize="error")
+        test_loader = BatchLoader(test_g, bs, spec=spec, n_tasks=n_tasks,
+                                  on_oversize="error")
+    if mode == "ep":
+        # ONE set of pinned widths across train/val/test (the JAX package's
+        # single compiled EP step); a probe failure raises with its reason
+        # (the JAX package falls back to its segment EP path, not ported)
+        from fragnet_tpu_torch.dist.edge_partition import (EPMetaLoader,
+                                                           pin_ep_widths)
+
+        pins = pin_ep_widths([train_loader, val_loader, test_loader], S,
+                             tn=ep_tn, te=ep_te)
+        train_loader, val_loader, test_loader = (
+            EPMetaLoader(ld, S, tn=ep_tn, te=ep_te, pins=pins)
+            for ld in (train_loader, val_loader, test_loader))
+        if say:
+            print(f"ep fused kernel active (tn={ep_tn} te={ep_te})")
+    if mode == "none":
+        # device-resident caching: after the first pass the input pipeline
+        # costs nothing (DeviceCacheLoader; reshuffles batch ORDER per epoch)
+        train_loader, val_loader, test_loader = (
+            fastpath.maybe_cache(ld, fp.device, spec=spec, n_tasks=n_tasks,
+                                 policy=fp.cache, seed=seed + i)
+            for i, ld in enumerate((train_loader, val_loader, test_loader)))
     # the JAX package draws an init batch here (model.init), which advances
     # the train loader's shuffle state; drawing it too keeps both packages
     # on the same batches from the same seed
@@ -207,7 +380,7 @@ def run_finetune(opt, quiet: bool = False, datasets=None,
     if pt and pt.get("use", False) and pt.get("chk", None):
         transfer_pretrained_encoder(
             model, torch.load(pt.chk, map_location="cpu", weights_only=True))
-        if not quiet:
+        if say:
             print(f"loaded pretrained encoder from {pt.chk}")
 
     n_epochs = int(ft.get("n_epochs", 100))
@@ -218,20 +391,46 @@ def run_finetune(opt, quiet: bool = False, datasets=None,
                               total_steps=n_epochs * max(1, len(train_loader)))
     optimizer, scheduler = make_optimizer(model.parameters(), "adam", lr=lr,
                                           schedule=sched)
+    loss_name = "mse" if task == "regr" else "bce"
+    steps = {}
+    if mode == "ep":
+        from fragnet_tpu_torch.dist.edge_partition import (make_ep_eval_step,
+                                                           make_ep_train_step)
+
+        steps = dict(
+            train_step=make_ep_train_step(model, optimizer, ep, loss_name,
+                                          fp.device, scheduler,
+                                          seed=seed + 1),
+            eval_step=make_ep_eval_step(model, ep, loss_name, fp.device))
+    elif mode == "dp":
+        from fragnet_tpu_torch.dist.data_parallel import (gather_numpy,
+                                                          make_dp_eval_step,
+                                                          make_dp_train_step)
+
+        torch.manual_seed(seed + 1 + rank)  # each rank its own dropout masks
+        steps = dict(
+            train_step=make_dp_train_step(model, optimizer, loss_name,
+                                          fp.device, scheduler=scheduler),
+            eval_step=make_dp_eval_step(model, loss_name, fp.device),
+            gather=gather_numpy)
+    if say and mode != "none":
+        print(f"{'edge-partitioned' if mode == 'ep' else 'data-parallel'} "
+              f"training over {S} ranks")
     trainer = TrainerFineTune(model, optimizer, target_type=task,
-                              device=fp.device, scheduler=scheduler)
+                              device=fp.device, scheduler=scheduler, **steps)
     ckpt_path = os.path.join(exp_dir, ft.get("chkpoint_name", "ft.ckpt"))
     es = EarlyStopping(patience=int(ft.get("es_patience", 100)),
-                       path=ckpt_path, save_fn=save_params)
+                       path=ckpt_path if lead else None, save_fn=save_params)
     profile_dir = (os.path.join(exp_dir, "profile")
-                   if ft.get("profile", False) else None)
+                   if ft.get("profile", False) and lead else None)
     # throughput: real message edges over all 4 levels × layers (the
     # bench.py metric), logged per epoch
     epoch_edges = fastpath.epoch_message_edges(
         train_g, num_layer=int(ft.model.get("num_layer", 4)))
 
     metric = "rmse" if task == "regr" else "roc_auc"
-    with ScalarLogger(exp_dir) as logger:
+    history = {"train_loss": [], "val_score": []}
+    with (ScalarLogger(exp_dir) if lead else _Silent()) as logger:
         t0 = time.time()
         for epoch in range(n_epochs):
             te0 = time.perf_counter()
@@ -240,16 +439,18 @@ def run_finetune(opt, quiet: bool = False, datasets=None,
             edges_per_sec = epoch_edges / max(time.perf_counter() - te0, 1e-9)
             val_score = trainer.validate(val_loader)
             es(val_score, model)
+            history["train_loss"].append(train_loss)
+            history["val_score"].append(val_score)
             logger.log("train/loss", train_loss, epoch)
             logger.log("train/edges_per_sec", edges_per_sec, epoch)
             logger.log("val/score", val_score, epoch)
-            if not quiet and (epoch % 10 == 0 or epoch == n_epochs - 1):
+            if say and (epoch % 10 == 0 or epoch == n_epochs - 1):
                 print(f"epoch {epoch:4d} train_loss {train_loss:.5f} "
                       f"val {val_score:.5f} best {-(es.best_score or 0):.5f} "
                       f"{edges_per_sec / 1e6:.2f}M edges/s "
                       f"[{time.time() - t0:.1f}s]")
             if es.early_stop:
-                if not quiet:
+                if say:
                     print(f"early stop at epoch {epoch}")
                 break
 
@@ -258,11 +459,12 @@ def run_finetune(opt, quiet: bool = False, datasets=None,
         score, y, p = trainer.test(test_loader)
         value = float(np.sqrt(score)) if task == "regr" else -score
         logger.log(f"test/{metric}", value, n_epochs)
-    if not quiet:
+    if say:
         print(f"test {metric}: {value:.5f}")
-    with open(os.path.join(exp_dir, f"preds_seed_{seed}.pkl"), "wb") as f:
-        pickle.dump({"y": y, "pred": p, metric: value}, f)
-    return value, model
+    if lead:
+        with open(os.path.join(exp_dir, f"preds_seed_{seed}.pkl"), "wb") as f:
+            pickle.dump({"y": y, "pred": p, metric: value}, f)
+    return value, model, history
 
 
 def main(argv=None):
@@ -284,6 +486,10 @@ def main(argv=None):
             pass
         opt.set_path(k, v)
     run_finetune(opt, device=args.device)
+    import torch.distributed as tdist
+
+    if tdist.is_initialized():  # a torchrun rank
+        tdist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -139,29 +139,41 @@ class TrainerFineTune:
     """Epoch-level runner mirroring the reference trainer's API surface
     (train/validate/test) on top of the steps. The model holds its own
     parameters, so the methods take only the batches; ``train_epoch`` needs
-    an ``optimizer``.
+    an ``optimizer`` or a ``train_step``.
 
     target_type: 'regr' (MSE / RMSE) or 'clsf' (masked BCE / −mean ROC-AUC).
+
+    ``train_step`` / ``eval_step`` replace the single-device steps (the
+    distributed modes' steps, dist/); ``gather`` stacks an array over the
+    ranks (dist/data_parallel.py:gather_numpy), so that under data
+    parallelism the metrics see every rank's predictions, targets and masks
+    and every rank computes the same score.
     """
 
     def __init__(self, model: torch.nn.Module,
                  optimizer: Optional[torch.optim.Optimizer] = None,
                  target_type: str = "regr",
                  device: Union[str, torch.device] = "cuda",
-                 scheduler=None):
+                 scheduler=None, train_step: Optional[Callable] = None,
+                 eval_step: Optional[Callable] = None,
+                 gather: Optional[Callable] = None):
         self.model = model
         self.target_type = target_type
         loss = "mse" if target_type == "regr" else "bce"
-        self._train_step = (None if optimizer is None else make_train_step(
-            model, optimizer, loss, device, scheduler))
-        self._eval_step = make_eval_step(model, loss, device)
+        if train_step is None and optimizer is not None:
+            train_step = make_train_step(model, optimizer, loss, device,
+                                         scheduler)
+        self._train_step = train_step
+        self._eval_step = eval_step or make_eval_step(model, loss, device)
+        self._gather = gather
 
     def train_epoch(self, batches: Iterable) -> float:
         """One pass of train steps; returns the mean step loss. The step
         losses stay on the device and are fetched once, after the last
         step (the JAX trainer syncs once per epoch too)."""
         if self._train_step is None:
-            raise ValueError("TrainerFineTune was built without an optimizer")
+            raise ValueError("TrainerFineTune was built without an optimizer "
+                             "or a train step")
         losses = [self._train_step(batch) for batch in batches]
         if not losses:
             return 0.0
@@ -191,8 +203,11 @@ class TrainerFineTune:
         ys, ps = [], []
         for batch in batches:
             _, out = self._eval_step(batch)
-            mask = _numpy(batch.graph_mask) > 0
-            y = _numpy(batch.y)
-            ys.append(y[mask])
-            ps.append(out.cpu().numpy().reshape(y.shape)[mask])
+            arrs = (_numpy(batch.y), _numpy(batch.graph_mask),
+                    out.cpu().numpy())
+            if self._gather is not None:
+                arrs = tuple(self._gather(a) for a in arrs)
+            y, mask, p = arrs
+            ys.append(y[mask > 0])
+            ps.append(p.reshape(y.shape)[mask > 0])
         return np.concatenate(ys), np.concatenate(ps)

@@ -13,8 +13,12 @@ rounds, each turn the device time of 50 calls (torch.profiler, as in
 chip_smoke.py): for a GAT kernel its layer-0 inputs of the esol batch (for
 a backward kernel, built as chip_smoke.py builds them; for the dense-attr
 kernels K7-K9 the atom, fconn and frag inputs of phase 16, under the
-dense-attr policy), for the plane builder its bond, fconn and atom inputs
-of chip_smoke.py's batch-512 pretrain batch. Both versions are also held
+dense-attr policy; for K3's forward and backward each shard's bond, atom,
+fconn and frag inputs of phase 20, captured in two spawned ranks of one
+edge-partitioned train step), for the plane builder its bond, fconn and
+atom inputs of chip_smoke.py's batch-512 pretrain batch. A kernel whose
+launcher the base does not export (K3 against a version before it) is
+skipped. Both versions are also held
 against the plain version (limit 1e-4 of scale; the plane builder and the
 emit kernel exactly). Prints one line per
 level and a JSON line of the medians.
@@ -61,9 +65,13 @@ def main() -> int:
             print(f"{name}: no {change.source} in the base, skipped")
             continue
         with open(change.path, "rb") as f, open(base_path, "rb") as g:
-            if f.read() == g.read():
-                print(f"{name}: same source, skipped")
-                continue
+            ours, theirs = f.read(), g.read()
+        if ours == theirs:
+            print(f"{name}: same source, skipped")
+            continue
+        if f'"C" int {change.symbol}('.encode() not in theirs:
+            print(f"{name}: the base exports no {change.symbol}, skipped")
+            continue
         base = _cuda.CudaKernel(change.source, change.symbol,
                                 change.argtypes, csrc=args.base_csrc)
         pairs[name] = {"base": base, "change": change}
@@ -73,7 +81,7 @@ def main() -> int:
                     force=True)
 
     calls = {}
-    gat = set(cs.GAT_KERNELS) | set(cs.ATTR_KERNELS)
+    gat = set(cs.GAT_KERNELS) | set(cs.ATTR_KERNELS) | set(cs.EP_KERNELS)
     if set(pairs) & gat:
         opt = cs.smoke_opt()
         datasets = load_datasets(opt)
@@ -94,6 +102,12 @@ def main() -> int:
         calls.update({n: [c for c in cl if "seeded" not in c[0]] for n, cl
                       in cs.attr_kernel_calls(datasets[3], batch,
                                               rng).items()})
+    if set(pairs) & set(cs.EP_KERNELS):
+        kw, sd = cs.smoke_weights(datasets)
+        res = cs.ep_step_ranks(kw, sd, cs.ep_train_batch(datasets)[1])
+        calls.update({n: [c for c in cl if "seeded" not in c[0]] for n, cl
+                      in cs.ep_kernel_calls([r["calls"] for r in res],
+                                            rng).items()})
     if cs.PLANES in pairs:
         graphs = cs.PretrainGraphs(cs.pt_opt(cs.PT_OVERRIDES),
                                    workers=os.cpu_count() or 1).get()

@@ -446,3 +446,74 @@ def test_dense_attr_wrappers_refuse_bad_inputs(cuda):
     meta96 = dataclasses.replace(args[8], tn=96)
     with pytest.raises(ValueError):  # no kernel for tn = 96
         dense_gat.dense_attr_fwd(*args[:8], meta96, False)
+
+
+def _ep_case(cuda, rng, tn, S=2):
+    """A tile-local graph with sources across tiles, split into S edge
+    shards with every shard's EPTileMeta (on the card), seeded node values
+    and edge attrs, and for each shard the (rank, its edge arrays)."""
+    from fragnet_tpu_torch.ops.tcsr import build_ep_tile_meta
+
+    te = 256
+    s, d, m = _graph(rng, tn, 6, 3, S * te, empty_tile=2, cross=True)
+    N, H, D = 6 * tn, 4, 32
+    meta = build_ep_tile_meta(s, d, m, N, S, tn=tn, te=te)
+    assert meta is not None
+    meta = dataclasses.replace(meta, **{
+        f: torch.from_numpy(getattr(meta, f)).to(cuda)
+        for f in ("t0", "ew_blk", "sw_tile", "flat_slot", "cw")})
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda)
+
+    wn, nf = t(N, 2 * H), t(N, H * D)
+    Es = len(s) // S
+    shards = []
+    for r in range(S):
+        sl = slice(r * Es, (r + 1) * Es)
+        shards.append((r, torch.from_numpy(s[sl]).to(cuda),
+                       torch.from_numpy(d[sl]).to(cuda),
+                       torch.from_numpy(m[sl]).to(cuda), t(Es, H)))
+    return wn, nf, meta, shards
+
+
+@pytest.mark.parametrize("tn", [128, 256])
+def test_tcsr_gat_ep_fwd_and_bwd_match_plain(cuda, tn):
+    """K3 on each of two shards: the forward's (out, m, den) on the grid
+    rows, then the backward at m = the forward's max (0 on empty rows) and
+    seeded cotangents dU, dV."""
+    rng = np.random.default_rng(tn + 3)
+    wn, nf, meta, shards = _ep_case(cuda, rng, tn)
+    Ng = meta.n_tiles_grid * tn
+    for r, s, d, m, w_ea in shards:
+        args = (wn, nf, w_ea, s, d, m, meta, r)
+        k = tcsr_gat.tcsr_gat_ep_fwd(*args)
+        p = tcsr_gat.tcsr_gat_ep_fwd_plain(*args)
+        assert tuple(k[0].shape) == (Ng, nf.shape[1])
+        _close(k[0], p[0])
+        _close_m(k[1], p[1])
+        _close(k[2], p[2])
+        mg = torch.where(p[1] <= -1e29, torch.zeros_like(p[1]), p[1])
+        dU = torch.from_numpy(rng.standard_normal((Ng, nf.shape[1])).astype(
+            np.float32)).to(cuda)
+        dV = torch.from_numpy(rng.standard_normal(tuple(mg.shape)).astype(
+            np.float32)).to(cuda)
+        kb = tcsr_gat.tcsr_gat_ep_bwd(*args, mg, dU, dV)
+        pb = tcsr_gat.tcsr_gat_ep_bwd_plain(*args, mg, dU, dV)
+        for a, b in zip(kb, pb):
+            _close(a, b)
+        assert torch.equal(kb[2][m == 0], torch.zeros_like(kb[2][m == 0]))
+
+
+def test_tcsr_gat_ep_wrappers_refuse_bad_inputs(cuda):
+    rng = np.random.default_rng(7)
+    wn, nf, meta, shards = _ep_case(cuda, rng, 128)
+    r, s, d, m, w_ea = shards[0]
+    with pytest.raises(ValueError, match="rank"):
+        tcsr_gat.tcsr_gat_ep_fwd(wn, nf, w_ea, s, d, m, meta, 2)
+    with pytest.raises(ValueError, match="dtype"):
+        tcsr_gat.tcsr_gat_ep_fwd(wn, nf, w_ea, s.long(), d, m, meta, r)
+    with pytest.raises(ValueError, match="contiguous"):
+        tcsr_gat.tcsr_gat_ep_fwd(wn, nf.t().contiguous().t(), w_ea, s, d, m,
+                                 meta, r)

@@ -247,9 +247,21 @@ def test_run_finetune_refuses_what_it_does_not_run(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue A6"):
         run_finetune(_small_opt(tmp_path, n_buckets=2), device="cpu")
     opt = _small_opt(tmp_path)
-    opt.set_path("dist", {"mode": "dp"})
-    with pytest.raises(NotImplementedError, match="dist.mode"):
+    opt.set_path("dist", {"mode": "ep", "tcsr": False})
+    with pytest.raises(NotImplementedError, match="dist.tcsr=false"):
         run_finetune(opt, device="cpu")
+    # an edge-partitioned pass off the CPU needs EPTileMeta: a batch
+    # without it raises (a meta-device tensor stands in for a CUDA one)
+    from fragnet_tpu_torch.dist.edge_partition import EPContext
+    from fragnet_tpu_torch.model.layers import _gat_dispatch
+
+    nf = torch.empty((8, 4, 8), device="meta")
+    idx = torch.empty((8,), dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="without EPTileMeta"):
+        _gat_dispatch(nf, torch.empty((8, 4), device="meta"), idx, idx,
+                      torch.empty((8,), device="meta"),
+                      torch.empty((4, 20), device="meta"), num_nodes=8,
+                      tm=None, dp=None, mode="tcsr", ep=EPContext(0, 2))
     with pytest.raises(NotImplementedError, match="bf16"):
         run_finetune(_small_opt(tmp_path, dtype="bf16"), device="cpu")
     with pytest.raises(ValueError, match="bond='attr' is refused"):
