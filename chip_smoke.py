@@ -860,7 +860,7 @@ def _outputs(r):
     return r if isinstance(r, tuple) else (r,)
 
 
-def check_kernels(names, calls, rng):
+def check_kernels(names, calls, rng, check_scales=None):
     """Phases 4 and 16: each kernel in ``names`` against its plain version
     on the card at every captured level of ``calls`` ({kernel: [(level,
     args, kwargs)]}): max abs and relative diff of every output (limit 1e-4
@@ -868,8 +868,10 @@ def check_kernels(names, calls, rng):
     kernel, a gather, exactly), and for a level that is not a seeded case
     the wrapper's and the plain version's ms and device ms, the bound, and
     the torch ops around K2 / the library call beside K9. A seeded level
-    holds each output to its own scale and is not timed. Returns {kernel:
-    (per-level report, worst seeded max abs err)}."""
+    holds each output to its own scale and is not timed. ``check_scales``
+    (name, level, args, kernel outputs, plain outputs), where given, vets
+    every case's data. Returns {kernel: (per-level report, worst seeded max
+    abs err)}."""
     import torch
 
     report = {}
@@ -883,6 +885,8 @@ def check_kernels(names, calls, rng):
             got = _outputs(wrapper(*args, **kw))
             want = _outputs(plain(*args, **kw))
             torch.cuda.synchronize()
+            if check_scales is not None:
+                check_scales(name, lvl, args, got, want)
             seeded = "seeded" in lvl
             floor = 0.0 if seeded else _scale_floor(name, args)
             errs = [_diff(k_, p, floor) for k_, p in zip(got, want)]
@@ -1771,34 +1775,111 @@ def drive_dist(opt, datasets, expects, label: str, backend: str):
     return out
 
 
+def seeded_ep_graph(rng, n_nodes: int, n_edges: int, tn: int, te: int):
+    """A seeded graph at one level's EP shapes (the caller's node and edge
+    slots) whose kept edges reach both shards: 3/4 of the slots real edges
+    sorted by destination over every tile, sources within half a tile of
+    their destination, a tenth of them masked; the rest padding. Shard 1
+    then starts about two thirds into the nodes, so its grid offset t0 is
+    above 0 and K3's offset arithmetic carries real edges. Returns src,
+    dst and mask as numpy arrays, and the EPTileMeta."""
+    import numpy as np
+
+    from fragnet_tpu_torch.ops.tcsr import build_ep_tile_meta
+
+    n_real = 3 * n_edges // 4
+    src = np.zeros(n_edges, np.int32)
+    dst = np.zeros(n_edges, np.int32)
+    mask = np.zeros(n_edges, np.float32)
+    dst[:n_real] = np.sort(rng.integers(0, n_nodes, n_real))
+    src[:n_real] = np.clip(dst[:n_real] + rng.integers(-tn // 2, tn // 2 + 1,
+                                                        n_real),
+                           0, n_nodes - 1)
+    mask[:n_real] = rng.random(n_real) > 0.1
+    meta = build_ep_tile_meta(src, dst, mask, n_nodes, EP_SHARDS, tn=tn,
+                              te=te)
+    es = n_edges // EP_SHARDS
+    if meta is None or not all(mask[r * es:(r + 1) * es].any()
+                               for r in range(EP_SHARDS)) or not (
+            meta.t0[1:] > 0).all():
+        raise AssertionError(f"the seeded EP graph ({n_nodes} nodes, "
+                             f"{n_edges} edges) does not reach every shard "
+                             f"at a grid offset above 0")
+    return src, dst, mask, meta
+
+
 def ep_kernel_calls(captured, rng):
     """Phase 20's inputs: {kernel: [(level, args, kwargs)]} — each rank's
     layer-0 K3 forward calls (bond, atom, fconn, frag) captured in phase
-    22's ranks, a seeded case per level (numpy wn, nf and w_ea on the same
-    edges), and the backward's arguments: the forward's max (0 on empty
-    rows) as m, numpy cotangents dU, dV."""
+    22's ranks (the smoke's batch packs real edges first, so shard 1 holds
+    only padding there); per level, a seeded case for each shard at the
+    level's shapes on a seeded graph whose kept edges reach both shards,
+    with shard 1's grid at t0 > 0 (seeded_ep_graph); and the backward's
+    arguments: the forward's max (0 on empty rows) as m, numpy cotangents
+    dU, dV."""
+    import dataclasses
+
     import numpy as np
     import torch
 
     from fragnet_tpu_torch.ops import tcsr_gat
 
-    def draw(t):
-        return torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(
-            np.float32)).to(t.device)
+    def draw(*shape, dev):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
 
     fwd = []
     for rank, calls in enumerate(captured):
         for lvl, (args, kw) in zip(EP_LEVELS, calls):
-            fwd.append((f"{lvl}, shard {rank}", tuple(args), kw))
-    fwd += [(f"{lvl}, seeded", tuple(draw(t) for t in a[:3]) + tuple(a[3:]),
-             kw) for lvl, a, kw in fwd]
+            pad = "" if bool((args[5] > 0).any()) else ", padding only"
+            fwd.append((f"{lvl}, shard {rank}{pad}", tuple(args), kw))
+    for lvl, (args, kw) in zip(EP_LEVELS, captured[0]):
+        wn, nf, w_ea, src_c, _d, _m, meta_c = args[:7]
+        dev = nf.device
+        src, dst, mask, meta = seeded_ep_graph(
+            rng, nf.shape[0], EP_SHARDS * src_c.shape[0], meta_c.tn,
+            meta_c.te)
+        meta = dataclasses.replace(meta, **{
+            f: torch.from_numpy(getattr(meta, f)).to(dev)
+            for f in ("t0", "ew_blk", "sw_tile", "flat_slot", "cw")})
+        wn_s, nf_s = draw(*wn.shape, dev=dev), draw(*nf.shape, dev=dev)
+        es = src_c.shape[0]
+        for r in range(EP_SHARDS):
+            sl = slice(r * es, (r + 1) * es)
+            fwd.append((
+                f"{lvl}, seeded, shard {r} (t0 {int(meta.t0[r, 0])}, grid "
+                f"{meta.n_tiles_grid} tiles)",
+                (wn_s, nf_s, draw(es, w_ea.shape[1], dev=dev),
+                 *(torch.from_numpy(np.ascontiguousarray(a[sl])).to(dev)
+                   for a in (src, dst, mask)), meta, r) + tuple(args[8:]),
+                kw))
     bwd = []
     for lvl, a, kw in fwd:
-        _out, m, _den = tcsr_gat.tcsr_gat_ep_fwd(*a, **kw)
+        out, m, _den = tcsr_gat.tcsr_gat_ep_fwd(*a, **kw)
         m = torch.where(m <= -1e29, torch.zeros_like(m), m)
-        dU = draw(_out)
-        bwd.append((lvl, tuple(a[:8]) + (m, dU, draw(m)) + tuple(a[8:]), kw))
+        bwd.append((lvl, tuple(a[:8]) + (m, draw(*out.shape, dev=out.device),
+                                         draw(*m.shape, dev=m.device))
+                    + tuple(a[8:]), kw))
     return {"tcsr_gat_ep_fwd": fwd, "tcsr_gat_ep_bwd": bwd}
+
+
+def check_ep_scales(name, lvl, args, got, want):
+    """Phase 20's hold on its cases' data: a shard that keeps no edge must
+    give the empty result exactly, and every output of every other case
+    must have a nonzero scale (beside the m = −1e30 empty-row marker), so
+    that no comparison there is 0 against 0."""
+    import torch
+
+    if not bool((args[5] > 0).any()):
+        if not all(torch.equal(k_, p) for k_, p in zip(got, want)):
+            raise AssertionError(f"{name} [{lvl}]: a shard with no kept edge "
+                                 f"does not give the empty result")
+        return
+    for i, p in enumerate(want):
+        live = p[p > -1e29]
+        if live.numel() == 0 or float(live.abs().max()) == 0.0:
+            raise AssertionError(f"{name} [{lvl}]: output {i} is all zero, so "
+                                 f"its comparison shows nothing")
 
 
 def ep_dp_phases(dev, datasets, spec, train_np, step_default, rng):
@@ -1833,7 +1914,7 @@ def ep_dp_phases(dev, datasets, spec, train_np, step_default, rng):
           f"phase 20's inputs: {step_s:.1f} s")
     t0 = time.perf_counter()
     report = check_kernels(EP_KERNELS, ep_kernel_calls(
-        [r["calls"] for r in res], rng), rng)
+        [r["calls"] for r in res], rng), rng, check_scales=check_ep_scales)
     print(f"phase 20: {time.perf_counter() - t0:.1f} s")
 
     # ---- 21. the EP finetune path, 2 ranks on one card over gloo ---------

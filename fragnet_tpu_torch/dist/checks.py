@@ -23,6 +23,12 @@ def _cpu(t):
     return None if t is None else t.detach().cpu()
 
 
+def calls_rank(calls) -> list:
+    """``[fn(*args) for fn, args in calls]`` in one process group, so that
+    several checks share one start of the ranks."""
+    return [fn(*args) for fn, args in calls]
+
+
 def ep_pass_rank(nf, ea, src, dst, mask, avec, meta, g_out,
                  self_loops: bool, device: str = "cpu") -> Dict:
     """One ``tcsr_gat_pass_ep`` over the caller's whole-level arrays, this

@@ -4,10 +4,9 @@ torch.distributed (counterpart of fragnet_tpu/dist/data_parallel.py).
 One process per rank. A rank's device is ``cuda:(local_rank %
 device_count)``; the backend is NCCL when every rank has a card of its own
 (world size ≤ device count) and gloo when ranks share a card or run on the
-CPU (NCCL refuses two ranks on one device). The collectives here move a
-tensor to the backend's device and back — gloo stages CUDA tensors through
-host memory, NCCL takes CPU tensors through the rank's card — so one code
-path serves both; the kernels still run on the card.
+CPU (NCCL refuses two ranks on one device). The collectives
+(collectives.py) move a tensor to the backend's device and back, so one
+code path serves both.
 
 Data parallelism: every rank holds the same parameters, takes its own
 micro-batch of each window of ``per_device_batch × world`` graphs
@@ -26,6 +25,8 @@ from typing import Callable, List, Optional, Sequence, Union
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from fragnet_tpu_torch.dist.collectives import all_gather, all_reduce
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,36 +86,6 @@ def initialize_distributed(rank: Optional[int] = None,
         world_size=world_size,
         timeout=datetime.timedelta(seconds=float(timeout_s)))
     return DistInfo(rank, world_size, backend, dev)
-
-
-# ---------------------------------------------------------------------------
-# collectives on the backend's device (gloo: CUDA tensors staged through
-# host memory; NCCL: CPU tensors through the rank's card)
-# ---------------------------------------------------------------------------
-
-def _comm_device(group) -> torch.device:
-    if dist.get_backend(group) == "gloo":
-        return torch.device("cpu")
-    return torch.device("cuda", torch.cuda.current_device())
-
-
-def all_reduce(t: torch.Tensor, group=None, average: bool = False
-               ) -> torch.Tensor:
-    """The SUM (or, with ``average``, the mean) of ``t`` over the ranks of
-    ``group``, as a new tensor on ``t``'s device."""
-    buf = t.detach().to(_comm_device(group), copy=True)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
-    if average:
-        buf /= dist.get_world_size(group)
-    return buf.to(t.device)
-
-
-def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Every rank's ``t`` stacked on a new leading axis, in rank order."""
-    src = t.detach().contiguous().to(_comm_device(group))
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, src, group=group)
-    return torch.stack(parts).to(t.device)
 
 
 def average_gradients(params: Sequence[torch.nn.Parameter],

@@ -32,8 +32,8 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
-from fragnet_tpu_torch.dist.data_parallel import (all_gather, all_reduce,
-                                                  average_gradients)
+from fragnet_tpu_torch.dist.collectives import all_reduce
+from fragnet_tpu_torch.dist.data_parallel import average_gradients
 
 # per-level EDGE arrays split over the ranks; node-space state replicated
 EP_SHARDED_FIELDS = (
@@ -136,11 +136,8 @@ def pin_ep_widths(loaders, n_shards: int, tn: int = 128, te: int = 256,
 class EPMetaLoader:
     """Wraps a batch loader for edge-partitioned training: attaches pinned
     EPTileMeta (``pins`` from pin_ep_widths over all of a run's loaders, or
-    probed from this one) to every yielded batch. A later shuffle's batch
-    that exceeds the pins gets its own widths: the JAX loader raises there
-    (its kernels are compiled for the pinned shapes), while K3 walks each
-    batch's real windows whatever their widths. It raises only when the
-    batch violates the layout itself."""
+    probed from this one) to every yielded batch. Raises, as the JAX
+    loader does, when a later batch exceeds the pinned windows."""
 
     def __init__(self, loader, n_shards: int, tn: int = 128, te: int = 256,
                  n_probe_epochs: int = 2, pins: Optional[dict] = None):
@@ -158,12 +155,9 @@ class EPMetaLoader:
             b2, ok = with_ep_tile_meta(b, self.n_shards, self.tn, self.te,
                                        pins=self.pins)
             if not ok:
-                b2, ok = with_ep_tile_meta(b, self.n_shards, self.tn,
-                                           self.te)
-            if not ok:
                 raise RuntimeError(
-                    "batch violates the EP tile layout (edge counts must "
-                    "divide into n_shards*te, node counts into tn)")
+                    "batch exceeds the pinned EP tile windows; re-run with "
+                    "a larger probe")
             yield b2
 
 
@@ -191,28 +185,6 @@ def ep_local_batch(batch, rank: int, n_shards: int):
         es = n // n_shards
         kw[name] = v[rank * es:(rank + 1) * es]
     return dataclasses.replace(batch, **kw)
-
-
-class _AllGatherRows(torch.autograd.Function):
-    """Every rank's block stacked on a new leading axis; the backward is the
-    transpose (reduce-scatter SUM): the cotangent all-reduced over the
-    ranks, then this rank's block."""
-
-    @staticmethod
-    def forward(ctx, x, rank, group):
-        ctx.rank, ctx.group = rank, group
-        return all_gather(x, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return all_reduce(g.contiguous(), ctx.group)[ctx.rank], None, None
-
-
-def all_gather_rows(x: torch.Tensor, rank: int, group=None) -> torch.Tensor:
-    """Differentiable all-gather of ``x`` over ``group`` (see
-    _AllGatherRows); built from all_gather and all_reduce only, which gloo
-    and NCCL both take."""
-    return _AllGatherRows.apply(x, rank, group)
 
 
 def make_ep_train_step(model: torch.nn.Module,

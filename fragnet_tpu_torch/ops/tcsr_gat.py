@@ -36,6 +36,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from fragnet_tpu_torch.dist.collectives import (all_gather, all_gather_rows,
+                                                all_reduce)
 from fragnet_tpu_torch.ops import _cuda
 from fragnet_tpu_torch.ops.tcsr import EPTileMeta, TileMeta
 
@@ -509,14 +511,12 @@ def tcsr_gat_pass_ep(
     global max is the scatter-max of every shard's (an all-gather, no
     gradient); ``TcsrGatEpFn`` rescales the stats into the shard's
     un-normalised sums U_l, V_l, which one differentiable all-gather
-    (dist/edge_partition.py:all_gather_rows — its backward all-reduces the
+    (dist/collectives.py:all_gather_rows — its backward all-reduces the
     cotangent and keeps the rank's block) brings to every rank for one
     index-add; the analytic self-loop term is added once there. Gradient
     convention: every rank computes the same loss, and the caller averages
     every parameter gradient over the ranks (dist/data_parallel.py:
     average_gradients)."""
-    from fragnet_tpu_torch.dist.data_parallel import all_gather, all_reduce
-    from fragnet_tpu_torch.dist.edge_partition import all_gather_rows
 
     N, H, D = node_feats_h.shape
     HD = H * D

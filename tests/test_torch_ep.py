@@ -26,6 +26,8 @@ import pytest
 import torch
 from jax.sharding import Mesh, PartitionSpec as P
 
+from fragnet_tpu.dist.edge_partition import EPMetaLoader as JaxEPMetaLoader
+from fragnet_tpu.dist.edge_partition import pin_ep_widths as jax_pin
 from fragnet_tpu.dist.edge_partition import (
     with_ep_tile_meta as jax_with_ep_tile_meta)
 from fragnet_tpu.graphs.hiergraph import pad_batch as jax_pad_batch
@@ -39,7 +41,9 @@ from fragnet_tpu.train.loop import mse_loss as jax_mse
 from fragnet_tpu_torch.chem import engine as port_engine
 from fragnet_tpu_torch.config import Config
 from fragnet_tpu_torch.dist import checks
-from fragnet_tpu_torch.dist.edge_partition import with_ep_tile_meta
+from fragnet_tpu_torch.dist.edge_partition import (EPMetaLoader,
+                                                   pin_ep_widths,
+                                                   with_ep_tile_meta)
 from fragnet_tpu_torch.dist.launch import run_ranks
 from fragnet_tpu_torch.graphs.build import GraphBuilder as PortBuilder
 from fragnet_tpu_torch.graphs.hiergraph import pad_batch, spec_for
@@ -119,6 +123,31 @@ def test_ep_tile_meta_matches_jax(ft_graphs):
         assert build_ep_tile_meta(s, d, m, n, S, tn=8, te=8,
                                   n_tiles_grid=1) is None
         assert jax_build_ep(s, d, m, n, S, tn=8, te=8, n_tiles_grid=1) is None
+
+
+def test_ep_meta_loader_pins_and_raises_as_jax(ft_graphs, port_graphs):
+    """pin_ep_widths gives the JAX package's pins over the same batches,
+    EPMetaLoader attaches the JAX metas under them, and both loaders raise
+    on a batch that exceeds the pins."""
+    spec = jax_spec_for(ft_graphs, batch_size=8, multiple=8 * S)
+    pspec = spec_for(port_graphs, batch_size=8, multiple=8 * S)
+    jl = [jax_pad_batch(ft_graphs[:4], spec), jax_pad_batch(ft_graphs[4:],
+                                                            spec)]
+    pl = [pad_batch(port_graphs[:4], pspec), pad_batch(port_graphs[4:],
+                                                       pspec)]
+    pins = pin_ep_widths([pl], S, tn=8, te=8)
+    assert pins == jax_pin([jl], S, tn=8, te=8)
+    for bp, bj in zip(EPMetaLoader(pl, S, tn=8, te=8, pins=pins),
+                      JaxEPMetaLoader(jl, S, tn=8, te=8, pins=pins)):
+        for lvl in ("tm_atom", "tm_bond", "tm_frag", "tm_fc"):
+            for f in _META:
+                np.testing.assert_array_equal(getattr(getattr(bp, lvl), f),
+                                              getattr(getattr(bj, lvl), f))
+    tight = {lvl: (1, 1, 1) for lvl in pins}
+    with pytest.raises(RuntimeError, match="pinned EP tile windows"):
+        list(EPMetaLoader(pl, S, tn=8, te=8, pins=tight))
+    with pytest.raises(RuntimeError, match="pinned EP tile windows"):
+        list(JaxEPMetaLoader(jl, S, tn=8, te=8, pins=tight))
 
 
 def test_k3_plain_matches_pallas_local_ops():
@@ -212,18 +241,65 @@ def _jax_ep_pass(c, mj, self_loops):
     return out, attn, grads
 
 
+def _pass_args(self_loops):
+    """ep_pass_rank's arguments for the seeded case of the pass test."""
+    c = _case(seed=1)
+    meta = build_ep_tile_meta(c["src"], c["dst"], c["mask"], c["N"], S,
+                              tn=c["tn"], te=c["te"])
+    t = torch.from_numpy
+    return (t(c["nf"]), t(c["ea"]), t(c["src"]), t(c["dst"]), t(c["mask"]),
+            t(c["a"]), meta, t(c["g"]), self_loops)
+
+
+@pytest.fixture(scope="module")
+def ep_batches(ft_graphs, port_graphs):
+    """(JAX batch, port batch with 2-shard EPTileMeta) of all eight
+    molecules, padded for S = 2 at tn = te = 8."""
+    bj = jax_pad_batch(ft_graphs, jax_spec_for(ft_graphs, batch_size=8,
+                                               multiple=8 * S))
+    bp = pad_batch(port_graphs, spec_for(port_graphs, batch_size=8,
+                                         multiple=8 * S))
+    bp, ok = with_ep_tile_meta(bp, S, tn=8, te=8)
+    assert ok
+    _, ok_j = jax_with_ep_tile_meta(bj, S, tn=8, te=8)
+    assert ok_j
+    return jax.tree.map(lambda x: jnp.asarray(x) if x is not None else None,
+                        bj), bp
+
+
+@pytest.fixture(scope="module")
+def jax_model(ep_batches):
+    """(the JAX single-device model at SMALL, its seeded parameters)."""
+    model = JaxModel(**SMALL)
+    params = jax.jit(lambda b: model.init(jax.random.PRNGKey(0), b,
+                                          deterministic=True))(ep_batches[0])
+    return model, params
+
+
+MODEL_LR = 0.05
+
+
+@pytest.fixture(scope="module")
+def rank_results(tmp_path_factory, ep_batches, jax_model):
+    """The rank side of the pass tests (both self_loops) and the model
+    test, run in one start of two ranks: {"pass": {self_loops: [per rank]},
+    "model": [per rank]}."""
+    calls = [(checks.ep_pass_rank, _pass_args(sl)) for sl in (False, True)]
+    calls.append((checks.ep_model_rank, (SMALL, state_dict_from_jax(
+        jax_model[1]), ep_batches[1], MODEL_LR)))
+    res = _ranks(checks.calls_rank, (calls,), tmp_path_factory.mktemp("ep"))
+    return {"pass": {sl: [r[i] for r in res]
+                     for i, sl in enumerate((False, True))},
+            "model": [r[2] for r in res]}
+
+
 @pytest.mark.parametrize("self_loops", [False, True])
-def test_ep_pass_over_two_ranks_matches(tmp_path, self_loops):
+def test_ep_pass_over_two_ranks_matches(rank_results, self_loops):
     c = _case(seed=1)
     N, tn, te = c["N"], c["tn"], c["te"]
     mj = jax_build_ep(c["src"], c["dst"], c["mask"], N, S, tn=tn, te=te)
-    meta = build_ep_tile_meta(c["src"], c["dst"], c["mask"], N, S, tn=tn,
-                              te=te)
+    res = rank_results["pass"][self_loops]
     t = torch.from_numpy
-    res = _ranks(checks.ep_pass_rank,
-                 (t(c["nf"]), t(c["ea"]), t(c["src"]), t(c["dst"]),
-                  t(c["mask"]), t(c["a"]), meta, t(c["g"]), self_loops),
-                 tmp_path)
     # the port's single-device pass
     xs = [t(c[k]).requires_grad_() for k in ("nf", "ea", "a")]
     tm = build_tile_meta(c["src"], c["dst"], c["mask"], N, tn=tn, te=te)
@@ -243,34 +319,17 @@ def test_ep_pass_over_two_ranks_matches(tmp_path, self_loops):
                 _close(r[n], gref)
 
 
-@pytest.fixture(scope="module")
-def ep_batches(ft_graphs, port_graphs):
-    """(JAX batch, port batch with 2-shard EPTileMeta) of all eight
-    molecules, padded for S = 2 at tn = te = 8."""
-    bj = jax_pad_batch(ft_graphs, jax_spec_for(ft_graphs, batch_size=8,
-                                               multiple=8 * S))
-    bp = pad_batch(port_graphs, spec_for(port_graphs, batch_size=8,
-                                         multiple=8 * S))
-    bp, ok = with_ep_tile_meta(bp, S, tn=8, te=8)
-    assert ok
-    _, ok_j = jax_with_ep_tile_meta(bj, S, tn=8, te=8)
-    assert ok_j
-    return jax.tree.map(lambda x: jnp.asarray(x) if x is not None else None,
-                        bj), bp
-
-
-def test_ep_model_matches_jax_single_device(tmp_path, ep_batches):
+def test_ep_model_matches_jax_single_device(rank_results, ep_batches,
+                                            jax_model):
     """FragNetFineTune under EP (2 ranks) against the JAX single-device
     model with the same weights: predictions, the four attention vectors,
     the loss and every averaged parameter gradient, and the parameters
     after one SGD step."""
-    bj, bp = ep_batches
-    model = JaxModel(**SMALL)
-    params = jax.jit(lambda b: model.init(jax.random.PRNGKey(0), b,
-                                          deterministic=True))(bj)
+    bj, _bp = ep_batches
+    model, params = jax_model
     sd = state_dict_from_jax(params)
-    lr = 0.05
-    res = _ranks(checks.ep_model_rank, (SMALL, sd, bp, lr), tmp_path)
+    lr = MODEL_LR
+    res = rank_results["model"]
     pred_j, attn_j = jax.jit(lambda p: model.apply(
         p, bj, deterministic=True, return_attentions=True))(params)
     loss_j, grads_j = jax.jit(jax.value_and_grad(
