@@ -71,7 +71,10 @@ the packed transport. Phases:
  13. one pretrain train step at batch 512 from a packed buffer on the
      card: wall time, stages each ended by a synchronize (unpack without
      planes, K6 planes, forward + loss, backward, Adam), device busy time,
-     top ops and K6's share;
+     top ops and K6's share; then the TCSR forward (K1, atom and frag) and
+     the dense backward (K5, bond and fconn) against their plain versions
+     at this step's layer-0 inputs, checked and timed as in phase 4 (their
+     levels tagged "batch 512" in the kernels' line);
  14. one pretrain step's loss and gradients, card (packed buffer decoded
      there, K6 planes) vs CPU (host batch, host planes), same weights (the
      run's checkpoint), dropout off: within 1e-3 of each scale;
@@ -454,16 +457,15 @@ def smoke_batch(opt, datasets):
     return spec, windows, pad_batch(windows[0], spec, n_tasks=n_tasks)
 
 
-def layer0_kernel_calls(opt, model, batch,
+def layer0_kernel_calls(n_layers: int, model, batch,
                         names=("tcsr_gat_fwd", "dense_gat_fwd")):
     """{kernel: [(level, args, kwargs), ...]}: the calls of each of the
-    ``names`` forward wrappers in layer 0 of one forward of ``model`` on
-    ``batch``."""
+    ``names`` forward wrappers in layer 0 of one forward of ``model`` (of
+    ``n_layers`` layers) on ``batch``."""
     import torch
 
     with _Capture(names) as cap, torch.no_grad():
         model(batch)
-    n_layers = int(opt.finetune.model.num_layer)
     out = {}
     for name, calls in cap.calls.items():
         per_layer = len(LEVELS[name])
@@ -1241,11 +1243,57 @@ def drive_pretrain(popt, pgraphs, expect, tier: str):
     return launches, ckpt
 
 
+def pretrain_big_batch(pgraphs, dev):
+    """(packed buffer on ``dev``, its layout): one batch at the pretrain
+    config's batch_size 512 of the pretrain graphs, repeated to fill it."""
+    import torch
+
+    from fragnet_tpu_torch.data.batcher import BatchLoader
+    from fragnet_tpu_torch.graphs.hiergraph import spec_for
+
+    big_bs = int(PT_CONFIG["pretrain"]["batch_size"])
+    rep = pgraphs * (-(-big_bs // len(pgraphs)))
+    big = BatchLoader(rep, big_bs, spec=spec_for(rep, big_bs, tcsr=True),
+                      with_targets=True, pack=True)
+    return torch.from_numpy(next(iter(big))).to(dev), big.layout
+
+
+# the kernels phase 13 also holds against their plain versions and times
+# at the batch-512 pretraining shapes
+BIG_KERNELS = ("tcsr_gat_fwd", "dense_gat_bwd")
+
+
+def pretrain_kernel_calls(popt, model, buf, layout, rng):
+    """K1's and K5's inputs at the batch-512 pretraining shapes:
+    {kernel: [(level, args, kwargs)]} from layer 0 of one forward of the
+    pretrain ``model`` on the packed ``buf`` decoded on its device (K6
+    planes) — the TCSR forward's atom and frag calls, and K5's arguments
+    built from the dense forward's bond and fconn calls as phase 4 builds
+    them. Levels are tagged "batch 512"."""
+    from fragnet_tpu_torch.data.packing import (add_planes, plane_levels,
+                                                unpack_batch)
+
+    batch = add_planes(unpack_batch(buf, layout, planes=()), layout,
+                       plane_levels(model.policy))
+    was = model.training
+    model.eval()
+    calls = layer0_kernel_calls(int(popt.pretrain.model.num_layer), model,
+                                batch)
+    model.train(was)
+    return {"tcsr_gat_fwd": [(f"{lvl}, batch 512", a, kw) for lvl, a, kw
+                             in calls["tcsr_gat_fwd"]],
+            "dense_gat_bwd": [(f"{lvl}, batch 512",
+                               bwd_kernel_args("dense_gat_fwd", a, kw, rng),
+                               {}) for lvl, a, kw in calls["dense_gat_fwd"]]}
+
+
 def timed_pretrain_step(popt, calls_buf, dev):
     """Phase 13: one pretrain train step at batch 512 from a packed buffer
     on the card — wall time (median of 5 after a warm-up), its stages each
     ended by a synchronize, and one step's device busy time and top ops
-    with the plane builder's share."""
+    with the plane builder's share; then K1 and K5 against their plain
+    versions at this step's layer-0 inputs, timed as in phase 4. Returns
+    their per-level reports ({kernel: (levels, 0.0)})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1313,6 +1361,11 @@ def timed_pretrain_step(popt, calls_buf, dev):
     print("pretrain step stages (host clock to a synchronize, median of 5): "
           + ", ".join(f"{k} {statistics.median(v):.2f} ms"
                       for k, v in stages.items()))
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    calls = pretrain_kernel_calls(popt, model, buf, layout, rng)
+    return check_kernels(BIG_KERNELS, calls, rng)
 
 
 def pretrain_grads_card_vs_cpu(popt, pgraphs, ckpt, dev):
@@ -1383,10 +1436,10 @@ def _grad_diff(l_cpu, l_gpu, g_cpu, g_gpu):
 def pretrain_phases(dev, pending, datasets):
     """Phases 10-15: the pretraining path. ``pending`` is the PretrainGraphs
     featurizing the config's synthetic set. Returns (the plane builder's
-    per-level report, each kernel's launches on the pretraining path)."""
+    per-level report, each kernel's launches on the pretraining path, the
+    graphs, K1's and K5's per-level reports at batch 512)."""
     import torch
 
-    from fragnet_tpu_torch.data.batcher import BatchLoader
     from fragnet_tpu_torch.train.finetune import run_finetune
 
     popt = pt_opt(PT_OVERRIDES)
@@ -1422,13 +1475,8 @@ def pretrain_phases(dev, pending, datasets):
 
     # ---- 13. one train step at batch 512 from a packed buffer -------------
     t0 = time.perf_counter()
-    from fragnet_tpu_torch.graphs.hiergraph import spec_for
-
-    rep = pgraphs * (-(-big_bs // len(pgraphs)))
-    big = BatchLoader(rep, big_bs, spec=spec_for(rep, big_bs, tcsr=True),
-                      with_targets=True, pack=True)
-    dbuf = torch.from_numpy(next(iter(big))).to(dev)
-    timed_pretrain_step(popt, (dbuf, big.layout), dev)
+    big_report = timed_pretrain_step(popt, pretrain_big_batch(pgraphs, dev),
+                                     dev)
     print(f"phase 13: {time.perf_counter() - t0:.1f} s")
 
     # ---- 14. one pretrain step's gradients: card vs CPU -------------------
@@ -1459,7 +1507,7 @@ def pretrain_phases(dev, pending, datasets):
           f"{time.perf_counter() - t0:.1f} s")
     if bad or not enc:
         raise AssertionError(f"encoder transfer differs at {bad[:5]}")
-    return k6_report, launches, pgraphs
+    return k6_report, launches, pgraphs, big_report
 
 
 def attr_kernel_calls(n_tasks, batch, rng):
@@ -1480,7 +1528,8 @@ def attr_kernel_calls(n_tasks, batch, rng):
                         policy=resolve_kernel_policy(aopt.finetune),
                         generator=torch.Generator().manual_seed(0))
     model = model.to(batch.x_atoms.device).eval()
-    fwd = layer0_kernel_calls(aopt, model, batch,
+    fwd = layer0_kernel_calls(int(aopt.finetune.model.num_layer), model,
+                              batch,
                               names=("dense_attr_fwd",))["dense_attr_fwd"]
     if fwd[1][1][0].is_contiguous():
         raise AssertionError("the fconn adjacency is not the strided view "
@@ -2151,7 +2200,8 @@ def main() -> int:
 
     t_phase = time.perf_counter()
     # ---- 4. kernel vs plain, at the shapes of a real batch ----------------
-    calls = layer0_kernel_calls(opt, model, batch)
+    calls = layer0_kernel_calls(int(opt.finetune.model.num_layer), model,
+                                batch)
     rng = np.random.default_rng(0)
     calls["dense_gat_fwd"].append(
         seeded_fconn_call(calls["dense_gat_fwd"][1], rng))
@@ -2291,8 +2341,13 @@ def main() -> int:
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 10.-15. the pretraining path -------------------------------------
-    k6_report, launches_pt, pgraphs = pretrain_phases(dev, pending, datasets)
+    k6_report, launches_pt, pgraphs, big_report = pretrain_phases(
+        dev, pending, datasets)
     report[PLANES] = (k6_report, 0.0)
+    for name, (levels, _err) in big_report.items():
+        # the batch-512 levels stand beside the finetune layer's in the
+        # kernel's line; its ms and bound stay the finetune layer's
+        report[name][0].extend(dict(p, on_path=False) for p in levels)
 
     # ---- 16.-19. the dense-attr kernel policy ------------------------------
     attr_report, launches_fa, launches_pa = attr_phases(

@@ -11,26 +11,30 @@
 // self-loop comes out with m = -1e30, den = 0, out = 0.
 //
 // What bounds it on this card: the irregular reads of nf[src] rows (H*D f32
-// per edge) and the per-edge scalars; the arithmetic is a few flops per
-// byte. At the batch sizes of the eval path the grid is a handful of tiles,
-// so launch latency and the serial walk of each window dominate.
+// per edge) and the per-edge scalars, a few flops per byte. At the batch
+// sizes of the training and eval paths the bytes are tens of KB, so the
+// kernel is bound by latency: how many dependent rounds of loads a block
+// waits on, and how many SMs have a block at all. A block per tile (the
+// first port of this kernel) gave 2-6 blocks on 132 SMs, each a chain of
+// shared-memory CAS maxima, staging passes and shared atomics behind
+// barriers.
 //
-// Design: the TPU kernel's one-hot matmul gathers/scatters, the _hsum/_hrep
-// head broadcasts and the k_src source windows exist because Mosaic has no
-// cheap indexed load; here nf[src] is read with direct indexed loads, lanes
-// along H*D, so a source row is coalesced 128-byte reads. One block per
-// destination tile keeps the tile's numerator (tn x H*D), max and
-// denominator in shared memory (64 KB at tn = 128, 128 KB at tn = 256), so
-// no partial sum leaves the SM. Instead of the TPU kernel's online
-// rescaling over chunks, the block makes two passes over the real window:
-// the max (one thread per edge, shared-memory CAS max), then rounds of 512
-// edges in which one thread per edge stages p = exp(z - m) for every head
-// in shared memory and adds it to den, and each warp aggregates four staged
-// edges at a time, issuing all their nf[src] loads before the shared
-// atomics (so a warp waits on one round of loads per four edges, not one
-// per edge). The shared-memory float atomics make the summation order vary
-// between runs (last-bit differences, well inside the 1e-4 relative check
-// against the plain version).
+// Design: a block takes one slice of kRows destination rows of one tile
+// (grid: tn / kRows slices x tiles), a warp per row. The block scans the
+// tile's real window once, in rounds of kThreads edges: each thread tests
+// one edge (kept, destination in this slice; the window also holds edges
+// of the neighbouring tiles, and edges need not be sorted by destination),
+// and the kept edges are compacted into shared memory in edge order by a
+// ballot and a prefix over the warps (no atomics). Each warp then picks its
+// row's edges from the round by ballot and runs a single-pass online
+// softmax: lanes along H*D with float4 nf[src] loads (a lane's four columns
+// lie in one head, so each lane keeps its head's running max and
+// denominator in registers), kUnroll edges' loads in flight before any of
+// them is folded in, seeded with the self-loop logit when self_loops. out,
+// m and den are written once. The summation order is fixed per row, so the
+// result is the same from run to run. The TPU kernel's one-hot matmul
+// gathers and k_src source windows (Mosaic has no cheap indexed load) are
+// not carried over: nf[src] is read directly.
 //
 // tcsr_gat_ep_fwd (K3's forward) is the same kernel on one edge shard of
 // the edge-partitioned pass. It replaces the TPU kernel built by
@@ -40,9 +44,7 @@
 // starting at tile t0 (read from device memory, so the caller never waits
 // for it); the edge arrays and the windows ew_blk / cw are the shard's,
 // node arrays stay whole, and row i of out, m, den holds absolute node
-// t0 * tn + i. No self-loops: the combine adds them once. What bounds it is
-// what bounds the whole-batch kernel, on 1/S of the edges; the grid is
-// smaller still, so launch latency weighs more.
+// t0 * tn + i. No self-loops: the combine adds them once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,25 +52,17 @@
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kThreads = 512;
-constexpr int kUnroll = 4;    // staged edges per warp step
-constexpr int kMaxCols = 8;   // H*D <= 256: columns per lane
+constexpr int kRows = 8;              // destination rows per block, a warp each
+constexpr int kThreads = 32 * kRows;  // also the window edges of one round
+constexpr int kUnroll = 4;            // edges whose loads a warp has in flight
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float leaky(float x, float slope) {
   return x > 0.f ? x : slope * x;
 }
 
-__device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
-  int* a = reinterpret_cast<int*>(addr);
-  int old = *a;
-  while (__int_as_float(old) < v) {
-    const int assumed = old;
-    old = atomicCAS(a, assumed, __float_as_int(v));
-    if (old == assumed) break;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads, 1) tcsr_gat_fwd_kernel(
+template <int NV>  // float4 column groups per lane: H*D <= 128 * NV
+__global__ void __launch_bounds__(kThreads) tcsr_gat_fwd_kernel(
     const float* __restrict__ wn,      // (N, 2H): [w_dst | w_src]
     const float* __restrict__ nf,      // (N, H*D)
     const float* __restrict__ w_ea,    // (E, H)
@@ -82,131 +76,134 @@ __global__ void __launch_bounds__(kThreads, 1) tcsr_gat_fwd_kernel(
     float* __restrict__ m_out,         // (n_grid * tn, H)
     float* __restrict__ den_out,       // (n_grid * tn, H)
     int tn, int te, int H, int D, int self_loops, float slope) {
-  extern __shared__ float smem[];
-  const int HD = H * D;
-  float* num = smem;                       // tn * HD
-  float* m = num + tn * HD;                // tn * H
-  float* den = m + tn * H;                 // tn * H
-  float* st_p = den + tn * H;              // kThreads * H: staged p
-  int* st_dl = reinterpret_cast<int*>(st_p + kThreads * H);  // kThreads
-  int* st_src = st_dl + kThreads;                            // kThreads
+  __shared__ int st_row[kThreads];  // a staged edge's row in the slice
+  __shared__ int st_src[kThreads];
+  __shared__ int st_eid[kThreads];
+  __shared__ int st_count[kRows];   // staged edges per warp of the round
 
-  const int t = blockIdx.x;
+  const int t = blockIdx.y;
+  const int r0 = blockIdx.x * kRows;              // the slice's first row
   const int node0 = ((t0 ? t0[0] : 0) + t) * tn;  // absolute first node
-  const size_t row0 = (size_t)t * tn;             // its output row
   const int e_lo = ew_blk[t] * te;
   const int e_hi = e_lo + cw[t] * te;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int HD = H * D;
+  const int node = node0 + r0 + warp;             // this warp's row
+  const size_t orow = (size_t)t * tn + r0 + warp;  // its output row
 
-  // 1. running max starts at the self-loop logit (or the empty marker)
-  for (int i = tid; i < tn * H; i += kThreads) {
-    const int n = i / H, h = i - n * H;
-    const float* w = wn + (size_t)(node0 + n) * 2 * H;
-    m[i] = self_loops ? leaky(w[h] + w[H + h], slope) : kNeg;
-  }
-  __syncthreads();
-
-  // 2. max over the tile's edges in its real window, one thread per edge
-  for (int e = e_lo + tid; e < e_hi; e += kThreads) {
-    const int d = dst[e];
-    const int dl = d - node0;
-    if (dl < 0 || dl >= tn || !(emask[e] > 0.f)) continue;
-    const float* wd = wn + (size_t)d * 2 * H;
-    const float* ws = wn + (size_t)src[e] * 2 * H + H;
-    const float* wa = w_ea + (size_t)e * H;
-    for (int h = 0; h < H; ++h)
-      atomic_max_f32(&m[dl * H + h], leaky(wd[h] + ws[h] + wa[h], slope));
-  }
-  __syncthreads();
-
-  // 3. the self-loop term at the final max seeds den and num
-  for (int i = tid; i < tn * H; i += kThreads) {
-    float p = 0.f;
+  int col[NV], hd[NV];
+  bool on[NV];
+  float wdst[NV], mx[NV], dn[NV];
+  float4 acc[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    col[v] = 128 * v + 4 * lane;
+    on[v] = col[v] < HD;
+    hd[v] = on[v] ? col[v] / D : 0;
+    const float* w = wn + (size_t)node * 2 * H;
+    wdst[v] = w[hd[v]];
     if (self_loops) {
-      const int n = i / H, h = i - n * H;
-      const float* w = wn + (size_t)(node0 + n) * 2 * H;
-      p = expf(leaky(w[h] + w[H + h], slope) - m[i]);
+      mx[v] = leaky(wdst[v] + w[H + hd[v]], slope);
+      dn[v] = 1.f;
+      acc[v] = on[v] ? *reinterpret_cast<const float4*>(
+                           nf + (size_t)node * HD + col[v])
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      mx[v] = kNeg;
+      dn[v] = 0.f;
+      acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    den[i] = p;
   }
-  __syncthreads();
-  for (int i = tid; i < tn * HD; i += kThreads) {
-    const int n = i / HD, c = i - n * HD;
-    num[i] = self_loops
-        ? den[n * H + c / D] * nf[(size_t)(node0 + n) * HD + c] : 0.f;
-  }
-  __syncthreads();
 
-  // 4. rounds of kThreads edges: stage p (thread per edge), then aggregate
-  //    kUnroll staged edges per warp step, all nf loads before the atomics
-  const int lane = tid & 31, warp = tid >> 5;
   for (int base = e_lo; base < e_hi; base += kThreads) {
+    // stage this round's edges of the slice, in edge order
     const int e = base + tid;
-    int dl = -1;
+    int row = -1, s = 0;
     if (e < e_hi) {
-      const int d = dst[e];
-      dl = d - node0;
-      if (dl < 0 || dl >= tn || !(emask[e] > 0.f)) {
-        dl = -1;
-      } else {
-        const int s = src[e];
-        const float* wd = wn + (size_t)d * 2 * H;
-        const float* ws = wn + (size_t)s * 2 * H + H;
-        const float* wa = w_ea + (size_t)e * H;
-        for (int h = 0; h < H; ++h) {
-          const float p = expf(leaky(wd[h] + ws[h] + wa[h], slope)
-                               - m[dl * H + h]);
-          st_p[tid * H + h] = p;
-          atomicAdd(&den[dl * H + h], p);
-        }
-        st_src[tid] = s;
+      const int dl = dst[e] - node0 - r0;
+      if (dl >= 0 && dl < kRows && emask[e] > 0.f) {
+        row = dl;
+        s = src[e];
       }
     }
-    st_dl[tid] = dl;
+    const unsigned kept = __ballot_sync(kFull, row >= 0);
+    if (lane == 0) st_count[warp] = __popc(kept);
+    __syncthreads();
+    int off = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kRows; ++w) {
+      const int c = st_count[w];
+      off += w < warp ? c : 0;
+      total += c;
+    }
+    if (row >= 0) {
+      const int i = off + __popc(kept & ((1u << lane) - 1u));
+      st_row[i] = row;
+      st_src[i] = s;
+      st_eid[i] = e;
+    }
     __syncthreads();
 
-    const int n_st = min(kThreads, e_hi - base);
-    for (int i0 = warp * kUnroll; i0 < n_st; i0 += kThreads / 32 * kUnroll) {
-      int dls[kUnroll], ss[kUnroll];
+    // this warp's edges of the round, kUnroll at a time
+    for (int i0 = 0; i0 < total; i0 += 32) {
+      const int i = i0 + lane;
+      unsigned mine = __ballot_sync(kFull, i < total && st_row[i] == warp);
+      while (mine) {
+        int ss[kUnroll], ee[kUnroll];
+        bool ok[kUnroll];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int i = i0 + u;
-        dls[u] = i < n_st ? st_dl[i] : -1;
-        ss[u] = dls[u] >= 0 ? st_src[i] : 0;
-      }
-      float v[kUnroll][kMaxCols];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-#pragma unroll
-        for (int k = 0; k < kMaxCols; ++k) {
-          const int c = lane + 32 * k;
-          v[u][k] = (dls[u] >= 0 && c < HD)
-              ? nf[(size_t)ss[u] * HD + c] : 0.f;
+        for (int u = 0; u < kUnroll; ++u) {
+          ok[u] = mine != 0;
+          const int b = ok[u] ? __ffs(mine) - 1 : 0;
+          mine &= mine - 1;
+          ss[u] = ok[u] ? st_src[i0 + b] : 0;
+          ee[u] = ok[u] ? st_eid[i0 + b] : 0;
         }
+        float4 x[kUnroll][NV];
+        float zs[kUnroll][NV];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (dls[u] < 0) continue;  // warp-uniform
-        const float* p = st_p + (i0 + u) * H;
-        float* acc = num + dls[u] * HD;
+        for (int u = 0; u < kUnroll; ++u)
 #pragma unroll
-        for (int k = 0; k < kMaxCols; ++k) {
-          const int c = lane + 32 * k;
-          if (c < HD) atomicAdd(&acc[c], p[c / D] * v[u][k]);
+          for (int v = 0; v < NV; ++v) {
+            x[u][v] = ok[u] && on[v]
+                ? *reinterpret_cast<const float4*>(
+                      nf + (size_t)ss[u] * HD + col[v])
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+            zs[u][v] = ok[u] ? wn[(size_t)ss[u] * 2 * H + H + hd[v]]
+                               + w_ea[(size_t)ee[u] * H + hd[v]]
+                             : 0.f;
+          }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (!ok[u]) continue;  // warp-uniform
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            const float z = leaky(wdst[v] + zs[u][v], slope);
+            const float mn = fmaxf(mx[v], z);
+            const float a = expf(mx[v] - mn), p = expf(z - mn);
+            dn[v] = dn[v] * a + p;
+            acc[v].x = acc[v].x * a + p * x[u][v].x;
+            acc[v].y = acc[v].y * a + p * x[u][v].y;
+            acc[v].z = acc[v].z * a + p * x[u][v].z;
+            acc[v].w = acc[v].w * a + p * x[u][v].w;
+            mx[v] = mn;
+          }
         }
       }
     }
-    __syncthreads();
+    __syncthreads();  // the next round reuses the stage
   }
 
-  // 5. normalise and write the tile
-  for (int i = tid; i < tn * HD; i += kThreads) {
-    const int n = i / HD, h = (i - n * HD) / D;
-    const float dn = den[n * H + h];
-    out[row0 * HD + i] = num[i] / (dn == 0.f ? 1.f : dn);
-  }
-  for (int i = tid; i < tn * H; i += kThreads) {
-    m_out[row0 * H + i] = m[i];
-    den_out[row0 * H + i] = den[i];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    if (!on[v]) continue;
+    const float q = 1.f / (dn[v] == 0.f ? 1.f : dn[v]);
+    *reinterpret_cast<float4*>(out + orow * HD + col[v]) = make_float4(
+        acc[v].x * q, acc[v].y * q, acc[v].z * q, acc[v].w * q);
+    if (col[v] % D == 0) {  // the first lane of its head
+      m_out[orow * H + hd[v]] = mx[v];
+      den_out[orow * H + hd[v]] = dn[v];
+    }
   }
 }
 
@@ -215,18 +212,23 @@ int launch(const void* wn, const void* nf, const void* w_ea, const void* src,
            const void* ew_blk, const void* cw, void* out, void* m, void* den,
            int n_grid, int tn, int te, int H, int D, int self_loops,
            float slope, void* stream) {
-  if (H * D > 32 * kMaxCols) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)tn * H * D + 2 * (size_t)tn * H
-                                       + (size_t)kThreads * (H + 2));
-  cudaError_t err = cudaFuncSetAttribute(
-      tcsr_gat_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  tcsr_gat_fwd_kernel<<<n_grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)wn, (const float*)nf, (const float*)w_ea,
-      (const int*)src, (const int*)dst, (const float*)emask,
-      (const int*)t0, (const int*)ew_blk, (const int*)cw, (float*)out,
-      (float*)m, (float*)den, tn, te, H, D, self_loops, slope);
+  if (D % 4 || H * D > 256 || tn % kRows) return (int)cudaErrorInvalidValue;
+  const dim3 grid(tn / kRows, n_grid);
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* a[3] = {(const float*)wn, (const float*)nf,
+                       (const float*)w_ea};
+  if (H * D <= 128)
+    tcsr_gat_fwd_kernel<1><<<grid, kThreads, 0, st>>>(
+        a[0], a[1], a[2], (const int*)src, (const int*)dst,
+        (const float*)emask, (const int*)t0, (const int*)ew_blk,
+        (const int*)cw, (float*)out, (float*)m, (float*)den, tn, te, H, D,
+        self_loops, slope);
+  else
+    tcsr_gat_fwd_kernel<2><<<grid, kThreads, 0, st>>>(
+        a[0], a[1], a[2], (const int*)src, (const int*)dst,
+        (const float*)emask, (const int*)t0, (const int*)ew_blk,
+        (const int*)cw, (float*)out, (float*)m, (float*)den, tn, te, H, D,
+        self_loops, slope);
   return (int)cudaGetLastError();
 }
 

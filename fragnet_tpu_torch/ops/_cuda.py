@@ -174,3 +174,10 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
                              f"and apart from the others")
     elif not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def check_aligned(t: torch.Tensor, name: str, nbytes: int) -> None:
+    """Raise unless ``t``'s data starts on an ``nbytes`` boundary (a kernel
+    that reads it in float4 needs 16)."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name} is not {nbytes}-byte aligned")

@@ -249,10 +249,6 @@ def _check_cuda(name, planes, wd, ws, nf, vc, extra=()):
                           ("nf", nf, (N, HD)), ("vc", vc, (R + 1, H))
                           ) + tuple(extra):
         _cuda.check(t, arg, torch.float32, shape, nf.device)
-    smem = 4 * (tn * HD + 2 * tn * H + 2 * (R + 1) * H)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"{name}: tile of {tn} x {HD} needs {smem} B "
-                         f"of shared memory (limit {_SMEM_LIMIT})")
     return T, tn, R, N, H, HD
 
 
@@ -264,6 +260,10 @@ def dense_gat_fwd(planes, wd, ws, nf, vc, slope: float = 0.2):
     if nf.device.type == "cpu":
         return dense_gat_fwd_plain(planes, wd, ws, nf, vc, slope)
     T, tn, R, N, H, HD = _check_cuda("dense_gat_fwd", planes, wd, ws, nf, vc)
+    smem = 4 * (tn * HD + 2 * tn * H + 2 * (R + 1) * H)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"dense_gat_fwd: tile of {tn} x {HD} needs {smem} B "
+                         f"of shared memory (limit {_SMEM_LIMIT})")
     dev = nf.device
     f32 = torch.float32
     out = torch.empty((N, HD), dtype=f32, device=dev)
@@ -321,6 +321,13 @@ def dense_gat_bwd(planes, wd, ws, nf, vc, m, den, g, s, slope: float = 0.2):
         "dense_gat_bwd", planes, wd, ws, nf, vc,
         extra=(("m", m, (N, H)), ("den", den, (N, H)),
                ("g", g, tuple(nf.shape)), ("s", s, (N, H))))
+    # lanes read nf and g in float4, a head's D/4 lanes summed by shuffles
+    D = HD // H
+    if D % 4 or D // 4 not in (1, 2, 4, 8, 16, 32) or HD > 256:
+        raise ValueError(f"dense_gat_bwd: H={H} D={D} unsupported (D in "
+                         f"4, 8, ..., 128; H*D <= 256)")
+    _cuda.check_aligned(nf, "nf", 16)
+    _cuda.check_aligned(g, "g", 16)
     dev = nf.device
     f32 = torch.float32
     d_wd = torch.empty((N, H), dtype=f32, device=dev)
@@ -333,6 +340,27 @@ def dense_gat_bwd(planes, wd, ws, nf, vc, m, den, g, s, slope: float = 0.2):
                       H, HD // H, R, ctypes.c_float(slope),
                       _cuda.stream_ptr(dev))
     return d_wd, d_ws, d_nf, d_vc.sum(0)
+
+
+def head_dot(g: torch.Tensor, out: torch.Tensor, H: int) -> torch.Tensor:
+    """s (N, H) = Σ_d g·out per node and head, summed in the order the
+    backward kernel sums its per-head dots g[i]·nf[j] (csrc/dense_gat_bwd.cu
+    dot4, head_sum): rounded products, pairwise within each four columns,
+    then halves across a head's D/4 groups. A row whose output equals a
+    neighbour's features then gets d_zpre = 0 exactly, as the math says,
+    and not round-off. Where the kernel does not run (D/4 not a power of
+    two), a plain sum."""
+    N = g.shape[0]
+    D = g.shape[1] // H
+    w = D // 4
+    if D % 4 or w & (w - 1):
+        return (g.view(N, H, D) * out.view(N, H, D)).sum(-1)
+    p = g.view(N, H, w, 4) * out.view(N, H, w, 4)
+    t = (p[..., 0] + p[..., 1]) + (p[..., 2] + p[..., 3])
+    while t.shape[-1] > 1:
+        half = t.shape[-1] // 2
+        t = t[..., :half] + t[..., half:]
+    return t[..., 0]
 
 
 class DenseGatFn(torch.autograd.Function):
@@ -351,9 +379,8 @@ class DenseGatFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, _g_m, _g_den):
         planes, wd, ws, nf, vc, out, m, den = ctx.saved_tensors
-        N, H = wd.shape
         g = g_out.float().contiguous()
-        s = (g.view(N, H, -1) * out.view(N, H, -1)).sum(-1)
+        s = head_dot(g, out, wd.shape[1])
         d_wd, d_ws, d_nf, d_vc = dense_gat_bwd(planes, wd, ws, nf, vc, m, den,
                                                g, s, ctx.slope)
         return None, d_wd, d_ws, d_nf, d_vc, None

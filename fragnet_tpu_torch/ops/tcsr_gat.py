@@ -52,11 +52,11 @@ KERNEL_BWD = _cuda.CudaKernel(
     "tcsr_gat_bwd.cu", "tcsr_gat_bwd",
     [_VP] * 15 + [_I] * 6 + [ctypes.c_float, _VP])
 
-# shared memory a block may use (H100: 227 KB); the kernel's block size and
-# widest row (csrc/tcsr_gat_fwd.cu kThreads, 32 * kMaxCols)
-_SMEM_LIMIT = 232448
-_THREADS = 512
+# the widest row the kernels take (H*D, lanes of float4 in the forward, 32
+# * kMaxCols in the backward) and the forward's rows per block
+# (csrc/tcsr_gat_fwd.cu kRows)
 _MAX_HD = 256
+_FWD_ROWS = 8
 
 
 def prologue(nf: torch.Tensor, ea: torch.Tensor, a: torch.Tensor
@@ -129,6 +129,19 @@ def _check_cuda(name, wn, nf, w_ea, src, dst, emask, meta: TileMeta,
     return N, HD, H, E, n_tiles
 
 
+def _check_fwd(name, nf, H: int, tn: int):
+    """Raise unless the forward kernel (csrc/tcsr_gat_fwd.cu) takes this row
+    width and tile: lanes read nf in float4 (D a multiple of 4, nf 16-byte
+    aligned, H*D <= 256) and a block takes _FWD_ROWS rows of a tile."""
+    HD = nf.shape[1]
+    D = HD // H
+    if D % 4 or HD > _MAX_HD or tn % _FWD_ROWS:
+        raise ValueError(f"{name}: H={H} D={D} tn={tn} unsupported (D a "
+                         f"multiple of 4, H*D <= {_MAX_HD}, tn a multiple "
+                         f"of {_FWD_ROWS})")
+    _cuda.check_aligned(nf, "nf", 16)
+
+
 def tcsr_gat_fwd(wn, nf, w_ea, src, dst, emask, meta: TileMeta,
                  self_loops: bool, slope: float = 0.2):
     """Forward kernel wrapper: (out (N, H*D), m (N, H), den (N, H)) f32.
@@ -142,11 +155,7 @@ def tcsr_gat_fwd(wn, nf, w_ea, src, dst, emask, meta: TileMeta,
     N, HD, H, E, n_tiles = _check_cuda("tcsr_gat_fwd", wn, nf, w_ea, src,
                                        dst, emask, meta)
     tn = meta.tn
-    smem = 4 * (tn * HD + 2 * tn * H + _THREADS * (H + 2))
-    if HD > _MAX_HD or smem > _SMEM_LIMIT:
-        raise ValueError(f"tcsr_gat_fwd: tile of {tn} x {HD} needs {smem} B "
-                         f"of shared memory (limit {_SMEM_LIMIT}) and "
-                         f"H*D <= {_MAX_HD}")
+    _check_fwd("tcsr_gat_fwd", nf, H, tn)
     dev = nf.device
     out = torch.empty((N, HD), dtype=torch.float32, device=dev)
     m = torch.empty((N, H), dtype=torch.float32, device=dev)
@@ -386,10 +395,7 @@ def tcsr_gat_ep_fwd(wn, nf, w_ea, src, dst, emask, meta: EPTileMeta,
     (N, HD, H, Ng), (t0, ew, cw) = _check_ep(
         "tcsr_gat_ep_fwd", wn, nf, w_ea, src, dst, emask, meta, rank)
     tn = meta.tn
-    smem = 4 * (tn * HD + 2 * tn * H + _THREADS * (H + 2))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"tcsr_gat_ep_fwd: tile of {tn} x {HD} needs {smem} "
-                         f"B of shared memory (limit {_SMEM_LIMIT})")
+    _check_fwd("tcsr_gat_ep_fwd", nf, H, tn)
     dev = nf.device
     out = torch.empty((Ng, HD), dtype=torch.float32, device=dev)
     m = torch.empty((Ng, H), dtype=torch.float32, device=dev)

@@ -16,7 +16,10 @@ kernels K7-K9 the atom, fconn and frag inputs of phase 16, under the
 dense-attr policy; for K3's forward and backward each shard's bond, atom,
 fconn and frag inputs of phase 20, captured in two spawned ranks of one
 edge-partitioned train step), for the plane builder its bond, fconn and
-atom inputs of chip_smoke.py's batch-512 pretrain batch. A kernel whose
+atom inputs of chip_smoke.py's batch-512 pretrain batch. The TCSR forward
+(K1) and the dense backward (K5) are also timed at that batch's layer-0
+inputs (atom and frag; bond and fconn), captured as phase 13 captures
+them (levels tagged "batch 512"). A kernel whose
 launcher the base does not export (K3 against a version before it) is
 skipped. Both versions are also held
 against the plain version (limit 1e-4 of scale; the plane builder and the
@@ -92,7 +95,8 @@ def main() -> int:
         model = build_model(opt, n_classes=datasets[3],
                             generator=torch.Generator().manual_seed(0))
         model = model.to("cuda").eval()
-        calls = cs.layer0_kernel_calls(opt, model, batch)
+        calls = cs.layer0_kernel_calls(int(opt.finetune.model.num_layer),
+                                       model, batch)
         for name in cs.GAT_KERNELS:
             k = cs.KERNELS[name]
             if k.fwd is not None:
@@ -108,12 +112,24 @@ def main() -> int:
         calls.update({n: [c for c in cl if "seeded" not in c[0]] for n, cl
                       in cs.ep_kernel_calls([r["calls"] for r in res],
                                             rng).items()})
+    big = set(pairs) & set(cs.BIG_KERNELS)
+    if cs.PLANES in pairs or big:
+        popt = cs.pt_opt(cs.PT_OVERRIDES)
+        graphs = cs.PretrainGraphs(popt, workers=os.cpu_count() or 1).get()
     if cs.PLANES in pairs:
-        graphs = cs.PretrainGraphs(cs.pt_opt(cs.PT_OVERRIDES),
-                                   workers=os.cpu_count() or 1).get()
         big_bs = int(cs.PT_CONFIG["pretrain"]["batch_size"])
         calls[cs.PLANES] = [(lvl, a, {}) for lvl, a, _host in
                             cs.plane_calls(graphs, big_bs, "cuda")[0]]
+    if big:
+        from fragnet_tpu_torch.train.pretrain import build_pretrain_model
+
+        pmodel = build_pretrain_model(
+            popt, generator=torch.Generator().manual_seed(0)).to("cuda")
+        for name, cl in cs.pretrain_kernel_calls(
+                popt, pmodel, *cs.pretrain_big_batch(graphs, "cuda"),
+                np.random.default_rng(13)).items():
+            if name in big:
+                calls[name] = calls[name] + cl
 
     summary = []
     for name, kern in pairs.items():

@@ -8,10 +8,13 @@ with an H100 (no JAX needed there, hence ``--noconftest``):
 Inputs are random tile-local graphs made with numpy from a seed, at the
 esol model's head shapes (H = 4, D = 32) and both node tiles the batcher
 uses (128, 256); the backward kernels also get sources outside the
-destination tile (TCSR) and an empty tile. Tolerance: the GAT kernels sum
-in another order than the plain versions (with atomics, in an order that
-varies from run to run), so outputs agree to f32 rounding:
-|k - p| ≤ 1e-4 · max|p|. The plane builder adds at most one value per slot
+destination tile (TCSR) and an empty tile. The forward TCSR kernel (K1)
+and the dense backward (K5) are also held on the seeded cases of
+tests/torch_kernel_cases.py at tn 32, 128, 256 and H 1, 4, 8, and must
+give the same bits twice (they sum in a fixed order). Tolerance: the GAT
+kernels sum in another order than the plain versions (some with atomics,
+in an order that varies from run to run), so outputs agree to f32
+rounding: |k - p| ≤ 1e-4 · max|p|. The plane builder adds at most one value per slot
 on tile-local graphs without repeated pairs, so it is held to equality.
 The dense-attr kernels (K7-K9) are checked at every node tile their
 wrappers take (32, 64, 128, 256), with and without self-loops, on
@@ -27,6 +30,7 @@ import torch
 
 from fragnet_tpu_torch.ops import dense_gat, tcsr_gat
 from fragnet_tpu_torch.ops.tcsr import build_tile_meta
+from torch_kernel_cases import kernel_case
 
 pytestmark = pytest.mark.cuda
 
@@ -517,3 +521,160 @@ def test_tcsr_gat_ep_wrappers_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         tcsr_gat.tcsr_gat_ep_fwd(wn, nf.t().contiguous().t(), w_ea, s, d, m,
                                  meta, r)
+
+
+# --------------------------------------------------------------------------
+# the row-sliced forward TCSR kernel (K1) and the two-role dense backward
+# (K5) on the seeded cases of tests/torch_kernel_cases.py; both sum in a
+# fixed order, so a second call gives the same bits
+# --------------------------------------------------------------------------
+
+def _case_tensors(cuda, case, tn, te):
+    meta = build_tile_meta(case.src, case.dst, case.mask, case.n_nodes,
+                           tn=tn, te=te)
+    assert meta is not None
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    meta_t = dataclasses.replace(meta, ew_blk=T(meta.ew_blk), cw=T(meta.cw),
+                                 sw_tile=T(meta.sw_tile),
+                                 flat_slot=T(meta.flat_slot))
+    return T, meta_t
+
+
+@pytest.mark.parametrize("self_loops", [False, True])
+@pytest.mark.parametrize("H", [1, 4, 8])
+@pytest.mark.parametrize("tn", [32, 128, 256])
+def test_tcsr_gat_fwd_matches_plain_on_cases(cuda, tn, H, self_loops):
+    case = kernel_case(tn + H, tn)
+    T, meta = _case_tensors(cuda, case, tn, 64)
+    N, E, D = case.n_nodes, len(case.src), 32
+    rng = np.random.default_rng(70 + tn + H)
+    draw = lambda *shape: T(rng.standard_normal(shape).astype(np.float32))
+    args = (draw(N, 2 * H), draw(N, H * D), draw(E, H), T(case.src),
+            T(case.dst), T(case.mask), meta, self_loops)
+    n0 = tcsr_gat.KERNEL.launches
+    got = tcsr_gat.tcsr_gat_fwd(*args)
+    again = tcsr_gat.tcsr_gat_fwd(*args)
+    torch.cuda.synchronize()
+    assert tcsr_gat.KERNEL.launches == n0 + 2
+    out_p, m_p, den_p = tcsr_gat.tcsr_gat_fwd_plain(*args)
+    _close(got[0], out_p)
+    _close(got[2], den_p)
+    _close_m(got[1], m_p)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    if not self_loops:
+        out, m, den = got
+        assert float(out[case.empty_row].abs().max()) == 0.0
+        assert float(den[case.empty_row].abs().max()) == 0.0
+        assert bool((m[case.empty_row] == -1e30).all())
+
+
+@pytest.mark.parametrize("R", [1, 6])
+@pytest.mark.parametrize("H", [1, 4, 8])
+@pytest.mark.parametrize("tn", [32, 128, 256])
+def test_dense_gat_bwd_matches_plain_on_cases(cuda, tn, H, R):
+    case = kernel_case(tn + R, tn, tile_local=True)
+    N, E, D = case.n_nodes, len(case.src), 32
+    rng = np.random.default_rng(80 + tn + H + R)
+    planes = dense_gat.build_dense_planes(
+        case.src, case.dst, case.mask,
+        rng.standard_normal((E, R)).astype(np.float32), N, tn=tn)
+    assert planes is not None
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    draw = lambda *shape: T(rng.standard_normal(shape).astype(np.float32))
+    args = (T(planes), draw(N, H), draw(N, H), draw(N, H * D), draw(R + 1, H))
+    out, m, den = dense_gat.dense_gat_fwd_plain(*args)
+    g = draw(N, H * D)
+    s = (g.view(N, H, D) * out.view(N, H, D)).sum(-1)
+    n0 = dense_gat.KERNEL_BWD.launches
+    got = dense_gat.dense_gat_bwd(*args, m, den, g, s)
+    again = dense_gat.dense_gat_bwd(*args, m, den, g, s)
+    torch.cuda.synchronize()
+    assert dense_gat.KERNEL_BWD.launches == n0 + 2
+    want = dense_gat.dense_gat_bwd_plain(*args, m, den, g, s)
+    for k, p in zip(got, want):
+        _close(k, p)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_row_sliced_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    """K1 reads nf in float4 with a block per 8 rows, K5 reads nf and g in
+    float4 and sums a head's D/4 lanes by shuffles: D not a multiple of 4,
+    a tile not a multiple of 8 rows, H*D > 256, D/4 not a power of two and
+    an nf not 16-byte aligned are refused, with no fallback."""
+    case = kernel_case(1, 32)
+    T, meta = _case_tensors(cuda, case, 32, 64)
+    N, E = case.n_nodes, len(case.src)
+    ints = (T(case.src), T(case.dst), T(case.mask))
+
+    def fwd(H, D, meta_=meta, nf=None):
+        nf = torch.zeros((N, H * D), device=cuda) if nf is None else nf
+        return tcsr_gat.tcsr_gat_fwd(torch.zeros((N, 2 * H), device=cuda),
+                                     nf, torch.zeros((E, H), device=cuda),
+                                     *ints, meta_, False)
+
+    fwd(4, 32)  # taken
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fwd(4, 6)
+    with pytest.raises(ValueError, match="H\\*D <= 256"):
+        fwd(8, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        fwd(4, 32, nf=torch.zeros(N * 128 + 1, device=cuda)[1:].view(N, 128))
+    meta20 = dataclasses.replace(
+        build_tile_meta(np.zeros(40, np.int32), np.zeros(40, np.int32),
+                        np.zeros(40, np.float32), 40, tn=20, te=20),
+        ew_blk=torch.zeros(2, dtype=torch.int32, device=cuda),
+        cw=torch.ones(2, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="tn=20"):
+        tcsr_gat.tcsr_gat_fwd(torch.zeros((40, 8), device=cuda),
+                              torch.zeros((40, 128), device=cuda),
+                              torch.zeros((40, 4), device=cuda),
+                              *(t[:40] for t in ints), meta20, False)
+
+    tn = 32
+
+    def bwd(H, D, nf=None):
+        planes = torch.zeros((1, 2 * tn, tn), device=cuda)
+        z = lambda *shape: torch.zeros(shape, device=cuda)
+        nf = z(tn, H * D) if nf is None else nf
+        return dense_gat.dense_gat_bwd(planes, z(tn, H), z(tn, H), nf,
+                                       z(2, H), z(tn, H), z(tn, H),
+                                       z(tn, H * D), z(tn, H))
+
+    bwd(4, 32)  # taken
+    for H, D in ((4, 6), (2, 12), (8, 64)):
+        with pytest.raises(ValueError, match="unsupported"):
+            bwd(H, D)
+    with pytest.raises(ValueError, match="aligned"):
+        bwd(4, 32, nf=torch.zeros(tn * 128 + 1, device=cuda)[1:].view(tn, 128))
+
+
+@pytest.mark.parametrize("H,D", [(4, 32), (8, 32), (2, 8)])
+def test_dense_gat_bwd_cancels_exactly_with_one_neighbour(cuda, H, D):
+    """A row with one neighbour has P = 1 and out = nf[j], so its d_zpre =
+    g·nf[j] − s is 0 in exact arithmetic. With s summed in the kernel's
+    order (dense_gat.head_dot) it is 0 on the card too: d_wd, d_ws and d_vc
+    are exactly 0, not round-off, while d_nf = g[i] at j."""
+    rng = np.random.default_rng(90 + H + D)
+    tn, n_tiles, R = 128, 2, 1
+    N = tn * n_tiles
+    src = np.concatenate([t * tn + rng.permutation(tn)
+                          for t in range(n_tiles)]).astype(np.int32)
+    dst = np.arange(N, dtype=np.int32)
+    mask = np.ones(N, np.float32)
+    planes = dense_gat.build_dense_planes(
+        src, dst, mask, rng.standard_normal((N, R)).astype(np.float32), N,
+        tn=tn)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    draw = lambda *shape: T(rng.standard_normal(shape).astype(np.float32))
+    args = (T(planes), draw(N, H), draw(N, H), draw(N, H * D), draw(R + 1, H))
+    out, m, den = dense_gat.dense_gat_fwd(*args)
+    g = draw(N, H * D)
+    d_wd, d_ws, d_nf, d_vc = dense_gat.dense_gat_bwd(
+        *args, m, den, g, dense_gat.head_dot(g, out, H))
+    torch.cuda.synchronize()
+    for k in (d_wd, d_ws, d_vc):
+        assert float(k.abs().max()) == 0.0
+    assert torch.equal(out, args[3][T(src).long()])
+    _close(d_nf[T(src).long()], g)
