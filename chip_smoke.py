@@ -563,9 +563,12 @@ def _dense_cost(args):
     N, H = wd.shape
     HD = nf.shape[1]
     nnz = int((planes.view(T, R + 1, tn, tn)[:, 0] > 0).sum())
-    nbytes = 4 * (planes.numel() + 2 * N * H + N * HD + vc.numel()
+    # inputs read once: the adjacency planes, the nonzeros' R attribute
+    # values (the attribute planes hold nothing else), wd, ws, nf, vc;
+    # outputs written once: out, m, den. Work at the nonzeros only
+    nbytes = 4 * (T * tn * tn + nnz * R + 2 * N * H + N * HD + vc.numel()
                   + N * (HD + 2 * H))
-    flops = T * tn * tn * H * (2 * R + 4) + 2 * nnz * HD
+    flops = nnz * H * (2 * R + 4) + 2 * nnz * HD
     return nbytes, flops
 
 
@@ -627,9 +630,12 @@ def _dense_bwd_cost(args):
     HD = nf.shape[1]
     D = HD // H
     nnz = int((planes.view(T, R + 1, tn, tn)[:, 0] > 0).sum())
-    nbytes = 4 * (planes.numel() + 5 * N * H + 2 * N * HD + vc.numel()
-                  + 2 * N * H + N * HD + vc.numel())
-    flops = T * tn * tn * H * (2 * R + 6) + nnz * H * (4 * D + 2 * R + 6)
+    # inputs read once: the adjacency planes, the nonzeros' R attribute
+    # values, wd, ws, m, den, s, nf, g, vc; outputs written once: d_wd,
+    # d_ws, d_nf, d_vc. Work at the nonzeros only
+    nbytes = 4 * (T * tn * tn + nnz * R + 5 * N * H + 2 * N * HD
+                  + vc.numel() + 2 * N * H + N * HD + vc.numel())
+    flops = nnz * H * (4 * D + 2 * R + 6)
     return nbytes, flops
 
 
@@ -1363,9 +1369,13 @@ def timed_pretrain_step(popt, calls_buf, dev):
                       for k, v in stages.items()))
     import numpy as np
 
+    t0 = time.perf_counter()
     rng = np.random.default_rng(13)
     calls = pretrain_kernel_calls(popt, model, buf, layout, rng)
-    return check_kernels(BIG_KERNELS, calls, rng)
+    report = check_kernels(BIG_KERNELS, calls, rng)
+    print(f"K1 and K5 at batch 512 (capture, check against plain, timing): "
+          f"{time.perf_counter() - t0:.1f} s of phase 13")
+    return report
 
 
 def pretrain_grads_card_vs_cpu(popt, pgraphs, ckpt, dev):
@@ -2173,7 +2183,9 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _cuda.build_all([_counter(n)[1] for n in KERNELS], force=True)
     print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"({len(logs)} sources, nvcc in parallel)")
+          f"({len(logs)} sources, nvcc in parallel); per source: "
+          + ", ".join(f"{src} {sec:.1f} s"
+                      for src, sec in _cuda.BUILD_SECONDS.items()))
     for src, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:

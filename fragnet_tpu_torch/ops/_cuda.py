@@ -22,6 +22,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Sequence
 
 import torch
@@ -35,6 +37,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # every CudaKernel of the port's own sources, in the order of definition
 REGISTRY: List["CudaKernel"] = []
+# seconds each source's last nvcc took, by source file name
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -114,15 +118,22 @@ def _run_builds(kernels: Sequence[CudaKernel]) -> Dict[str, str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = []
     by_so = {k.so_path(): k for k in kernels}
+    t0 = time.perf_counter()
     for so, k in by_so.items():
         tmp = f"{so}.{os.getpid()}.tmp"
         procs.append((k, so, tmp, subprocess.Popen(
             k.compile_command(tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)))
+    # each compiler's output drained on its own thread, so that each
+    # source's time is its own and not its wait behind the others
+    def drain(p):
+        return p.communicate()[0], time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(procs)) as pool:
+        outs = list(pool.map(drain, [p for *_, p in procs]))
     logs, failed = {}, []
-    for k, so, tmp, p in procs:
-        out, _ = p.communicate()
-        logs[k.source] = out
+    for (k, so, tmp, p), (out, sec) in zip(procs, outs):
+        logs[k.source], BUILD_SECONDS[k.source] = out, sec
         if p.returncode != 0:
             failed.append(f"{k.source}:\n{out}")
             continue

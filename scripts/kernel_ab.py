@@ -39,13 +39,110 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def capture_calls(names):
+    """{kernel: [(level, args, kwargs)]} for the kernels ``names``: their
+    inputs at the levels chip_smoke.py holds them at (see the module's
+    docstring), on the card."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from fragnet_tpu_torch.graphs.batch import to_device
+    from fragnet_tpu_torch.train.finetune import build_model, load_datasets
+
+    calls = {}
+    gat = set(cs.GAT_KERNELS) | set(cs.ATTR_KERNELS) | set(cs.EP_KERNELS)
+    if names & gat:
+        opt = cs.smoke_opt()
+        datasets = load_datasets(opt)
+        _spec, _windows, batch_np = cs.smoke_batch(opt, datasets)
+        batch = to_device(batch_np, "cuda")
+        rng = np.random.default_rng(0)
+    if names & set(cs.GAT_KERNELS):
+        model = build_model(opt, n_classes=datasets[3],
+                            generator=torch.Generator().manual_seed(0))
+        model = model.to("cuda").eval()
+        calls = cs.layer0_kernel_calls(int(opt.finetune.model.num_layer),
+                                       model, batch)
+        for name in cs.GAT_KERNELS:
+            k = cs.KERNELS[name]
+            if k.fwd is not None:
+                calls[name] = [(lvl, cs.bwd_kernel_args(k.fwd, a, kw, rng),
+                                {}) for lvl, a, kw in calls[k.fwd]]
+    if names & set(cs.ATTR_KERNELS):
+        calls.update({n: [c for c in cl if "seeded" not in c[0]] for n, cl
+                      in cs.attr_kernel_calls(datasets[3], batch,
+                                              rng).items()})
+    if names & set(cs.EP_KERNELS):
+        kw, sd = cs.smoke_weights(datasets)
+        res = cs.ep_step_ranks(kw, sd, cs.ep_train_batch(datasets)[1])
+        calls.update({n: [c for c in cl if "seeded" not in c[0]] for n, cl
+                      in cs.ep_kernel_calls([r["calls"] for r in res],
+                                            rng).items()})
+    big = names & set(cs.BIG_KERNELS)
+    if cs.PLANES in names or big:
+        popt = cs.pt_opt(cs.PT_OVERRIDES)
+        graphs = cs.PretrainGraphs(popt, workers=os.cpu_count() or 1).get()
+    if cs.PLANES in names:
+        big_bs = int(cs.PT_CONFIG["pretrain"]["batch_size"])
+        calls[cs.PLANES] = [(lvl, a, {}) for lvl, a, _host in
+                            cs.plane_calls(graphs, big_bs, "cuda")[0]]
+    if big:
+        from fragnet_tpu_torch.train.pretrain import build_pretrain_model
+
+        pmodel = build_pretrain_model(
+            popt, generator=torch.Generator().manual_seed(0)).to("cuda")
+        for name, cl in cs.pretrain_kernel_calls(
+                popt, pmodel, *cs.pretrain_big_batch(graphs, "cuda"),
+                np.random.default_rng(13)).items():
+            if name in big:
+                calls[name] = calls[name] + cl
+
+    return calls
+
+
+def version_errors(mod, attr, kernel, fn, want, floor):
+    """Each output's error relative to its scale (chip_smoke._diff) when
+    ``fn`` runs with ``kernel`` in place of the wrapper's module attribute
+    ``attr``; the wrapper's own kernel is put back after."""
+    import chip_smoke as cs
+
+    keep = getattr(mod, attr)
+    try:
+        setattr(mod, attr, kernel)
+        return [cs._diff(k, p, floor)[1]
+                for k, p in zip(cs._outputs(fn()), want)]
+    finally:
+        setattr(mod, attr, keep)
+
+
+def time_turns(mod, attr, versions, fn, rounds):
+    """{version: [device ms per turn]}: ``fn``'s device time (50 calls,
+    chip_smoke._device_ms) with each of ``versions`` ({name: CudaKernel})
+    in place of the wrapper's kernel, in turns: the versions in order,
+    then in reverse (for two: base, change, change, base), ``rounds``
+    times. The wrapper's own kernel is put back after."""
+    import chip_smoke as cs
+
+    order = list(versions) + list(versions)[::-1]
+    times = {v: [] for v in versions}
+    keep = getattr(mod, attr)
+    try:
+        for _ in range(rounds):
+            for which in order:
+                setattr(mod, attr, versions[which])
+                times[which].append(cs._device_ms(fn))
+    finally:
+        setattr(mod, attr, keep)
+    return times
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("base_csrc")
     ap.add_argument("--rounds", type=int, default=5)
     args = ap.parse_args()
 
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -53,9 +150,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     import chip_smoke as cs
-    from fragnet_tpu_torch.graphs.batch import to_device
     from fragnet_tpu_torch.ops import _cuda
-    from fragnet_tpu_torch.train.finetune import build_model, load_datasets
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -83,53 +178,7 @@ def main() -> int:
     _cuda.build_all([k for p in pairs.values() for k in p.values()],
                     force=True)
 
-    calls = {}
-    gat = set(cs.GAT_KERNELS) | set(cs.ATTR_KERNELS) | set(cs.EP_KERNELS)
-    if set(pairs) & gat:
-        opt = cs.smoke_opt()
-        datasets = load_datasets(opt)
-        _spec, _windows, batch_np = cs.smoke_batch(opt, datasets)
-        batch = to_device(batch_np, "cuda")
-        rng = np.random.default_rng(0)
-    if set(pairs) & set(cs.GAT_KERNELS):
-        model = build_model(opt, n_classes=datasets[3],
-                            generator=torch.Generator().manual_seed(0))
-        model = model.to("cuda").eval()
-        calls = cs.layer0_kernel_calls(int(opt.finetune.model.num_layer),
-                                       model, batch)
-        for name in cs.GAT_KERNELS:
-            k = cs.KERNELS[name]
-            if k.fwd is not None:
-                calls[name] = [(lvl, cs.bwd_kernel_args(k.fwd, a, kw, rng),
-                                {}) for lvl, a, kw in calls[k.fwd]]
-    if set(pairs) & set(cs.ATTR_KERNELS):
-        calls.update({n: [c for c in cl if "seeded" not in c[0]] for n, cl
-                      in cs.attr_kernel_calls(datasets[3], batch,
-                                              rng).items()})
-    if set(pairs) & set(cs.EP_KERNELS):
-        kw, sd = cs.smoke_weights(datasets)
-        res = cs.ep_step_ranks(kw, sd, cs.ep_train_batch(datasets)[1])
-        calls.update({n: [c for c in cl if "seeded" not in c[0]] for n, cl
-                      in cs.ep_kernel_calls([r["calls"] for r in res],
-                                            rng).items()})
-    big = set(pairs) & set(cs.BIG_KERNELS)
-    if cs.PLANES in pairs or big:
-        popt = cs.pt_opt(cs.PT_OVERRIDES)
-        graphs = cs.PretrainGraphs(popt, workers=os.cpu_count() or 1).get()
-    if cs.PLANES in pairs:
-        big_bs = int(cs.PT_CONFIG["pretrain"]["batch_size"])
-        calls[cs.PLANES] = [(lvl, a, {}) for lvl, a, _host in
-                            cs.plane_calls(graphs, big_bs, "cuda")[0]]
-    if big:
-        from fragnet_tpu_torch.train.pretrain import build_pretrain_model
-
-        pmodel = build_pretrain_model(
-            popt, generator=torch.Generator().manual_seed(0)).to("cuda")
-        for name, cl in cs.pretrain_kernel_calls(
-                popt, pmodel, *cs.pretrain_big_batch(graphs, "cuda"),
-                np.random.default_rng(13)).items():
-            if name in big:
-                calls[name] = calls[name] + cl
+    calls = capture_calls(set(pairs))
 
     summary = []
     for name, kern in pairs.items():
@@ -139,26 +188,16 @@ def main() -> int:
         plain = getattr(mod, cs.KERNELS[name].plain)
         for lvl, a, kw in calls[name]:
             want = cs._outputs(plain(*a, **kw))
-            times = {"base": [], "change": []}
-            try:
-                for which in ("base", "change"):
-                    setattr(mod, attr, kern[which])
-                    floor = cs._scale_floor(name, a)
-                    rel = max(cs._diff(k, p, floor)[1]
-                              for k, p in zip(cs._outputs(wrapper(*a, **kw)),
-                                              want))
-                    limit = (0.0 if name in (cs.PLANES, cs.EMIT)
-                             else cs.REL_LIMIT)
-                    if rel > limit:
-                        raise AssertionError(f"{name} [{lvl}] {which}: "
-                                             f"rel {rel:.3e}")
-                for _ in range(args.rounds):
-                    for which in ("base", "change", "change", "base"):
-                        setattr(mod, attr, kern[which])
-                        times[which].append(
-                            cs._device_ms(lambda: wrapper(*a, **kw)))
-            finally:
-                setattr(mod, attr, kern["change"])
+            limit = 0.0 if name in (cs.PLANES, cs.EMIT) else cs.REL_LIMIT
+            for which in ("base", "change"):
+                rel = max(version_errors(mod, attr, kern[which],
+                                         lambda: wrapper(*a, **kw), want,
+                                         cs._scale_floor(name, a)))
+                if rel > limit:
+                    raise AssertionError(f"{name} [{lvl}] {which}: "
+                                         f"rel {rel:.3e}")
+            times = time_turns(mod, attr, kern, lambda: wrapper(*a, **kw),
+                               args.rounds)
             med = {k: statistics.median(v) for k, v in times.items()}
             wins = sum(c < b for b, c in zip(times["base"], times["change"]))
             print(f"{name} [{lvl}]: base {med['base']:.4f} ms, change "

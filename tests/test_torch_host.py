@@ -164,3 +164,32 @@ def test_port_sources_import_no_jax():
                 continue
             for m in mods:
                 assert m.split(".")[0] not in banned, f"{p}: imports {m}"
+
+
+def test_builds_time_each_source_on_its_own(tmp_path, monkeypatch):
+    """build_all starts one compiler per source at once and records each
+    source's own time: a quick source is not charged the time of a slow
+    one started beside it. The compiler here is a stand-in that sleeps
+    and writes the library file."""
+    from fragnet_tpu_torch.ops import _cuda
+
+    monkeypatch.setattr(_cuda, "BUILD_DIR", str(tmp_path / "build"))
+    delays = {"slow.cu": 3.0, "quick.cu": 0.0}
+
+    class FakeCompiler(_cuda.CudaKernel):
+        def compile_command(self, out):
+            return [sys.executable, "-c",
+                    f"import time; time.sleep({delays[self.source]}); "
+                    f"open({out!r}, 'w').write('lib'); print('ptxas info')"]
+
+    for name in delays:
+        (tmp_path / name).write_text(f"// {name}\n")
+    kernels = [FakeCompiler(n, "f", [], csrc=str(tmp_path)) for n in delays]
+    assert not any(k in _cuda.REGISTRY for k in kernels)
+    logs = _cuda.build_all(kernels)
+    assert sorted(logs) == sorted(delays)
+    assert all("ptxas" in log for log in logs.values())
+    assert all(os.path.exists(k.so_path()) for k in kernels)
+    assert _cuda.BUILD_SECONDS["slow.cu"] >= 3.0
+    assert _cuda.BUILD_SECONDS["quick.cu"] < 2.5
+    assert _cuda.build_all(kernels) == {}  # built: nothing to do
