@@ -71,10 +71,11 @@ the packed transport. Phases:
  13. one pretrain train step at batch 512 from a packed buffer on the
      card: wall time, stages each ended by a synchronize (unpack without
      planes, K6 planes, forward + loss, backward, Adam), device busy time,
-     top ops and K6's share; then the TCSR forward (K1, atom and frag) and
-     the dense backward (K5, bond and fconn) against their plain versions
-     at this step's layer-0 inputs, checked and timed as in phase 4 (their
-     levels tagged "batch 512" in the kernels' line);
+     top ops and K6's share; then the TCSR forward and backward (K1, K2:
+     atom and frag) and the dense forward and backward (K4, K5: bond and
+     fconn) against their plain versions at this step's layer-0 inputs,
+     checked and timed as in phase 4 (their levels tagged "batch 512" in
+     the kernels' line);
  14. one pretrain step's loss and gradients, card (packed buffer decoded
      there, K6 planes) vs CPU (host batch, host planes), same weights (the
      run's checkpoint), dropout off: within 1e-3 of each scale;
@@ -1266,16 +1267,18 @@ def pretrain_big_batch(pgraphs, dev):
 
 # the kernels phase 13 also holds against their plain versions and times
 # at the batch-512 pretraining shapes
-BIG_KERNELS = ("tcsr_gat_fwd", "dense_gat_bwd")
+BIG_KERNELS = ("tcsr_gat_fwd", "tcsr_gat_bwd", "dense_gat_fwd",
+               "dense_gat_bwd")
 
 
 def pretrain_kernel_calls(popt, model, buf, layout, rng):
-    """K1's and K5's inputs at the batch-512 pretraining shapes:
-    {kernel: [(level, args, kwargs)]} from layer 0 of one forward of the
-    pretrain ``model`` on the packed ``buf`` decoded on its device (K6
-    planes) — the TCSR forward's atom and frag calls, and K5's arguments
-    built from the dense forward's bond and fconn calls as phase 4 builds
-    them. Levels are tagged "batch 512"."""
+    """K1's, K2's, K4's and K5's inputs at the batch-512 pretraining
+    shapes: {kernel: [(level, args, kwargs)]} from layer 0 of one forward of
+    the pretrain ``model`` on the packed ``buf`` decoded on its device (K6
+    planes) — the TCSR forward's atom and frag calls and the dense
+    forward's bond and fconn calls, and the backward kernels' arguments
+    built from them as phase 4 builds them. Levels are tagged "batch
+    512"."""
     from fragnet_tpu_torch.data.packing import (add_planes, plane_levels,
                                                 unpack_batch)
 
@@ -1286,20 +1289,23 @@ def pretrain_kernel_calls(popt, model, buf, layout, rng):
     calls = layer0_kernel_calls(int(popt.pretrain.model.num_layer), model,
                                 batch)
     model.train(was)
-    return {"tcsr_gat_fwd": [(f"{lvl}, batch 512", a, kw) for lvl, a, kw
-                             in calls["tcsr_gat_fwd"]],
-            "dense_gat_bwd": [(f"{lvl}, batch 512",
-                               bwd_kernel_args("dense_gat_fwd", a, kw, rng),
-                               {}) for lvl, a, kw in calls["dense_gat_fwd"]]}
+    out = {}
+    for name in BIG_KERNELS:
+        fwd = KERNELS[name].fwd
+        out[name] = [(f"{lvl}, batch 512",
+                      a if fwd is None else bwd_kernel_args(fwd, a, kw, rng),
+                      kw if fwd is None else {})
+                     for lvl, a, kw in calls[fwd or name]]
+    return out
 
 
 def timed_pretrain_step(popt, calls_buf, dev):
     """Phase 13: one pretrain train step at batch 512 from a packed buffer
     on the card — wall time (median of 5 after a warm-up), its stages each
     ended by a synchronize, and one step's device busy time and top ops
-    with the plane builder's share; then K1 and K5 against their plain
-    versions at this step's layer-0 inputs, timed as in phase 4. Returns
-    their per-level reports ({kernel: (levels, 0.0)})."""
+    with the plane builder's share; then K1, K2, K4 and K5 against their
+    plain versions at this step's layer-0 inputs, timed as in phase 4.
+    Returns their per-level reports ({kernel: (levels, 0.0)})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1373,7 +1379,8 @@ def timed_pretrain_step(popt, calls_buf, dev):
     rng = np.random.default_rng(13)
     calls = pretrain_kernel_calls(popt, model, buf, layout, rng)
     report = check_kernels(BIG_KERNELS, calls, rng)
-    print(f"K1 and K5 at batch 512 (capture, check against plain, timing): "
+    print(f"K1, K2, K4 and K5 at batch 512 (capture, check against plain, "
+          f"timing): "
           f"{time.perf_counter() - t0:.1f} s of phase 13")
     return report
 
@@ -1447,7 +1454,7 @@ def pretrain_phases(dev, pending, datasets):
     """Phases 10-15: the pretraining path. ``pending`` is the PretrainGraphs
     featurizing the config's synthetic set. Returns (the plane builder's
     per-level report, each kernel's launches on the pretraining path, the
-    graphs, K1's and K5's per-level reports at batch 512)."""
+    graphs, the BIG_KERNELS' per-level reports at batch 512)."""
     import torch
 
     from fragnet_tpu_torch.train.finetune import run_finetune

@@ -71,7 +71,6 @@ KERNEL_ATTR_EMIT = _cuda.CudaKernel(
 
 _KERNEL_H = (1, 2, 4, 8)
 _KERNEL_TN = (32, 64, 128, 256)
-_SMEM_LIMIT = 232448
 
 
 # --------------------------------------------------------------------------
@@ -260,10 +259,14 @@ def dense_gat_fwd(planes, wd, ws, nf, vc, slope: float = 0.2):
     if nf.device.type == "cpu":
         return dense_gat_fwd_plain(planes, wd, ws, nf, vc, slope)
     T, tn, R, N, H, HD = _check_cuda("dense_gat_fwd", planes, wd, ws, nf, vc)
-    smem = 4 * (tn * HD + 2 * tn * H + 2 * (R + 1) * H)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"dense_gat_fwd: tile of {tn} x {HD} needs {smem} B "
-                         f"of shared memory (limit {_SMEM_LIMIT})")
+    # lanes read the adjacency rows and nf in float4, a lane's four columns
+    # in one head
+    D = HD // H
+    if D % 4 or HD > 256:
+        raise ValueError(f"dense_gat_fwd: H={H} D={D} unsupported (D a "
+                         f"multiple of 4, H*D <= 256)")
+    _cuda.check_aligned(planes, "planes", 16)
+    _cuda.check_aligned(nf, "nf", 16)
     dev = nf.device
     f32 = torch.float32
     out = torch.empty((N, HD), dtype=f32, device=dev)

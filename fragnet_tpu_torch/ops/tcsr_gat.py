@@ -50,13 +50,12 @@ KERNEL = _cuda.CudaKernel(
     [_VP] * 11 + [_I] * 6 + [ctypes.c_float, _VP])
 KERNEL_BWD = _cuda.CudaKernel(
     "tcsr_gat_bwd.cu", "tcsr_gat_bwd",
-    [_VP] * 15 + [_I] * 6 + [ctypes.c_float, _VP])
+    [_VP] * 16 + [_I] * 8 + [ctypes.c_float, _VP])
 
-# the widest row the kernels take (H*D, lanes of float4 in the forward, 32
-# * kMaxCols in the backward) and the forward's rows per block
-# (csrc/tcsr_gat_fwd.cu kRows)
+# the widest row the kernels take (H*D, lanes of float4) and their rows per
+# block (csrc/tcsr_gat_fwd.cu, csrc/tcsr_gat_bwd.cu kRows)
 _MAX_HD = 256
-_FWD_ROWS = 8
+_ROWS = 8
 
 
 def prologue(nf: torch.Tensor, ea: torch.Tensor, a: torch.Tensor
@@ -132,13 +131,13 @@ def _check_cuda(name, wn, nf, w_ea, src, dst, emask, meta: TileMeta,
 def _check_fwd(name, nf, H: int, tn: int):
     """Raise unless the forward kernel (csrc/tcsr_gat_fwd.cu) takes this row
     width and tile: lanes read nf in float4 (D a multiple of 4, nf 16-byte
-    aligned, H*D <= 256) and a block takes _FWD_ROWS rows of a tile."""
+    aligned, H*D <= 256) and a block takes _ROWS rows of a tile."""
     HD = nf.shape[1]
     D = HD // H
-    if D % 4 or HD > _MAX_HD or tn % _FWD_ROWS:
+    if D % 4 or HD > _MAX_HD or tn % _ROWS:
         raise ValueError(f"{name}: H={H} D={D} tn={tn} unsupported (D a "
                          f"multiple of 4, H*D <= {_MAX_HD}, tn a multiple "
-                         f"of {_FWD_ROWS})")
+                         f"of {_ROWS})")
     _cuda.check_aligned(nf, "nf", 16)
 
 
@@ -204,34 +203,50 @@ def tcsr_gat_bwd_plain(wn, nf, w_ea, src, dst, emask, meta: TileMeta, m, den,
     return torch.cat([d_dst, d_src], dim=1), d_nf.reshape(N, HD), d_w_ea
 
 
+def _check_bwd(name, nf, g, H: int, tn: int):
+    """Raise unless the backward kernel (csrc/tcsr_gat_bwd.cu) takes this
+    row width and tile: lanes read nf and g in float4 and sum a head's D/4
+    lanes by shuffles (D/4 a power of two up to 32, H*D <= 256, both 16-byte
+    aligned), and a block takes _ROWS rows."""
+    HD = nf.shape[1]
+    D = HD // H
+    if D % 4 or D // 4 not in (1, 2, 4, 8, 16, 32) or HD > _MAX_HD \
+            or tn % _ROWS:
+        raise ValueError(f"{name}: H={H} D={D} tn={tn} unsupported (D in 4, "
+                         f"8, ..., 128; H*D <= {_MAX_HD}; tn a multiple of "
+                         f"{_ROWS})")
+    _cuda.check_aligned(nf, "nf", 16)
+    _cuda.check_aligned(g, "g", 16)
+
+
 def tcsr_gat_bwd(wn, nf, w_ea, src, dst, emask, meta: TileMeta, m, den, g, s,
                  self_loops: bool, slope: float = 0.2):
     """Backward kernel wrapper: (d_wn (N, 2H), d_nf (N, H*D), d_w_ea (E, H))
     f32, from the forward's inputs, its (m, den), the cotangent ``g`` (N,
-    H*D) of out and ``s`` (N, H) = Σ_d g·out. Masked edges get exactly 0."""
+    H*D) of out and ``s`` (N, H) = Σ_d g·out. Masked edges get exactly 0.
+    ``meta`` holds ``ew_blk``, ``cw`` and ``sw_tile`` (n_tiles,) int32
+    tensors on the same device; the kernel writes every output element."""
     if nf.device.type == "cpu":
         return tcsr_gat_bwd_plain(wn, nf, w_ea, src, dst, emask, meta, m, den,
                                   g, s, self_loops, slope)
-    f32 = torch.float32
+    f32, i32 = torch.float32, torch.int32
     NH = (nf.shape[0], wn.shape[1] // 2)
     N, HD, H, E, n_tiles = _check_cuda(
         "tcsr_gat_bwd", wn, nf, w_ea, src, dst, emask, meta,
         extra=(("m", m, f32, NH), ("den", den, f32, NH),
-               ("g", g, f32, tuple(nf.shape)), ("s", s, f32, NH)))
-    D = HD // H
-    if HD > _MAX_HD or H > 32 or not (32 % D == 0 if D <= 32
-                                      else D % 32 == 0):
-        raise ValueError(f"tcsr_gat_bwd: H={H} D={D} unsupported (H*D <= "
-                         f"{_MAX_HD}; D a divisor or a multiple of 32)")
+               ("g", g, f32, tuple(nf.shape)), ("s", s, f32, NH),
+               ("sw_tile", meta.sw_tile, i32, (nf.shape[0] // meta.tn,))))
+    _check_bwd("tcsr_gat_bwd", nf, g, H, meta.tn)
     dev = nf.device
-    d_wn = torch.zeros((N, 2 * H), dtype=f32, device=dev)
-    d_nf = torch.zeros((N, HD), dtype=f32, device=dev)
-    d_w_ea = torch.zeros((E, H), dtype=f32, device=dev)
+    d_wn = torch.empty((N, 2 * H), dtype=f32, device=dev)
+    d_nf = torch.empty((N, HD), dtype=f32, device=dev)
+    d_w_ea = torch.empty((E, H), dtype=f32, device=dev)
     P = _cuda.ptr
     KERNEL_BWD.launch(P(wn), P(nf), P(w_ea), P(src), P(dst), P(emask),
-                      P(meta.ew_blk), P(meta.cw), P(m), P(den), P(g), P(s),
-                      P(d_wn), P(d_nf), P(d_w_ea), n_tiles, meta.tn, meta.te,
-                      H, D, int(bool(self_loops)), ctypes.c_float(slope),
+                      P(meta.ew_blk), P(meta.cw), P(meta.sw_tile), P(m),
+                      P(den), P(g), P(s), P(d_wn), P(d_nf), P(d_w_ea),
+                      n_tiles, E, meta.tn, meta.te, meta.k_src, H, HD // H,
+                      int(bool(self_loops)), ctypes.c_float(slope),
                       _cuda.stream_ptr(dev))
     return d_wn, d_nf, d_w_ea
 
@@ -333,7 +348,7 @@ KERNEL_EP = _cuda.CudaKernel(
     [_VP] * 12 + [_I] * 5 + [ctypes.c_float, _VP])
 KERNEL_EP_BWD = _cuda.CudaKernel(
     "tcsr_gat_bwd.cu", "tcsr_gat_ep_bwd",
-    [_VP] * 16 + [_I] * 5 + [ctypes.c_float, _VP])
+    [_VP] * 17 + [_I] * 8 + [ctypes.c_float, _VP])
 
 
 def _grid_rows(meta: EPTileMeta, rank: int) -> Tuple[int, int]:
@@ -357,7 +372,7 @@ def tcsr_gat_ep_fwd_plain(wn, nf, w_ea, src, dst, emask, meta: EPTileMeta,
 def _check_ep(name, wn, nf, w_ea, src, dst, emask, meta: EPTileMeta,
               rank: int, extra=()):
     """Raise unless K3 takes these tensors; returns (N, HD, H, Ng) and the
-    shard's (t0, ew_blk, cw) rows."""
+    shard's (t0, ew_blk, cw, sw_tile) rows."""
     if nf.device.type != "cuda":
         raise ValueError(f"no {name} kernel for device {nf.device}")
     N, HD = nf.shape
@@ -376,10 +391,11 @@ def _check_ep(name, wn, nf, w_ea, src, dst, emask, meta: EPTileMeta,
             ("dst", dst, i32, (Es,)), ("emask", emask, f32, (Es,)),
             ("t0", meta.t0, i32, (S, 1)), ("ew_blk", meta.ew_blk, i32,
                                             (S, Tg)),
-            ("cw", meta.cw, i32, (S, Tg))) + tuple(extra):
+            ("cw", meta.cw, i32, (S, Tg)),
+            ("sw_tile", meta.sw_tile, i32, (S, Tg))) + tuple(extra):
         _cuda.check(t, arg, dt, shape, nf.device)
     return (N, HD, H, Tg * tn), (meta.t0[rank], meta.ew_blk[rank],
-                                  meta.cw[rank])
+                                  meta.cw[rank], meta.sw_tile[rank])
 
 
 def tcsr_gat_ep_fwd(wn, nf, w_ea, src, dst, emask, meta: EPTileMeta,
@@ -392,7 +408,7 @@ def tcsr_gat_ep_fwd(wn, nf, w_ea, src, dst, emask, meta: EPTileMeta,
     if nf.device.type == "cpu":
         return tcsr_gat_ep_fwd_plain(wn, nf, w_ea, src, dst, emask, meta,
                                      rank, slope)
-    (N, HD, H, Ng), (t0, ew, cw) = _check_ep(
+    (N, HD, H, Ng), (t0, ew, cw, _sw) = _check_ep(
         "tcsr_gat_ep_fwd", wn, nf, w_ea, src, dst, emask, meta, rank)
     tn = meta.tn
     _check_fwd("tcsr_gat_ep_fwd", nf, H, tn)
@@ -436,32 +452,32 @@ def tcsr_gat_ep_bwd(wn, nf, w_ea, src, dst, emask, meta: EPTileMeta,
     """K3 backward wrapper: (d_wn (N, 2H), d_nf (N, H*D), d_w_ea (Es, H))
     f32, the gradient of shard ``rank``'s U, V for the cotangents ``dU``
     (Ng, H*D) and ``dV`` (Ng, H) given the global max ``m`` (Ng, H) at its
-    grid rows. Masked edges get exactly 0."""
+    grid rows. Masked edges get exactly 0; the kernel writes every output
+    element."""
     if nf.device.type == "cpu":
         return tcsr_gat_ep_bwd_plain(wn, nf, w_ea, src, dst, emask, meta,
                                      rank, m, dU, dV, slope)
     f32 = torch.float32
     Ng, H, HD = meta.n_tiles_grid * meta.tn, wn.shape[1] // 2, nf.shape[1]
-    (N, HD, H, Ng), (t0, ew, cw) = _check_ep(
+    (N, HD, H, Ng), (t0, ew, cw, sw) = _check_ep(
         "tcsr_gat_ep_bwd", wn, nf, w_ea, src, dst, emask, meta, rank,
         extra=(("m", m, f32, (Ng, H)), ("dU", dU, f32, (Ng, HD)),
                ("dV", dV, f32, (Ng, H))))
-    D = HD // H
-    if H > 32 or not (32 % D == 0 if D <= 32 else D % 32 == 0):
-        raise ValueError(f"tcsr_gat_ep_bwd: H={H} D={D} unsupported (D a "
-                         f"divisor or a multiple of 32)")
+    _check_bwd("tcsr_gat_ep_bwd", nf, dU, H, meta.tn)
     dev = nf.device
+    Es = src.shape[0]
     ones = torch.ones((Ng, H), dtype=f32, device=dev)
     neg_dv = -dV
-    d_wn = torch.zeros((N, 2 * H), dtype=f32, device=dev)
-    d_nf = torch.zeros((N, HD), dtype=f32, device=dev)
-    d_w_ea = torch.zeros((src.shape[0], H), dtype=f32, device=dev)
+    d_wn = torch.empty((N, 2 * H), dtype=f32, device=dev)
+    d_nf = torch.empty((N, HD), dtype=f32, device=dev)
+    d_w_ea = torch.empty((Es, H), dtype=f32, device=dev)
     P = _cuda.ptr
     KERNEL_EP_BWD.launch(P(wn), P(nf), P(w_ea), P(src), P(dst), P(emask),
-                         P(t0), P(ew), P(cw), P(m), P(ones), P(dU),
+                         P(t0), P(ew), P(cw), P(sw), P(m), P(ones), P(dU),
                          P(neg_dv), P(d_wn), P(d_nf), P(d_w_ea),
-                         meta.n_tiles_grid, meta.tn, meta.te, H, D,
-                         ctypes.c_float(slope), _cuda.stream_ptr(dev))
+                         meta.n_tiles_grid, N, Es, meta.tn, meta.te,
+                         meta.k_src, H, HD // H, ctypes.c_float(slope),
+                         _cuda.stream_ptr(dev))
     return d_wn, d_nf, d_w_ea
 
 

@@ -112,6 +112,21 @@ def write_variants(source: str) -> dict:
     return dirs
 
 
+def swapped(mod, attr, kernel, fn):
+    """``fn`` as a callable that runs with ``kernel`` in place of the
+    module attribute ``attr`` (the module's own put back after each
+    call)."""
+    def run():
+        keep = getattr(mod, attr)
+        setattr(mod, attr, kernel)
+        try:
+            return fn()
+        finally:
+            setattr(mod, attr, keep)
+
+    return run
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=3)
@@ -125,7 +140,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import chip_smoke as cs
-    from kernel_ab import capture_calls, time_turns, version_errors
+    from kernel_ab import capture_calls, output_errors, time_turns
 
     from fragnet_tpu_torch.ops import _cuda, dense_gat
 
@@ -147,14 +162,15 @@ def main() -> int:
         fn = lambda: dense_gat.dense_gat_bwd(*a, **kw)  # noqa: E731
         want = cs._outputs(dense_gat.dense_gat_bwd_plain(*a, **kw))
         floor = cs._scale_floor(name, a)
-        errs = {v: version_errors(dense_gat, attr, k, fn, want, floor)
-                for v, k in versions.items()}
+        fns = {v: swapped(dense_gat, attr, k, fn)
+               for v, k in versions.items()}
+        errs = {v: output_errors(f, want, floor) for v, f in fns.items()}
         for v, e in errs.items():  # what a variant keeps must still agree
             kept = {o: x for o, x in zip(OUTPUTS, e)
                     if o not in VARIANTS[v][0]}
             if not all(x <= cs.REL_LIMIT for x in kept.values()):
                 raise AssertionError(f"{v} [{lvl}]: {kept}")
-        times = time_turns(dense_gat, attr, versions, fn, args.rounds)
+        times = time_turns(fns, args.rounds)
         med = {v: statistics.median(t) for v, t in times.items()}
         print(f"dense_gat_bwd [{lvl}]: " + "; ".join(
             f"{v} {med[v]:.4f} ms" for v in versions)

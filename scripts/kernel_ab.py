@@ -5,9 +5,16 @@ one card.
 
     python3 scripts/kernel_ab.py BASE_CSRC_DIR [--rounds 5]
 
-BASE_CSRC_DIR holds the other version's ``*.cu`` (for example the parent
-commit's ``fragnet_tpu_torch/csrc``, unpacked with ``git archive``). For
-every kernel of chip_smoke.KERNELS whose source differs between the two,
+BASE_CSRC_DIR holds the other version's ``*.cu`` and sits in that
+version's package, whose ``ops/`` holds its wrappers (for example the
+parent commit's ``fragnet_tpu_torch``, unpacked with ``git archive HEAD
+fragnet_tpu_torch | tar -x -C exps/parent``, and BASE_CSRC_DIR
+``exps/parent/fragnet_tpu_torch/csrc``). Each version runs through its own
+wrapper (the base's ``ops/<module>.py`` loaded under another name, its
+kernels built from BASE_CSRC_DIR), so a version's C interface and the work
+its wrapper does around the kernel (output fills) go with it, and a turn's
+device time holds both. For every kernel of chip_smoke.KERNELS whose source
+differs between the two,
 each level's inputs are timed in turns (base, change, change, base) ×
 rounds, each turn the device time of 50 calls (torch.profiler, as in
 chip_smoke.py): for a GAT kernel its layer-0 inputs of the esol batch (for
@@ -17,9 +24,10 @@ dense-attr policy; for K3's forward and backward each shard's bond, atom,
 fconn and frag inputs of phase 20, captured in two spawned ranks of one
 edge-partitioned train step), for the plane builder its bond, fconn and
 atom inputs of chip_smoke.py's batch-512 pretrain batch. The TCSR forward
-(K1) and the dense backward (K5) are also timed at that batch's layer-0
-inputs (atom and frag; bond and fconn), captured as phase 13 captures
-them (levels tagged "batch 512"). A kernel whose
+and backward (K1, K2) and the dense forward and backward (K4, K5) are also
+timed at that batch's layer-0 inputs (atom and frag; bond and fconn),
+captured as phase 13 captures them (levels tagged "batch 512"). A kernel
+whose
 launcher the base does not export (K3 against a version before it) is
 skipped. Both versions are also held
 against the plain version (limit 1e-4 of scale; the plane builder and the
@@ -30,6 +38,7 @@ level and a JSON line of the medians.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import statistics
@@ -101,39 +110,46 @@ def capture_calls(names):
     return calls
 
 
-def version_errors(mod, attr, kernel, fn, want, floor):
-    """Each output's error relative to its scale (chip_smoke._diff) when
-    ``fn`` runs with ``kernel`` in place of the wrapper's module attribute
-    ``attr``; the wrapper's own kernel is put back after."""
+def base_module(module, base_csrc):
+    """The base version's wrapper module ``ops/<module>.py`` (beside
+    ``base_csrc``), loaded under another name, with every kernel it defines
+    built from ``base_csrc`` and kept out of the port's registry."""
+    from fragnet_tpu_torch.ops import _cuda
+
+    path = os.path.join(os.path.dirname(os.path.abspath(base_csrc)), "ops",
+                        f"{module}.py")
+    spec = importlib.util.spec_from_file_location(f"base_{module}", path)
+    mod = importlib.util.module_from_spec(spec)
+    n_reg = len(_cuda.REGISTRY)
+    spec.loader.exec_module(mod)
+    del _cuda.REGISTRY[n_reg:]
+    for attr, k in list(vars(mod).items()):
+        if isinstance(k, _cuda.CudaKernel):
+            setattr(mod, attr, _cuda.CudaKernel(k.source, k.symbol,
+                                                k.argtypes, csrc=base_csrc))
+    return mod
+
+
+def output_errors(fn, want, floor):
+    """Each output of ``fn()`` against ``want``: its error relative to its
+    scale (chip_smoke._diff)."""
     import chip_smoke as cs
 
-    keep = getattr(mod, attr)
-    try:
-        setattr(mod, attr, kernel)
-        return [cs._diff(k, p, floor)[1]
-                for k, p in zip(cs._outputs(fn()), want)]
-    finally:
-        setattr(mod, attr, keep)
+    return [cs._diff(k, p, floor)[1] for k, p in zip(cs._outputs(fn()), want)]
 
 
-def time_turns(mod, attr, versions, fn, rounds):
-    """{version: [device ms per turn]}: ``fn``'s device time (50 calls,
-    chip_smoke._device_ms) with each of ``versions`` ({name: CudaKernel})
-    in place of the wrapper's kernel, in turns: the versions in order,
-    then in reverse (for two: base, change, change, base), ``rounds``
-    times. The wrapper's own kernel is put back after."""
+def time_turns(versions, rounds):
+    """{version: [device ms per turn]}: each of ``versions`` ({name:
+    callable}) timed (50 calls, chip_smoke._device_ms) in turns: the
+    versions in order, then in reverse (for two: base, change, change,
+    base), ``rounds`` times."""
     import chip_smoke as cs
 
     order = list(versions) + list(versions)[::-1]
     times = {v: [] for v in versions}
-    keep = getattr(mod, attr)
-    try:
-        for _ in range(rounds):
-            for which in order:
-                setattr(mod, attr, versions[which])
-                times[which].append(cs._device_ms(fn))
-    finally:
-        setattr(mod, attr, keep)
+    for _ in range(rounds):
+        for which in order:
+            times[which].append(cs._device_ms(versions[which]))
     return times
 
 
@@ -155,7 +171,7 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    pairs = {}
+    pairs, bases = {}, {}
     for name in cs.KERNELS:
         _mod, change = cs._counter(name)
         base_path = os.path.join(args.base_csrc, change.source)
@@ -170,34 +186,36 @@ def main() -> int:
         if f'"C" int {change.symbol}('.encode() not in theirs:
             print(f"{name}: the base exports no {change.symbol}, skipped")
             continue
-        base = _cuda.CudaKernel(change.source, change.symbol,
-                                change.argtypes, csrc=args.base_csrc)
-        pairs[name] = {"base": base, "change": change}
+        module = cs.KERNELS[name].module
+        if module not in bases:
+            bases[module] = base_module(module, args.base_csrc)
+        pairs[name] = {"base": getattr(bases[module], name),
+                       "change": getattr(_mod, name)}
     if not pairs:
         return 0
-    _cuda.build_all([k for p in pairs.values() for k in p.values()],
-                    force=True)
+    changed = [cs._counter(n)[1] for n in pairs]
+    symbols = {k.symbol for k in changed}
+    _cuda.build_all([k for m in bases.values() for k in vars(m).values()
+                     if isinstance(k, _cuda.CudaKernel)
+                     and k.symbol in symbols] + changed, force=True)
 
     calls = capture_calls(set(pairs))
 
     summary = []
-    for name, kern in pairs.items():
+    for name, wrappers in pairs.items():
         mod, _ = cs._counter(name)
-        attr = cs.KERNELS[name].counter
-        wrapper = getattr(mod, name)
         plain = getattr(mod, cs.KERNELS[name].plain)
         for lvl, a, kw in calls[name]:
             want = cs._outputs(plain(*a, **kw))
             limit = 0.0 if name in (cs.PLANES, cs.EMIT) else cs.REL_LIMIT
-            for which in ("base", "change"):
-                rel = max(version_errors(mod, attr, kern[which],
-                                         lambda: wrapper(*a, **kw), want,
-                                         cs._scale_floor(name, a)))
+            fns = {which: (lambda w=w: w(*a, **kw))
+                   for which, w in wrappers.items()}
+            for which, fn in fns.items():
+                rel = max(output_errors(fn, want, cs._scale_floor(name, a)))
                 if rel > limit:
                     raise AssertionError(f"{name} [{lvl}] {which}: "
                                          f"rel {rel:.3e}")
-            times = time_turns(mod, attr, kern, lambda: wrapper(*a, **kw),
-                               args.rounds)
+            times = time_turns(fns, args.rounds)
             med = {k: statistics.median(v) for k, v in times.items()}
             wins = sum(c < b for b, c in zip(times["base"], times["change"]))
             print(f"{name} [{lvl}]: base {med['base']:.4f} ms, change "

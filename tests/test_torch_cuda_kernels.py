@@ -8,13 +8,14 @@ with an H100 (no JAX needed there, hence ``--noconftest``):
 Inputs are random tile-local graphs made with numpy from a seed, at the
 esol model's head shapes (H = 4, D = 32) and both node tiles the batcher
 uses (128, 256); the backward kernels also get sources outside the
-destination tile (TCSR) and an empty tile. The forward TCSR kernel (K1)
-and the dense backward (K5) are also held on the seeded cases of
-tests/torch_kernel_cases.py at tn 32, 128, 256 and H 1, 4, 8, and must
-give the same bits twice (they sum in a fixed order). Tolerance: the GAT
-kernels sum in another order than the plain versions (some with atomics,
-in an order that varies from run to run), so outputs agree to f32
-rounding: |k - p| ≤ 1e-4 · max|p|. The plane builder adds at most one value per slot
+destination tile (TCSR) and an empty tile. The TCSR kernels (K1 forward,
+K2 backward, and K2's edge-partitioned entry point for K3 on both shards)
+and the dense kernels (K4 forward, K5 backward) are also held on the
+seeded cases of tests/torch_kernel_cases.py at tn 32, 128, 256 and H 1, 4,
+8, and must give the same bits twice (they sum in a fixed order, with no
+atomics). Tolerance: the GAT kernels sum in another order than the plain
+versions, so outputs agree to f32 rounding: |k - p| ≤ 1e-4 · max|p|. The
+plane builder adds at most one value per slot
 on tile-local graphs without repeated pairs, so it is held to equality.
 The dense-attr kernels (K7-K9) are checked at every node tile their
 wrappers take (32, 64, 128, 256), with and without self-loops, on
@@ -599,10 +600,11 @@ def test_dense_gat_bwd_matches_plain_on_cases(cuda, tn, H, R):
 
 
 def test_row_sliced_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    """K1 reads nf in float4 with a block per 8 rows, K5 reads nf and g in
-    float4 and sums a head's D/4 lanes by shuffles: D not a multiple of 4,
-    a tile not a multiple of 8 rows, H*D > 256, D/4 not a power of two and
-    an nf not 16-byte aligned are refused, with no fallback."""
+    """K1 and K4 read nf in float4 with a block per 8 rows, K2 and K5 read
+    nf and g in float4 and sum a head's D/4 lanes by shuffles: D not a
+    multiple of 4, a tile not a multiple of 8 rows, H*D > 256, D/4 not a
+    power of two and an nf or g not 16-byte aligned are refused, with no
+    fallback."""
     case = kernel_case(1, 32)
     T, meta = _case_tensors(cuda, case, 32, 64)
     N, E = case.n_nodes, len(case.src)
@@ -649,6 +651,34 @@ def test_row_sliced_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="aligned"):
         bwd(4, 32, nf=torch.zeros(tn * 128 + 1, device=cuda)[1:].view(tn, 128))
 
+    def dfwd(H, D, nf=None):
+        planes = torch.zeros((1, 2 * tn, tn), device=cuda)
+        z = lambda *shape: torch.zeros(shape, device=cuda)
+        nf = z(tn, H * D) if nf is None else nf
+        return dense_gat.dense_gat_fwd(planes, z(tn, H), z(tn, H), nf,
+                                       z(2, H))
+
+    dfwd(4, 32)  # taken
+    for H, D in ((4, 6), (8, 64)):  # K4: D a multiple of 4, H*D <= 256
+        with pytest.raises(ValueError, match="unsupported"):
+            dfwd(H, D)
+    with pytest.raises(ValueError, match="aligned"):
+        dfwd(4, 32, nf=torch.zeros(tn * 128 + 1, device=cuda)[1:].view(tn, 128))
+
+    def tbwd(H, D, g=None):
+        z = lambda *shape: torch.zeros(shape, device=cuda)
+        g = z(N, H * D) if g is None else g
+        return tcsr_gat.tcsr_gat_bwd(z(N, 2 * H), z(N, H * D), z(E, H),
+                                     *ints, meta, z(N, H), z(N, H), g,
+                                     z(N, H), False)
+
+    tbwd(4, 32)  # taken
+    for H, D in ((4, 6), (2, 12), (8, 64)):  # K2 as K5
+        with pytest.raises(ValueError, match="unsupported"):
+            tbwd(H, D)
+    with pytest.raises(ValueError, match="aligned"):
+        tbwd(4, 32, g=torch.zeros(N * 128 + 1, device=cuda)[1:].view(N, 128))
+
 
 @pytest.mark.parametrize("H,D", [(4, 32), (8, 32), (2, 8)])
 def test_dense_gat_bwd_cancels_exactly_with_one_neighbour(cuda, H, D):
@@ -678,3 +708,192 @@ def test_dense_gat_bwd_cancels_exactly_with_one_neighbour(cuda, H, D):
         assert float(k.abs().max()) == 0.0
     assert torch.equal(out, args[3][T(src).long()])
     _close(d_nf[T(src).long()], g)
+
+
+# --------------------------------------------------------------------------
+# the row-sliced dense forward (K4) and the two-role TCSR backward (K2, and
+# its edge-partitioned entry point for K3) on the seeded cases; both sum in
+# a fixed order, so a second call gives the same bits
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("R", [1, 6])
+@pytest.mark.parametrize("H", [1, 4, 8])
+@pytest.mark.parametrize("tn", [32, 128, 256])
+def test_dense_gat_fwd_matches_plain_on_cases(cuda, tn, H, R):
+    case = kernel_case(tn + H + R, tn, tile_local=True)
+    N, E, D = case.n_nodes, len(case.src), 32
+    rng = np.random.default_rng(100 + tn + H + R)
+    planes = dense_gat.build_dense_planes(
+        case.src, case.dst, case.mask,
+        rng.standard_normal((E, R)).astype(np.float32), N, tn=tn)
+    assert planes is not None
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    draw = lambda *shape: T(rng.standard_normal(shape).astype(np.float32))
+    args = (T(planes), draw(N, H), draw(N, H), draw(N, H * D), draw(R + 1, H))
+    n0 = dense_gat.KERNEL.launches
+    got = dense_gat.dense_gat_fwd(*args)
+    again = dense_gat.dense_gat_fwd(*args)
+    torch.cuda.synchronize()
+    assert dense_gat.KERNEL.launches == n0 + 2
+    out_p, m_p, den_p = dense_gat.dense_gat_fwd_plain(*args)
+    _close(got[0], out_p)
+    _close(got[2], den_p)
+    _close_m(got[1], m_p)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    out, m, den = got
+    assert planes[0, case.hub_row % tn].sum() >= min(64, tn)
+    assert float(out[case.empty_row].abs().max()) == 0.0
+    assert float(den[case.empty_row].abs().max()) == 0.0
+    assert bool((m[case.empty_row] == -1e30).all())
+
+
+@pytest.mark.parametrize("H,D", [(4, 64), (8, 32)])
+def test_dense_gat_fwd_takes_rows_the_first_port_refused(cuda, H, D):
+    """tn = 256 with H*D = 256: the first port staged the tile's nf in
+    shared memory (tn·H·D·4 B = 256 KiB > 227 KiB) and its wrapper refused
+    the call; the row-sliced kernel reads nf rows from global memory."""
+    tn, R = 256, 1
+    case = kernel_case(tn + H, tn, tile_local=True)
+    N, E = case.n_nodes, len(case.src)
+    rng = np.random.default_rng(110 + H)
+    planes = dense_gat.build_dense_planes(
+        case.src, case.dst, case.mask,
+        rng.standard_normal((E, R)).astype(np.float32), N, tn=tn)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    draw = lambda *shape: T(rng.standard_normal(shape).astype(np.float32))
+    args = (T(planes), draw(N, H), draw(N, H), draw(N, H * D), draw(R + 1, H))
+    assert 4 * tn * H * D > 232448
+    got = dense_gat.dense_gat_fwd(*args)
+    want = dense_gat.dense_gat_fwd_plain(*args)
+    _close(got[0], want[0])
+    _close(got[2], want[2])
+    _close_m(got[1], want[1])
+
+
+@pytest.mark.parametrize("self_loops", [False, True])
+@pytest.mark.parametrize("H", [1, 4, 8])
+@pytest.mark.parametrize("tn", [32, 128, 256])
+def test_tcsr_gat_bwd_matches_plain_on_cases(cuda, tn, H, self_loops):
+    """K2 on graphs whose source windows span several tiles (k_src > 1),
+    whose windows start with the previous tile's edges, with repeated
+    (dst, src) pairs and a source with edges into every slice; masked and
+    padding edges get exactly 0."""
+    case = kernel_case(tn + H, tn)
+    T, meta = _case_tensors(cuda, case, tn, 64)
+    assert meta.k_src > 1
+    N, E, D = case.n_nodes, len(case.src), 32
+    rng = np.random.default_rng(120 + tn + H)
+    draw = lambda *shape: T(rng.standard_normal(shape).astype(np.float32))
+    args = (draw(N, 2 * H), draw(N, H * D), draw(E, H), T(case.src),
+            T(case.dst), T(case.mask), meta)
+    out, m, den = tcsr_gat.tcsr_gat_fwd_plain(*args, self_loops)
+    g = draw(N, H * D)
+    s = (g.view(N, H, D) * out.view(N, H, D)).sum(-1)
+    bargs = args + (m, den, g, s, self_loops)
+    n0 = tcsr_gat.KERNEL_BWD.launches
+    got = tcsr_gat.tcsr_gat_bwd(*bargs)
+    again = tcsr_gat.tcsr_gat_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert tcsr_gat.KERNEL_BWD.launches == n0 + 2
+    want = tcsr_gat.tcsr_gat_bwd_plain(*bargs)
+    for k, p in zip(got, want):
+        _close(k, p)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert float(got[2][T(case.mask) == 0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("H", [1, 4, 8])
+@pytest.mark.parametrize("tn", [32, 128, 256])
+def test_tcsr_gat_ep_bwd_matches_plain_on_cases(cuda, tn, H):
+    """K3's backward (K2's edge-partitioned entry point) on each of two
+    edge shards of a seeded case: the shard's grid from tile t0, sources
+    anywhere in the batch, the whole d_wn and d_nf written (0 outside the
+    shard's reach)."""
+    from fragnet_tpu_torch.ops.tcsr import build_ep_tile_meta
+
+    case = kernel_case(tn + H + 5, tn)
+    N, E, D, S = case.n_nodes, len(case.src), 32, 2
+    meta = build_ep_tile_meta(case.src, case.dst, case.mask, N, S, tn=tn,
+                              te=32)
+    assert meta is not None
+    meta = dataclasses.replace(meta, **{
+        f: torch.from_numpy(getattr(meta, f)).to(cuda)
+        for f in ("t0", "ew_blk", "sw_tile", "flat_slot", "cw")})
+    rng = np.random.default_rng(130 + tn + H)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    draw = lambda *shape: T(rng.standard_normal(shape).astype(np.float32))
+    wn, nf = draw(N, 2 * H), draw(N, H * D)
+    Es, Ng = E // S, meta.n_tiles_grid * tn
+    for r in range(S):
+        sl = slice(r * Es, (r + 1) * Es)
+        mask = T(case.mask[sl])
+        args = (wn, nf, draw(Es, H), T(case.src[sl]), T(case.dst[sl]), mask,
+                meta, r)
+        m = tcsr_gat.tcsr_gat_ep_fwd_plain(*args)[1]
+        m = torch.where(m <= -1e29, torch.zeros_like(m), m)
+        bargs = args + (m, draw(Ng, H * D), draw(Ng, H))
+        got = tcsr_gat.tcsr_gat_ep_bwd(*bargs)
+        again = tcsr_gat.tcsr_gat_ep_bwd(*bargs)
+        torch.cuda.synchronize()
+        want = tcsr_gat.tcsr_gat_ep_bwd_plain(*bargs)
+        for k, p in zip(got, want):
+            _close(k, p)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+        assert float(got[2][mask == 0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("H,D", [(4, 32), (8, 16), (2, 64)])
+def test_tcsr_gat_bwd_cancels_exactly_with_one_neighbour(cuda, H, D):
+    """A row with one kept in-edge has p = 1 and out = nf[src], so its
+    d_zpre = g·nf[src] − s is 0 in exact arithmetic. K2 sums the dot in the
+    order in which torch sums s = (g·out).sum(-1) on the card (D ≤ 64), so
+    it is 0 on the card too, through the single-device entry point and
+    through K3's with s = −dV as the edge-partitioned pass's autograd
+    computes it: d_wn and d_w_ea exactly 0, while d_nf[src] = g[dst]."""
+    from fragnet_tpu_torch.ops.tcsr import build_ep_tile_meta
+
+    rng = np.random.default_rng(140 + H + D)
+    tn, n_tiles, te, S = 128, 2, 64, 2
+    N = tn * n_tiles
+    src = np.concatenate([t * tn + rng.permutation(tn)
+                          for t in range(n_tiles)]).astype(np.int32)
+    dst = np.arange(N, dtype=np.int32)
+    mask = np.ones(N, np.float32)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    draw = lambda *shape: T(rng.standard_normal(shape).astype(np.float32))
+    meta = build_tile_meta(src, dst, mask, N, tn=tn, te=te)
+    meta = dataclasses.replace(meta, ew_blk=T(meta.ew_blk), cw=T(meta.cw),
+                               sw_tile=T(meta.sw_tile),
+                               flat_slot=T(meta.flat_slot))
+    wn, nf, w_ea, g = draw(N, 2 * H), draw(N, H * D), draw(N, H), draw(N, H * D)
+    ints = (T(src), T(dst), T(mask))
+    out, m, den = tcsr_gat.tcsr_gat_fwd(wn, nf, w_ea, *ints, meta, False)
+    assert torch.equal(out, nf[ints[0].long()])
+    s = (g.view(N, H, D) * out.view(N, H, D)).sum(-1)
+    d_wn, d_nf, d_w_ea = tcsr_gat.tcsr_gat_bwd(wn, nf, w_ea, *ints, meta, m,
+                                               den, g, s, False)
+    torch.cuda.synchronize()
+    for k in (d_wn, d_w_ea):
+        assert float(k.abs().max()) == 0.0
+    _close(d_nf[ints[0].long()], g)
+
+    emeta = build_ep_tile_meta(src, dst, mask, N, S, tn=tn, te=te)
+    emeta = dataclasses.replace(emeta, **{
+        f: T(getattr(emeta, f))
+        for f in ("t0", "ew_blk", "sw_tile", "flat_slot", "cw")})
+    Es, Ng = N // S, emeta.n_tiles_grid * tn
+    for r in range(S):
+        sl = slice(r * Es, (r + 1) * Es)
+        args = (wn, nf, w_ea[sl], *(t[sl] for t in ints), emeta, r)
+        out_l, m_l, _den_l = tcsr_gat.tcsr_gat_ep_fwd(*args)
+        m_l = torch.where(m_l <= -1e29, torch.zeros_like(m_l), m_l)
+        r0 = int(emeta.t0[r, 0]) * tn
+        dU = g[r0:r0 + Ng].contiguous()
+        dV = -(dU.view(Ng, H, D) * out_l.view(Ng, H, D)).sum(-1)
+        d_wn, _d_nf, d_w_ea = tcsr_gat.tcsr_gat_ep_bwd(*args, m_l, dU, dV)
+        torch.cuda.synchronize()
+        for k in (d_wn, d_w_ea):
+            assert float(k.abs().max()) == 0.0

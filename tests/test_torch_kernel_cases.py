@@ -1,18 +1,23 @@
-"""The plain versions of the forward TCSR kernel and the dense backward
-kernel against the JAX package's Pallas kernels (interpret mode, on the
-CPU), on the seeded graphs of tests/torch_kernel_cases.py: an empty
-destination row, a row of 64+ in-edges, edge windows that start with the
-previous tile's edges, edges unsorted by destination within a tile, a
-plane column with nonzeros in rows of every slice; tn in {32, 128, 256}
-and H in {1, 4, 8}. The same cases hold the CUDA kernels against these
-plain versions on the card (tests/test_torch_cuda_kernels.py). Inputs are
-made with numpy from a seed and handed to both; the kernels' raw inputs and
-outputs are compared (TCSR: out, m, den; dense backward: d_wd, d_ws, d_nf,
-d_vc). Tolerance: atol = rtol = 1e-5 in f32 (the two sum in different
-orders)."""
+"""The plain versions of the TCSR kernels and the dense kernels against the
+JAX package's Pallas kernels (interpret mode, on the CPU), on the seeded
+graphs of tests/torch_kernel_cases.py: an empty destination row, a row of
+64+ in-edges, edge windows that start with the previous tile's edges,
+edges unsorted by destination within a tile, sources reaching other tiles
+(TCSR source windows of k_src > 1) with repeated (dst, src) pairs, a
+source or plane column with edges into rows of every slice; tn in {32,
+128, 256} and H in {1, 4, 8}. The same cases hold the CUDA kernels against
+these plain versions on the card (tests/test_torch_cuda_kernels.py).
+Inputs are made with numpy from a seed and handed to both; the kernels'
+raw inputs and outputs are compared (TCSR forward: out, m, den; dense
+forward: out, m, den; dense backward: d_wd, d_ws, d_nf, d_vc), and the
+TCSR backward through the whole pass: the gradients of the port's
+tcsr_gat_pass (plain kernels, the prologue by autograd) against jax.vjp of
+the Pallas pass. Tolerance: atol = rtol = 1e-5 in f32 (the two sum in
+different orders)."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +26,7 @@ import torch
 from fragnet_tpu.ops.dense_gat import _build as jax_dense_build
 from fragnet_tpu.ops.dense_gat import _pick_g
 from fragnet_tpu.ops.pallas_gat import _build as jax_tcsr_build
+from fragnet_tpu.ops.pallas_gat import pallas_gat_pass
 from fragnet_tpu.ops.tcsr import build_tile_meta as jax_tile_meta
 
 from fragnet_tpu_torch.ops import dense_gat, tcsr_gat
@@ -119,3 +125,82 @@ def test_dense_bwd_plain_matches_pallas_on_cases(tn, H, R):
     assert adj[case.hub_row % tn].sum() >= min(64, tn)
     rows = np.nonzero(adj[:, case.hub_col])[0]
     assert len(set(rows // 16)) == tn // 16  # every 16-row slice
+
+
+@pytest.mark.parametrize("self_loops", [False, True])
+@pytest.mark.parametrize("tn,H", SHAPES)
+def test_tcsr_bwd_plain_matches_pallas_vjp_on_cases(tn, H, self_loops):
+    """The TCSR backward's plain version (K2's), inside the port's pass on
+    the CPU, against jax.vjp of the Pallas pass: out and the gradients
+    w.r.t. the node features, the edge attrs and the attention vector for a
+    seeded cotangent of out, on a graph whose source windows span several
+    tiles."""
+    case = kernel_case(tn + H + 1, tn)
+    N, E, Da = case.n_nodes, len(case.src), 3
+    rng = np.random.default_rng(tn * H + 2)
+    nf, ea = _draw(rng, N, H, D), _draw(rng, E, Da)
+    a, g = _draw(rng, H, 2 * D + Da), _draw(rng, N, H, D)
+    mj = jax_tile_meta(case.src, case.dst, case.mask, N, tn=tn, te=TE)
+    assert mj.k_src > 1
+    idx = [jnp.asarray(x) for x in (case.src, case.dst, case.mask)]
+
+    def jax_out(nf_, ea_, a_):
+        return pallas_gat_pass(nf_, ea_, *idx, a_, mj, self_loops, SLOPE,
+                               interpret=True)[0]
+
+    out_j, vjp = jax.vjp(jax_out, jnp.asarray(nf), jnp.asarray(ea),
+                         jnp.asarray(a))
+    want = vjp(jnp.asarray(g))
+
+    t = torch.from_numpy
+    meta = build_tile_meta(case.src, case.dst, case.mask, N, tn=tn, te=TE)
+    meta = dataclasses.replace(meta, ew_blk=t(meta.ew_blk), cw=t(meta.cw),
+                               sw_tile=t(meta.sw_tile))
+    xs = [t(x).requires_grad_() for x in (nf, ea, a)]
+    n0 = tcsr_gat.KERNEL_BWD.launches
+    out, _ = tcsr_gat.tcsr_gat_pass(xs[0], xs[1], t(case.src), t(case.dst),
+                                    t(case.mask), xs[2], meta, self_loops,
+                                    SLOPE)
+    got = torch.autograd.grad((out * t(g)).sum(), xs)
+    assert tcsr_gat.KERNEL_BWD.launches == n0  # CPU tensors: the plain version
+    _close(out, out_j)
+    for p, j in zip(got, want):
+        _close(p, j)
+    pairs = list(zip(case.dst[case.mask > 0], case.src[case.mask > 0]))
+    assert len(set(pairs)) < len(pairs)  # repeated (dst, src) pairs
+
+
+@pytest.mark.parametrize("R", [1, 6])
+@pytest.mark.parametrize("tn,H", SHAPES)
+def test_dense_fwd_plain_matches_pallas_on_cases(tn, H, R):
+    """The dense forward's plain version (K4's) against the Pallas forward
+    on tile-local cases: out, m, den, with the empty row's m = -1e30,
+    den = 0, out = 0 and the hub row's 64+ nonzeros (32 at tn = 32)."""
+    case = kernel_case(tn + H + R, tn, tile_local=True)
+    N, E = case.n_nodes, len(case.src)
+    rng = np.random.default_rng(tn + 10 * H + R)
+    planes = build_dense_planes(case.src, case.dst, case.mask,
+                                _draw(rng, E, R), N, tn=tn)
+    assert planes is not None
+    wd, ws, nf = _draw(rng, N, H), _draw(rng, N, H), _draw(rng, N, H * D)
+    vc = _draw(rng, R + 1, H)
+    fwd, _bwd = jax_dense_build(N, tn, H, D, R, _pick_g(N // tn, tn, R),
+                                SLOPE, "float32", True)
+    wsT = np.zeros((8, N), np.float32)
+    wsT[:H] = ws.T
+    vc8 = np.zeros((8, 128), np.float32)
+    vc8[:R + 1, :H] = vc
+    want = fwd(planes, wd, wsT, nf, vc8)
+
+    t = torch.from_numpy
+    n0 = dense_gat.KERNEL.launches
+    got = dense_gat.dense_gat_fwd(t(planes), t(wd), t(ws), t(nf), t(vc),
+                                  SLOPE)
+    assert dense_gat.KERNEL.launches == n0  # CPU tensors: the plain version
+    for p, j in zip(got, want):
+        _close(p, j)
+    out, m, den = got
+    assert planes[0, case.hub_row % tn].sum() >= min(64, tn)
+    assert float(out[case.empty_row].abs().max()) == 0.0
+    assert float(den[case.empty_row].abs().max()) == 0.0
+    assert bool((m[case.empty_row] == -1e30).all())
