@@ -87,7 +87,9 @@ the packed transport. Phases:
      (``finetune.kernel.attr=true finetune.kernel.fc=attr``) at the atom
      (self-loops), fconn (the first tn rows of the R = 6 planes, a strided
      view) and frag levels, plus a seeded case per level (numpy wd, ws, nf
-     and w_ea); K9 is held to equality and timed beside the library call
+     and w_ea), and from layer 0 of the batch-512 pretraining batch of
+     phase 13 under the same policy (K6 planes; levels tagged "batch
+     512"); K9 is held to equality and timed beside the library call
      (one advanced-indexing gather on indices computed beforehand);
  17. the finetune training path under the dense-attr policy: run_finetune
      on cuda for 3 epochs, every launch count set to 0 just before it;
@@ -103,7 +105,8 @@ the packed transport. Phases:
  19. the pretraining path under the dense-attr policy: run_pretrain on the
      HBM packed tier for one epoch, K6 once per train step for each plane
      level of the layout the policy reads (4 when dp_bond, dp_fc, dp_atom
-     and dp_frag all pass dp_level_ok), K7-K9 as derived; then one pretrain
+     and dp_frag all pass dp_level_ok), K7-K9 as derived; one train step
+     at batch 512 timed and profiled as in phase 13; then one pretrain
      step's gradients, card (K6 planes) vs CPU (host planes), within 1e-3;
  20. K3 (the edge-partitioned forward and backward) against its plain
      versions, as in phase 4, on each of two shards' layer-0 inputs at the
@@ -1299,26 +1302,24 @@ def pretrain_kernel_calls(popt, model, buf, layout, rng):
     return out
 
 
-def timed_pretrain_step(popt, calls_buf, dev):
-    """Phase 13: one pretrain train step at batch 512 from a packed buffer
-    on the card — wall time (median of 5 after a warm-up), its stages each
-    ended by a synchronize, and one step's device busy time and top ops
-    with the plane builder's share; then K1, K2, K4 and K5 against their
-    plain versions at this step's layer-0 inputs, timed as in phase 4.
-    Returns their per-level reports ({kernel: (levels, 0.0)})."""
+def pretrain_step_profile(popt, calls_buf, dev, names, label: str):
+    """One pretrain train step at batch 512 from the packed buffer
+    ``calls_buf`` on the card under ``popt``'s kernel policy: wall time
+    (median of 5 after a warm-up) and one step's device busy time, top ops,
+    the plane builder's share and the device time of the kernels ``names``,
+    printed. Returns (model, optimizer)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from fragnet_tpu_torch.data.packing import (add_planes, plane_levels,
-                                                unpack_batch)
+    from fragnet_tpu_torch.train.fastpath import resolve_kernel_policy
     from fragnet_tpu_torch.train.optim import make_optimizer
     from fragnet_tpu_torch.train.pretrain import (build_pretrain_model,
-                                                  make_pretrain_step,
-                                                  pretrain_loss)
+                                                  make_pretrain_step)
 
     buf, layout = calls_buf
     model = build_pretrain_model(
-        popt, generator=torch.Generator().manual_seed(0)).to(dev)
+        popt, policy=resolve_kernel_policy(popt.pretrain),
+        generator=torch.Generator().manual_seed(0)).to(dev)
     opt, _ = make_optimizer(model.parameters(), "adam", lr=1e-4)
     step = make_pretrain_step(model, opt, layout=layout, device=dev)
     walls = []
@@ -1336,15 +1337,33 @@ def timed_pretrain_step(popt, calls_buf, dev):
     dev_busy, busy = _busy(prof)
     k6_ms = sum(ms for key, ms in busy if "dense_planes_kernel" in key)
     ours = {n: sum(ms for key, ms in busy if f"{n}_kernel" in key)
-            for n in GAT_KERNELS}
-    print(f"pretrain step at batch 512 (packed buffer on the card: unpack, "
-          f"planes, forward, backward, Adam): wall {wall:.2f} ms (median of "
-          f"5 after warm-up), device busy {dev_busy:.3f} ms "
-          f"({100 * dev_busy / wall:.1f}%) in {len(busy)} kernel kinds; "
-          f"plane builder {k6_ms:.3f} ms "
+            for n in names}
+    print(f"pretrain step at batch 512 [{label} policy] (packed buffer on "
+          f"the card: unpack, planes, forward, backward, Adam): wall "
+          f"{wall:.2f} ms (median of 5 after warm-up), device busy "
+          f"{dev_busy:.3f} ms ({100 * dev_busy / wall:.1f}%) in {len(busy)} "
+          f"kernel kinds; plane builder {k6_ms:.3f} ms "
           f"({100 * k6_ms / max(dev_busy, 1e-9):.1f}% of "
           f"busy); " + ", ".join(f"{n} {ms:.3f}" for n, ms in ours.items())
           + "; top: " + ", ".join(f"{k[:48]} {ms:.3f}" for k, ms in busy[:10]))
+    return model, opt
+
+
+def timed_pretrain_step(popt, calls_buf, dev):
+    """Phase 13: one pretrain train step at batch 512 from a packed buffer
+    on the card — pretrain_step_profile, then the step in stages each
+    ended by a synchronize; then K1, K2, K4 and K5 against their plain
+    versions at this step's layer-0 inputs, timed as in phase 4. Returns
+    their per-level reports ({kernel: (levels, 0.0)})."""
+    import torch
+
+    from fragnet_tpu_torch.data.packing import (add_planes, plane_levels,
+                                                unpack_batch)
+    from fragnet_tpu_torch.train.pretrain import pretrain_loss
+
+    buf, layout = calls_buf
+    model, opt = pretrain_step_profile(popt, calls_buf, dev, GAT_KERNELS,
+                                       "default")
     levels = plane_levels(model.policy)
     stages = {"unpack (no planes)": [], "K6 planes": [], "forward+loss": [],
               "backward": [], "adam": []}
@@ -1527,16 +1546,30 @@ def pretrain_phases(dev, pending, datasets):
     return k6_report, launches, pgraphs, big_report
 
 
+def _attr_calls(fwd, rng):
+    """{kernel: [(level, args, kwargs)]} for K7, K8 and K9 from K7's calls
+    ``fwd``: the backward's arguments as phase 4 builds them (the forward
+    kernel's out, m, den and a seeded cotangent) and the emit's (K8's
+    d_zpre planes)."""
+    from fragnet_tpu_torch.ops import dense_gat
+
+    if fwd[1][1][0].is_contiguous():
+        raise AssertionError("the fconn adjacency is not the strided view "
+                             "of the R=6 planes")
+    bwd = [(lvl, bwd_kernel_args("dense_attr_fwd", a, kw, rng), {})
+           for lvl, a, kw in fwd]
+    emit = [(lvl, (dense_gat.dense_attr_bwd(*a)[4],) + tuple(a[5:9]), {})
+            for lvl, a, _ in bwd]
+    return {"dense_attr_fwd": fwd, "dense_attr_bwd": bwd, EMIT: emit}
+
+
 def attr_kernel_calls(n_tasks, batch, rng):
-    """Phase 16's inputs: {kernel: [(level, args, kwargs)]} for K7, K8 and
-    K9 — layer 0's dense-attr calls of one forward of the esol-config
-    model under the dense-attr policy on ``batch`` (atom, fconn, frag), a
-    seeded case per level, the backward's arguments as phase 4 builds them
-    (the forward kernel's out, m, den and a seeded cotangent) and the emit's
-    (K8's d_zpre planes)."""
+    """Phase 16's inputs at the finetune batch: {kernel: [(level, args,
+    kwargs)]} for K7, K8 and K9 — layer 0's dense-attr calls of one forward
+    of the esol-config model under the dense-attr policy on ``batch``
+    (atom, fconn, frag) and a seeded case per level (_attr_calls)."""
     import torch
 
-    from fragnet_tpu_torch.ops import dense_gat
     from fragnet_tpu_torch.train.fastpath import resolve_kernel_policy
     from fragnet_tpu_torch.train.finetune import build_model
 
@@ -1548,15 +1581,35 @@ def attr_kernel_calls(n_tasks, batch, rng):
     fwd = layer0_kernel_calls(int(aopt.finetune.model.num_layer), model,
                               batch,
                               names=("dense_attr_fwd",))["dense_attr_fwd"]
-    if fwd[1][1][0].is_contiguous():
-        raise AssertionError("the fconn adjacency is not the strided view "
-                             "of the R=6 planes")
-    fwd += [seeded_attr_call(c, rng) for c in fwd]
-    bwd = [(lvl, bwd_kernel_args("dense_attr_fwd", a, kw, rng), {})
-           for lvl, a, kw in fwd]
-    emit = [(lvl, (dense_gat.dense_attr_bwd(*a)[4],) + tuple(a[5:9]), {})
-            for lvl, a, _ in bwd]
-    return {"dense_attr_fwd": fwd, "dense_attr_bwd": bwd, EMIT: emit}
+    return _attr_calls(fwd + [seeded_attr_call(c, rng) for c in fwd], rng)
+
+
+def pretrain_attr_kernel_calls(calls_buf, dev, rng):
+    """Phase 16's inputs at the batch-512 pretraining shapes: K7's, K8's and
+    K9's arguments (_attr_calls) from layer 0's dense-attr calls (atom,
+    fconn, frag) of one forward of the pretrain model under the dense-attr
+    policy (phase 19's config) on the batch-512 packed buffer ``calls_buf``
+    (pretrain_big_batch) decoded on the card with K6 planes at every level
+    the policy reads. Levels are tagged "batch 512"."""
+    import torch
+
+    from fragnet_tpu_torch.data.packing import (add_planes, plane_levels,
+                                                unpack_batch)
+    from fragnet_tpu_torch.train.fastpath import resolve_kernel_policy
+    from fragnet_tpu_torch.train.pretrain import build_pretrain_model
+
+    popt = pt_opt(PT_OVERRIDES, ATTR_PT_OVERRIDES)
+    model = build_pretrain_model(
+        popt, policy=resolve_kernel_policy(popt.pretrain),
+        generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    buf, layout = calls_buf
+    batch = add_planes(unpack_batch(buf, layout, planes=()), layout,
+                       plane_levels(model.policy))
+    fwd = layer0_kernel_calls(int(popt.pretrain.model.num_layer), model,
+                              batch,
+                              names=("dense_attr_fwd",))["dense_attr_fwd"]
+    return _attr_calls([(f"{lvl}, batch 512", a, kw) for lvl, a, kw in fwd],
+                       rng)
 
 
 def finetune_expect(fopt, datasets, spec, test_windows):
@@ -1643,12 +1696,21 @@ def finetune_attr_path(datasets, spec, test_windows):
 def attr_phases(dev, datasets, spec, windows, batch, train_np, step_default,
                 pgraphs, rng):
     """Phases 16-19: the dense-attr kernel policy. Returns (K7-K9's kernel
-    report, launches on the finetune path, launches on the pretraining
-    path)."""
+    report, with the batch-512 levels marked off the kernels' line sums,
+    launches on the finetune path, launches on the pretraining path)."""
     # ---- 16. K7, K8, K9 against their plain versions ----------------------
     t0 = time.perf_counter()
-    report = check_kernels(ATTR_KERNELS,
-                           attr_kernel_calls(datasets[3], batch, rng), rng)
+    calls = attr_kernel_calls(datasets[3], batch, rng)
+    big_buf = pretrain_big_batch(pgraphs, dev)
+    big = pretrain_attr_kernel_calls(big_buf, dev, rng)
+    for name in ATTR_KERNELS:
+        calls[name] += big[name]
+    report = check_kernels(ATTR_KERNELS, calls, rng)
+    for per_level, _err in report.values():
+        for p in per_level:
+            # the batch-512 levels stand beside the finetune layer's in the
+            # kernel's line; its ms and bound stay the finetune layer's
+            p["on_path"] = "batch 512" not in p["level"]
     print(f"phase 16: {time.perf_counter() - t0:.1f} s")
 
     # ---- 17. the finetune training path under the dense-attr policy -------
@@ -1684,6 +1746,8 @@ def attr_phases(dev, datasets, spec, windows, batch, train_np, step_default,
     if any(expect[n] == 0 for n in ATTR_KERNELS):
         raise AssertionError(f"no dense-attr launch expected: {expect}")
     launches_pt, ckpt = drive_pretrain(popt, pgraphs, expect, "HBM")
+    pretrain_step_profile(popt, big_buf, dev, GAT_KERNELS + ATTR_KERNELS,
+                          "dense-attr")
     worst, worst_name = pretrain_grads_card_vs_cpu(popt, pgraphs, ckpt, dev)
     print(f"dense-attr pretrain step cpu vs gpu (packed + K6 planes on the "
           f"card, host planes on the CPU): worst relative diff {worst:.3e} "

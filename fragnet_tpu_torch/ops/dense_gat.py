@@ -553,11 +553,15 @@ def dense_attr_emit_plain(dz, src, dst, emask, meta):
     return out
 
 
-def _check_attr(name, adj, wd, nf, src, meta, extra=()):
+def _check_attr(name, adj, wd, nf, src, meta, extra=(), g=None):
     """Raise unless the dense-attr kernels take these tensors; returns
     (T, tn, N, H, HD, E). ``adj`` may be the first tn rows of each tile of
-    a taller planes tensor (its tile stride is passed to the kernel);
-    ``extra`` adds (name, tensor, dtype, shape)."""
+    a taller planes tensor (its tile stride, a multiple of 4, is passed to
+    the kernel); ``extra`` adds (name, tensor, dtype, shape). Lanes read
+    the adjacency rows and nf (and the backward's cotangent ``g``) in
+    float4, a lane's four columns in one head: D a multiple of 4, H*D <=
+    256, each 16-byte aligned; the backward also sums a head's D/4 lanes
+    by shuffles (D/4 a power of two)."""
     dev = nf.device
     if dev.type != "cuda":
         raise ValueError(f"no {name} kernel for device {dev}")
@@ -570,15 +574,27 @@ def _check_attr(name, adj, wd, nf, src, meta, extra=()):
         raise ValueError(f"{name}: unsupported shapes adj={tuple(adj.shape)} "
                          f"N={N} H={H} HD={HD} meta.tn={meta.tn} (H in "
                          f"{_KERNEL_H}, tn in {_KERNEL_TN}, N = n_tiles * tn)")
+    D = HD // H
+    bwd = g is not None
+    if D % 4 or HD > 256 or (bwd and D // 4 not in (1, 2, 4, 8, 16, 32)):
+        raise ValueError(f"{name}: H={H} D={D} unsupported (D a multiple of "
+                         f"4{', D/4 a power of two' if bwd else ''}, H*D <= "
+                         f"256)")
     _cuda.check(adj, "adj", torch.float32, (T, tn, tn), dev,
                 inner_contiguous=True)
+    if adj.stride(0) % 4:
+        raise ValueError(f"{name}: adj has strides {adj.stride()}: the tile "
+                         f"stride must be a multiple of 4")
     i32, f32 = torch.int32, torch.float32
     for arg, t, dt, shape in (("wd", wd, f32, (N, H)),
                               ("nf", nf, f32, (N, HD)),
                               ("src", src, i32, (E,)),
                               ("ew_blk", meta.ew_blk, i32, (T,)),
-                              ("cw", meta.cw, i32, (T,))) + tuple(extra):
+                              ("cw", meta.cw, i32, (T,))) + tuple(extra) \
+            + ((("g", g, f32, (N, HD)),) if bwd else ()):
         _cuda.check(t, arg, dt, shape, dev)
+    for arg, t in (("adj", adj), ("nf", nf)) + ((("g", g),) if bwd else ()):
+        _cuda.check_aligned(t, arg, 16)
     return T, tn, N, H, HD, E
 
 
@@ -628,9 +644,9 @@ def dense_attr_bwd(adj, wd, ws, nf, w_ea, src, dst, emask, meta, m, den, g,
     replaces dense_gat.py:_attr_bwd_kernel): (d_wd, d_ws, d_wself (N, H),
     d_nf (N, H*D), d_zpre planes (n_tiles, H*tn, tn)) f32, from the
     forward's inputs, its (m, den), the cotangent ``g`` (N, H*D) of out and
-    ``s`` (N, H) = Σ_d g·out. The kernel adds the column sums d_ws and d_nf
-    from several blocks per tile, so those two start as zeros; it writes
-    every slot of the planes (0 off the adjacency)."""
+    ``s`` (N, H) = Σ_d g·out. The kernel writes every element it returns,
+    every slot of the planes included (0 off the adjacency), so all five
+    start empty."""
     if nf.device.type == "cpu":
         return dense_attr_bwd_plain(adj, wd, ws, nf, w_ea, src, dst, emask,
                                     meta, m, den, g, s, self_loops, slope)
@@ -640,14 +656,13 @@ def dense_attr_bwd(adj, wd, ws, nf, w_ea, src, dst, emask, meta, m, den, g,
     T, tn, N, H, HD, E = _check_attr(
         "dense_attr_bwd", adj, wd, nf, src, meta,
         extra=(("ws", ws, f32, (N, H)), ("m", m, f32, (N, H)),
-               ("den", den, f32, (N, H)), ("g", g, f32, (N, HD)),
-               ("s", s, f32, (N, H)))
-        + _edge_extra(src.shape[0], H, w_ea, dst, emask))
+               ("den", den, f32, (N, H)), ("s", s, f32, (N, H)))
+        + _edge_extra(src.shape[0], H, w_ea, dst, emask), g=g)
     dev = nf.device
     d_wd = torch.empty((N, H), dtype=f32, device=dev)
-    d_ws = torch.zeros((N, H), dtype=f32, device=dev)
+    d_ws = torch.empty((N, H), dtype=f32, device=dev)
     d_wself = torch.empty((N, H), dtype=f32, device=dev)
-    d_nf = torch.zeros((N, HD), dtype=f32, device=dev)
+    d_nf = torch.empty((N, HD), dtype=f32, device=dev)
     dz = torch.empty((T, H * tn, tn), dtype=f32, device=dev)
     P = _cuda.ptr
     KERNEL_ATTR_BWD.launch(

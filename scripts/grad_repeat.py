@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Do one finetune train step's gradients repeat bit for bit on the card?
 
-    python3 scripts/grad_repeat.py [--repeats 5]
+    python3 scripts/grad_repeat.py [--repeats 5] [--policy dense-attr]
 
-Builds chip_smoke.py's esol model (seeded weights, dropout off) and its
+Builds chip_smoke.py's esol model (seeded weights, dropout off) under the
+default kernel policy or, with ``--policy dense-attr``, under the
+dense-attr policy (K7-K9 carry the atom, frag and fconn passes), and its
 first train batch, and computes the loss's gradient ``--repeats`` times on
 the card from the same weights and batch, in one process: first as the
 port runs (PyTorch's default algorithms), then with
@@ -61,6 +63,8 @@ def spread(runs):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--policy", choices=("default", "dense-attr"),
+                    default="default")
     args = ap.parse_args()
     # cuBLAS needs a fixed workspace for deterministic products
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -75,13 +79,14 @@ def main() -> int:
     from fragnet_tpu_torch.data.batcher import BatchLoader
     from fragnet_tpu_torch.graphs.batch import to_device
     from fragnet_tpu_torch.graphs.hiergraph import pad_batch
+    from fragnet_tpu_torch.train.fastpath import resolve_kernel_policy
     from fragnet_tpu_torch.train.finetune import build_model, load_datasets
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
-    opt = cs.smoke_opt(train=True)
+    opt = cs.smoke_opt(train=True, attr=args.policy == "dense-attr")
     datasets = load_datasets(opt)
     train_g, _val, _test, n_tasks, _task = datasets
     spec, _windows, _b = cs.smoke_batch(opt, datasets)
@@ -90,8 +95,10 @@ def main() -> int:
     dev = torch.device("cuda")
     batch = to_device(pad_batch(next(iter(loader._windows())), spec,
                                 n_tasks=n_tasks), dev)
-    model = build_model(opt, n_classes=n_tasks,
+    policy = resolve_kernel_policy(opt.finetune)
+    model = build_model(opt, n_classes=n_tasks, policy=policy,
                         generator=torch.Generator().manual_seed(0))
+    print(f"policy {args.policy}: {policy}")
 
     report = {}
     for mode in ("default", "deterministic"):
@@ -111,7 +118,7 @@ def main() -> int:
               f"spread {worst:.3e} of scale): {varying}; ops without a "
               f"deterministic version: {nondet}")
     torch.use_deterministic_algorithms(False)
-    print(json.dumps({"grad_repeat": report}))
+    print(json.dumps({"grad_repeat": report, "policy": args.policy}))
     return 0
 
 

@@ -26,8 +26,9 @@ edge-partitioned train step), for the plane builder its bond, fconn and
 atom inputs of chip_smoke.py's batch-512 pretrain batch. The TCSR forward
 and backward (K1, K2) and the dense forward and backward (K4, K5) are also
 timed at that batch's layer-0 inputs (atom and frag; bond and fconn),
-captured as phase 13 captures them (levels tagged "batch 512"). A kernel
-whose
+captured as phase 13 captures them, and the dense-attr kernels (K7-K9) at
+its atom, fconn and frag inputs under the dense-attr policy, captured as
+phase 16 captures them (levels tagged "batch 512"). A kernel whose
 launcher the base does not export (K3 against a version before it) is
 skipped. Both versions are also held
 against the plain version (limit 1e-4 of scale; the plane builder and the
@@ -89,7 +90,8 @@ def capture_calls(names):
                       in cs.ep_kernel_calls([r["calls"] for r in res],
                                             rng).items()})
     big = names & set(cs.BIG_KERNELS)
-    if cs.PLANES in names or big:
+    big_attr = names & set(cs.ATTR_KERNELS)
+    if cs.PLANES in names or big or big_attr:
         popt = cs.pt_opt(cs.PT_OVERRIDES)
         graphs = cs.PretrainGraphs(popt, workers=os.cpu_count() or 1).get()
     if cs.PLANES in names:
@@ -105,6 +107,12 @@ def capture_calls(names):
                 popt, pmodel, *cs.pretrain_big_batch(graphs, "cuda"),
                 np.random.default_rng(13)).items():
             if name in big:
+                calls[name] = calls[name] + cl
+    if big_attr:
+        for name, cl in cs.pretrain_attr_kernel_calls(
+                cs.pretrain_big_batch(graphs, "cuda"), "cuda",
+                np.random.default_rng(16)).items():
+            if name in big_attr:
                 calls[name] = calls[name] + cl
 
     return calls

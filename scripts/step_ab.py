@@ -10,7 +10,8 @@ unpacked with ``git archive`` into exps/parent). This checkout featurizes
 the esol set once and pickles the train batch of chip_smoke.py's phase 8
 under exps/step_ab/. Each turn is a fresh process that imports one
 checkout's fragnet_tpu_torch, builds its kernels (once per checkout),
-builds the model from seed 0 under each policy, runs 3 warm-up steps,
+builds the model from seed 0 under each policy (a step that does not run
+its policy's kernels raises), runs 3 warm-up steps,
 times ``--steps`` steps each ended by a synchronize (host clock; the
 median is the step's wall) and profiles one more (device busy time, as
 chip_smoke.py counts it, and the launches of device kernels). The turns
@@ -78,6 +79,7 @@ def turn(root: str, path: str, steps: int) -> dict:
     spec.loader.exec_module(cs)
     import fragnet_tpu_torch
     from fragnet_tpu_torch.ops import _cuda, dense_gat, tcsr_gat  # noqa: F401
+    from fragnet_tpu_torch.train.fastpath import resolve_kernel_policy
     from fragnet_tpu_torch.train.finetune import build_model
     from fragnet_tpu_torch.train.loop import make_train_step
     from fragnet_tpu_torch.train.optim import make_optimizer
@@ -95,6 +97,7 @@ def turn(root: str, path: str, steps: int) -> dict:
     for policy in POLICIES:
         opt = cs.smoke_opt(train=True, attr=policy == "dense-attr")
         model = build_model(opt, n_classes=data["n_tasks"],
+                            policy=resolve_kernel_policy(opt.finetune),
                             generator=torch.Generator().manual_seed(0))
         model = model.to("cuda")
         optim, _ = make_optimizer(model.parameters(), "adam", lr=1e-4)
@@ -113,6 +116,10 @@ def turn(root: str, path: str, steps: int) -> dict:
             step(train_np)
             torch.cuda.synchronize()
         busy, rows = cs._busy(prof)
+        if (policy == "dense-attr") != any("dense_attr_fwd_kernel" in k
+                                           for k, _ in rows):
+            raise RuntimeError(f"the {policy} step did not run the kernels "
+                               f"of its policy")
         launches = sum(e.count for e in prof.key_averages()
                        if e.device_type == torch.autograd.DeviceType.CUDA
                        and not getattr(e, "is_user_annotation", False)

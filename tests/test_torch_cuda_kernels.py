@@ -20,7 +20,9 @@ on tile-local graphs without repeated pairs, so it is held to equality.
 The dense-attr kernels (K7-K9) are checked at every node tile their
 wrappers take (32, 64, 128, 256), with and without self-loops, on
 adjacency planes that are contiguous or the first tn rows of R = 6 planes
-(the fconn level's strided view).
+(the fconn level's strided view), on random graphs and on the seeded
+tile-local cases at H 1, 4, 8 (K7 and K8 twice, to equal bits); K8's
+per-head dot is pinned to torch's order by an exact cancellation.
 """
 
 import dataclasses
@@ -442,6 +444,11 @@ def test_dense_attr_pass_gradients_match_cpu(cuda):
 
 
 def test_dense_attr_wrappers_refuse_bad_inputs(cuda):
+    """Besides bad layouts, types and tiles: K7 and K8 read the adjacency
+    rows and nf (K8 also g) in float4 and K8 sums a head's D/4 lanes by
+    shuffles, so D not a multiple of 4, H*D > 256, D/4 not a power of two
+    (K8) and an nf that is not 16-byte aligned are refused, with no
+    fallback."""
     rng = np.random.default_rng(61)
     args = _attr_case(cuda, rng, 64, False)
     with pytest.raises(ValueError):  # a transposed adjacency
@@ -451,6 +458,35 @@ def test_dense_attr_wrappers_refuse_bad_inputs(cuda):
     meta96 = dataclasses.replace(args[8], tn=96)
     with pytest.raises(ValueError):  # no kernel for tn = 96
         dense_gat.dense_attr_fwd(*args[:8], meta96, False)
+
+    adj = args[0]
+    N, E = adj.shape[0] * adj.shape[1], args[4].shape[0]
+    z = lambda *shape: torch.zeros(shape, device=cuda)
+
+    def fwd(H, D, nf=None):
+        nf = z(N, H * D) if nf is None else nf
+        return dense_gat.dense_attr_fwd(adj, z(N, H), z(N, H), nf, z(E, H),
+                                        *args[5:9], False)
+
+    def bwd(H, D, nf=None):
+        nf = z(N, H * D) if nf is None else nf
+        return dense_gat.dense_attr_bwd(adj, z(N, H), z(N, H), nf, z(E, H),
+                                        *args[5:9], z(N, H), z(N, H),
+                                        z(N, H * D), z(N, H), False)
+
+    fwd(4, 32)  # taken
+    fwd(2, 12)  # taken: the forward sums no dot
+    bwd(4, 32)  # taken
+    for H, D in ((4, 6), (8, 64)):
+        with pytest.raises(ValueError, match="unsupported"):
+            fwd(H, D)
+    for H, D in ((4, 6), (2, 12), (8, 64)):
+        with pytest.raises(ValueError, match="unsupported"):
+            bwd(H, D)
+    odd = torch.zeros(N * 128 + 1, device=cuda)[1:].view(N, 128)
+    for call in (fwd, bwd):
+        with pytest.raises(ValueError, match="aligned"):
+            call(4, 32, nf=odd)
 
 
 def _ep_case(cuda, rng, tn, S=2):
@@ -897,3 +933,112 @@ def test_tcsr_gat_bwd_cancels_exactly_with_one_neighbour(cuda, H, D):
         torch.cuda.synchronize()
         for k in (d_wn, d_w_ea):
             assert float(k.abs().max()) == 0.0
+
+
+# --------------------------------------------------------------------------
+# the row-sliced dense-attr kernels (K7 forward, K8 backward with its row
+# and column roles) and the emit (K9) on the seeded tile-local cases; K7
+# and K8 sum in a fixed order with no atomics, so a second call gives the
+# same bits
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("self_loops", [False, True])
+@pytest.mark.parametrize("H", [1, 4, 8])
+@pytest.mark.parametrize("tn", [32, 64, 128, 256])
+def test_dense_attr_kernels_match_plain_on_cases(cuda, tn, H, self_loops):
+    """K7, K8 and K9 on a case with an empty row, a hub row of 64+ nonzeros
+    (a tile of 32 or 64 holds fewer: K7's rescaled chunks of 32), a column
+    with edges into every 8-row slice, a window that starts in the tile
+    before, edges shuffled within the tile and masked edges; at tn = 128
+    the adjacency is the first tn rows of R = 6 planes (the fconn level's
+    strided view). Every output within 1e-4 of its scale, the same bits
+    from a second call, and the emit exactly."""
+    case = kernel_case(tn + H + 11, tn, tile_local=True, hub_step=7)
+    T_, meta = _case_tensors(cuda, case, tn, 64)
+    N, E, D = case.n_nodes, len(case.src), 32
+    rng = np.random.default_rng(150 + tn + H + self_loops)
+    R = 6 if tn == 128 else 0
+    planes = dense_gat.build_dense_planes(
+        case.src, case.dst, case.mask,
+        rng.standard_normal((E, R)).astype(np.float32), N, tn=tn)
+    assert planes is not None
+    adj = T_(planes)[:, :tn, :]
+    draw = lambda *shape: T_(rng.standard_normal(shape).astype(np.float32))
+    args = (adj, draw(N, H), draw(N, H), draw(N, H * D), draw(E, H),
+            T_(case.src), T_(case.dst), T_(case.mask), meta, self_loops)
+    n0 = dense_gat.KERNEL_ATTR.launches
+    got = dense_gat.dense_attr_fwd(*args)
+    again = dense_gat.dense_attr_fwd(*args)
+    torch.cuda.synchronize()
+    assert dense_gat.KERNEL_ATTR.launches == n0 + 2
+    out_p, m_p, den_p = dense_gat.dense_attr_fwd_plain(*args)
+    _close(got[0], out_p)
+    _close(got[2], den_p)
+    _close_m(got[1], m_p)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    out, m, den = got
+    if not self_loops:
+        assert float(out[case.empty_row].abs().max()) == 0.0
+        assert bool((m[case.empty_row] == -1e30).all())
+
+    g = draw(N, H * D)
+    s = (g.view(N, H, D) * out.view(N, H, D)).sum(-1)
+    bargs = args[:9] + (m, den, g, s, self_loops)
+    n0 = dense_gat.KERNEL_ATTR_BWD.launches
+    got = dense_gat.dense_attr_bwd(*bargs)
+    again = dense_gat.dense_attr_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert dense_gat.KERNEL_ATTR_BWD.launches == n0 + 2
+    want = dense_gat.dense_attr_bwd_plain(*bargs)
+    for k, p in zip(got, want):
+        _close(k, p)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    eargs = (got[4],) + args[5:9]
+    d_wea = dense_gat.dense_attr_emit(*eargs)
+    assert torch.equal(d_wea, dense_gat.dense_attr_emit_plain(*eargs))
+    assert float(d_wea[args[7] == 0].abs().max()) == 0.0
+    a0 = planes[0, :tn]
+    assert a0[case.hub_row % tn].sum() >= min(64, tn)
+    assert len(set(np.nonzero(a0[:, case.hub_col])[0] // 8)) == tn // 8
+
+
+@pytest.mark.parametrize("H,D", [(8, 16), (4, 32), (2, 64)])
+def test_dense_attr_bwd_cancels_exactly_with_one_neighbour(cuda, H, D):
+    """Frag-like rows: one neighbour each, no self-loop. K7 divides, so
+    out = nf[j] bit for bit and P = 1; K8 sums its per-head dot in the order
+    in which torch sums DenseAttrGatFn's s = (g·out).sum(-1) on the card,
+    so d_zpre = g·nf[j] − s is exactly 0, as the math says: the d_zpre
+    planes and, through DenseAttrGatFn, the gradients of wd, ws and w_ea
+    are exactly 0 (not round-off), while nf's gradient is g[i] at j."""
+    rng = np.random.default_rng(160 + H + D)
+    tn, n_tiles, te = 128, 2, 64
+    N = tn * n_tiles
+    src = np.concatenate([t * tn + rng.permutation(tn)
+                          for t in range(n_tiles)]).astype(np.int32)
+    dst = np.arange(N, dtype=np.int32)
+    mask = np.ones(N, np.float32)
+    planes = dense_gat.build_dense_planes(
+        src, dst, mask, np.zeros((N, 0), np.float32), N, tn=tn)
+    meta = build_tile_meta(src, dst, mask, N, tn=tn, te=te)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    meta = dataclasses.replace(meta, ew_blk=T(meta.ew_blk), cw=T(meta.cw),
+                               sw_tile=T(meta.sw_tile),
+                               flat_slot=T(meta.flat_slot))
+    draw = lambda *shape: T(rng.standard_normal(shape).astype(np.float32))
+    ints = (T(src), T(dst), T(mask))
+    xs = [t.requires_grad_() for t in (draw(N, H), draw(N, H),
+                                       draw(N, H * D), draw(N, H))]
+    g = draw(N, H * D)
+    out, m, den = dense_gat.DenseAttrGatFn.apply(T(planes), *xs, *ints, meta,
+                                                 False, 0.2)
+    assert torch.equal(out, xs[2][ints[0].long()])
+    d_wd, d_ws, d_nf, d_wea = torch.autograd.grad((out * g).sum(), xs)
+    s = (g.view(N, H, D) * out.view(N, H, D)).sum(-1)
+    dz = dense_gat.dense_attr_bwd(T(planes), *(x.detach() for x in xs),
+                                  *ints, meta, m, den, g, s, False)[4]
+    torch.cuda.synchronize()
+    for k in (d_wd, d_ws, d_wea, dz):
+        assert float(k.abs().max()) == 0.0
+    _close(d_nf[ints[0].long()], g)

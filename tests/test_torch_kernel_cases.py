@@ -5,11 +5,15 @@ graphs of tests/torch_kernel_cases.py: an empty destination row, a row of
 edges unsorted by destination within a tile, sources reaching other tiles
 (TCSR source windows of k_src > 1) with repeated (dst, src) pairs, a
 source or plane column with edges into rows of every slice; tn in {32,
-128, 256} and H in {1, 4, 8}. The same cases hold the CUDA kernels against
+128, 256} and H in {1, 4, 8}. The dense-attr kernels' plain versions (K7
+forward, K8 backward, K9 emit) are held on the tile-local cases, with and
+without self-loops. The same cases hold the CUDA kernels against
 these plain versions on the card (tests/test_torch_cuda_kernels.py).
 Inputs are made with numpy from a seed and handed to both; the kernels'
 raw inputs and outputs are compared (TCSR forward: out, m, den; dense
-forward: out, m, den; dense backward: d_wd, d_ws, d_nf, d_vc), and the
+forward: out, m, den; dense backward: d_wd, d_ws, d_nf, d_vc; dense-attr
+forward: out, m, den; dense-attr backward: d_wd, d_ws, d_wself, d_nf and
+the d_zpre planes; emit: d_wea), and the
 TCSR backward through the whole pass: the gradients of the port's
 tcsr_gat_pass (plain kernels, the prologue by autograd) against jax.vjp of
 the Pallas pass. Tolerance: atol = rtol = 1e-5 in f32 (the two sum in
@@ -24,6 +28,7 @@ import pytest
 import torch
 
 from fragnet_tpu.ops.dense_gat import _build as jax_dense_build
+from fragnet_tpu.ops.dense_gat import _build_attr as jax_attr_build
 from fragnet_tpu.ops.dense_gat import _pick_g
 from fragnet_tpu.ops.pallas_gat import _build as jax_tcsr_build
 from fragnet_tpu.ops.pallas_gat import pallas_gat_pass
@@ -204,3 +209,69 @@ def test_dense_fwd_plain_matches_pallas_on_cases(tn, H, R):
     assert float(out[case.empty_row].abs().max()) == 0.0
     assert float(den[case.empty_row].abs().max()) == 0.0
     assert bool((m[case.empty_row] == -1e30).all())
+
+
+@pytest.mark.parametrize("self_loops", [False, True])
+@pytest.mark.parametrize("tn,H", SHAPES)
+def test_dense_attr_plain_matches_pallas_on_cases(tn, H, self_loops):
+    """The dense-attr plain versions (K7's forward, K8's backward, K9's
+    emit) against the JAX package's Pallas attr kernels, interpreted, on a
+    tile-local case: the adjacency plane of the kept edges, a window that
+    starts in the tile before, edges shuffled within the tile, an empty
+    row, a hub row of 64+ nonzeros (32 at tn = 32), a column with edges
+    into every 8-row slice and masked edges; the backward gets each
+    package's own forward state and s = Σ_d g·out."""
+    case = kernel_case(tn + H + 7, tn, tile_local=True, hub_step=7)
+    N, E = case.n_nodes, len(case.src)
+    rng = np.random.default_rng(tn + H + 3 * self_loops)
+    adj = build_dense_planes(case.src, case.dst, case.mask,
+                             np.zeros((E, 0), np.float32), N, tn=tn)
+    assert adj is not None
+    wd, ws, nf = _draw(rng, N, H), _draw(rng, N, H), _draw(rng, N, H * D)
+    w_ea, g = _draw(rng, E, H), _draw(rng, N, H * D)
+    mj = jax_tile_meta(case.src, case.dst, case.mask, N, tn=tn, te=TE)
+    fwd, bwd, emit = jax_attr_build(N, E, tn, TE, mj.n_chunks, H, D,
+                                    self_loops, SLOPE, "float32", True)
+    wsT = np.zeros((8, N), np.float32)
+    wsT[:H] = ws.T
+    lead = (np.zeros((1,), np.int32), jnp.asarray(mj.ew_blk),
+            jnp.asarray(mj.cw))
+    edges = tuple(jnp.asarray(x.reshape(E, 1))
+                  for x in (case.src, case.dst, case.mask))
+    out_j, m_j, den_j = fwd(*lead, adj, wd, wsT, ws, nf, w_ea, *edges)
+    s_j = np.einsum("nhd,nhd->nh", g.reshape(N, H, D),
+                    np.asarray(out_j).reshape(N, H, D))
+    d_wd, d_wsT, d_wself, d_nf, dz = bwd(*lead, adj, wd, wsT, ws, nf, w_ea,
+                                         *edges, m_j, den_j, g, s_j)
+    d_wea = (np.asarray(emit(*lead, dz, *edges)).reshape(-1, H)[mj.flat_slot]
+             * case.mask[:, None])
+    want_bwd = (d_wd, np.asarray(d_wsT)[:H].T, d_wself, d_nf, dz)
+
+    t = torch.from_numpy
+    meta = build_tile_meta(case.src, case.dst, case.mask, N, tn=tn, te=TE)
+    meta = dataclasses.replace(meta, ew_blk=t(meta.ew_blk), cw=t(meta.cw))
+    ints = (t(case.src), t(case.dst), t(case.mask))
+    args = (t(adj), t(wd), t(ws), t(nf), t(w_ea)) + ints + (meta,)
+    n0 = (dense_gat.KERNEL_ATTR.launches, dense_gat.KERNEL_ATTR_BWD.launches,
+          dense_gat.KERNEL_ATTR_EMIT.launches)
+    out, m, den = dense_gat.dense_attr_fwd(*args, self_loops, SLOPE)
+    for p, j in zip((out, m, den), (out_j, m_j, den_j)):
+        _close(p, j)
+    gt = t(g)
+    s = (gt.view(N, H, D) * out.view(N, H, D)).sum(-1)
+    got = dense_gat.dense_attr_bwd(*args, m, den, gt, s, self_loops, SLOPE)
+    for p, j in zip(got, want_bwd):
+        _close(p, j)
+    _close(dense_gat.dense_attr_emit(got[4], *ints, meta), d_wea)
+    assert (dense_gat.KERNEL_ATTR.launches, dense_gat.KERNEL_ATTR_BWD.launches,
+            dense_gat.KERNEL_ATTR_EMIT.launches) == n0  # the plain versions
+    a0 = adj[0]
+    assert a0[case.hub_row % tn].sum() >= min(64, tn)
+    rows = np.nonzero(a0[:, case.hub_col])[0]
+    assert len(set(rows // 8)) == tn // 8  # every 8-row slice
+    assert a0[case.empty_row].sum() == 0
+    assert meta.ew_blk[1] * TE < np.nonzero(case.dst // tn == 1)[0].min()
+    assert (case.mask[:np.count_nonzero(case.dst)] == 0).any()
+    if not self_loops:
+        assert float(out[case.empty_row].abs().max()) == 0.0
+        assert bool((m[case.empty_row] == -1e30).all())

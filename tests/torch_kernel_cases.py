@@ -1,9 +1,10 @@
 """Seeded graphs for the cases a row-sliced GAT kernel can get wrong.
 
-The port's forward TCSR kernel (csrc/tcsr_gat_fwd.cu) and its dense
-backward kernel (csrc/dense_gat_bwd.cu) split each node tile into slices of
-rows (and, in the backward, of columns), a block each. ``kernel_case``
-draws, with numpy from a seed, the per-edge arrays of a graph that has
+The port's row-sliced GAT kernels (csrc/tcsr_gat_{fwd,bwd}.cu,
+csrc/dense_gat_{fwd,bwd}.cu, csrc/dense_attr_{fwd,bwd}.cu) split each node
+tile into slices of 8-16 rows (and, in the backward kernels, of columns or
+source rows), a block each. ``kernel_case`` draws, with numpy from a seed,
+the per-edge arrays of a graph that has
 
   * a destination row with no kept edge (one masked edge points at it):
     the forward must give m = -1e30, den = 0, out = 0 there;
@@ -13,7 +14,8 @@ draws, with numpy from a seed, the per-edge arrays of a graph that has
   * edges stored tile by tile, shuffled within the tile (not sorted by
     destination), the first tile's count off the te grid, so a tile's edge
     window starts with edges of the tile before it;
-  * a column (source node) with edges into rows of every 8-row slice;
+  * a column (source node) with edges into rows of every 16-row slice
+    (every ``hub_step``-th row; ``hub_step`` 7 reaches every 8-row slice);
   * masked real edges and masked padding up to a multiple of te.
 
 With ``tile_local`` every source lies in its destination's tile and no
@@ -43,7 +45,8 @@ class KernelCase(NamedTuple):
 
 
 def kernel_case(seed: int, tn: int, n_tiles: int = 3, te: int = 64,
-                tile_local: bool = False, hub: int = 72) -> KernelCase:
+                tile_local: bool = False, hub: int = 72,
+                hub_step: int = 9) -> KernelCase:
     rng = np.random.default_rng(seed)
     N = n_tiles * tn
     empty_row, hub_row, hub_col = tn - 3, 1, tn - 5
@@ -62,9 +65,9 @@ def kernel_case(seed: int, tn: int, n_tiles: int = 3, te: int = 64,
             else:
                 js = rng.integers(lo, hi, deg)
             pairs += [(t * tn + i, int(j)) for j in js]
-        if t == 0:  # the hub column: every 9th row reaches every slice
+        if t == 0:  # the hub column: every hub_step-th row
             have = set(pairs)
-            pairs += [(i, hub_col) for i in range(2, tn, 9)
+            pairs += [(i, hub_col) for i in range(2, tn, hub_step)
                       if i != empty_row and (i, hub_col) not in have]
         rng.shuffle(pairs)
         keep = (rng.random(len(pairs)) > 0.05).astype(np.float32)
