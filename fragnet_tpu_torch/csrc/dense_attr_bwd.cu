@@ -1,8 +1,11 @@
-// Dense-attr GAT backward pass, part 1 (atom, frag and fconn levels under the
-// dense-attr kernel policy), for Hopper (sm_90a).
+// Dense-attr GAT backward pass (atom, frag and fconn levels under the
+// dense-attr kernel policy) with its per-edge logit gradient, for Hopper
+// (sm_90a).
 //
-// Replaces the TPU kernel fragnet_tpu/ops/dense_gat.py:_attr_bwd_kernel
-// (l.276), pallas_call at l.515, called from the custom VJP op_bwd (l.595).
+// Replaces two TPU kernels called from the custom VJP op_bwd (l.595):
+// fragnet_tpu/ops/dense_gat.py:_attr_bwd_kernel (l.276, pallas_call at
+// l.515) and the emit, _attr_emit_kernel (l.359, pallas_call at l.538) with
+// op_bwd's flat_slot gather and mask product (l.610-611).
 // For tile t of tn nodes, row i = destination, column j = source, with
 // W_h[i, j] the w_ea[e, h] of the counted edge at slot (i, j) as in
 // dense_attr_fwd.cu, given the forward's inputs, its softmax state (m, den),
@@ -17,16 +20,20 @@
 //   d_wself[i,h] = ps * (sum_d g[i]*nf[i] - s) * (zs_pre > 0 ? 1 : slope)
 //                  with ps = exp(leaky(zs_pre) - m) / den, zs_pre = wd[i]+ws[i]
 //                  (0 without self_loops)
-//   dz[t, h*tn + i, j] = d_zpre          (every slot written: 0 off the
-//                                         adjacency, so dense_attr_emit.cu
-//                                         and a comparison read any slot)
+//   d_wea[e, h]  = d_zpre[i, j] * emask[e]  for the counted edge e at each
+//                  nonzero (i, j): e inside tile t's TCSR edge window
+//                  [ew_blk[t]*te, (ew_blk[t]+cw[t])*te), emask[e] > 0,
+//                  dst[e] = node i and src[e] = node j of tile t
+//                  (ops/dense_gat.py:dense_attr_emit_plain);
+//                = 0 for every other edge (masked, cross-tile, outside
+//                  every window, the padded tail)
 // den == 0 counts as 1. The self-loop terms of d_wd/d_ws, d_nf += d_wd x
 // a_dst + d_ws x a_src and d_a are left to torch outside the kernel, as the
 // TPU op_bwd leaves them outside Pallas (l.612-622).
 //
-// What bounds it on this card: the dz planes it writes (H*tn*tn*4 bytes per
-// tile: 256 KiB at tn = 128, H = 4), the adjacency it reads (tn*tn*4), and
-// per nonzero one g row and one nf row. Few flops per byte; at the 2-6
+// What bounds it on this card: the adjacency it reads (tn*tn*4 bytes per
+// tile), per nonzero one g row and one nf row, and the node and edge
+// arrays. Few flops per byte; at the 2-6
 // tiles a level of the finetune batch the kernel is bound by latency: how
 // many SMs have work and how many rounds of dependent loads each warp waits
 // on. The first port (a block per (tile, 32 rows): 24 blocks at the
@@ -47,23 +54,34 @@
 // slice, other end in the tile); the map is cleared before the scan, so a
 // nonzero of the adjacency without a counted edge reads -1 (W = 0), as the
 // plain version's W planes give.
-//   * Row role (d_wd, d_wself, the dz planes): the warp reads its adjacency
-//     row once in float4 and lists its nonzero columns in column order by
-//     ballots (as dense_gat_fwd.cu does). Per nonzero it recomputes P from
-//     (m, den) and d_zpre from the per-head dot g[i]·nf[j], sums d_wd in
-//     column order and stores d_zpre at its slot; the row's H x tn slots
-//     are first cleared with coalesced float4 stores.
-//   * Column role (d_ws, d_nf): the warp reads column j of the adjacency
-//     (one strided load per 32 rows, all in flight) and lists its nonzero
-//     rows in row order; per nonzero row it recomputes P and d_zpre from
-//     that row's g, wd, m, den and s (as dense_gat_bwd.cu's column role
-//     does) and sums d_ws and P·g[i] in row order, then the self-loop.
+//   * Row role (d_wd, d_wself, the counted edges' d_wea): the warp reads its
+//     adjacency row once in float4 and lists its nonzero columns in column
+//     order by ballots (as dense_gat_fwd.cu does). Per nonzero it recomputes
+//     P from (m, den) and d_zpre from the per-head dot g[i]·nf[j], sums d_wd
+//     in column order and, where the map holds an edge e, stores d_wea[e] =
+//     d_zpre * emask[e] (the mask read with w_ea, in the same load round).
+//   * Column role (d_ws, d_nf, the other edges' zeros): the warp reads column
+//     j of the adjacency (one strided load per 32 rows, all in flight) and
+//     lists its nonzero rows in row order; per nonzero row it recomputes P
+//     and d_zpre from that row's g, wd, m, den and s (as dense_gat_bwd.cu's
+//     column role does) and sums d_ws and P·g[i] in row order, then the
+//     self-loop. Each column block also writes d_wea = 0 for the edges of
+//     its share of [0, E) that no row warp stores: not counted, or counted
+//     at a slot where the adjacency is 0 (as tcsr_gat_bwd.cu's source role
+//     writes its masked edges' zeros).
+// So d_wea is written once per edge and needs no fill, and the d_zpre planes
+// (H*tn*tn*4 bytes per tile, 29 MB at the batch-512 atom level) that the TPU
+// kernels pass from the backward to the emit through memory — Mosaic has no
+// cheap scatter — are never stored: the emit costs no launch of its own and
+// no round trip. A stored d_wea is the rounded d_zpre times emask, the
+// product an emit computes from a stored plane, so it has the same bits as
+// storing the planes and gathering them.
 // Both roles compute P and d_zpre with the same expressions, so they agree
 // bit for bit. The per-head dot is summed in the order in which torch sums
 // s = (g * out).sum(-1) on the card (DenseAttrGatFn's s, a plain torch sum;
 // halves, as tcsr_gat_bwd.cu sums): where a row has one neighbour and no
 // self-loop, out == nf[j] bit for bit (dense_attr_fwd.cu divides), so
-// d_p - s is exactly 0 and so are d_zpre, d_wd, d_ws and the emitted d_wea,
+// d_p - s is exactly 0 and so are d_zpre, d_wd, d_ws and d_wea,
 // as the math says. The TPU kernel's one-hot matmuls that rebuild the dense
 // W planes chunk by chunk (Mosaic has no cheap indexed load) are not
 // carried over.
@@ -98,7 +116,7 @@ struct Args {
   float* d_ws;          // (N, H)
   float* d_wself;       // (N, H)
   float* d_nf;          // (N, H*D)
-  float* dz;            // (n_tiles, H*tn, tn)
+  float* d_wea;         // (E, H)
   long long adj_stride;
   int n_tiles, n_edges, tn, te, H, D, self_loops;
   float slope;
@@ -170,6 +188,42 @@ __device__ __forceinline__ void record(const WinEdge& w, int e, int near0,
   if (w.keep && r >= 0 && r < kRows && c >= 0 && c < tn) map[r][c] = e;
 }
 
+// An edge of a column block's share of [0, E), for the d_wea zeros.
+struct OtherEdge {
+  int e, d, s;
+  bool keep, live;
+};
+
+__device__ __forceinline__ OtherEdge other_edge(const Args& a, int e,
+                                                int e_hi) {
+  OtherEdge z{e, 0, 0, false, e < e_hi};
+  if (z.live) {
+    z.d = a.dst[e];
+    z.s = a.src[e];
+    z.keep = a.emask[e] > 0.f;
+  }
+  return z;
+}
+
+// true where no row warp stores d_wea[e]: e is outside the predicate of
+// dense_attr_emit_plain (masked, cross-tile, outside its tile's window) or
+// at a zero of the adjacency
+__device__ __forceinline__ bool unstored(const Args& a, const OtherEdge& z) {
+  const int tn = a.tn;
+  const int t = z.d >= 0 ? z.d / tn : -1;
+  if (!z.keep || t < 0 || t >= a.n_tiles || z.s < t * tn
+      || z.s >= (t + 1) * tn)
+    return true;
+  const int lo = a.ew_blk[t] * a.te;
+  return z.e < lo || z.e >= lo + a.cw[t] * a.te
+         || !(a.adj[(size_t)t * a.adj_stride + (size_t)(z.d - t * tn) * tn
+                    + (z.s - t * tn)] > 0.f);
+}
+
+__device__ __forceinline__ void store_zeros(const Args& a, int e) {
+  for (int h = 0; h < a.H; ++h) a.d_wea[(size_t)e * a.H + h] = 0.f;
+}
+
 template <int NV>  // float4 column groups per lane: H*D <= 128 * NV
 __global__ void __launch_bounds__(kThreads) dense_attr_bwd_kernel(
     const Args a, int n_row_blocks) {
@@ -208,7 +262,7 @@ __global__ void __launch_bounds__(kThreads) dense_attr_bwd_kernel(
   const WinEdge w0 = read_edge(a, e_lo + tid, e_hi, !col_role);
 
   if (!col_role) {
-    // ---- row role: d_wd, d_wself and the row's dz slots ------------------
+    // ---- row role: d_wd, d_wself and the row's counted edges' d_wea ------
     const float* arow = tile + (size_t)mine * tn;
     float4 ad[kMaxTn / 128];
 #pragma unroll
@@ -230,18 +284,11 @@ __global__ void __launch_bounds__(kThreads) dense_attr_bwd_kernel(
       si[v] = a.s[node * H + hd[v]];
       dwd[v] = 0.f;
     }
-    // the row's slots of every head plane cleared, coalesced
-    float* dzt = a.dz + (size_t)t * H * tn * tn;
-    for (int q = lane; q < H * (tn >> 2); q += 32) {
-      const int h = q / (tn >> 2), c = 4 * (q % (tn >> 2));
-      *reinterpret_cast<float4*>(dzt + ((size_t)h * tn + mine) * tn + c) =
-          zero4;
-    }
     __syncthreads();  // the map is clear
     record(w0, e_lo + tid, near0, node0, tn, eid);
     for (int e = e_lo + tid + kThreads; e < e_hi; e += kThreads)
       record(read_edge(a, e, e_hi, true), e, near0, node0, tn, eid);
-    __syncthreads();  // the map is complete; the cleared slots are stored
+    __syncthreads();  // the map is complete
 
     // the row's nonzero columns, in column order
     const unsigned below = (1u << lane) - 1u;
@@ -266,8 +313,8 @@ __global__ void __launch_bounds__(kThreads) dense_attr_bwd_kernel(
     __syncwarp();
 
     for (int b0 = 0; b0 < n; b0 += kUnroll) {
-      int js[kUnroll];
-      float aj[kUnroll];
+      int js[kUnroll], es[kUnroll];
+      float aj[kUnroll], em[kUnroll];
       float4 x[kUnroll][NV];
       float wsj[kUnroll][NV], wea[kUnroll][NV];
 #pragma unroll
@@ -276,6 +323,8 @@ __global__ void __launch_bounds__(kThreads) dense_attr_bwd_kernel(
         js[u] = ok ? lst[warp][b0 + u] : 0;
         aj[u] = ok ? val[warp][b0 + u] : 0.f;
         const int e = ok ? eid[warp][js[u]] : -1;
+        es[u] = e;
+        em[u] = e >= 0 ? a.emask[e] : 0.f;
         const size_t nj = (size_t)node0 + js[u];
 #pragma unroll
         for (int v = 0; v < NV; ++v) {
@@ -294,7 +343,8 @@ __global__ void __launch_bounds__(kThreads) dense_attr_bwd_kernel(
                                       mi[v], dgi[v], si[v], gi[v], x[u][v],
                                       W, slope, p);
           dwd[v] += dzv;
-          if (first[v]) dzt[((size_t)hd[v] * tn + mine) * tn + js[u]] = dzv;
+          if (first[v] && es[u] >= 0)
+            a.d_wea[(size_t)es[u] * H + hd[v]] = dzv * em[u];
         }
       }
     }
@@ -316,7 +366,14 @@ __global__ void __launch_bounds__(kThreads) dense_attr_bwd_kernel(
     return;
   }
 
-  // ---- column role: d_ws and d_nf -----------------------------------------
+  // ---- column role: d_ws, d_nf and the other edges' d_wea zeros ----------
+  // this block's share of [0, E) for the zeros: its first round's edge
+  // words requested now, their windows and adjacency slots once the map is
+  // complete, the zeros stored last, so that none of it waits in the
+  // column's chain of loads
+  const int per = (a.n_edges + n_row_blocks - 1) / n_row_blocks;
+  const int z_lo = b * per, z_hi = min(a.n_edges, z_lo + per);
+  const OtherEdge z0 = other_edge(a, z_lo + tid, z_hi);
   float ac[kMaxTn / 32];  // column `mine` of the adjacency, row lane + 32k
 #pragma unroll
   for (int k = 0; k < kMaxTn / 32; ++k) {
@@ -342,6 +399,7 @@ __global__ void __launch_bounds__(kThreads) dense_attr_bwd_kernel(
   for (int e = e_lo + tid + kThreads; e < e_hi; e += kThreads)
     record(read_edge(a, e, e_hi, false), e, near0, node0, tn, eid);
   __syncthreads();  // the map is complete
+  const bool zero0 = z0.live && unstored(a, z0);
 
   // the column's nonzero rows, in row order
   int n = 0;
@@ -411,6 +469,11 @@ __global__ void __launch_bounds__(kThreads) dense_attr_bwd_kernel(
     *reinterpret_cast<float4*>(a.d_nf + node * HD + col[v]) = dnf[v];
     if (first[v]) a.d_ws[node * H + hd[v]] = dws[v];
   }
+  if (zero0) store_zeros(a, z0.e);
+  for (int e = z_lo + tid + kThreads; e < z_hi; e += kThreads) {
+    const OtherEdge z = other_edge(a, e, z_hi);
+    if (unstored(a, z)) store_zeros(a, e);
+  }
 }
 
 }  // namespace
@@ -420,7 +483,7 @@ extern "C" int dense_attr_bwd(
     const void* w_ea, const void* src, const void* dst, const void* emask,
     const void* ew_blk, const void* cw, const void* m, const void* den,
     const void* g, const void* s, void* d_wd, void* d_ws, void* d_wself,
-    void* d_nf, void* dz, long long adj_stride, int n_tiles, int tn, int H,
+    void* d_nf, void* d_wea, long long adj_stride, int n_tiles, int tn, int H,
     int D, int E, int te, int self_loops, float slope, void* stream) {
   // lanes read the adjacency rows, nf and g in float4 and sum a head's D/4
   // lanes by shuffles: D/4 a power of two up to 32, H*D <= 256; tn in {32,
@@ -436,7 +499,7 @@ extern "C" int dense_attr_bwd(
                   (const int*)dst, (const float*)emask, (const int*)ew_blk,
                   (const int*)cw, (const float*)m, (const float*)den,
                   (const float*)g, (const float*)s, (float*)d_wd,
-                  (float*)d_ws, (float*)d_wself, (float*)d_nf, (float*)dz,
+                  (float*)d_ws, (float*)d_wself, (float*)d_nf, (float*)d_wea,
                   adj_stride, n_tiles, E, tn, te, H, D, self_loops, slope};
   const int n_row = n_tiles * (tn / kRows);
   cudaStream_t st = (cudaStream_t)stream;

@@ -28,12 +28,13 @@ dynamic (atom and frag, and fconn under the policy ``fc="attr"``): the
 forward kernel wrapper ``dense_attr_fwd`` (csrc/dense_attr_fwd.cu, which
 replaces dense_gat.py:_attr_fwd_kernel) with ``dense_attr_fwd_plain``, the
 backward kernel wrapper ``dense_attr_bwd`` (csrc/dense_attr_bwd.cu, which
-replaces dense_gat.py:_attr_bwd_kernel) with ``dense_attr_bwd_plain``, the
-emit kernel wrapper ``dense_attr_emit`` (csrc/dense_attr_emit.cu, which
-replaces dense_gat.py:_attr_emit_kernel) with ``dense_attr_emit_plain``,
-``DenseAttrGatFn`` joining them as the autograd boundary
-(dense_gat.py:584-628), and ``dense_attr_gat_pass`` with its epilogue
-(dense_gat.py:632-686). Math contract: ops/segment.py:gat_attention_pass.
+replaces dense_gat.py:_attr_bwd_kernel and the emit, _attr_emit_kernel:
+one launch gives the per-edge logit gradient too) with the plain versions
+of both, ``dense_attr_bwd_plain`` and ``dense_attr_emit_plain``, and
+``dense_attr_bwd_emit_plain`` running them in a row, ``DenseAttrGatFn``
+joining the kernels as the autograd boundary (dense_gat.py:584-628), and
+``dense_attr_gat_pass`` with its epilogue (dense_gat.py:632-686). Math
+contract: ops/segment.py:gat_attention_pass.
 """
 
 from __future__ import annotations
@@ -66,8 +67,6 @@ KERNEL_ATTR = _cuda.CudaKernel(
 KERNEL_ATTR_BWD = _cuda.CudaKernel(
     "dense_attr_bwd.cu", "dense_attr_bwd",
     [_VP] * 19 + [_LL] + [_I] * 7 + [ctypes.c_float, _VP])
-KERNEL_ATTR_EMIT = _cuda.CudaKernel(
-    "dense_attr_emit.cu", "dense_attr_emit", [_VP] * 7 + [_I] * 5 + [_VP])
 
 _KERNEL_H = (1, 2, 4, 8)
 _KERNEL_TN = (32, 64, 128, 256)
@@ -541,9 +540,10 @@ def dense_attr_bwd_plain(adj, wd, ws, nf, w_ea, src, dst, emask, meta, m,
 
 
 def dense_attr_emit_plain(dz, src, dst, emask, meta):
-    """Plain PyTorch version of the emit kernel: (E, H) f32, d_wea[e, h] =
-    dz[t, h*tn + dst mod tn, src mod tn] · emask[e] for every edge that the
-    kernels count, 0 for every other edge."""
+    """Plain PyTorch version of the TPU emit kernel (dense_gat.py:
+    _attr_emit_kernel): (E, H) f32, d_wea[e, h] = dz[t, h*tn + dst mod tn,
+    src mod tn] · emask[e] for every edge that the kernels count, 0 for
+    every other edge."""
     T, Htn, tn = dz.shape
     H = Htn // tn
     k, t, di, sj = _plane_edges(src, dst, emask, T * tn, meta)
@@ -551,6 +551,17 @@ def dense_attr_emit_plain(dz, src, dst, emask, meta):
                       device=dz.device)
     out[k] = dz.view(T, H, tn, tn)[t, :, di, sj] * emask[k, None]
     return out
+
+
+def dense_attr_bwd_emit_plain(adj, wd, ws, nf, w_ea, src, dst, emask, meta,
+                              m, den, g, s, self_loops: bool,
+                              slope: float = 0.2):
+    """The plain versions of the backward and the emit in a row — the
+    function of ``dense_attr_bwd``: (d_wd, d_ws, d_wself (N, H), d_nf
+    (N, H*D), d_wea (E, H)) f32."""
+    *grads, dz = dense_attr_bwd_plain(adj, wd, ws, nf, w_ea, src, dst, emask,
+                                      meta, m, den, g, s, self_loops, slope)
+    return (*grads, dense_attr_emit_plain(dz, src, dst, emask, meta))
 
 
 def _check_attr(name, adj, wd, nf, src, meta, extra=(), g=None):
@@ -641,15 +652,20 @@ def dense_attr_fwd(adj, wd, ws, nf, w_ea, src, dst, emask, meta,
 def dense_attr_bwd(adj, wd, ws, nf, w_ea, src, dst, emask, meta, m, den, g,
                    s, self_loops: bool, slope: float = 0.2):
     """Dense-attr backward kernel wrapper (csrc/dense_attr_bwd.cu, which
-    replaces dense_gat.py:_attr_bwd_kernel): (d_wd, d_ws, d_wself (N, H),
-    d_nf (N, H*D), d_zpre planes (n_tiles, H*tn, tn)) f32, from the
-    forward's inputs, its (m, den), the cotangent ``g`` (N, H*D) of out and
-    ``s`` (N, H) = Σ_d g·out. The kernel writes every element it returns,
-    every slot of the planes included (0 off the adjacency), so all five
-    start empty."""
+    replaces dense_gat.py:_attr_bwd_kernel and the emit, _attr_emit_kernel
+    with op_bwd's flat_slot gather): (d_wd, d_ws, d_wself (N, H), d_nf
+    (N, H*D), d_wea (E, H)) f32, from the forward's inputs, its (m, den),
+    the cotangent ``g`` (N, H*D) of out and ``s`` (N, H) = Σ_d g·out. d_wea
+    is d_zpre at each counted edge's slot times its mask and 0 for every
+    other edge (``dense_attr_emit_plain``); the d_zpre planes are never
+    stored. The kernel writes every element it returns, each edge's d_wea
+    included, so all five start empty. At most one counted edge per (dst,
+    src) slot (packing.dp_level_ok). On CPU tensors: the plain versions in
+    a row (``dense_attr_bwd_emit_plain``)."""
     if nf.device.type == "cpu":
-        return dense_attr_bwd_plain(adj, wd, ws, nf, w_ea, src, dst, emask,
-                                    meta, m, den, g, s, self_loops, slope)
+        return dense_attr_bwd_emit_plain(adj, wd, ws, nf, w_ea, src, dst,
+                                         emask, meta, m, den, g, s,
+                                         self_loops, slope)
     N, H = wd.shape
     HD = nf.shape[1]
     f32 = torch.float32
@@ -663,56 +679,25 @@ def dense_attr_bwd(adj, wd, ws, nf, w_ea, src, dst, emask, meta, m, den, g,
     d_ws = torch.empty((N, H), dtype=f32, device=dev)
     d_wself = torch.empty((N, H), dtype=f32, device=dev)
     d_nf = torch.empty((N, HD), dtype=f32, device=dev)
-    dz = torch.empty((T, H * tn, tn), dtype=f32, device=dev)
+    # no tile, no block and no counted edge: every d_wea is 0
+    d_wea = (torch.empty if T else torch.zeros)((E, H), dtype=f32,
+                                                device=dev)
     P = _cuda.ptr
     KERNEL_ATTR_BWD.launch(
         P(adj), P(wd), P(ws), P(nf), P(w_ea), P(src), P(dst), P(emask),
         P(meta.ew_blk), P(meta.cw), P(m), P(den), P(g), P(s), P(d_wd),
-        P(d_ws), P(d_wself), P(d_nf), P(dz), adj.stride(0), T, tn, H, HD // H,
-        E, meta.te, int(bool(self_loops)), ctypes.c_float(slope),
+        P(d_ws), P(d_wself), P(d_nf), P(d_wea), adj.stride(0), T, tn, H,
+        HD // H, E, meta.te, int(bool(self_loops)), ctypes.c_float(slope),
         _cuda.stream_ptr(dev))
-    return d_wd, d_ws, d_wself, d_nf, dz
-
-
-def dense_attr_emit(dz, src, dst, emask, meta):
-    """Emit kernel wrapper (csrc/dense_attr_emit.cu, which replaces
-    dense_gat.py:_attr_emit_kernel and op_bwd's flat_slot gather): the
-    per-edge logit gradient d_wea (E, H) f32 from the d_zpre planes ``dz``
-    (n_tiles, H*tn, tn) — dz at each counted edge's slot times its mask, 0
-    for every other edge."""
-    if dz.device.type == "cpu":
-        return dense_attr_emit_plain(dz, src, dst, emask, meta)
-    dev = dz.device
-    if dev.type != "cuda":
-        raise ValueError(f"no dense_attr_emit kernel for device {dev}")
-    T, Htn, tn = dz.shape
-    H = Htn // tn
-    E = src.shape[0]
-    if tn != meta.tn or Htn % tn:
-        raise ValueError(f"dense_attr_emit: planes {tuple(dz.shape)} do not "
-                         f"match meta.tn={meta.tn}")
-    i32, f32 = torch.int32, torch.float32
-    for arg, t, dt, shape in (("dz", dz, f32, (T, Htn, tn)),
-                              ("src", src, i32, (E,)),
-                              ("dst", dst, i32, (E,)),
-                              ("emask", emask, f32, (E,)),
-                              ("ew_blk", meta.ew_blk, i32, (T,)),
-                              ("cw", meta.cw, i32, (T,))):
-        _cuda.check(t, arg, dt, shape, dev)
-    d_wea = torch.empty((E, H), dtype=f32, device=dev)
-    P = _cuda.ptr
-    KERNEL_ATTR_EMIT.launch(P(dz), P(src), P(dst), P(emask), P(meta.ew_blk),
-                            P(meta.cw), P(d_wea), T, tn, H, E, meta.te,
-                            _cuda.stream_ptr(dev))
-    return d_wea
+    return d_wd, d_ws, d_wself, d_nf, d_wea
 
 
 class DenseAttrGatFn(torch.autograd.Function):
     """(wd, ws, nf, w_ea) → (out, m, den) through the dense-attr forward
-    kernel, with the backward kernel and the emit kernel as its gradient
-    (dense_gat.py:584-628). The self-loop terms join d_wd and d_ws here, as
-    op_bwd adds them; ``m`` and ``den`` carry no gradient; the adjacency,
-    the edge arrays and the metadata get none."""
+    kernel, with the backward kernel (which also gives d_wea) as its
+    gradient (dense_gat.py:584-628). The self-loop terms join d_wd and d_ws
+    here, as op_bwd adds them; ``m`` and ``den`` carry no gradient; the
+    adjacency, the edge arrays and the metadata get none."""
 
     @staticmethod
     def forward(ctx, adj, wd, ws, nf, w_ea, src, dst, emask, meta,
@@ -731,10 +716,9 @@ class DenseAttrGatFn(torch.autograd.Function):
         N, H = wd.shape
         g = g_out.float().contiguous()
         s = (g.view(N, H, -1) * out.view(N, H, -1)).sum(-1)
-        d_wd, d_ws, d_wself, d_nf, dz = dense_attr_bwd(
+        d_wd, d_ws, d_wself, d_nf, d_wea = dense_attr_bwd(
             adj, wd, ws, nf, w_ea, src, dst, emask, ctx.meta, m, den, g, s,
             ctx.self_loops, ctx.slope)
-        d_wea = dense_attr_emit(dz, src, dst, emask, ctx.meta)
         if ctx.self_loops:
             d_wd, d_ws = d_wd + d_wself, d_ws + d_wself
         return (None, d_wd, d_ws, d_nf, d_wea, None, None, None, None, None,

@@ -19,21 +19,25 @@ each level's inputs are timed in turns (base, change, change, base) ×
 rounds, each turn the device time of 50 calls (torch.profiler, as in
 chip_smoke.py): for a GAT kernel its layer-0 inputs of the esol batch (for
 a backward kernel, built as chip_smoke.py builds them; for the dense-attr
-kernels K7-K9 the atom, fconn and frag inputs of phase 16, under the
+kernels K7 and K8 the atom, fconn and frag inputs of phase 16, under the
 dense-attr policy; for K3's forward and backward each shard's bond, atom,
 fconn and frag inputs of phase 20, captured in two spawned ranks of one
-edge-partitioned train step), for the plane builder its bond, fconn and
-atom inputs of chip_smoke.py's batch-512 pretrain batch. The TCSR forward
+edge-partitioned train step), for the plane builder its bond, fconn, atom
+and frag inputs of chip_smoke.py's batch-512 pretrain batch and of a
+batch of 16 of the same molecules (the finetune batch size; levels tagged
+"batch 16"). The TCSR forward
 and backward (K1, K2) and the dense forward and backward (K4, K5) are also
 timed at that batch's layer-0 inputs (atom and frag; bond and fconn),
-captured as phase 13 captures them, and the dense-attr kernels (K7-K9) at
+captured as phase 13 captures them, and the dense-attr kernels (K7, K8) at
 its atom, fconn and frag inputs under the dense-attr policy, captured as
 phase 16 captures them (levels tagged "batch 512"). A kernel whose
 launcher the base does not export (K3 against a version before it) is
-skipped. Both versions are also held
-against the plain version (limit 1e-4 of scale; the plane builder and the
-emit kernel exactly). Prints one line per
-level and a JSON line of the medians.
+skipped. A base whose K8 returns the d_zpre planes and has an emit kernel
+(K9) runs as its two launches, K8 then K9 on K8's planes, against the
+change's one; the maxdiff of d_wea between the two is printed and must be
+0 (the script exits 1 otherwise). Both versions are also held against the
+plain version (limit 1e-4 of scale; the plane builder exactly). Prints
+one line per level and a JSON line of the medians.
 """
 
 from __future__ import annotations
@@ -98,6 +102,8 @@ def capture_calls(names):
         big_bs = int(cs.PT_CONFIG["pretrain"]["batch_size"])
         calls[cs.PLANES] = [(lvl, a, {}) for lvl, a, _host in
                             cs.plane_calls(graphs, big_bs, "cuda")[0]]
+        calls[cs.PLANES] += [(f"{lvl}, batch 16", a, {}) for lvl, a, _host in
+                             cs.plane_calls(graphs, 16, "cuda")[0]]
     if big:
         from fragnet_tpu_torch.train.pretrain import build_pretrain_model
 
@@ -136,6 +142,16 @@ def base_module(module, base_csrc):
             setattr(mod, attr, _cuda.CudaKernel(k.source, k.symbol,
                                                 k.argtypes, csrc=base_csrc))
     return mod
+
+
+def two_launch_bwd(base):
+    """The base version's dense-attr backward as it ran before the emit was
+    folded into K8: its K8 (which returns the d_zpre planes), then its emit
+    kernel (K9) on those planes; returns what the fused wrapper returns."""
+    def run(*a):
+        *grads, dz = base.dense_attr_bwd(*a)
+        return (*grads, base.dense_attr_emit(dz, *a[5:9]))
+    return run
 
 
 def output_errors(fn, want, floor):
@@ -197,25 +213,27 @@ def main() -> int:
         module = cs.KERNELS[name].module
         if module not in bases:
             bases[module] = base_module(module, args.base_csrc)
-        pairs[name] = {"base": getattr(bases[module], name),
-                       "change": getattr(_mod, name)}
+        base = getattr(bases[module], name)
+        if name == cs.EMIT_IN and hasattr(bases[module], cs.EMIT):
+            base = two_launch_bwd(bases[module])
+        pairs[name] = {"base": base, "change": getattr(_mod, name)}
     if not pairs:
         return 0
     changed = [cs._counter(n)[1] for n in pairs]
-    symbols = {k.symbol for k in changed}
+    symbols = {k.symbol for k in changed} | {cs.EMIT}
     _cuda.build_all([k for m in bases.values() for k in vars(m).values()
                      if isinstance(k, _cuda.CudaKernel)
                      and k.symbol in symbols] + changed, force=True)
 
     calls = capture_calls(set(pairs))
 
-    summary = []
+    summary, wea_diffs = [], []
     for name, wrappers in pairs.items():
         mod, _ = cs._counter(name)
         plain = getattr(mod, cs.KERNELS[name].plain)
         for lvl, a, kw in calls[name]:
             want = cs._outputs(plain(*a, **kw))
-            limit = 0.0 if name in (cs.PLANES, cs.EMIT) else cs.REL_LIMIT
+            limit = 0.0 if name == cs.PLANES else cs.REL_LIMIT
             fns = {which: (lambda w=w: w(*a, **kw))
                    for which, w in wrappers.items()}
             for which, fn in fns.items():
@@ -223,6 +241,12 @@ def main() -> int:
                 if rel > limit:
                     raise AssertionError(f"{name} [{lvl}] {which}: "
                                          f"rel {rel:.3e}")
+            if name == cs.EMIT_IN:
+                diff = float((fns["base"]()[4] - fns["change"]()[4]).abs()
+                             .max())
+                wea_diffs.append(diff)
+                print(f"{cs.EMIT} [{lvl}]: d_wea maxdiff between the base's "
+                      f"and the change's: {diff}")
             times = time_turns(fns, args.rounds)
             med = {k: statistics.median(v) for k, v in times.items()}
             wins = sum(c < b for b, c in zip(times["base"], times["change"]))
@@ -235,8 +259,8 @@ def main() -> int:
                             "base_ms": med["base"],
                             "change_ms": med["change"], "wins": wins,
                             "pairs": len(times["base"])})
-    print(json.dumps({"kernel_ab": summary}))
-    return 0
+    print(json.dumps({"kernel_ab": summary, "d_wea_maxdiff": wea_diffs}))
+    return 1 if any(wea_diffs) else 0
 
 
 if __name__ == "__main__":

@@ -14,8 +14,12 @@ builds the model from seed 0 under each policy (a step that does not run
 its policy's kernels raises), runs 3 warm-up steps,
 times ``--steps`` steps each ended by a synchronize (host clock; the
 median is the step's wall) and profiles one more (device busy time, as
-chip_smoke.py counts it, and the launches of device kernels). The turns
-run base, change, change, base, ``rounds`` times.
+chip_smoke.py counts it, and the launches of device kernels); then the
+pretraining step at the unimol config's batch 512 (chip_smoke.py's
+phases 13 and 19: the 256 pretrain molecules, featurized once and
+pickled beside the train batch, packed into one buffer on the card)
+under both policies in the same way. The turns run base, change,
+change, base, ``rounds`` times.
 
 Then, in this checkout, the dense backward's s = sum_d g*out
 (ops/dense_gat.py:head_dot, summed in the kernel's order) against the
@@ -41,7 +45,8 @@ POLICIES = ("default", "dense-attr")
 
 
 def featurize(path: str) -> None:
-    """Pickle {"train_np", "n_tasks"}: chip_smoke.py's phase 8 batch."""
+    """Pickle {"train_np", "n_tasks", "pt_graphs"}: chip_smoke.py's phase 8
+    batch and its pretrain molecules."""
     sys.path.insert(0, REPO)
     import chip_smoke as cs
     from fragnet_tpu_torch.data.batcher import BatchLoader
@@ -57,20 +62,53 @@ def featurize(path: str) -> None:
                          shuffle=True, seed=int(topt.seed), n_tasks=n_tasks)
     train_np = pad_batch(next(iter(loader._windows())), spec,
                          n_tasks=n_tasks)
+    data = {"train_np": train_np, "n_tasks": n_tasks,
+            "pt_graphs": cs.PretrainGraphs(
+                cs.pt_opt(cs.PT_OVERRIDES),
+                workers=max(1, (os.cpu_count() or 2) - 1)).get()}
     with open(path, "wb") as f:
-        pickle.dump({"train_np": train_np, "n_tasks": n_tasks}, f)
+        pickle.dump(data, f)
+
+
+def timed(step, arg, steps: int, cs) -> dict:
+    """3 warm-up calls of ``step(arg)``, ``steps`` timed ones each ended by
+    a synchronize, one profiled: {wall_ms, runs, busy_ms, device_ops}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        step(arg)
+    walls = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(arg)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(arg)
+        torch.cuda.synchronize()
+    busy, rows = cs._busy(prof)
+    ops = sum(e.count for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and e.self_device_time_total > 0)
+    return {"wall_ms": statistics.median(walls),
+            "runs": [round(w, 3) for w in walls], "busy_ms": busy,
+            "device_ops": ops, "rows": rows}
 
 
 def turn(root: str, path: str, steps: int) -> dict:
-    """One checkout's step under each policy: {policy: {wall_ms, runs,
-    busy_ms, kernels}}. ``root``'s package is imported first on the
+    """One checkout's finetune and pretraining steps under each policy:
+    {policy or "pretrain <policy>": {wall_ms, runs, busy_ms,
+    device_ops}}. ``root``'s package is imported first on the
     path; chip_smoke.py of this checkout supplies the configs and the
     profile's reading."""
     import importlib.util
 
     sys.path.insert(0, root)
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     # this checkout's chip_smoke.py, over root's package
     spec = importlib.util.spec_from_file_location(
@@ -83,6 +121,8 @@ def turn(root: str, path: str, steps: int) -> dict:
     from fragnet_tpu_torch.train.finetune import build_model
     from fragnet_tpu_torch.train.loop import make_train_step
     from fragnet_tpu_torch.train.optim import make_optimizer
+    from fragnet_tpu_torch.train.pretrain import (build_pretrain_model,
+                                                  make_pretrain_step)
 
     if not os.path.abspath(fragnet_tpu_torch.__file__).startswith(
             os.path.abspath(root) + os.sep):
@@ -102,31 +142,23 @@ def turn(root: str, path: str, steps: int) -> dict:
         model = model.to("cuda")
         optim, _ = make_optimizer(model.parameters(), "adam", lr=1e-4)
         step = make_train_step(model, optim, "mse", "cuda")
-        for _ in range(3):
-            step(train_np)
-        walls = []
-        for _ in range(steps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step(train_np)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            step(train_np)
-            torch.cuda.synchronize()
-        busy, rows = cs._busy(prof)
-        if (policy == "dense-attr") != any("dense_attr_fwd_kernel" in k
-                                           for k, _ in rows):
-            raise RuntimeError(f"the {policy} step did not run the kernels "
-                               f"of its policy")
-        launches = sum(e.count for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and not getattr(e, "is_user_annotation", False)
-                       and e.self_device_time_total > 0)
-        res[policy] = {"wall_ms": statistics.median(walls),
-                       "runs": [round(w, 3) for w in walls],
-                       "busy_ms": busy, "device_ops": launches}
+        res[policy] = timed(step, train_np, steps, cs)
+    buf, layout = cs.pretrain_big_batch(data["pt_graphs"], "cuda")
+    for policy in POLICIES:
+        popt = cs.pt_opt(cs.PT_OVERRIDES, cs.ATTR_PT_OVERRIDES
+                         if policy == "dense-attr" else {})
+        model = build_pretrain_model(
+            popt, policy=resolve_kernel_policy(popt.pretrain),
+            generator=torch.Generator().manual_seed(0)).to("cuda")
+        optim, _ = make_optimizer(model.parameters(), "adam", lr=1e-4)
+        step = make_pretrain_step(model, optim, layout=layout, device="cuda")
+        res[f"pretrain {policy}"] = timed(step, buf, steps, cs)
+    for key, r in res.items():
+        rows = r.pop("rows")
+        if ("dense-attr" in key) != any("dense_attr_fwd_kernel" in k
+                                        for k, _ in rows):
+            raise RuntimeError(f"the {key} step did not run the kernels of "
+                               f"its policy")
     return res
 
 
@@ -226,8 +258,9 @@ def main() -> int:
     featurize(path)
     print(f"featurization: {time.perf_counter() - t0:.1f} s")
     roots = {"base": os.path.abspath(args.base_root), "change": REPO}
-    runs = {w: {p: [] for p in POLICIES} for w in roots}
-    busy = {w: {p: [] for p in POLICIES} for w in roots}
+    runs = {w: {} for w in roots}
+    busy = {w: {} for w in roots}
+    ops = {w: {} for w in roots}
     for _ in range(args.rounds):
         for which in ("base", "change", "change", "base"):
             out = subprocess.run(
@@ -243,17 +276,20 @@ def main() -> int:
                 f"{p} wall {r['wall_ms']:.2f} ms, busy {r['busy_ms']:.3f} ms"
                 f", {r['device_ops']} device ops" for p, r in res.items()))
             for p, r in res.items():
-                runs[which][p].extend(r["runs"])
-                busy[which][p].append(r["busy_ms"])
+                runs[which].setdefault(p, []).extend(r["runs"])
+                busy[which].setdefault(p, []).append(r["busy_ms"])
+                ops[which].setdefault(p, []).append(r["device_ops"])
     summary = {p: {w: {"wall_ms": statistics.median(runs[w][p]),
-                       "busy_ms": statistics.median(busy[w][p])}
-                   for w in roots} for p in POLICIES}
+                       "busy_ms": statistics.median(busy[w][p]),
+                       "device_ops": statistics.median(ops[w][p])}
+                   for w in roots} for p in runs["change"]}
     for p, s in summary.items():
         print(f"{p} step: base wall {s['base']['wall_ms']:.2f} ms, busy "
               f"{s['base']['busy_ms']:.3f} ms; change wall "
               f"{s['change']['wall_ms']:.2f} ms, busy "
-              f"{s['change']['busy_ms']:.3f} ms (median over "
-              f"{len(runs['base'][p])} steps each)")
+              f"{s['change']['busy_ms']:.3f} ms; device ops "
+              f"{s['base']['device_ops']:g} / {s['change']['device_ops']:g} "
+              f"(median over {len(runs['base'][p])} steps each)")
     hd = head_dot_cost(path)
     for row in hd:
         print(f"s at g {row['shape']} H={row['H']} ({row['per_step']} per "

@@ -16,13 +16,18 @@ seeded cases of tests/torch_kernel_cases.py at tn 32, 128, 256 and H 1, 4,
 atomics). Tolerance: the GAT kernels sum in another order than the plain
 versions, so outputs agree to f32 rounding: |k - p| ≤ 1e-4 · max|p|. The
 plane builder adds at most one value per slot
-on tile-local graphs without repeated pairs, so it is held to equality.
-The dense-attr kernels (K7-K9) are checked at every node tile their
-wrappers take (32, 64, 128, 256), with and without self-loops, on
-adjacency planes that are contiguous or the first tn rows of R = 6 planes
-(the fconn level's strided view), on random graphs and on the seeded
-tile-local cases at H 1, 4, 8 (K7 and K8 twice, to equal bits); K8's
-per-head dot is pinned to torch's order by an exact cancellation.
+on tile-local graphs without repeated pairs, so it is held to equality
+(at every tn and R, with cross-tile and masked edges, a cw = 0 tile,
+windows that hold the tile before's edges and E not a multiple of te),
+and sums a repeated pair within 1e-6.
+The dense-attr kernels (K7, and K8 with the emit K9 folded in) are
+checked at every node tile their wrappers take (32, 64, 128, 256), with
+and without self-loops, on adjacency planes that are contiguous or the
+first tn rows of R = 6 planes (the fconn level's strided view), on random
+graphs (kept cross-tile edges, a padded tail) and on the seeded tile-local
+cases at H 1, 4, 8 (each twice, to equal bits); K8's d_wea is held to the
+plain emit of the plain backward's d_zpre planes, and its per-head dot is
+pinned to torch's order by an exact cancellation.
 """
 
 import dataclasses
@@ -254,7 +259,7 @@ def test_wrappers_refuse_bad_inputs(cuda):
         dense_gat.dense_gat_bwd(planes, wd, wd, nf, vc, wd, wd, nf, nf)
 
 
-@pytest.mark.parametrize("tn", [128, 256])
+@pytest.mark.parametrize("tn", [32, 64, 128, 256])
 @pytest.mark.parametrize("R", [0, 1, 6])
 def test_dense_planes_matches_plain_and_host(cuda, tn, R):
     """The plane builder (K6) equals its plain version and the host builder
@@ -280,6 +285,84 @@ def test_dense_planes_matches_plain_and_host(cuda, tn, R):
     assert dense_gat.KERNEL_PLANES.launches == n0 + 1
     assert torch.equal(got, dense_gat.build_dense_planes_device_plain(*args))
     assert np.array_equal(got.cpu().numpy(), host)
+
+
+def _planes_case(cuda, rng, tn, R, te=64, n_tiles=4):
+    """The plane builder's arguments on a graph with an empty tile, every
+    third edge's source in the next tile (cross-tile: not in any plane),
+    masked real edges, a tile whose window is cut to cw = 0, windows that
+    start with the tile before's edges (te = 64 against ~3·tn edges a tile)
+    and the padded tail cut to E not a multiple of te."""
+    src, dst, mask = _graph(rng, tn, n_tiles, 3, te, empty_tile=1,
+                            cross=True)
+    kept = np.nonzero(mask)[0]
+    mask[kept[::7]] = 0.0
+    N = n_tiles * tn
+    meta = build_tile_meta(src, dst, mask, N, tn=tn, te=te)
+    assert meta is not None
+    meta.cw[2] = 0  # tile 2 has kept edges, but an empty window
+    first = [int(np.nonzero(dst // tn == t)[0].min()) for t in (2, 3)]
+    assert any(meta.ew_blk[t] * te < e for t, e in zip((2, 3), first))
+    E = len(src) - 5  # only padding is cut
+    assert E % te and not mask[E:].any()
+    ea = rng.standard_normal((E, R)).astype(np.float32)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    meta_t = dataclasses.replace(meta, ew_blk=T(meta.ew_blk), cw=T(meta.cw))
+    return (T(src[:E]), T(dst[:E]), T(mask[:E]), T(ea) if R else None, N,
+            meta_t)
+
+
+@pytest.mark.parametrize("tn", [32, 64, 128, 256])
+@pytest.mark.parametrize("R", [0, 1, 6])
+def test_dense_planes_matches_plain_on_cases(cuda, tn, R):
+    """K6 (a block per 8-16-row slice of a tile, staged in shared memory)
+    equals its plain version exactly on _planes_case: cross-tile and masked
+    edges add nothing, a cw = 0 tile is all zeros, each window's edges of
+    the tile before are skipped, E is not a multiple of te."""
+    rng = np.random.default_rng(330 + tn + R)
+    args = _planes_case(cuda, rng, tn, R)
+    n0 = dense_gat.KERNEL_PLANES.launches
+    got = dense_gat.build_dense_planes_device(*args)
+    torch.cuda.synchronize()
+    assert dense_gat.KERNEL_PLANES.launches == n0 + 1
+    want = dense_gat.build_dense_planes_device_plain(*args)
+    assert torch.equal(got, want)
+    assert float(got[2].abs().max()) == 0.0  # cw = 0
+    assert float(got[0].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("R", [0, 1, 6])
+def test_dense_planes_sums_a_repeated_pair(cuda, R):
+    """A (dst, src) pair that repeats inside a window (which
+    packing.dp_level_ok keeps off the packed path) is summed, as the TPU
+    kernel's one-hot matmuls sum it: 2 in the adjacency plane and the two
+    edges' attrs added, within 1e-6 of the plain version's sum."""
+    rng = np.random.default_rng(340 + R)
+    tn, te = 128, 64
+    src, dst, mask = _graph(rng, tn, 3, 3, te, empty_tile=1)
+    e0 = 10
+    assert mask[e0] > 0
+    # a copy of edge e0 right after it; one padding edge dropped
+    src = np.insert(src, e0 + 1, src[e0])[:-1]
+    dst = np.insert(dst, e0 + 1, dst[e0])[:-1]
+    mask = np.insert(mask, e0 + 1, 1.0)[:-1]
+    N = 3 * tn
+    meta = build_tile_meta(src, dst, mask, N, tn=tn, te=te)
+    assert meta is not None
+    ea = rng.standard_normal((len(src), R)).astype(np.float32)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    meta_t = dataclasses.replace(meta, ew_blk=T(meta.ew_blk), cw=T(meta.cw))
+    args = (T(src), T(dst), T(mask), T(ea) if R else None, N, meta_t)
+    got = dense_gat.build_dense_planes_device(*args)
+    want = dense_gat.build_dense_planes_device_plain(*args)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-6
+    t, i, j = dst[e0] // tn, dst[e0] % tn, src[e0] % tn
+    pl = got.view(3, R + 1, tn, tn)[t, :, i, j].cpu()
+    assert float(pl[0]) == 2.0
+    for r in range(R):
+        assert abs(float(pl[r + 1]) - float(ea[e0, r] + ea[e0 + 1, r])) \
+            <= 1e-6
 
 
 def test_dense_planes_refuses_bad_inputs(cuda):
@@ -343,18 +426,21 @@ def test_packed_batch_decodes_on_the_card(cuda):
         src, dst, mask, ea, N, tn=tn))
 
 
-def _attr_case(cuda, rng, tn, self_loops, strided=False):
-    """Dense-attr kernel inputs on a tile-local graph with an empty tile and
-    a masked real edge: (adj, wd, ws, nf, w_ea, src, dst, emask, meta,
-    self_loops)."""
+def _attr_case(cuda, rng, tn, self_loops, strided=False, cross=False):
+    """Dense-attr kernel inputs on a tile-local graph with an empty tile, a
+    masked real edge and masked padding: (adj, wd, ws, nf, w_ea, src, dst,
+    emask, meta, self_loops). With ``cross`` every third edge takes its
+    source from the next tile: kept, but in no plane and not counted."""
     H, D, te, n_tiles = 4, 32, 256, 3
-    src, dst, mask = _graph(rng, tn, n_tiles, 3, te, empty_tile=1)
+    src, dst, mask = _graph(rng, tn, n_tiles, 3, te, empty_tile=1,
+                            cross=cross)
     mask[4] = 0.0
     N, E = n_tiles * tn, len(src)
     meta = build_tile_meta(src, dst, mask, N, tn=tn, te=te)
     R = 6 if strided else 0
+    local = mask * (src // tn == dst // tn)
     planes = dense_gat.build_dense_planes(
-        src, dst, mask, rng.standard_normal((E, R)).astype(np.float32), N,
+        src, dst, local, rng.standard_normal((E, R)).astype(np.float32), N,
         tn=tn)
     assert meta is not None and planes is not None
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
@@ -386,15 +472,32 @@ def test_dense_attr_fwd_matches_plain(cuda, tn, self_loops):
         assert bool((m[tn:2 * tn] == -1e30).all())
 
 
+def _fused_bwd_twice(bargs):
+    """K8 twice on ``bargs``, each time into memory the caching allocator
+    has just freed full of NaN, so that an edge whose d_wea the kernel does
+    not write shows; returns both results."""
+    E, H = bargs[4].shape
+    res = []
+    for _ in range(2):
+        poison = torch.full((E, H), float("nan"), device=bargs[4].device)
+        del poison
+        res.append(dense_gat.dense_attr_bwd(*bargs))
+    torch.cuda.synchronize()
+    return res
+
+
 @pytest.mark.parametrize("tn", [32, 64, 128, 256])
 @pytest.mark.parametrize("self_loops", [False, True])
 def test_dense_attr_bwd_and_emit_match_plain(cuda, tn, self_loops):
-    """K8's five outputs (the d_zpre planes at every slot: both write 0 off
-    the adjacency) and K9's per-edge gradient against the plain versions;
-    the masked edge and the padding edges get exactly 0."""
+    """K8 with the emit folded in: its four gradients against the plain
+    backward's and its d_wea against the plain emit of the plain backward's
+    d_zpre planes, each within 1e-4 of its scale, the same bits from a
+    second call; the masked edge, the padding tail and the kept cross-tile
+    edges (every third edge) get exactly 0."""
     rng = np.random.default_rng(50 + tn + self_loops)
-    args = _attr_case(cuda, rng, tn, self_loops, strided=tn == 128)
-    nf = args[3]
+    args = _attr_case(cuda, rng, tn, self_loops, strided=tn == 128,
+                      cross=True)
+    nf, src, dst, mask = args[3], args[5], args[6], args[7]
     N, HD = nf.shape
     H = args[1].shape[1]
     out, m, den = dense_gat.dense_attr_fwd(*args)
@@ -403,19 +506,20 @@ def test_dense_attr_bwd_and_emit_match_plain(cuda, tn, self_loops):
     s = (g.view(N, H, -1) * out.view(N, H, -1)).sum(-1)
     bargs = args[:9] + (m, den, g, s, self_loops)
     n0 = dense_gat.KERNEL_ATTR_BWD.launches
-    got = dense_gat.dense_attr_bwd(*bargs)
-    torch.cuda.synchronize()
-    assert dense_gat.KERNEL_ATTR_BWD.launches == n0 + 1
-    want = dense_gat.dense_attr_bwd_plain(*bargs)
+    got, again = _fused_bwd_twice(bargs)
+    assert dense_gat.KERNEL_ATTR_BWD.launches == n0 + 2
+    *grads, dz = dense_gat.dense_attr_bwd_plain(*bargs)
+    want = (*grads, dense_gat.dense_attr_emit_plain(dz, *args[5:9]))
     for k, p in zip(got, want):
         _close(k, p)
-    eargs = (want[4],) + args[5:9]
-    n0 = dense_gat.KERNEL_ATTR_EMIT.launches
-    d_wea = dense_gat.dense_attr_emit(*eargs)
-    torch.cuda.synchronize()
-    assert dense_gat.KERNEL_ATTR_EMIT.launches == n0 + 1
-    assert torch.equal(d_wea, dense_gat.dense_attr_emit_plain(*eargs))
-    assert float(d_wea[args[7] == 0].abs().max()) == 0.0
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    d_wea = got[4]
+    cross = (src // tn != dst // tn) & (mask > 0)
+    assert bool(cross.any())
+    for off in (mask == 0, cross):
+        assert float(d_wea[off].abs().max()) == 0.0
+    assert float(d_wea.abs().max()) > 0.0
 
 
 def test_dense_attr_pass_gradients_match_cpu(cuda):
@@ -937,9 +1041,9 @@ def test_tcsr_gat_bwd_cancels_exactly_with_one_neighbour(cuda, H, D):
 
 # --------------------------------------------------------------------------
 # the row-sliced dense-attr kernels (K7 forward, K8 backward with its row
-# and column roles) and the emit (K9) on the seeded tile-local cases; K7
-# and K8 sum in a fixed order with no atomics, so a second call gives the
-# same bits
+# and column roles and the emit, K9, folded in) on the seeded tile-local
+# cases; K7 and K8 sum in a fixed order with no atomics, so a second call
+# gives the same bits
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("self_loops", [False, True])
@@ -951,8 +1055,10 @@ def test_dense_attr_kernels_match_plain_on_cases(cuda, tn, H, self_loops):
     with edges into every 8-row slice, a window that starts in the tile
     before, edges shuffled within the tile and masked edges; at tn = 128
     the adjacency is the first tn rows of R = 6 planes (the fconn level's
-    strided view). Every output within 1e-4 of its scale, the same bits
-    from a second call, and the emit exactly."""
+    strided view). Every output within 1e-4 of its scale (K8's d_wea
+    against the plain emit of the plain backward's d_zpre planes), the
+    same bits from a second call, and d_wea exactly 0 on the masked edges
+    and the padding tail."""
     case = kernel_case(tn + H + 11, tn, tile_local=True, hub_step=7)
     T_, meta = _case_tensors(cuda, case, tn, 64)
     N, E, D = case.n_nodes, len(case.src), 32
@@ -986,18 +1092,16 @@ def test_dense_attr_kernels_match_plain_on_cases(cuda, tn, H, self_loops):
     s = (g.view(N, H, D) * out.view(N, H, D)).sum(-1)
     bargs = args[:9] + (m, den, g, s, self_loops)
     n0 = dense_gat.KERNEL_ATTR_BWD.launches
-    got = dense_gat.dense_attr_bwd(*bargs)
-    again = dense_gat.dense_attr_bwd(*bargs)
-    torch.cuda.synchronize()
+    got, again = _fused_bwd_twice(bargs)
     assert dense_gat.KERNEL_ATTR_BWD.launches == n0 + 2
-    want = dense_gat.dense_attr_bwd_plain(*bargs)
+    *grads, dz = dense_gat.dense_attr_bwd_plain(*bargs)
+    want = (*grads, dense_gat.dense_attr_emit_plain(dz, *args[5:9]))
     for k, p in zip(got, want):
         _close(k, p)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
-    eargs = (got[4],) + args[5:9]
-    d_wea = dense_gat.dense_attr_emit(*eargs)
-    assert torch.equal(d_wea, dense_gat.dense_attr_emit_plain(*eargs))
+    d_wea = got[4]
+    assert not bool(args[7][-1] > 0)  # a padded tail
     assert float(d_wea[args[7] == 0].abs().max()) == 0.0
     a0 = planes[0, :tn]
     assert a0[case.hub_row % tn].sum() >= min(64, tn)
@@ -1009,9 +1113,9 @@ def test_dense_attr_bwd_cancels_exactly_with_one_neighbour(cuda, H, D):
     """Frag-like rows: one neighbour each, no self-loop. K7 divides, so
     out = nf[j] bit for bit and P = 1; K8 sums its per-head dot in the order
     in which torch sums DenseAttrGatFn's s = (g·out).sum(-1) on the card,
-    so d_zpre = g·nf[j] − s is exactly 0, as the math says: the d_zpre
-    planes and, through DenseAttrGatFn, the gradients of wd, ws and w_ea
-    are exactly 0 (not round-off), while nf's gradient is g[i] at j."""
+    so d_zpre = g·nf[j] − s is exactly 0, as the math says: K8's d_wea
+    and, through DenseAttrGatFn, the gradients of wd, ws and w_ea are
+    exactly 0 (not round-off), while nf's gradient is g[i] at j."""
     rng = np.random.default_rng(160 + H + D)
     tn, n_tiles, te = 128, 2, 64
     N = tn * n_tiles
@@ -1036,9 +1140,9 @@ def test_dense_attr_bwd_cancels_exactly_with_one_neighbour(cuda, H, D):
     assert torch.equal(out, xs[2][ints[0].long()])
     d_wd, d_ws, d_nf, d_wea = torch.autograd.grad((out * g).sum(), xs)
     s = (g.view(N, H, D) * out.view(N, H, D)).sum(-1)
-    dz = dense_gat.dense_attr_bwd(T(planes), *(x.detach() for x in xs),
-                                  *ints, meta, m, den, g, s, False)[4]
+    d_wea_k = dense_gat.dense_attr_bwd(T(planes), *(x.detach() for x in xs),
+                                       *ints, meta, m, den, g, s, False)[4]
     torch.cuda.synchronize()
-    for k in (d_wd, d_ws, d_wea, dz):
+    for k in (d_wd, d_ws, d_wea, d_wea_k):
         assert float(k.abs().max()) == 0.0
     _close(d_nf[ints[0].long()], g)

@@ -135,12 +135,12 @@ def test_plain_bwd_and_emit_are_autograd_of_plain_fwd(self_loops):
     out, m, den = dense_gat.dense_attr_fwd_plain(adj, *xs, *ints, self_loops)
     want = torch.autograd.grad((out * g).sum(), xs)
     s = (g.view(N, H, D) * out.detach().view(N, H, D)).sum(-1)
-    d_wd, d_ws, d_wself, d_nf, dz = dense_gat.dense_attr_bwd(
+    d_wd, d_ws, d_wself, d_nf, dz = dense_gat.dense_attr_bwd_plain(
         adj, *(x.detach() for x in xs), *ints, m.detach(), den.detach(), g,
         s, self_loops)
     if not self_loops:
         assert float(d_wself.abs().max()) == 0.0
-    d_wea = dense_gat.dense_attr_emit(dz, *ints)
+    d_wea = dense_gat.dense_attr_emit_plain(dz, *ints)
     got = (d_wd + d_wself, d_ws + d_wself, d_nf, d_wea)
     for k, w in zip(got, want):
         _close(k, w)
@@ -148,6 +148,63 @@ def test_plain_bwd_and_emit_are_autograd_of_plain_fwd(self_loops):
     # the planes are 0 off the adjacency
     off = (adj == 0).repeat(1, H, 1)
     assert float(dz[off].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("self_loops", [False, True])
+def test_bwd_cpu_route_is_the_plain_pair_and_matches_pallas_vjp(self_loops):
+    """``dense_attr_bwd`` on CPU tensors (the kernel's function: K8 with the
+    emit folded in) returns the plain backward's four gradients and the
+    plain emit of its d_zpre planes, bit for bit, with no launch; its d_wea
+    (and d_nf with the prologue's terms) match jax.vjp of the JAX package's
+    interpret-mode Pallas op (op_bwd: the attr backward, the emit and the
+    flat_slot gather) with respect to w_ea and nf; the masked edge and the
+    padding edges get exactly 0."""
+    from fragnet_tpu.ops.dense_gat import _make_attr_op
+
+    c = _case(6)
+    rng = np.random.default_rng(7)
+    w_ea = rng.standard_normal((E, H)).astype(np.float32)
+    a2 = np.concatenate([c["a"][:, :D], c["a"][:, D + Da:]], axis=-1)
+    mj = c["meta_j"]
+    op = _make_attr_op(N, E, tn, te, mj.n_chunks, H, D, self_loops, 0.2,
+                       "float32", True)
+    j = jnp.asarray
+    rest = (j(c["adj"]), j(a2), j(c["src"]), j(c["dst"]), j(c["mask"]),
+            jnp.zeros((1,), jnp.int32), j(mj.ew_blk), j(mj.flat_slot),
+            j(mj.cw))
+    (out_j, _m, _d), vjp = jax.vjp(lambda nf_, wea_: op(nf_, wea_, *rest),
+                                   j(c["nf"]), j(w_ea))
+    d_nf_j, d_wea_j = vjp((j(c["g"]), jnp.zeros_like(_m),
+                           jnp.zeros_like(_d)))
+
+    t = torch.from_numpy
+    nf = t(c["nf"]).reshape(N, H * D)
+    a_dst, a_src = t(c["a"][:, :D]), t(c["a"][:, D + Da:])
+    wd = torch.einsum("nhd,hd->nh", t(c["nf"]), a_dst)
+    ws = torch.einsum("nhd,hd->nh", t(c["nf"]), a_src)
+    ints = (t(c["src"]), t(c["dst"]), t(c["mask"]), c["meta"])
+    adj = t(c["adj"])
+    out, m, den = dense_gat.dense_attr_fwd(adj, wd, ws, nf, t(w_ea), *ints,
+                                           self_loops)
+    _close(out.view(N, H, D), out_j)
+    g = t(c["g"]).reshape(N, H * D)
+    s = (g.view(N, H, D) * out.view(N, H, D)).sum(-1)
+    bargs = (adj, wd, ws, nf, t(w_ea), *ints, m, den, g, s, self_loops)
+    n0 = dense_gat.KERNEL_ATTR_BWD.launches
+    got = dense_gat.dense_attr_bwd(*bargs)
+    assert dense_gat.KERNEL_ATTR_BWD.launches == n0  # the plain versions
+    *grads, dz = dense_gat.dense_attr_bwd_plain(*bargs)
+    want = (*grads, dense_gat.dense_attr_emit_plain(dz, *ints))
+    for k, w in zip(got, want):
+        assert torch.equal(k, w)
+    d_wd, d_ws, d_wself, d_nf, d_wea = got
+    _close(d_wea, d_wea_j)
+    if self_loops:
+        d_wd, d_ws = d_wd + d_wself, d_ws + d_wself
+    d_nf = (d_nf.view(N, H, D) + d_wd[..., None] * a_dst
+            + d_ws[..., None] * a_src)
+    _close(d_nf, d_nf_j)
+    assert float(d_wea[t(c["mask"]) == 0].abs().max()) == 0.0
 
 
 def test_strided_adjacency_equals_contiguous():

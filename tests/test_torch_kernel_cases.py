@@ -6,7 +6,8 @@ edges unsorted by destination within a tile, sources reaching other tiles
 (TCSR source windows of k_src > 1) with repeated (dst, src) pairs, a
 source or plane column with edges into rows of every slice; tn in {32,
 128, 256} and H in {1, 4, 8}. The dense-attr kernels' plain versions (K7
-forward, K8 backward, K9 emit) are held on the tile-local cases, with and
+forward, K8 backward, K9 emit, and the K8 wrapper's CPU route, which
+gives the emit's output) are held on the tile-local cases, with and
 without self-loops. The same cases hold the CUDA kernels against
 these plain versions on the card (tests/test_torch_cuda_kernels.py).
 Inputs are made with numpy from a seed and handed to both; the kernels'
@@ -252,19 +253,23 @@ def test_dense_attr_plain_matches_pallas_on_cases(tn, H, self_loops):
     meta = dataclasses.replace(meta, ew_blk=t(meta.ew_blk), cw=t(meta.cw))
     ints = (t(case.src), t(case.dst), t(case.mask))
     args = (t(adj), t(wd), t(ws), t(nf), t(w_ea)) + ints + (meta,)
-    n0 = (dense_gat.KERNEL_ATTR.launches, dense_gat.KERNEL_ATTR_BWD.launches,
-          dense_gat.KERNEL_ATTR_EMIT.launches)
+    n0 = (dense_gat.KERNEL_ATTR.launches, dense_gat.KERNEL_ATTR_BWD.launches)
     out, m, den = dense_gat.dense_attr_fwd(*args, self_loops, SLOPE)
     for p, j in zip((out, m, den), (out_j, m_j, den_j)):
         _close(p, j)
     gt = t(g)
     s = (gt.view(N, H, D) * out.view(N, H, D)).sum(-1)
-    got = dense_gat.dense_attr_bwd(*args, m, den, gt, s, self_loops, SLOPE)
+    bargs = args + (m, den, gt, s, self_loops, SLOPE)
+    got = dense_gat.dense_attr_bwd_plain(*bargs)
     for p, j in zip(got, want_bwd):
         _close(p, j)
-    _close(dense_gat.dense_attr_emit(got[4], *ints, meta), d_wea)
-    assert (dense_gat.KERNEL_ATTR.launches, dense_gat.KERNEL_ATTR_BWD.launches,
-            dense_gat.KERNEL_ATTR_EMIT.launches) == n0  # the plain versions
+    _close(dense_gat.dense_attr_emit_plain(got[4], *ints, meta), d_wea)
+    # the wrapper's CPU route: the four gradients and the emitted d_wea
+    fused = dense_gat.dense_attr_bwd(*bargs)
+    for p, j in zip(fused, want_bwd[:4] + (d_wea,)):
+        _close(p, j)
+    assert (dense_gat.KERNEL_ATTR.launches,
+            dense_gat.KERNEL_ATTR_BWD.launches) == n0  # the plain versions
     a0 = adj[0]
     assert a0[case.hub_row % tn].sum() >= min(64, tn)
     rows = np.nonzero(a0[:, case.hub_col])[0]
