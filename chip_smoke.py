@@ -13,7 +13,9 @@ data-parallel and edge-partitioned training on torch.distributed (two
 ranks sharing the card over gloo, and one rank over NCCL) — and geometric
 pretraining (configs/pt/unimol.yaml, full width: 4 layers, emb
 128, 4 heads, drop 0.2, Adam lr 1e-4, f32) through ``run_pretrain`` and
-the packed transport. Phases:
+the packed transport — and the interpreter (``FragNetInterpreter``:
+attention weights and masking contributions) on the finetuned model.
+Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
@@ -136,12 +138,29 @@ the packed transport. Phases:
      against the mean of the two micro-batches' single-device card
      gradients, within 1e-3;
  24. both modes for one epoch as one rank over NCCL (the backend checked),
-     launch counts derived as in phases 21 and 23.
+     launch counts derived as in phases 21 and 23;
+ 25. interpretability: FragNetInterpreter.interpret(s, with_contributions=
+     True) of the esol model with phase 7's ft.ckpt, under the default and
+     the dense-attr policy, for aspirin, benzene (one fragment, an unpaired
+     self_cn connection) and [Na+].[Cl-].CCO (iso_cn3 connections): on the
+     card and on the CPU (plain versions), the prediction, the four
+     min-max-scaled attention-weight vectors and the four masking-
+     contribution vectors within 1e-3 of each vector's scale (a
+     contribution's scale is max(|prediction|, max|c|)); the K1, K4 and K7
+     launches of the card's interprets equal expected_launches of the
+     batches the interpreter runs (the one-molecule batch and one replica
+     batch per attribution family, built again here); two entities of each
+     family of aspirin against one-at-a-time masked forwards on the card
+     within 1e-4 of scale; each molecule's interpret wall time and device
+     busy time; then K1 and K4 (K7 under dense-attr) against their plain
+     versions, as in phase 4, at layer 0 of aspirin's atom replica batch
+     (levels tagged "interp").
 
 Prints a ``{"kernels": [...]}`` JSON line (launches from the pretraining
 path of phase 11 for K1-K6, of phase 19 for K7-K9 (K9's: K8's, whose
-launches compute it) and of phase 21's rank 0 for K3, every path's — each rank's for phases 21, 23 and 24 — beside
-them), and as the last line ``{"ok": true, "device": {...}}``. Exits
+launches compute it) and of phase 21's rank 0 for K3, every path's — each
+rank's for phases 21, 23 and 24, the interpret path's of phase 25 under
+each policy — beside them), and as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero on any failure, without a CUDA device, or when run outside a
 checkout of the repository.
 """
@@ -2255,6 +2274,184 @@ def ep_dp_phases(dev, datasets, spec, train_np, step_default, rng):
     return report, runs
 
 
+# phase 25: the molecules the interpreter explains — aspirin; benzene (one
+# fragment: its one self_cn connection row is unpaired); an ionic mixture
+# (its fragments connect through iso_cn3, with no real bond)
+INTERP_SMILES = ("CC(=O)Oc1ccccc1C(=O)O", "c1ccccc1", "[Na+].[Cl-].CCO")
+INTERP_WEIGHTS = ("atom_weights", "bond_weights", "frag_weights",
+                  "fconn_weights")
+# each attribution family's result field
+INTERP_CONTRIBS = {"atom": "atom_contrib", "bond": "bond_contrib",
+                   "fconn": "fconn_contrib", "fragment": "frag_contrib"}
+
+
+def interp_batches(interp, smiles):
+    """(MolGraph, the host batches of ``interp.interpret(smiles)``'s
+    forwards: the one-molecule batch, then each family's replica batch)."""
+    from fragnet_tpu_torch.interp import attribution
+
+    g = interp.featurize(smiles)[0]
+    out = [attribution.pad_graphs([g])]
+    for fam, n in attribution.family_sizes(g).items():
+        if n > 0:
+            out.append(attribution.replica_batch(g, fam, n)[0])
+    return g, out
+
+
+def interp_diffs(got, want):
+    """[(vector, max abs diff / scale)] of two InterpResults: the prediction
+    against |prediction|, each min-max-scaled weight vector against its
+    range (1), each contribution vector against max(|prediction|, max|c|)
+    — a contribution is the difference of two near-equal predictions."""
+    import numpy as np
+
+    pred = abs(want.prediction)
+    out = [("prediction", abs(got.prediction - want.prediction)
+            / max(pred, 1e-30))]
+    for f in INTERP_WEIGHTS + tuple(INTERP_CONTRIBS.values()):
+        g, w = getattr(got, f), getattr(want, f)
+        if g.shape != w.shape:
+            raise AssertionError(f"{f}: shape {g.shape} vs {w.shape}")
+        scale = 1.0 if f in INTERP_WEIGHTS else max(
+            pred, float(np.abs(w).max(initial=0.0)), 1e-30)
+        out.append((f, float(np.abs(g - w).max(initial=0.0)) / scale))
+    return out
+
+
+def one_at_a_time(interp, g, family, i):
+    """(base − prediction with entity i of ``family`` masked in every layer,
+    base) on the one-molecule batch, through the reference's hook
+    conventions (bond i: rows 2i, 2i+1; connection i: fconn rows 2i,
+    2i+1; fragment i: its atoms' zero vector)."""
+    import torch
+
+    from fragnet_tpu_torch.interp import attribution
+    from fragnet_tpu_torch.model.layers import LayerHooks
+
+    b = attribution.pad_graphs([g])
+    if family == "atom":
+        h = LayerHooks(atom_mask=i)
+    elif family == "bond":
+        h = LayerHooks(bond_mask=2 * i)
+    elif family == "fconn":
+        h = LayerHooks(frag_bond_mask=i)
+    else:
+        vec = (b.atom_to_frag == i) * b.atom_mask
+        h = LayerHooks(atom_zero_vec=torch.as_tensor(
+            vec, dtype=torch.float32, device=interp.device))
+    base = float(interp.predict(b)[0, 0])
+    return base - float(interp.predict(b, h)[0, 0]), base
+
+
+def interp_phase(ckpt, n_tasks, rng):
+    """Phase 25: ``FragNetInterpreter.interpret(s, with_contributions=True)``
+    of the esol model with the weights ``ckpt`` (phase 7's ft.ckpt), under
+    the default and the dense-attr policy, on the card and on the CPU, for
+    each of INTERP_SMILES. Returns (the interp levels of K1 and K4, or K7,
+    {path: launches})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fragnet_tpu_torch.graphs.batch import to_device
+    from fragnet_tpu_torch.interp.attention import FragNetInterpreter
+    from fragnet_tpu_torch.train.checkpoint import load_params
+    from fragnet_tpu_torch.train.fastpath import resolve_kernel_policy
+    from fragnet_tpu_torch.train.finetune import build_model
+
+    report, paths = {}, {}
+    for attr in (False, True):
+        opt = smoke_opt(train=True, attr=attr)
+        policy = resolve_kernel_policy(opt.finetune)
+        label = "dense-attr" if attr else "default"
+        n_layers = int(opt.finetune.model.num_layer)
+
+        def interpreter(device):
+            model = build_model(opt, n_classes=n_tasks, policy=policy)
+            return FragNetInterpreter(load_params(model, ckpt),
+                                      device=device)
+
+        gpu, cpu = interpreter("cuda"), interpreter("cpu")
+        graphs, host = {}, {}
+        for s in INTERP_SMILES:
+            graphs[s], host[s] = interp_batches(gpu, s)
+        batches = [b for s in INTERP_SMILES for b in host[s]]
+        expect = expected_launches(policy, n_layers,
+                                   [(_planes_of(b), 1, 0) for b in batches])
+        gpu.interpret(INTERP_SMILES[0])  # warm-up, not counted or timed
+        torch.cuda.synchronize()
+        _reset_launches()
+        results, walls = {}, {}
+        for s in INTERP_SMILES:
+            t0 = time.perf_counter()
+            results[s] = gpu.interpret(s, with_contributions=True)
+            torch.cuda.synchronize()
+            walls[s] = time.perf_counter() - t0
+        launches = _launches()
+        paths["interp_attr" if attr else "interp"] = launches
+        print(f"interp [{label}] kernels ({len(batches)} forwards): "
+              + " ".join(f"{n}={c} (expected {expect[n]})"
+                         for n, c in launches.items() if c or expect[n]))
+        for n, c in launches.items():
+            if c != expect[n]:
+                raise AssertionError(f"{n} launched {c} times on the "
+                                     f"interpret path, expected {expect[n]}")
+
+        for s in INTERP_SMILES:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                gpu.interpret(s, with_contributions=True)
+                torch.cuda.synchronize()
+            busy, rows = _busy(prof)
+            t0 = time.perf_counter()
+            want = cpu.interpret(s, with_contributions=True)
+            cpu_s = time.perf_counter() - t0
+            name, worst = max(interp_diffs(results[s], want),
+                              key=lambda d: d[1])
+            g = graphs[s]
+            print(f"interp [{label}] {s} ({g.n_atoms} atoms, {g.n_frags} "
+                  f"fragments, {g.n_fconn} fconn rows): prediction "
+                  f"{results[s].prediction:.6f} (CPU {want.prediction:.6f}); "
+                  f"wall {walls[s] * 1e3:.2f} ms (SMILES to result), device "
+                  f"busy {busy:.3f} ms in {len(rows)} kernel kinds, CPU "
+                  f"{cpu_s * 1e3:.1f} ms; card vs CPU worst {worst:.3e} of "
+                  f"scale ({name}; limit {FORWARD_REL_LIMIT})")
+            if not worst <= FORWARD_REL_LIMIT:
+                raise AssertionError(f"interpret({s!r}) [{label}]: card and "
+                                     f"CPU disagree ({name}: {worst:.3e})")
+
+        # two entities of each family against one-at-a-time masked forwards
+        s = INTERP_SMILES[0]
+        g, res = graphs[s], results[s]
+        worst = 0.0
+        for fam, field in INTERP_CONTRIBS.items():
+            c = getattr(res, field)
+            for i in sorted({0, len(c) - 1}):
+                want, base = one_at_a_time(gpu, g, fam, i)
+                err = abs(float(c[i]) - want) / max(
+                    abs(base), float(abs(c).max()), 1e-30)
+                worst = max(worst, err)
+                if not err <= REL_LIMIT:
+                    raise AssertionError(
+                        f"{fam} {i} of {s} [{label}]: replica batch "
+                        f"{c[i]:.6e} vs one at a time {want:.6e}")
+        print(f"interp [{label}] replica batches vs one-at-a-time masked "
+              f"forwards on the card ({s}, 2 entities of each family): "
+              f"worst {worst:.3e} of scale (limit {REL_LIMIT})")
+
+        # the path's forward kernels at its largest batch: layer 0 of the
+        # atom family's replicas of the first molecule
+        names = ("dense_attr_fwd",) if attr else ("tcsr_gat_fwd",
+                                                  "dense_gat_fwd")
+        rb = to_device(host[s][1], gpu.device)
+        calls = layer0_kernel_calls(n_layers, gpu.model, rb, names=names)
+        tag = f"interp, {g.n_atoms + 1} replicas"
+        calls = {n: [(f"{lvl}, {tag}", a, kw) for lvl, a, kw in c]
+                 for n, c in calls.items()}
+        for name, (levels, _err) in check_kernels(names, calls, rng).items():
+            report[name] = levels
+    return report, paths
+
+
 def smoke_weights(datasets):
     """(FragNetFineTune's arguments for the smoke's esol model, its seeded
     weights on the CPU)."""
@@ -2534,8 +2731,19 @@ def main() -> int:
                                         step_default, rng)
     report.update(ep_report)
 
+    # ---- 25. interpretability: attention weights and contributions ------
+    t_phase = time.perf_counter()
+    interp_report, interp_paths = interp_phase(
+        os.path.join(topt.exp_dir, topt.finetune.chkpoint_name), n_tasks,
+        rng)
+    for name, levels in interp_report.items():
+        # the interpret path's levels stand beside the finetune layer's
+        report[name][0].extend(dict(p, on_path=False) for p in levels)
+    print(f"phase 25: {time.perf_counter() - t_phase:.1f} s")
+
     paths = {"finetune_train": launches_t, "pretrain": launches_pt,
-             "finetune_attr_train": launches_fa, "pretrain_attr": launches_pa}
+             "finetune_attr_train": launches_fa, "pretrain_attr": launches_pa,
+             **interp_paths}
     for run, per_rank in dist_runs.items():
         for r, counts in enumerate(per_rank):
             paths[f"{run}_rank{r}"] = counts

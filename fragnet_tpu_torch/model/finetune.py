@@ -4,14 +4,14 @@ of fragnet_tpu/model/finetune.py."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
 
 from fragnet_tpu_torch.model.fragnet import FragNet
 from fragnet_tpu_torch.model.heads import FTHEADS
-from fragnet_tpu_torch.model.layers import KernelPolicy
+from fragnet_tpu_torch.model.layers import KernelPolicy, LayerHooks
 from fragnet_tpu_torch.ops.segment import segment_sum
 
 
@@ -53,8 +53,12 @@ class FragNetFineTune(nn.Module):
             self.fthead = cls(in_dim, h1=h1, h2=h2, drop_ratio=drop_ratio,
                               n_classes=n_classes, act=act, generator=g)
 
-    def forward(self, batch, return_attentions: bool = False):
-        out = self.pretrain(batch, return_attentions=return_attentions)
+    def forward(self, batch, return_attentions: bool = False,
+                hooks: Optional[List[LayerHooks]] = None):
+        """``hooks``: one LayerHooks per encoder layer (interp/), or None;
+        with ``return_attentions`` the last layer's LayerAttn comes too."""
+        out = self.pretrain(batch, return_attentions=return_attentions,
+                            hooks=hooks)
         x_atoms, x_frags = out[0], out[1]
         G = batch.y.shape[0]
         x_frags_pooled = segment_sum(x_frags, batch.frag_batch, G,

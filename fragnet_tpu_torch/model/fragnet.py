@@ -15,12 +15,13 @@ layers (the JAX package's ``ep_axis``).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
 
-from fragnet_tpu_torch.model.layers import FragNetLayer, KernelPolicy
+from fragnet_tpu_torch.model.layers import (FragNetLayer, KernelPolicy,
+                                            LayerHooks)
 
 
 class FragNet(nn.Module):
@@ -49,7 +50,9 @@ class FragNet(nn.Module):
             for i in range(num_layer)
         ])
 
-    def forward(self, batch, return_attentions: bool = False):
+    def forward(self, batch, return_attentions: bool = False,
+                hooks: Optional[List[LayerHooks]] = None):
+        """``hooks``: one LayerHooks per layer (interp/), or None."""
         act = torch.relu
         drop = self.drop
         x_atoms = drop(batch.x_atoms)
@@ -59,7 +62,8 @@ class FragNet(nn.Module):
             # the returned attention vectors are the last layer's
             x_atoms, x_frags, edge_f, fedge_f, attn = layer(
                 x_atoms, edge_f, fedge_f, batch,
-                need_attn=return_attentions and i == last)
+                need_attn=return_attentions and i == last,
+                hooks=hooks[i] if hooks else None)
             x_atoms = act(drop(x_atoms))
             x_frags = act(drop(x_frags))
             edge_f = act(drop(edge_f))

@@ -11,7 +11,9 @@ select, else — on the CPU only — the segment path (ops/segment.py). A
 layer built with an ``EPContext`` runs edge-partitioned (dist/
 edge_partition.py): each rank passes its shard of every level's edges to
 the K3 pass (ops/tcsr_gat.py:tcsr_gat_pass_ep), node state replicated. The
-attention vectors are computed only when asked for.
+attention vectors are computed only when asked for. ``LayerHooks`` (the
+interpretability masks, interp/) zero rows of the bond, atom and fconn
+passes' outputs, whichever kernel ran the pass.
 
 Parameter names are the reference torch names (gat2.py): projection_b/a/fb,
 edge_attr_bond_embed, edge_attr_fbond_embed and the attention vectors
@@ -186,6 +188,72 @@ def _fold_planes(emb: nn.Linear, raw_dim: int, avec: torch.Tensor,
     return v, c
 
 
+def _zero_rows(x: torch.Tensor, *idx) -> torch.Tensor:
+    """Zero the rows of x named by each of ``idx`` (an int or an integer
+    tensor of row indices; None adds nothing). A row outside [0, N) — −1,
+    the disabled mark — is a no-op, as the JAX package's one-hot is (torch
+    would wrap a negative index to the end). Sync-free: out-of-range rows
+    land in a spare row that is dropped."""
+    parts = [torch.as_tensor(i, device=x.device).reshape(-1).long()
+             for i in idx if i is not None]
+    if not parts:
+        return x
+    N = x.shape[0]
+    rows = torch.cat(parts)
+    rows = torch.where((rows >= 0) & (rows < N), rows, N)
+    keep = x.new_ones((N + 1,)).index_fill_(0, rows, 0.0)[:N]
+    return x * keep[:, None]
+
+
+def _pair_rows(first) -> Optional[torch.Tensor]:
+    """Rows (i, i+1) for the entry i of ``first``; i < 0 gives none (the
+    JAX package's bond_mask = −1 zeroes row 0, see LayerHooks)."""
+    if first is None:
+        return None
+    first = torch.as_tensor(first).reshape(-1).long()
+    first = torch.where(first < 0, -2, first)  # both rows out of range
+    return torch.cat([first, first + 1])
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerHooks:
+    """Interpretability masks (the JAX package's LayerHooks), applied to a
+    pass's outputs before the next pass takes them as edge attributes and
+    before the edge masks multiply. The reference's fields, each an int or
+    a 0-d integer tensor (−1 = disabled):
+
+    * bond_mask:      zero bond-feature rows i, i+1 (gat2.py:171-177)
+    * frag_bond_mask: zero fconn rows 2k, 2k+1      (gat2.py:274-278)
+    * atom_mask:      zero atom row i               (gat2.py:227-232)
+    * atom_zero_vec:  (A,) float mask; 1 zeroes that atom's hidden state —
+      the multi-atom form of fragment attribution
+      (vizualize/model_attr.py:115-133 zeroes whole-fragment atom sets)
+
+    and the explicit form the replica batches of interp/attribution.py
+    use, one masked entity per replica: ``bond_rows``, ``fconn_rows``,
+    ``atom_rows``, integer tensors of the rows to zero, as they are.
+
+    bond_mask = −1 is a no-op here; the JAX package zeroes bond row 0 for
+    it (its pair is [−1, 0])."""
+
+    bond_mask: Optional[object] = None
+    frag_bond_mask: Optional[object] = None
+    atom_mask: Optional[object] = None
+    atom_zero_vec: Optional[torch.Tensor] = None
+    bond_rows: Optional[torch.Tensor] = None
+    fconn_rows: Optional[torch.Tensor] = None
+    atom_rows: Optional[torch.Tensor] = None
+
+    def bond_pair(self) -> Optional[torch.Tensor]:
+        return _pair_rows(self.bond_mask)
+
+    def fconn_pair(self) -> Optional[torch.Tensor]:
+        if self.frag_bond_mask is None:
+            return None
+        k = torch.as_tensor(self.frag_bond_mask).long()
+        return _pair_rows(torch.where(k < 0, -1, 2 * k))
+
+
 @dataclasses.dataclass
 class LayerAttn:
     atoms: torch.Tensor   # (A, H) summed attention by source
@@ -227,7 +295,9 @@ class FragNetLayer(nn.Module):
         self.f = _attn_param(H, 2 * aph + edge_out, g)
 
     def forward(self, x_atoms, nf_bonds, nf_fbonds, batch,
-                need_attn: bool = False):
+                need_attn: bool = False,
+                hooks: Optional[LayerHooks] = None):
+        hooks = hooks or LayerHooks()
         H = self.num_heads
         pol = self.policy
         ep = self.ep
@@ -251,7 +321,9 @@ class FragNetLayer(nn.Module):
             nf_b, ea_b, batch.bg_src, batch.bg_dst, batch.bg_mask, self.a_b,
             num_nodes=E, tm=batch.tm_bond, dp=batch.dp_bond, mode=pol.bond,
             fold=fold_b, need_attn=need_attn, ep=ep)
-        new_bond_features = bond_out.reshape(E, -1) * edge_mask[:, None]
+        new_bond_features = _zero_rows(bond_out.reshape(E, -1),
+                                       hooks.bond_pair(), hooks.bond_rows)
+        new_bond_features = new_bond_features * edge_mask[:, None]
 
         # ---- pass 2: atom-graph GAT with self-loops (gat2.py:178-224) ----
         # self-loops appended after real edges, zero edge attrs
@@ -279,7 +351,11 @@ class FragNetLayer(nn.Module):
             num_nodes=A, tm=batch.tm_atom, dp=batch.dp_atom,
             mode="attr" if pol.attr else "tcsr", self_loops=True, seg=seg,
             need_attn=need_attn, ep=ep)
-        x_atoms_new = atom_out_feats.reshape(A, -1) * batch.atom_mask[:, None]
+        x_atoms_new = _zero_rows(atom_out_feats.reshape(A, -1),
+                                 hooks.atom_mask, hooks.atom_rows)
+        if hooks.atom_zero_vec is not None:
+            x_atoms_new = x_atoms_new * (1.0 - hooks.atom_zero_vec)[:, None]
+        x_atoms_new = x_atoms_new * batch.atom_mask[:, None]
 
         # ---- pass 3: atom → fragment pooling (gat2.py:234) ----------------
         # incoming fragment state is recomputed from atoms every layer (the
@@ -300,8 +376,9 @@ class FragNetLayer(nn.Module):
             nf_fb, ea_fb, batch.fc_src, batch.fc_dst, batch.fc_mask,
             self.f_a_b, num_nodes=C, tm=batch.tm_fc, dp=batch.dp_fc,
             mode=pol.fc, fold=fold_f, need_attn=need_attn, ep=ep)
-        new_fbond_features = (fbond_out.reshape(C, -1)
-                              * batch.fconn_mask[:, None])
+        new_fbond_features = _zero_rows(fbond_out.reshape(C, -1),
+                                        hooks.fconn_pair(), hooks.fconn_rows)
+        new_fbond_features = new_fbond_features * batch.fconn_mask[:, None]
 
         # ---- pass 5: frag-graph GAT (gat2.py:283-316) ---------------------
         # fragment node features enter per head WITHOUT projection

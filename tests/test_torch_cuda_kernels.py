@@ -1146,3 +1146,71 @@ def test_dense_attr_bwd_cancels_exactly_with_one_neighbour(cuda, H, D):
     for k in (d_wd, d_ws, d_wea, d_wea_k):
         assert float(k.abs().max()) == 0.0
     _close(d_nf[ints[0].long()], g)
+
+
+# ---- the interpreter (interp/) on the card ------------------------------------
+
+_INTERP_MODEL = dict(num_layer=2, num_heads=4, emb_dim=128, h1=64, h2=64,
+                     h3=64, h4=64, drop_ratio=0.0)
+
+
+def _interp_pair(cuda, policy):
+    """(card interpreter, CPU interpreter) of one seeded model."""
+    from fragnet_tpu_torch.interp.attention import FragNetInterpreter
+    from fragnet_tpu_torch.model.finetune import FragNetFineTune
+
+    def model():
+        return FragNetFineTune(**_INTERP_MODEL, policy=policy,
+                               generator=torch.Generator().manual_seed(7))
+
+    return (FragNetInterpreter(model(), device=cuda),
+            FragNetInterpreter(model(), device="cpu"))
+
+
+@pytest.mark.parametrize("policy", ["default", "dense-attr"])
+def test_interpreter_card_matches_cpu(cuda, policy):
+    """interpret(aspirin) with contributions through the kernels (K1, K4;
+    K7 and K4 under dense-attr) against the plain versions on the CPU: the
+    prediction, the min-max-scaled weights and the contributions within
+    1e-3 of each vector's scale (a contribution's scale is
+    max(|prediction|, max|c|))."""
+    from fragnet_tpu_torch.model.layers import KernelPolicy
+    from fragnet_tpu_torch.ops import dense_gat as dg, tcsr_gat as tg
+
+    pol = KernelPolicy(attr=True, fc="attr") if policy == "dense-attr" \
+        else KernelPolicy()
+    gpu, cpu = _interp_pair(cuda, pol)
+    counters = (tg.KERNEL, dg.KERNEL, dg.KERNEL_ATTR)
+    before = [k.launches for k in counters]
+    got = gpu.interpret("CC(=O)Oc1ccccc1C(=O)O", with_contributions=True)
+    torch.cuda.synchronize()
+    ran = [k.launches - b for k, b in zip(counters, before)]
+    want = cpu.interpret("CC(=O)Oc1ccccc1C(=O)O", with_contributions=True)
+    # 5 forwards x 2 layers: K1 atom + frag, K4 bond + fconn (default);
+    # K7 atom + fconn + frag, K4 bond (dense-attr)
+    assert ran == ([20, 20, 0] if policy == "default" else [0, 10, 30])
+    pred = abs(want.prediction)
+    assert abs(got.prediction - want.prediction) <= 1e-3 * pred
+    for f in ("atom_weights", "bond_weights", "frag_weights",
+              "fconn_weights"):
+        assert getattr(got, f).shape == getattr(want, f).shape, f
+        assert np.abs(getattr(got, f) - getattr(want, f)).max() <= 1e-3, f
+    for f in ("atom_contrib", "bond_contrib", "frag_contrib",
+              "fconn_contrib"):
+        g, w = getattr(got, f), getattr(want, f)
+        scale = max(pred, float(np.abs(w).max()))
+        assert np.abs(g - w).max() <= 1e-3 * scale, f
+
+
+def test_interpreter_raises_without_tcsr_on_the_card(cuda):
+    """A batch without TCSR metadata or planes raises on the card instead
+    of taking the CPU-only segment path."""
+    from fragnet_tpu_torch.graphs.hiergraph import pad_batch, spec_for
+    from fragnet_tpu_torch.model.layers import KernelPolicy
+
+    gpu, _cpu = _interp_pair(cuda, KernelPolicy())
+    g = gpu.featurize("CCO")[0]
+    bare = pad_batch([g], spec_for([g], batch_size=1))
+    assert bare.tm_atom is None and bare.dp_bond is None
+    with pytest.raises(RuntimeError, match="segment path runs on the CPU"):
+        gpu.predict(bare)
