@@ -13,8 +13,10 @@ data-parallel and edge-partitioned training on torch.distributed (two
 ranks sharing the card over gloo, and one rank over NCCL) — and geometric
 pretraining (configs/pt/unimol.yaml, full width: 4 layers, emb
 128, 4 heads, drop 0.2, Adam lr 1e-4, f32) through ``run_pretrain`` and
-the packed transport — and the interpreter (``FragNetInterpreter``:
-attention weights and masking contributions) on the finetuned model.
+the packed transport — the interpreter (``FragNetInterpreter``:
+attention weights and masking contributions) on the finetuned model, and
+the other models on the gat2 encoder (gat2_transformer,
+gat2_transformer2, gat2_multitask) through ``run_finetune``.
 Phases:
 
   1. the card's name and power limit (nvidia-smi);
@@ -154,13 +156,26 @@ Phases:
      within 1e-4 of scale; each molecule's interpret wall time and device
      busy time; then K1 and K4 (K7 under dense-attr) against their plain
      versions, as in phase 4, at layer 0 of aspirin's atom replica batch
-     (levels tagged "interp").
+     (levels tagged "interp");
+ 26. the models on the gat2 encoder: gat2_transformer (TransformerConv
+     post-processing), gat2_transformer2 (a dense per-molecule
+     TransformerEncoder on each level) on the esol config, and
+     gat2_multitask with configs/ft/clintox.yaml's settings (2 tasks,
+     clsf, batch 32) on phase 3's graphs with two seeded labels each, some
+     missing: per model the prediction and one train step's loss and
+     gradients, card vs CPU, within 1e-3 of each scale; run_finetune for 2
+     epochs with every launch count set to 0 just before it, K1, K2, K4
+     and K5 launches equal to finetune_expect's, losses finite; a timed
+     train step; gat2_transformer also under the dense-attr policy (K7,
+     K8 exact); then TransformerConv (atom, frag), one EncoderBlock and
+     its MultiheadAttention (atom, frag) forward + backward alone on the
+     card, as torch ops: device ms, kernels launched, bound.
 
 Prints a ``{"kernels": [...]}`` JSON line (launches from the pretraining
 path of phase 11 for K1-K6, of phase 19 for K7-K9 (K9's: K8's, whose
 launches compute it) and of phase 21's rank 0 for K3, every path's — each
 rank's for phases 21, 23 and 24, the interpret path's of phase 25 under
-each policy — beside them), and as the last line ``{"ok": true, "device": {...}}``. Exits
+each policy, each phase-26 model's training path — beside them), and as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero on any failure, without a CUDA device, or when run outside a
 checkout of the repository.
 """
@@ -1077,22 +1092,23 @@ def kernel_device_ms(busy, launched):
     return out
 
 
-def timed_train_step(model, train_np, dev, label: str):
-    """Phases 8 and 18: one finetune train step (batch copy, forward,
-    backward, Adam) of a copy of ``model`` on ``train_np``: wall time
-    (median of 5 after a warm-up), one step's device busy time and each
-    port kernel's device time under the profiler, and the step in stages
-    each ended by a synchronize. Returns {wall, busy, kernels}."""
+def timed_train_step(model, train_np, dev, label: str, loss: str = "mse"):
+    """Phases 8, 18 and 26: one finetune train step (batch copy, forward,
+    backward, Adam; ``loss`` "mse" or "bce") of a copy of ``model`` on
+    ``train_np``: wall time (median of 5 after a warm-up), one step's
+    device busy time and each port kernel's device time under the
+    profiler, and the step in stages each ended by a synchronize. Returns
+    {wall, busy, kernels}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from fragnet_tpu_torch.graphs.batch import to_device
-    from fragnet_tpu_torch.train.loop import make_train_step, mse_loss
+    from fragnet_tpu_torch.train.loop import LOSSES, make_train_step
     from fragnet_tpu_torch.train.optim import make_optimizer
 
     step_model = copy.deepcopy(model)
     step_opt, _ = make_optimizer(step_model.parameters(), "adam", lr=1e-4)
-    step = make_train_step(step_model, step_opt, "mse", dev)
+    step = make_train_step(step_model, step_opt, loss, dev)
     walls = []
     for _ in range(6):
         torch.cuda.synchronize()
@@ -1109,7 +1125,7 @@ def timed_train_step(model, train_np, dev, label: str):
     dev_busy, busy = _busy(prof)
     wall = statistics.median(walls[1:])
     ours = kernel_device_ms(busy, launched)
-    print(f"train step [{label} policy] (batch copy, forward, backward, "
+    print(f"train step [{label}] (batch copy, forward, backward, "
           f"Adam): wall {wall:.2f} ms (median of 5 after warm-up), device "
           f"busy {dev_busy:.3f} ms ({100 * dev_busy / wall:.1f}%) in "
           f"{len(busy)} kernel kinds; the port's kernels: "
@@ -1124,10 +1140,10 @@ def timed_train_step(model, train_np, dev, label: str):
         b = to_device(train_np, dev)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        loss = mse_loss(step_model(b), b.y, b.graph_mask)
+        value = LOSSES[loss](step_model(b), b.y, b.graph_mask)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        loss.backward()
+        value.backward()
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         step_opt.step()
@@ -1136,29 +1152,30 @@ def timed_train_step(model, train_np, dev, label: str):
         t4 = time.perf_counter()
         for k, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
             stages[k].append(dt * 1e3)
-    print(f"train step stages [{label} policy] (host clock to a "
+    print(f"train step stages [{label}] (host clock to a "
           f"synchronize, median of 5): "
           + ", ".join(f"{k} {statistics.median(v):.2f} ms"
                       for k, v in stages.items()))
     return {"wall": wall, "busy": dev_busy, "kernels": ours}
 
 
-def train_grads_card_vs_cpu(model, train_np, dev):
-    """Phases 9 and 18: one train step's loss and every parameter's
-    gradient of ``model`` on ``train_np``, on the card (kernels) and on the
-    CPU (plain versions), dropout off. Returns (loss cpu, loss card, worst
-    relative diff, its name, number of parameters)."""
+def train_grads_card_vs_cpu(model, train_np, dev, loss: str = "mse"):
+    """Phases 9, 18 and 26: one train step's loss (``loss`` "mse" or
+    "bce") and every parameter's gradient of ``model`` on ``train_np``, on
+    the card (kernels) and on the CPU (plain versions), dropout off.
+    Returns (loss cpu, loss card, worst relative diff, its name, number of
+    parameters)."""
     import torch
 
     from fragnet_tpu_torch.graphs.batch import to_device
-    from fragnet_tpu_torch.train.loop import mse_loss
+    from fragnet_tpu_torch.train.loop import LOSSES
 
     def loss_and_grads(d):
         m_d = copy.deepcopy(model).to(d).eval()  # dropout off
         b_d = to_device(train_np, d)
-        loss = mse_loss(m_d(b_d), b_d.y, b_d.graph_mask)
-        loss.backward()
-        return float(loss.detach()), {
+        value = LOSSES[loss](m_d(b_d), b_d.y, b_d.graph_mask)
+        value.backward()
+        return float(value.detach()), {
             n: (None if p.grad is None else p.grad.detach().cpu())
             for n, p in m_d.named_parameters()}
 
@@ -1830,7 +1847,7 @@ def attr_phases(dev, datasets, spec, windows, batch, train_np, step_default,
 
     # ---- 18. one dense-attr train step: time, and gradients card vs CPU ---
     t0 = time.perf_counter()
-    step_attr = timed_train_step(model, train_np, dev, "dense-attr")
+    step_attr = timed_train_step(model, train_np, dev, "dense-attr policy")
     print(f"train step, dense-attr vs default policy: wall "
           f"{step_attr['wall']:.2f} / {step_default['wall']:.2f} ms, device "
           f"busy {step_attr['busy']:.3f} / {step_default['busy']:.3f} ms; "
@@ -2452,6 +2469,289 @@ def interp_phase(ckpt, n_tasks, rng):
     return report, paths
 
 
+# phase 26: the models on the gat2 encoder (model/transformer.py) at the
+# esol config's width; gat2_multitask with configs/ft/clintox.yaml's
+# settings, as dotted keys of ESOL_CONFIG (tests/test_torch_transformer.py
+# holds them to the file)
+FAMILY_VERSIONS = ("gat2_transformer", "gat2_transformer2", "gat2_multitask")
+CLINTOX_OVERRIDES = {"finetune.data.name": "clintox",
+                     "finetune.target_type": "clsf",
+                     "finetune.batch_size": 32}
+FAMILY_EPOCHS = 2
+
+
+def family_opt(mv: str, attr: bool = False):
+    """The training path's config (smoke_opt(train=True)) for model_version
+    ``mv``: 2 epochs, its own exp_dir, clintox's settings for the
+    multi-task model; ``attr``: the dense-attr policy."""
+    opt = smoke_opt(train=True, attr=attr)
+    tag = "_attr" if attr else ""
+    for k, v in {"model_version": mv, "finetune.n_epochs": FAMILY_EPOCHS,
+                 **(CLINTOX_OVERRIDES if mv == "gat2_multitask" else {}),
+                 "exp_dir": os.path.join(REPO, "exps",
+                                         f"chip_smoke_{mv}{tag}")}.items():
+        opt.set_path(k, v)
+    return opt
+
+
+def multitask_datasets(datasets, seed: int = 0):
+    """Phase 3's graphs with two binary labels each, as a 2-task
+    classification set: per split and task a seeded permutation of
+    alternating 0 / 1, a fifth of them then set to −1 (missing), so every
+    split keeps both classes of every task."""
+    import dataclasses
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def relabel(graphs):
+        n = len(graphs)
+        y = np.stack([rng.permutation(np.arange(n) % 2) for _ in range(2)],
+                     axis=1).astype(np.float32)
+        for t in range(2):
+            y[rng.choice(n, n // 5, replace=False), t] = -1.0
+        return [dataclasses.replace(g, y=y[i]) for i, g in enumerate(graphs)]
+
+    return (*(relabel(g) for g in datasets[:3]), 2, "clsf")
+
+
+def _postproc_cost(kind, n_real, e_real, sizes, dims):
+    """(bytes, flops) of one forward + backward of a post-processing module
+    on this batch's real rows (``n_real`` nodes, ``e_real`` edges,
+    ``sizes`` nodes per graph): each input (features, indices, masks,
+    weights, the cotangent) read once, each output (features, the input's
+    and the weights' gradients) written once; the operations of the
+    matmuls (×3: the forward and the backward's two products) and, for
+    TransformerConv, of the per-edge dot and weighted sum; elementwise
+    work (softmax, LayerNorm, masks) left out. ``dims``: (in width, out
+    width) for "conv", (emb, feed-forward width) for "block", (emb, emb)
+    for "attn"."""
+    d_in, d_out = dims
+    attn = 4 * d_in * sum(n * n for n in sizes)  # QK^T and AV per graph
+    if kind == "conv":
+        w = 4 * (d_in * d_out + d_out)  # lin_query, key, value, skip
+        io = n_real * (2 * d_in + 2 * d_out + 1) + 3 * e_real
+        return 4 * (io + 2 * w), 3 * (8 * n_real * d_in * d_out
+                                      + 4 * e_real * d_out)
+    w = 4 * d_in * d_in + 4 * d_in  # qkv_proj, o_proj
+    if kind == "block":  # + linear_net, norm1, norm2
+        w += 2 * d_in * d_out + d_out + d_in + 4 * d_in
+    mm = 2 * n_real * (w - 4 * d_in)  # ≈ 2 · rows · weight count
+    return 4 * (n_real * (4 * d_in + 2) + 2 * w), 3 * (mm + attn)
+
+
+def postproc_ops(tr_model, tr2_model, train_np, dev, rng):
+    """The post-processing ops, run as torch ops on the card (no TPU kernel
+    exists for them): TransformerConv (gat2_transformer's, shared by both
+    levels) at the atom and fragment levels, and one EncoderBlock and its
+    MultiheadAttention (gat2_transformer2's first of each level), each
+    forward + backward with a numpy cotangent on the encoder's output for
+    ``train_np``: device ms per call (profiler), the device kernels it
+    launches, event ms (host dispatch included) and the bound. Returns
+    [{op, level, calls per step, device_ms, kernels, ms, bound_ms,
+    bound_by}]."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fragnet_tpu_torch.graphs.batch import to_device
+
+    b = to_device(train_np, dev)
+    G = b.y.shape[0]
+    with torch.no_grad():
+        xa, xf, _, _ = tr_model.eval().pretrain(b)
+        xa2, xf2, _, _ = tr2_model.eval().pretrain(b)
+    n_layers2 = len(tr2_model.transformer.layers)
+    conv = tr_model.atom_transformer
+    block_a, block_f = (tr2_model.transformer.layers[0],
+                        tr2_model.transformer2.layers[0])
+    E = xa.shape[1]
+    F = block_a.linear_net[0].out_features
+    HD = conv.heads * conv.out_channels
+
+    def sizes(batch_ids, mask):
+        ids = batch_ids[mask > 0].cpu().numpy()
+        return [int(c) for c in np.bincount(ids, minlength=G)]
+
+    atoms = sizes(b.atom_batch, b.atom_mask)
+    frags = sizes(b.frag_batch, b.frag_mask)
+    cases = [  # (op, level, calls per step, module, args, cost kind,
+               #  node mask, edge mask, nodes per graph, dims)
+        ("TransformerConv", "atom", 1, conv,
+         (xa, b.edge_src, b.edge_dst, b.edge_mask, b.atom_mask), "conv",
+         b.atom_mask, b.edge_mask, [], (E, HD)),
+        ("TransformerConv", "frag", 1, conv,
+         (xf, b.frag_src, b.frag_dst, b.fconn_mask, b.frag_mask), "conv",
+         b.frag_mask, b.fconn_mask, [], (E, HD)),
+        ("EncoderBlock", "atom", n_layers2, block_a,
+         (xa2, b.atom_batch, b.atom_mask, G), "block", b.atom_mask, None,
+         atoms, (E, F)),
+        ("EncoderBlock", "frag", n_layers2, block_f,
+         (xf2, b.frag_batch, b.frag_mask, G), "block", b.frag_mask, None,
+         frags, (E, F)),
+        ("MultiheadAttention", "atom", n_layers2, block_a.self_attn,
+         (xa2, b.atom_batch, b.atom_mask, G), "attn", b.atom_mask, None,
+         atoms, (E, E)),
+        ("MultiheadAttention", "frag", n_layers2, block_f.self_attn,
+         (xf2, b.frag_batch, b.frag_mask, G), "attn", b.frag_mask, None,
+         frags, (E, E)),
+    ]
+    out = []
+    for op, level, per_step, mod, args, kind, nmask, emask, seq, dims in \
+            cases:
+        x = args[0].detach().clone().requires_grad_(True)
+        width = mod(x, *args[1:]).shape[1]
+        g = torch.from_numpy(rng.standard_normal(
+            (x.shape[0], width)).astype(np.float32)).to(dev)
+
+        def call():
+            mod(x, *args[1:]).backward(g)
+
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        n = 20
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+        busy, _rows = _busy(prof)
+        launched = sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)
+                       and e.self_device_time_total > 0)
+        if not busy > 0:
+            raise AssertionError(f"{op} {level}: no device time profiled")
+        n_real = int((nmask > 0).sum())
+        e_real = int((emask > 0).sum()) if emask is not None else 0
+        nbytes, flops = _postproc_cost(kind, n_real, e_real, seq, dims)
+        bound, by = _bound_ms(nbytes, flops)
+        row = {"op": op, "level": level, "calls_per_step": per_step,
+               "device_ms": busy / n, "kernels": launched / n,
+               "ms": _median_ms(call, n=20), "bound_ms": bound,
+               "bound_by": by, "rows": n_real, "edges": e_real}
+        out.append(row)
+        print(f"post-processing {op} [{level}] forward + backward "
+              f"({n_real} rows{f', {e_real} edges' if e_real else ''}): "
+              f"device {row['device_ms']:.4f} ms in {row['kernels']:.0f} "
+              f"kernels, events {row['ms']:.4f} ms, bound {bound:.5f} ms "
+              f"({by}); {per_step} per train step")
+    return out
+
+
+def family_phase(dev, datasets, spec, windows, batch_np, train_np, rng):
+    """Phase 26: gat2_transformer, gat2_transformer2 and gat2_multitask
+    through the port's entry points at the esol config's width (the
+    multi-task model with clintox's settings on phase 3's graphs
+    relabelled by multitask_datasets): per model the prediction and one
+    train step's loss and gradients, card (kernels) vs CPU (plain
+    versions), same seeded weights and batch; run_finetune for
+    FAMILY_EPOCHS epochs with every launch count set to 0 just before it,
+    each kernel's launches equal to finetune_expect's and every loss
+    finite; a timed train step. gat2_transformer also trains under the
+    dense-attr policy (launches exact). Then postproc_ops. Returns
+    ({path: launches}, {model: step}, post-processing rows)."""
+    import numpy as np
+    import torch
+
+    from fragnet_tpu_torch.data.batcher import BatchLoader
+    from fragnet_tpu_torch.graphs.batch import to_device
+    from fragnet_tpu_torch.graphs.hiergraph import pad_batch
+    from fragnet_tpu_torch.obs import read_scalars
+    from fragnet_tpu_torch.train.finetune import run_finetune
+
+    paths, steps, trained = {}, {}, {}
+    runs = [(mv, False) for mv in FAMILY_VERSIONS] + [(FAMILY_VERSIONS[0],
+                                                       True)]
+    for mv, attr in runs:
+        t0 = time.perf_counter()
+        fopt = family_opt(mv, attr=attr)
+        label = mv + (" [dense-attr policy]" if attr else "")
+        if mv == "gat2_multitask":
+            data = multitask_datasets(datasets)
+            fspec, fwin, fbatch_np = smoke_batch(fopt, data)
+            loader = BatchLoader(data[0], int(fopt.finetune.batch_size),
+                                 spec=fspec, shuffle=True,
+                                 seed=int(fopt.seed), n_tasks=data[3])
+            ftrain_np = pad_batch(next(iter(loader._windows())), fspec,
+                                  n_tasks=data[3])
+        else:
+            data, fspec, fwin, fbatch_np, ftrain_np = (
+                datasets, spec, windows, batch_np, train_np)
+        n_tasks, task = data[3], data[4]
+        loss = "mse" if task == "regr" else "bce"
+        if not attr:
+            model = build_model_cpu(fopt, n_tasks).eval()
+            card = copy.deepcopy(model).to(dev).eval()
+            with torch.no_grad():
+                pred_gpu = card(to_device(fbatch_np, dev)).cpu()
+                pred_cpu = model(to_device(fbatch_np, "cpu"))
+            G = int(fopt.finetune.batch_size)
+            if tuple(pred_gpu.shape) != (G, n_tasks):
+                raise AssertionError(f"{mv}: prediction shape "
+                                     f"{tuple(pred_gpu.shape)}")
+            fwd_err, fwd_rel = _diff(pred_gpu, pred_cpu)
+            l_cpu, l_gpu, worst, worst_name, n_par = train_grads_card_vs_cpu(
+                model, ftrain_np, dev, loss)
+            print(f"{label}: forward cpu vs gpu max_abs_err={fwd_err:.3e} "
+                  f"rel={fwd_rel:.3e} (limit {FORWARD_REL_LIMIT}); train "
+                  f"step ({loss}) loss {l_cpu:.6f} / {l_gpu:.6f}, worst "
+                  f"relative diff {worst:.3e} ({worst_name}) over {n_par} "
+                  f"parameters (limit {GRAD_REL_LIMIT})")
+            if not fwd_rel <= FORWARD_REL_LIMIT:
+                raise AssertionError(f"{mv}: card and CPU predictions "
+                                     f"disagree")
+            if not worst <= GRAD_REL_LIMIT:
+                raise AssertionError(f"{mv}: card and CPU gradients "
+                                     f"disagree")
+        expect, n_train, n_val, _ = finetune_expect(fopt, data, fspec, fwin)
+        _reset_launches()
+        t1 = time.perf_counter()
+        value, tr_model = run_finetune(fopt, datasets=data, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        launches = _launches()
+        paths[f"{mv}{'_attr' if attr else ''}_train"] = launches
+        losses = [r["value"] for r in read_scalars(fopt.exp_dir)
+                  if r["tag"] == "train/loss"][-FAMILY_EPOCHS:]
+        metric = "rmse" if task == "regr" else "roc_auc"
+        print(f"{label} training path: {FAMILY_EPOCHS} epochs x {n_train} "
+              f"train batches, {n_val} val, {len(fwin)} test; test {metric} "
+              f"{value:.5f}, train losses {[round(x, 5) for x in losses]}, "
+              f"run {run_s:.2f} s; kernels: "
+              + " ".join(f"{n}={c} (expected {expect[n]})"
+                         for n, c in launches.items() if c or expect[n]))
+        if len(losses) != FAMILY_EPOCHS or not np.isfinite(losses).all() \
+                or not np.isfinite(value):
+            raise AssertionError(f"{label}: training is not finite: losses "
+                                 f"{losses}, test {metric} {value}")
+        for n, c in launches.items():
+            if c != expect[n]:
+                raise AssertionError(f"{label}: {n} launched {c} times on "
+                                     f"the training path, expected "
+                                     f"{expect[n]}")
+        if not attr:
+            steps[mv] = timed_train_step(tr_model, ftrain_np, dev, mv, loss)
+            trained[mv] = tr_model
+        print(f"phase 26, {label}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    post = postproc_ops(trained["gat2_transformer"],
+                        trained["gat2_transformer2"], train_np, dev, rng)
+    for mv, ops in (("gat2_transformer", ("TransformerConv",)),
+                    ("gat2_transformer2", ("EncoderBlock",))):
+        per_step = sum(r["device_ms"] * r["calls_per_step"] for r in post
+                       if r["op"] in ops)
+        print(f"{mv} train step: device busy {steps[mv]['busy']:.3f} ms, of "
+              f"which its post-processing ({'/'.join(ops)} forward + "
+              f"backward, measured alone) {per_step:.3f} ms "
+              f"({100 * per_step / steps[mv]['busy']:.1f}%)")
+    print(f"phase 26, post-processing: {time.perf_counter() - t0:.1f} s")
+    return paths, steps, post
+
+
 def smoke_weights(datasets):
     """(FragNetFineTune's arguments for the smoke's esol model, its seeded
     weights on the CPU)."""
@@ -2695,7 +2995,8 @@ def main() -> int:
     # ---- 8. one train step: host time and device busy time ----------------
     train_np = pad_batch(next(iter(train_loader._windows())), spec,
                          n_tasks=n_tasks)
-    step_default = timed_train_step(tr_model, train_np, dev, "default")
+    step_default = timed_train_step(tr_model, train_np, dev,
+                                    "default policy")
 
     print(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
@@ -2741,9 +3042,15 @@ def main() -> int:
         report[name][0].extend(dict(p, on_path=False) for p in levels)
     print(f"phase 25: {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- 26. the models on the gat2 encoder ---------------------------------
+    t_phase = time.perf_counter()
+    family_paths, _steps, _post = family_phase(
+        dev, datasets, spec, windows, batch_np, train_np, rng)
+    print(f"phase 26: {time.perf_counter() - t_phase:.1f} s")
+
     paths = {"finetune_train": launches_t, "pretrain": launches_pt,
              "finetune_attr_train": launches_fa, "pretrain_attr": launches_pa,
-             **interp_paths}
+             **interp_paths, **family_paths}
     for run, per_rank in dist_runs.items():
         for r, counts in enumerate(per_rank):
             paths[f"{run}_rank{r}"] = counts

@@ -285,7 +285,9 @@ def _pin_tcsr(spec: PadSpec, graphs: Sequence, batch_size: int,
         if not win:
             i += 1
             continue
-        b = pad_batch(win, spec)
+        # the probe reads only structure; y as wide as the labels (the JAX
+        # package's probe pads one task and raises on multi-task labels)
+        b = pad_batch(win, spec, n_tasks=max(np.size(g.y) for g in win))
         probes += 1
         for name, (s, d, m, n) in {
             "atom": (b.edge_src, b.edge_dst, b.edge_mask, spec.n_atoms),

@@ -76,10 +76,12 @@ def torch_linear_init_(w: torch.Tensor, fan_in: int,
 
 
 def xavier_gain_(w: torch.Tensor, fan_in: int, fan_out: int,
-                 generator: Optional[torch.Generator]) -> None:
+                 generator: Optional[torch.Generator],
+                 gain: float = 1.414) -> None:
     """xavier_uniform with gain 1.414 (reference gat2.py:111-115), as the
-    JAX package's variance_scaling(2·1.414², fan_avg, uniform)."""
-    bound = math.sqrt(3.0 * 2.0 * 1.414 ** 2 / ((fan_in + fan_out) / 2.0))
+    JAX package's variance_scaling(2·1.414², fan_avg, uniform); ``gain``
+    1 is its ``xavier_uniform`` (variance_scaling(2, fan_avg, uniform))."""
+    bound = math.sqrt(3.0 * 2.0 * gain ** 2 / ((fan_in + fan_out) / 2.0))
     with torch.no_grad():
         w.uniform_(-bound, bound, generator=generator)
 

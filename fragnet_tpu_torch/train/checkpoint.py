@@ -18,10 +18,30 @@ fragnet_tpu/train/checkpoint.py:_torch_key_to_flax maps the other way:
   pretrain/layers_{i}/{a_b,a,f,f_a_b} → pretrain.layers.{i}.{a_b,a,f,f_a_b}
   head/_MLPHead_0/predictor_{k}/*     → fthead.predictor.{k}.*
   head/{lin1,out,dense,out_proj}/*    → fthead.{lin1,out,dense,out_proj}.*
+  head/{_MLPHead_0/,}_PReLU_0/alpha   → fthead.act.weight  (act=prelu)
   head/bl_reduce_layer/*              → head.bl_reduce_layer.*   (pretrain)
   head/{bl,ba,da,FC}_layers/layers_{k}/* → head.{bl,ba,da,FC}_layers.{k}.*
 
-Dense kernels (in, out) become Linear weights (out, in).
+and, for the models on the gat2 encoder (model/transformer.py), under the
+names fragnet_tpu/train/checkpoint.py:_torch_key_to_flax_transformer reads:
+
+  {atom,frag}_transformer/lin_{query,key,value,skip}/*
+                               → {atom,frag}_transformer.lin_*.*
+  {lin1,out}/*                        → {lin1,out}.*
+  transformer{,2}/layers_{i}/self_attn/{qkv_proj,o_proj}/*
+                               → transformer{,2}.layers.{i}.self_attn.*.*
+  transformer{,2}/layers_{i}/norm{1,2}/{scale,bias}
+                               → transformer{,2}.layers.{i}.norm{1,2}.{weight,bias}
+  transformer{,2}/layers_{i}/linear_net_{0,3}/*
+                               → transformer{,2}.layers.{i}.linear_net.{0,3}.*
+  ms_heads_{i}/*                      → ms_heads.{i}.*
+
+Dense kernels (in, out) become Linear weights (out, in); the scalar PReLU
+slope becomes the (1,) weight of ``nn.PReLU``. The way back is the JAX
+package's ``import_torch_state_dict``, whose mappers skip
+``fthead.act.weight``: a port checkpoint with ``act=prelu`` crosses back
+only with its slope given to the JAX side by hand (the JAX package is the
+reference and is not changed for it).
 """
 
 from __future__ import annotations
@@ -35,7 +55,7 @@ import torch
 
 _LINEARS = ("projection_b", "projection_a", "projection_fb",
             "edge_attr_bond_embed", "edge_attr_fbond_embed")
-_LEAF = {"kernel": "weight", "bias": "bias"}
+_LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight"}
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -60,6 +80,24 @@ def _torch_name(path: Tuple[str, ...]) -> str:
     m = re.fullmatch(r"head/(lin1|out|dense|out_proj)/(kernel|bias)", key)
     if m:
         return f"fthead.{m.group(1)}.{_LEAF[m.group(2)]}"
+    if re.fullmatch(r"head/(_MLPHead_0/)?_PReLU_0/alpha", key):
+        return "fthead.act.weight"
+    m = re.fullmatch(r"(atom_transformer|frag_transformer)/"
+                     r"(lin_query|lin_key|lin_value|lin_skip)/(kernel|bias)",
+                     key)
+    if m:
+        return f"{m.group(1)}.{m.group(2)}.{_LEAF[m.group(3)]}"
+    m = re.fullmatch(r"(lin1|out|ms_heads_\d+)/(kernel|bias)", key)
+    if m:
+        return f"{m.group(1).replace('ms_heads_', 'ms_heads.')}." \
+               f"{_LEAF[m.group(2)]}"
+    m = re.fullmatch(r"(transformer2?)/layers_(\d+)/(self_attn/qkv_proj|"
+                     r"self_attn/o_proj|norm1|norm2|linear_net_0|"
+                     r"linear_net_3)/(kernel|bias|scale)", key)
+    if m:
+        sub = m.group(3).replace("/", ".").replace("linear_net_",
+                                                   "linear_net.")
+        return f"{m.group(1)}.layers.{m.group(2)}.{sub}.{_LEAF[m.group(4)]}"
     m = re.fullmatch(r"head/bl_reduce_layer/(kernel|bias)", key)
     if m:
         return f"head.bl_reduce_layer.{_LEAF[m.group(1)]}"
@@ -71,16 +109,18 @@ def _torch_name(path: Tuple[str, ...]) -> str:
 
 
 def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """fragnet_tpu FragNetFineTune or FragNetPreTrain params → the port's
-    ``state_dict``
-    (f32 CPU tensors); raises KeyError on a param the port has no name
-    for."""
+    """fragnet_tpu FragNetFineTune, FragNetPreTrain,
+    FragNetFineTuneTransformer{,2} or FragNetFineTuneMultiTask params → the
+    port's ``state_dict`` (f32 CPU tensors); raises KeyError on a param the
+    port has no name for."""
     tree = params["params"] if "params" in params else params
     out = {}
     for path, val in _flatten(tree):
         arr = np.asarray(val, dtype=np.float32)
         if path[-1] == "kernel":
             arr = arr.T
+        elif path[-1] == "alpha":
+            arr = arr.reshape(1)
         out[_torch_name(path)] = torch.from_numpy(np.array(arr, copy=True))
     return out
 

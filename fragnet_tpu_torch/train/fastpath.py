@@ -5,8 +5,8 @@ per-level kernel policy, resolved in one place for every entry point.
   * ``device`` — CUDA unless the caller asks for the CPU; a CUDA request
     with no card raises instead of falling back;
   * ``dtype``  — f32 only in this slice (bf16 raises, ROADMAP.md);
-  * ``tcsr``   — on by default on CUDA for the gat2 family, so batches carry
-    TCSR tile metadata and tile-aligned dense planes (``align`` follows it,
+  * ``tcsr``   — on by default on CUDA for the families on the gat2
+    encoder (TCSR_FAMILIES), so batches carry TCSR tile metadata and tile-aligned dense planes (``align`` follows it,
     graphs/hiergraph.py:spec_for) and every GAT pass runs a kernel. That
     holds under ``dist.mode=dp`` too (the JAX package turns TCSR off there
     and runs the segment path, which the port has on the CPU only). Under
@@ -32,7 +32,9 @@ import torch
 from fragnet_tpu_torch.model.layers import KernelPolicy
 
 # model families whose layers consume TCSR tile metadata (FragNet core)
-TCSR_FAMILIES = frozenset({"gat2", "gat2_masked", "gat2_masked2"})
+TCSR_FAMILIES = frozenset({"gat2", "gat2_masked", "gat2_masked2",
+                           "gat2_transformer", "gat2_transformer2",
+                           "gat2_multitask"})
 
 # device budget for dataset caching (the JAX package's conservative value;
 # leaves room for parameters, activations and workspace)

@@ -10,7 +10,9 @@ Usage:
         --config configs/ft/esol.yaml dist.mode=ep [k=v ...]
 
 The finetune: SMILES → graphs → tile-aligned padded batches with TCSR
-metadata and dense planes → FragNetFineTune → masked loss → backward
+metadata and dense planes → the config's ``model_version`` (gat2's
+FragNetFineTune, or gat2_transformer, gat2_transformer2, gat2_multitask
+on the same encoder) → masked loss → backward
 through the GAT kernels → Adam, with validation, early stopping and a
 checkpoint every epoch, then the test metric on the best parameters and
 ``preds_seed_{seed}.pkl``. ``finetune.n_epochs=0`` runs the prediction path
@@ -40,14 +42,36 @@ def seed_everything(seed: int) -> None:
     torch.manual_seed(seed)
 
 
-def model_kwargs(opt, n_classes: int) -> dict:
-    """FragNetFineTune's arguments for the config's gat2 model; other model
-    families are not ported yet (ROADMAP.md Queue A9)."""
+# the model families on the gat2 encoder that the port runs
+# (model/finetune.py, model/transformer.py), and where the rest are queued
+PORTED_FAMILIES = ("gat2", "gat2_transformer", "gat2_transformer2",
+                   "gat2_multitask")
+_QUEUED = {mv: "ROADMAP.md Queue A, A9b: the segment-only models"
+           for mv in ("gat2_lite", "gat2_edge", "gcn2", "gat", "gcn", "gcn3")}
+
+
+def _model_version(opt, ep=False) -> str:
+    """The config's model_version, checked: a family that is not ported
+    yet raises NotImplementedError naming its queue item, an unknown one
+    ValueError, and edge-partitioned training of a family other than gat2
+    ValueError, as in the JAX package."""
     mv = opt.get("model_version", "gat2")
-    if mv != "gat2":
-        raise NotImplementedError(
-            f"model_version={mv!r} is not ported yet (ROADMAP.md Queue A9); "
-            f"the port has gat2")
+    if mv in _QUEUED:
+        raise NotImplementedError(f"model_version={mv!r} is not ported yet "
+                                  f"({_QUEUED[mv]}); the port has "
+                                  f"{', '.join(PORTED_FAMILIES)}")
+    if mv not in PORTED_FAMILIES:
+        raise ValueError(f"unknown model_version {mv!r}")
+    if ep and mv != "gat2":
+        raise ValueError("edge-partitioned training currently supports "
+                         "model_version=gat2")
+    return mv
+
+
+def model_kwargs(opt, n_classes: int) -> dict:
+    """FragNetFineTune's arguments (the gat2 model) from the config's
+    finetune.model; build_model takes the other families' from them."""
+    _model_version(opt)
     m = opt.finetune.model
     return dict(
         n_classes=n_classes,
@@ -69,14 +93,41 @@ def model_kwargs(opt, n_classes: int) -> dict:
 
 def build_model(opt, n_classes: int, policy=None,
                 generator: Optional[torch.Generator] = None, ep=None):
-    """The gat2 FragNetFineTune from the config (model_kwargs),
-    edge-partitioned with ``ep`` (an EPContext)."""
-    from fragnet_tpu_torch.model.finetune import FragNetFineTune
+    """The config's model_version (the JAX package's build_model,
+    fragnet_tpu/train/finetune.py:52-155, for the ported families) with its
+    defaults there; gat2 edge-partitioned with ``ep`` (an EPContext)."""
     from fragnet_tpu_torch.model.layers import KernelPolicy
 
-    return FragNetFineTune(**model_kwargs(opt, n_classes),
-                           policy=policy or KernelPolicy(),
-                           generator=generator, ep=ep)
+    mv = _model_version(opt, ep=ep is not None)
+    kw = model_kwargs(opt, n_classes)
+    common = dict(policy=policy or KernelPolicy(), generator=generator)
+    if mv == "gat2":
+        from fragnet_tpu_torch.model.finetune import FragNetFineTune
+
+        return FragNetFineTune(**kw, **common, ep=ep)
+    from fragnet_tpu_torch.model import transformer
+
+    m = opt.finetune.model
+    enc = {k: kw[k] for k in ("num_layer", "num_heads", "drop_ratio",
+                              "emb_dim", "atom_features", "frag_features",
+                              "edge_features", "fedge_in", "fbond_edge_in")}
+    if mv == "gat2_transformer":
+        return transformer.FragNetFineTuneTransformer(
+            n_classes=n_classes, h1=kw["h1"],
+            transformer_heads=m.get("transformer_heads", 1), **enc, **common)
+    if mv == "gat2_transformer2":
+        return transformer.FragNetFineTuneTransformer2(
+            n_classes=n_classes, h1=kw["h1"],
+            num_attn_layer2=m.get("num_attn_layer2", 6),
+            num_attn_heads2=m.get("num_attn_heads2", 4),
+            drop_ratio2=m.get("drop_ratio2", 0.3),
+            max_seq_len=m.get("max_seq_len", 64), **enc, **common)
+    # gat2_multitask: one scalar head per task, flattened to (G, n_tasks)
+    # for the masked multi-task losses
+    return transformer.FragNetFineTuneMultiTask(
+        n_classes=1, n_multi_task_heads=m.get("n_multi_task_heads",
+                                              n_classes),
+        **enc, **common)
 
 
 def load_datasets(opt):
@@ -143,6 +194,7 @@ def _dist_mode(opt) -> str:
 def _refuse_unported(opt, device) -> None:
     ft = opt.finetune
     dist = opt.get("dist", None) or {}
+    _model_version(opt, ep=_dist_mode(opt) == "ep")
     if _dist_mode(opt) == "ep" and not dist.get("tcsr", ft.get("tcsr", True)):
         raise NotImplementedError(
             "dist.mode=ep with dist.tcsr=false (the edge-partitioned segment "

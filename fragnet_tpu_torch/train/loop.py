@@ -112,10 +112,29 @@ def rmse_metric(y: np.ndarray, pred: np.ndarray) -> float:
     return float(np.sqrt(np.mean((y - pred) ** 2)))
 
 
+def roc_auc_score(y: np.ndarray, score: np.ndarray) -> float:
+    """Binary ROC-AUC of labels ``y`` (1 positive) by ``score``, with
+    sklearn's roc_auc_score's steps in its order (stable descending sort,
+    one point per distinct score, collinear points dropped, trapezoids), so
+    the two agree bit for bit; numpy only, since the card's machine may
+    have no sklearn. Both classes must be present."""
+    order = np.argsort(score, kind="mergesort")[::-1]
+    score = np.asarray(score)[order]
+    pos = (np.asarray(y)[order] == 1).astype(np.float64)
+    idx = np.r_[np.where(np.diff(score))[0], pos.size - 1]
+    tps = np.cumsum(pos)[idx]
+    fps = 1 + idx.astype(np.float64) - tps
+    if fps.shape[0] > 2:
+        keep = np.r_[True, np.logical_or(np.diff(fps, 2), np.diff(tps, 2)),
+                     True]
+        fps, tps = fps[keep], tps[keep]
+    fpr = np.r_[0.0, fps] / fps[-1]
+    tpr = np.r_[0.0, tps] / tps[-1]
+    return float((np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2.0).sum())
+
+
 def mean_per_task_auc(y: np.ndarray, pred: np.ndarray) -> float:
     """Masked mean-per-task ROC-AUC (train/utils.py:480-492)."""
-    from sklearn.metrics import roc_auc_score
-
     rocs = []
     for t in range(y.shape[1]):
         col = y[:, t]

@@ -119,7 +119,8 @@ def test_tile_meta_and_planes_match_on_random_graphs():
 
 def test_port_imports_no_jax():
     """Importing every fragnet_tpu_torch module (and chip_smoke) leaves no
-    jax*, flax*, optax*, ml_dtypes or fragnet_tpu.* entry in sys.modules."""
+    jax*, flax*, optax*, ml_dtypes or fragnet_tpu.* entry in sys.modules;
+    the modules walked include model/transformer.py."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import fragnet_tpu_torch
@@ -133,7 +134,8 @@ def test_port_imports_no_jax():
                                             "ml_dtypes")
                      or m == "fragnet_tpu" or m.startswith("fragnet_tpu."))
         print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 20 else 0)
+        sys.exit(1 if bad or len(names) < 20
+                 or "fragnet_tpu_torch.model.transformer" not in names else 0)
     """)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))

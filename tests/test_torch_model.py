@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from flax import traverse_util
 
 from fragnet_tpu.config import load_config
 from fragnet_tpu.data.batcher import BatchLoader as JaxLoader
@@ -126,19 +127,55 @@ def path_models(aligned, carried, request):
 _PATHS = ["aligned-tcsr", "aligned-attr", "segment"]
 
 
-@pytest.mark.parametrize("fthead", ["FTHead1", "FTHead3", "FTHead4"])
-def test_state_dict_round_trip(aligned, fthead):
-    model = JaxModel(**SMALL, fthead=fthead)
+_ACTS = ("silu", "gelu", "celu", "selu", "rrelu", "relu6", "leakyrelu",
+         "prelu")
+_HEADS = ([pytest.param(h, "relu", id=h) for h in
+           ("FTHead1", "FTHead3", "FTHead4", "FTHead2", "FTHead5")]
+          + [pytest.param("FTHead3", a, id=f"FTHead3-{a}") for a in _ACTS]
+          + [pytest.param(h, "prelu", id=f"{h}-prelu")
+             for h in ("FTHead4", "FTHead5")])
+
+
+@pytest.mark.parametrize("fthead,act", _HEADS)
+def test_state_dict_round_trip(aligned, fthead, act):
+    """Every head, and every activation of FTHead3 (prelu also under
+    FTHead4 and FTHead5): the weights cross to the port, which names every
+    parameter and predicts as the JAX model does (segment path, 1e-4
+    relative), and back, leaf for leaf. act=prelu's scalar slope, set away
+    from its 0.25 init, crosses as fthead.act.weight; the JAX package's
+    mapper skips that name, so on the way back the JAX side gets its slope
+    by hand."""
+    model = JaxModel(**SMALL, fthead=fthead, act=act)
     params = _init(model, aligned, 1)
+    flat = traverse_util.flatten_dict(params["params"])
+    alpha = [k for k in flat if k[-1] == "alpha"]
+    assert len(alpha) == (act == "prelu")
+    for k in alpha:
+        flat[k] = jnp.asarray(0.1, jnp.float32)
+    params = {"params": traverse_util.unflatten_dict(flat)}
     sd = state_dict_from_jax(params)
-    back = import_torch_state_dict(sd, template=params, strict=True)
+    template = {"params": traverse_util.unflatten_dict(
+        {k: v for k, v in flat.items() if k not in alpha})}
+    back = import_torch_state_dict(sd, template=template, strict=True)
+    if alpha:  # by hand: the JAX package's mapper skips the slope
+        fb = traverse_util.flatten_dict(back["params"])
+        fb[alpha[0]] = sd["fthead.act.weight"].numpy().reshape(())
+        back = {"params": traverse_util.unflatten_dict(fb)}
     lj = jax.tree_util.tree_leaves_with_path(params)
     lb = dict(jax.tree_util.tree_leaves_with_path(back))
     assert len(lj) == len(lb)
     for path, leaf in lj:
         np.testing.assert_array_equal(np.asarray(lb[path]), np.asarray(leaf))
-    port = FragNetFineTune(**SMALL, fthead=fthead)
+    port = FragNetFineTune(**SMALL, fthead=fthead, act=act)
     port.load_state_dict(sd, strict=True)  # every port param is named
+    bj = dataclasses.replace(aligned[0], **_NO_KERNELS)
+    bp = dataclasses.replace(aligned[1], **_NO_KERNELS)
+    with torch.no_grad():
+        got = port.eval()(to_device(bp, "cpu")).numpy()
+    want = np.asarray(model.apply(params, bj, deterministic=True))
+    _close(got, want)
+    print(f"{fthead} {act}: forward max diff "
+          f"{np.abs(got - want).max() / np.abs(want).max():.2e} of scale")
 
 
 @pytest.mark.parametrize("path_models", _PATHS, indirect=True)
@@ -228,6 +265,23 @@ def test_losses_metrics_and_predict_step_match(aligned, carried):
     with torch.no_grad():
         want = port(to_device(aligned[1], "cpu"))
     assert torch.equal(predict(aligned[1]), want)
+
+
+def test_roc_auc_is_sklearns_bit_for_bit():
+    """The port's numpy ROC-AUC (the card's machine may have no sklearn)
+    equals sklearn's roc_auc_score exactly, with tied scores and without."""
+    from sklearn.metrics import roc_auc_score
+
+    from fragnet_tpu_torch.train.loop import roc_auc_score as port_auc
+
+    rng = np.random.default_rng(11)
+    for case in range(600):
+        n = int(rng.integers(2, 80))
+        y = rng.integers(0, 2, n)
+        y[:2] = (0, 1)
+        score = (rng.integers(0, 6, n).astype(np.float32) if case % 2
+                 else rng.standard_normal(n).astype(np.float32))
+        assert port_auc(y, score) == roc_auc_score(y, score), case
 
 
 def _small_opt(tmp_path, **finetune):
