@@ -14,9 +14,10 @@ ranks sharing the card over gloo, and one rank over NCCL) — and geometric
 pretraining (configs/pt/unimol.yaml, full width: 4 layers, emb
 128, 4 heads, drop 0.2, Adam lr 1e-4, f32) through ``run_pretrain`` and
 the packed transport — the interpreter (``FragNetInterpreter``:
-attention weights and masking contributions) on the finetuned model, and
+attention weights and masking contributions) on the finetuned model,
 the other models on the gat2 encoder (gat2_transformer,
-gat2_transformer2, gat2_multitask) through ``run_finetune``.
+gat2_transformer2, gat2_multitask) through ``run_finetune``, and the DTA
+and CDRP tasks through ``run_task``.
 Phases:
 
   1. the card's name and power limit (nvidia-smi);
@@ -169,13 +170,33 @@ Phases:
      train step; gat2_transformer also under the dense-attr policy (K7,
      K8 exact); then TransformerConv (atom, frag), one EncoderBlock and
      its MultiheadAttention (atom, frag) forward + backward alone on the
-     card, as torch ops: device ms, kernels launched, bound.
+     card, as torch ops: device ms, kernels launched, bound;
+ 27. the DTA and CDRP tasks (train/tasks.py) at the model defaults (the
+     drug encoder at the esol width; the 8-layer, 8-head, 128-wide protein
+     transformer over 1000 positions; the 903-gene MLP) on run_task's
+     synthetic sets (96 pairs each, batch 16; featurized in phase 3's
+     spawned processes behind the pretraining set): per model (DTA with
+     the transformer and with the CNN, CDRP, DTA under the dense-attr
+     policy) the prediction and one standardized train step's loss and
+     gradients, card vs CPU, same seeded weights, on a train batch with
+     padding graphs (every value finite, padding rows included), within
+     1e-3 of each scale; K1 and K4 against their plain versions at layer 0
+     of the DTA batch (levels tagged "dta"); run_task for 2 epochs (the
+     dense-attr one 1) with every launch count set to 0 just before it,
+     the launches equal to finetune_expect's for run_task's loaders, the
+     test RMSE finite; a timed DTA and CDRP train step with the peak of
+     allocated memory; run_finetune with finetune.standardize=true on the
+     esol config for 2 epochs, launches exact, the test predictions the
+     model's output in raw label space; then the protein transformer and
+     the CNN forward + backward alone on the card, as torch ops: device ms,
+     kernels launched, bound.
 
 Prints a ``{"kernels": [...]}`` JSON line (launches from the pretraining
 path of phase 11 for K1-K6, of phase 19 for K7-K9 (K9's: K8's, whose
 launches compute it) and of phase 21's rank 0 for K3, every path's — each
 rank's for phases 21, 23 and 24, the interpret path's of phase 25 under
-each policy, each phase-26 model's training path — beside them), and as the last line ``{"ok": true, "device": {...}}``. Exits
+each policy, each phase-26 model's and phase-27 task's training path —
+beside them), and as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero on any failure, without a CUDA device, or when run outside a
 checkout of the repository.
 """
@@ -340,7 +361,10 @@ class PretrainGraphs:
     """``train.pretrain.load_pretrain_graphs(opt)`` for the synthetic set,
     featurized in ``workers`` spawned processes while the caller goes on
     (each molecule is featurized alone from the same seed, so the graphs
-    and their order are the same); ``get()`` waits for them."""
+    and their order are the same); ``get()`` waits for them. ``submit``
+    queues more featurizing behind them (TaskGraphs); ``close`` stops the
+    processes. ``ready`` holds the host clock (time.perf_counter) at which
+    each piece of work finished: "pretrain", and each submit's tag."""
 
     def __init__(self, opt, workers: int):
         import multiprocessing as mp
@@ -357,23 +381,29 @@ class PretrainGraphs:
                 for i in range(0, len(smiles), step)]
         self.t0 = time.perf_counter()
         self.workers = len(jobs)
+        self.ready = {}
         self._pool = mp.get_context("spawn").Pool(len(jobs))
-        self._res = self._pool.map_async(_pt_chunk, jobs)
+        self._res = self.submit(_pt_chunk, jobs, "pretrain")
 
     def close(self):
-        """Stop the featurizing processes (after ``get`` they are gone)."""
+        """Stop the featurizing processes."""
         self._pool.terminate()
         self._pool.join()
+
+    def submit(self, fn, jobs, tag: str):
+        """``map_async(fn, jobs)`` on the pool, after the work queued
+        before; ``ready[tag]`` is set when it has finished."""
+        def done(_result):
+            self.ready[tag] = time.perf_counter()
+
+        return self._pool.map_async(fn, jobs, callback=done)
 
     def get(self):
         try:
             parts = self._res.get(timeout=600)
         except BaseException:
-            self._pool.terminate()
+            self.close()
             raise
-        finally:
-            self._pool.close()
-            self._pool.join()
         return [g for part in parts for g in part]
 
 
@@ -1092,30 +1122,36 @@ def kernel_device_ms(busy, launched):
     return out
 
 
-def timed_train_step(model, train_np, dev, label: str, loss: str = "mse"):
-    """Phases 8, 18 and 26: one finetune train step (batch copy, forward,
-    backward, Adam; ``loss`` "mse" or "bce") of a copy of ``model`` on
-    ``train_np``: wall time (median of 5 after a warm-up), one step's
-    device busy time and each port kernel's device time under the
-    profiler, and the step in stages each ended by a synchronize. Returns
-    {wall, busy, kernels}."""
+def timed_train_step(model, train_np, dev, label: str, loss="mse"):
+    """Phases 8, 18, 26 and 27: one finetune train step (batch copy,
+    forward, backward, Adam; ``loss`` "mse", "bce" or a callable (out, y,
+    mask) -> loss, as make_train_step takes it) of a copy of ``model`` on
+    ``train_np``: wall time
+    (median of 5 after a warm-up) and the peak of allocated device memory
+    over those steps, one step's device busy time and each port kernel's
+    device time under the profiler, and the step in stages each ended by a
+    synchronize. Returns {wall, busy, kernels, peak_mib}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from fragnet_tpu_torch.graphs.batch import to_device
-    from fragnet_tpu_torch.train.loop import LOSSES, make_train_step
+    from fragnet_tpu_torch.train.loop import _loss_fn, make_train_step
     from fragnet_tpu_torch.train.optim import make_optimizer
 
     step_model = copy.deepcopy(model)
     step_opt, _ = make_optimizer(step_model.parameters(), "adam", lr=1e-4)
-    step = make_train_step(step_model, step_opt, loss, dev)
+    loss_fn = _loss_fn(loss)
+    step = make_train_step(step_model, step_opt, loss_fn, dev)
     walls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(6):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step(train_np)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     before = _launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1126,7 +1162,8 @@ def timed_train_step(model, train_np, dev, label: str, loss: str = "mse"):
     wall = statistics.median(walls[1:])
     ours = kernel_device_ms(busy, launched)
     print(f"train step [{label}] (batch copy, forward, backward, "
-          f"Adam): wall {wall:.2f} ms (median of 5 after warm-up), device "
+          f"Adam): wall {wall:.2f} ms (median of 5 after warm-up), peak "
+          f"allocated {peak_mib:.1f} MiB, device "
           f"busy {dev_busy:.3f} ms ({100 * dev_busy / wall:.1f}%) in "
           f"{len(busy)} kernel kinds; the port's kernels: "
           + ", ".join(f"{n} {ms:.3f}" for n, ms in ours.items())
@@ -1140,7 +1177,7 @@ def timed_train_step(model, train_np, dev, label: str, loss: str = "mse"):
         b = to_device(train_np, dev)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        value = LOSSES[loss](step_model(b), b.y, b.graph_mask)
+        value = loss_fn(step_model(b), b.y, b.graph_mask)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         value.backward()
@@ -1156,7 +1193,8 @@ def timed_train_step(model, train_np, dev, label: str, loss: str = "mse"):
           f"synchronize, median of 5): "
           + ", ".join(f"{k} {statistics.median(v):.2f} ms"
                       for k, v in stages.items()))
-    return {"wall": wall, "busy": dev_busy, "kernels": ours}
+    return {"wall": wall, "busy": dev_busy, "kernels": ours,
+            "peak_mib": peak_mib}
 
 
 def train_grads_card_vs_cpu(model, train_np, dev, loss: str = "mse"):
@@ -2752,6 +2790,473 @@ def family_phase(dev, datasets, spec, windows, batch_np, train_np, rng):
     return paths, steps, post
 
 
+# phase 27: the DTA and CDRP tasks (train/tasks.py:run_task) at the model
+# defaults (drug encoder 4 layers, emb 128, 4 heads; the 8-layer, 8-head,
+# 128-wide, 512-FFN protein transformer over 1000 positions; gene_dim
+# 903), run_task's synthetic sets (n_synthetic 96) at batch 16
+TASK_N = 96
+TASK_EPOCHS = 2
+# gradients that are 0 in exact arithmetic (task_card_vs_cpu), and the
+# round-off they may show, of the model's largest gradient (the H100 read
+# up to 9.5e-7 over the 8 layers at batch 16, 1000 positions)
+ZERO_GRADS = ("attention.self.key.bias",)
+ZERO_GRAD_LIMIT = 1e-5
+
+
+def task_opt(task: str, encoder: str = "transformer", attr: bool = False):
+    """run_task's config for ``task``: the model defaults, TASK_EPOCHS
+    epochs (1 under the dense-attr policy), its own exp_dir."""
+    from fragnet_tpu_torch.config import Config
+
+    tag = ("_cnn" if encoder == "cnn" else "") + ("_attr" if attr else "")
+    ft = {"model": {"num_layer": 4, "num_heads": 4, "emb_dim": 128,
+                    "drop_ratio": 0.15, "protein_encoder": encoder},
+          "batch_size": 16, "lr": 1e-4,
+          "n_epochs": 1 if attr else TASK_EPOCHS, "es_patience": 50,
+          "data": {"n_synthetic": TASK_N}}
+    if attr:
+        ft["kernel"] = {"attr": True, "fc": "attr"}
+    return Config({"seed": 42, "finetune": ft,
+                   "exp_dir": os.path.join(REPO, "exps",
+                                           f"chip_smoke_{task}{tag}")})
+
+
+def _task_chunk(args):
+    """Featurize one chunk of a task's rows (a spawned pool's task)."""
+    from fragnet_tpu_torch.data.cdrp import build_cdrp_graphs
+    from fragnet_tpu_torch.data.dta import build_dta_graphs
+
+    task, rows, genes, seed = args
+    if task == "dta":
+        return build_dta_graphs(rows, seed=seed)
+    return build_cdrp_graphs(rows, genes, seed=seed)
+
+
+def _row_chunks(rows, n_chunks: int):
+    """A column dict cut into ``n_chunks`` column dicts of consecutive
+    rows, in order."""
+    n = len(rows["y"])
+    step = (n + n_chunks - 1) // n_chunks
+    return [{k: v[i:i + step] for k, v in rows.items()}
+            for i in range(0, n, step)]
+
+
+class TaskGraphs:
+    """``train.tasks.load_task_graphs`` for run_task's synthetic DTA and
+    CDRP sets, featurized in ``pending``'s processes behind its own work
+    (each molecule alone from the same seed, so the graphs and their order
+    are the same); ``get()`` waits for them."""
+
+    def __init__(self, pending, seed: int = 42, n: int = TASK_N):
+        from fragnet_tpu_torch.data.cdrp import synthetic_cdrp_dataset
+        from fragnet_tpu_torch.data.dta import synthetic_dta_dataset
+
+        dta = synthetic_dta_dataset(n=n, seed=seed)
+        cdrp, genes = synthetic_cdrp_dataset(n=n, seed=seed)
+        w = pending.workers
+        self.t0 = time.perf_counter()
+        self._res = {
+            "dta": pending.submit(_task_chunk, [
+                ("dta", c, None, seed) for c in _row_chunks(dta, w)], "dta"),
+            "cdrp": pending.submit(_task_chunk, [
+                ("cdrp", c, genes, seed) for c in _row_chunks(cdrp, w)],
+                "cdrp")}
+
+    def get(self):
+        return {t: [g for part in r.get(timeout=600) for g in part]
+                for t, r in self._res.items()}
+
+
+def task_split(graphs, seed: int = 42):
+    """run_task's (train, val, test) graphs."""
+    from fragnet_tpu_torch.data.splitters import random_split
+
+    return tuple([graphs[i] for i in idx]
+                 for idx in random_split(len(graphs), seed=seed))
+
+
+def task_batches(opt, graphs):
+    """(spec, test windows, a padded train window with padding graphs,
+    label mean, label sdev) as run_task makes them."""
+    import numpy as np
+
+    from fragnet_tpu_torch.data.batcher import BatchLoader
+    from fragnet_tpu_torch.graphs.hiergraph import pad_batch, spec_for
+
+    bs, seed = int(opt.finetune.batch_size), int(opt.seed)
+    train_g, _val_g, test_g = task_split(graphs, seed)
+    spec = spec_for(graphs, batch_size=bs, tcsr=True)
+    test_w = list(BatchLoader(test_g, bs, spec=spec)._windows())
+    train_w = list(BatchLoader(train_g, bs, spec=spec, shuffle=True,
+                               seed=seed)._windows())
+    window = min(train_w, key=len)
+    if len(window) >= bs:
+        raise AssertionError("no train batch of the task has a padding "
+                             "graph")
+    ys = np.array([g.y[0] for g in train_g])
+    return (spec, test_w, pad_batch(window, spec), float(ys.mean()),
+            float(ys.std()))
+
+
+def task_card_vs_cpu(model, batch_np, dev, stats, label: str):
+    """The prediction and one standardized train step's loss and
+    gradients of ``model`` (dropout off) on ``batch_np``, card (kernels)
+    vs CPU (plain versions): every value finite, the padding graphs' rows
+    included; predictions within 1e-3 of their scale, gradients within
+    1e-3 of each one's scale (_grad_diff), except the protein attention's
+    key biases: their exact gradient is 0 (a softmax ignores a shift
+    common to its row, and the bias shifts every logit of a row by q·b),
+    so both devices' values are round-off of sums over B·H·L² terms, and
+    each is held to ZERO_GRAD_LIMIT of the largest gradient instead."""
+    import torch
+
+    from fragnet_tpu_torch.graphs.batch import to_device
+    from fragnet_tpu_torch.train.tasks import _label_stats, standardized_loss
+
+    def run(d):
+        m_d = copy.deepcopy(model).to(d).eval()
+        b_d = to_device(batch_np, d)
+        pred = m_d(b_d)
+        loss = standardized_loss(pred, b_d.y, b_d.graph_mask,
+                                 *_label_stats(*stats, d))
+        loss.backward()
+        grads = {n: p.grad.detach().cpu()
+                 for n, p in m_d.named_parameters() if p.grad is not None}
+        return pred.detach().cpu(), float(loss.detach()), grads
+
+    p_gpu, l_gpu, g_gpu = run(dev)
+    p_cpu, l_cpu, g_cpu = run(torch.device("cpu"))
+    bad = [n for n, g in {"prediction (card)": p_gpu,
+                          "prediction (cpu)": p_cpu, **g_gpu,
+                          **{f"{n} (cpu)": g for n, g in g_cpu.items()}
+                          }.items() if not bool(torch.isfinite(g).all())]
+    if bad:
+        raise AssertionError(f"{label}: not finite: {bad[:5]}")
+    G = batch_np.y.shape[0]
+    if tuple(p_gpu.shape) != (G, 1):
+        raise AssertionError(f"{label}: prediction shape "
+                             f"{tuple(p_gpu.shape)}")
+    fwd_err, fwd_rel = _diff(p_gpu, p_cpu)
+    scale = max(float(g.abs().max()) for g in g_cpu.values())
+    zero = {n for n in g_cpu if n.endswith(ZERO_GRADS)}
+    zero_max = max([float(g[n].abs().max()) / scale for n in zero
+                    for g in (g_cpu, g_gpu)] + [0.0])
+    worst, worst_name = _grad_diff(
+        l_cpu, l_gpu, {n: g for n, g in g_cpu.items() if n not in zero},
+        {n: g for n, g in g_gpu.items() if n not in zero})
+    n_pad = int((batch_np.graph_mask == 0).sum())
+    print(f"{label}: forward cpu vs gpu max_abs_err={fwd_err:.3e} "
+          f"rel={fwd_rel:.3e} (limit {FORWARD_REL_LIMIT}; {n_pad} padding "
+          f"graphs, every row finite); standardized train step loss "
+          f"{l_cpu:.6f} / {l_gpu:.6f}, worst relative diff {worst:.3e} "
+          f"({worst_name}) over {len(g_cpu) - len(zero)} parameters (limit "
+          f"{GRAD_REL_LIMIT}); the {len(zero)} key-bias gradients (0 in "
+          f"exact arithmetic) at most {zero_max:.3e} of the largest on "
+          f"either device (limit {ZERO_GRAD_LIMIT})")
+    if not fwd_rel <= FORWARD_REL_LIMIT:
+        raise AssertionError(f"{label}: card and CPU predictions disagree")
+    if not (worst <= GRAD_REL_LIMIT and zero_max <= ZERO_GRAD_LIMIT):
+        raise AssertionError(f"{label}: card and CPU gradients disagree")
+
+
+def _protein_cost(kind, B, L, dims, lengths=None):
+    """(bytes, flops) of one forward + backward of a protein encoder on
+    (B, L) tokens: the tokens, the weights, the cotangent read once, the
+    output and the weights' gradients written once; the operations of the
+    matmuls and convolutions (×3: the forward and the backward's two
+    products) over all L positions, as the dense masked attention computes
+    them, or with ``lengths`` (each row's real residues) over the real
+    positions alone: a padded query row never reaches the readout x[:, 0]
+    and a masked key adds nothing to it, so a transformer that skipped the
+    padding would do Σ L_i of the row-wise work and Σ L_i² of the
+    attention's. Elementwise work (softmax, LayerNorm, dropout) left out.
+    ``dims``: (layers, emb, heads, feed-forward width, weights) for
+    "transformer", (emb, in channels, filters, kernel, out, weights) for
+    "cnn", whose padding positions carry token 0's embedding into the
+    convolution's input channels, so ``lengths`` does not change it."""
+    if kind == "transformer":
+        n_layers, E, _H, F, n_w = dims
+        rows, pairs = ((B * L, B * L * L) if lengths is None else
+                       (sum(lengths), sum(n * n for n in lengths)))
+        per_layer = (4 * 2 * rows * E * E         # q, k, v, out projections
+                     + 2 * 2 * pairs * E          # QK^T and PV over heads
+                     + 2 * 2 * rows * E * F)      # the feed-forward
+        flops, out = 3 * n_layers * per_layer, B * E
+    else:
+        E, c_in, c_out, k, d_out, n_w = dims
+        width = E - k + 1
+        flops = 3 * (2 * B * c_out * width * c_in * k
+                     + 2 * B * c_out * width * d_out)
+        out = B * d_out
+    return 4 * (B * L + 2 * n_w + 2 * out), flops
+
+
+def protein_ops(models, batch_np, dev, rng):
+    """The protein encoders alone, as torch ops on the card (no TPU kernel
+    exists for them), in train mode as in the step: forward + backward of
+    ``models`` = {name: (DTAModel, encoder kind)} on the protein tokens of
+    ``batch_np`` with a numpy cotangent: device ms per call (profiler),
+    device kernels per call, event ms (host dispatch included), the bound
+    over all 1000 positions and the bound over each row's real residues
+    (_protein_cost). Returns [{op, device_ms, kernels, ms, bound_ms,
+    bound_by, real_bound_ms, ...}]."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tokens = torch.from_numpy(batch_np.protein).to(dev)
+    B, L = tokens.shape
+    # the residues run from position 0 (encode_protein); a padding graph's
+    # row has none
+    lengths = [int(n) for n in (batch_np.protein != 0).sum(axis=1)]
+    out = []
+    for name, (model, kind) in models.items():
+        m = copy.deepcopy(model).to(dev).train()
+        enc = m.encode_target
+        width = enc(tokens).shape[1]
+        g = torch.from_numpy(rng.standard_normal((B, width)).astype(
+            np.float32)).to(dev)
+        if kind == "transformer":
+            t = m.target_model
+            lay = t.encoder.layer[0]
+            dims = (len(t.encoder.layer), width, lay.n_heads,
+                    lay.intermediate.dense.out_features,
+                    sum(p.numel() for p in t.parameters()))
+        else:
+            dims = (m.embedding_xt.embedding_dim, m.conv_xt_1.in_channels,
+                    m.conv_xt_1.out_channels, m.conv_xt_1.kernel_size[0],
+                    width, sum(p.numel() for n, p in m.named_parameters()
+                               if n.split(".")[0] in ("embedding_xt",
+                                                      "conv_xt_1",
+                                                      "fc1_xt")))
+
+        def call():
+            enc(tokens).backward(g)
+
+        for _ in range(2):
+            call()
+        torch.cuda.synchronize()
+        n = 5
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+        busy, rows = _busy(prof)
+        launched = sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)
+                       and e.self_device_time_total > 0)
+        if not busy > 0:
+            raise AssertionError(f"{name}: no device time profiled")
+        nbytes, flops = _protein_cost(kind, B, L, dims)
+        bound, by = _bound_ms(nbytes, flops)
+        r_bytes, r_flops = _protein_cost(kind, B, L, dims, lengths)
+        r_bound, r_by = _bound_ms(r_bytes, r_flops)
+        row = {"op": name, "device_ms": busy / n, "kernels": launched / n,
+               "ms": _median_ms(call, n=5, warmup=1), "bound_ms": bound,
+               "bound_by": by, "flops": flops, "bytes": nbytes,
+               "real_bound_ms": r_bound, "real_bound_by": r_by,
+               "real_flops": r_flops}
+        out.append(row)
+        print(f"protein encoder {name} forward + backward (tokens "
+              f"{B}x{L}, train mode): device {row['device_ms']:.3f} ms in "
+              f"{row['kernels']:.0f} kernels, events {row['ms']:.3f} ms, "
+              f"bound {bound:.4f} ms over all {L} positions ({by}: {flops} "
+              f"flop, {nbytes} B; device/bound "
+              f"{row['device_ms'] / bound:.1f}x), bound over the real "
+              f"residues {r_bound:.4f} ms ({r_by}: {r_flops} flop; "
+              f"{sum(lengths)} of {B * L} positions real, lengths "
+              f"{min(lengths)}-{max(lengths)}; device/bound "
+              f"{row['device_ms'] / r_bound:.1f}x); top: "
+              + ", ".join(f"{k[:48]} {ms / n:.3f}" for k, ms in rows[:6]))
+    return out
+
+
+def task_phase(dev, task_graphs, datasets, spec, windows, rng):
+    """Phase 27: the DTA and CDRP tasks through run_task on the card
+    (TASK_EPOCHS epochs each, DTA also one epoch under the dense-attr
+    policy), each kernel's launches equal to finetune_expect's for
+    run_task's loaders and every loss and the test RMSE finite; card vs CPU
+    for DTA (transformer, and under dense-attr), DTA (CNN) and CDRP on a
+    train batch with padding graphs (task_card_vs_cpu); K1 and K4 against
+    their plain versions at layer 0 of the DTA batch; run_finetune with
+    finetune.standardize=true on the esol config (metric in raw label
+    space, launches exact); timed DTA and CDRP train steps with their
+    peak memory; the protein encoders alone (protein_ops). Returns
+    ({path: launches}, {kernel: report levels} of K1, K2, K4, K5 at the DTA
+    batch and K7, K8 (K9) at the DTA batch under dense-attr, {task: step},
+    encoder rows)."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from fragnet_tpu_torch.graphs.batch import to_device
+    from fragnet_tpu_torch.graphs.hiergraph import pad_batch
+    from fragnet_tpu_torch.train.fastpath import resolve_kernel_policy
+    from fragnet_tpu_torch.train.finetune import run_finetune
+    from fragnet_tpu_torch.train.tasks import (_label_stats,
+                                               build_task_model, run_task,
+                                               standardized_loss)
+
+    def std_loss(mean, sdev):
+        stats = _label_stats(mean, sdev, dev)
+        return lambda out, y, m: standardized_loss(out, y, m, *stats)
+
+    t0 = time.perf_counter()
+    graphs = task_graphs.get()
+    print(f"task featurization: ready {time.perf_counter() - task_graphs.t0:.2f}"
+          f" s after its start, behind the pretrain set's "
+          + ", ".join(f"{t} {len(g)} graphs" for t, g in graphs.items()))
+    paths, steps, models = {}, {}, {}
+    report = {}
+    for task, enc, attr in (("dta", "transformer", False),
+                            ("dta", "cnn", False), ("cdrp", "", False),
+                            ("dta", "transformer", True)):
+        t1 = time.perf_counter()
+        opt = task_opt(task, enc or "transformer", attr)
+        label = (f"{task}{f' ({enc})' if enc else ''}"
+                 f"{' [dense-attr policy]' if attr else ''}")
+        g = graphs[task]
+        tspec, test_w, batch_np, mean, sdev = task_batches(opt, g)
+        model = build_task_model(task, opt, g,
+                                 policy=resolve_kernel_policy(opt.finetune),
+                                 generator=torch.Generator().manual_seed(0))
+        task_card_vs_cpu(model, batch_np, dev, (mean, sdev), label)
+        if enc == "cnn":  # card vs CPU and a timed step, no run_task
+            models["ProteinCNN"] = (model, "cnn")
+            steps["dta_cnn"] = timed_train_step(
+                model.to(dev), batch_np, dev, label, std_loss(mean, sdev))
+            print(f"phase 27, {label}: {time.perf_counter() - t1:.1f} s")
+            continue
+        if task == "dta":
+            # each kernel of the path against its plain version at layer 0
+            # of the DTA batch, the backward's arguments as phase 4 makes
+            # them
+            if not attr:
+                models["ProteinTransformer"] = (model, "transformer")
+            card = copy.deepcopy(model).to(dev).eval()
+            n_layers = int(opt.finetune.model.num_layer)
+            b_dev = to_device(batch_np, dev)
+            if attr:
+                names = ATTR_KERNELS
+                calls = _attr_calls(layer0_kernel_calls(
+                    n_layers, card, b_dev,
+                    names=("dense_attr_fwd",))["dense_attr_fwd"], rng)
+            else:
+                names = GAT_KERNELS
+                calls = layer0_kernel_calls(n_layers, card, b_dev)
+                for name in GAT_KERNELS:
+                    k = KERNELS[name]
+                    if k.fwd is not None:
+                        calls[name] = [
+                            (lvl, bwd_kernel_args(k.fwd, a, kw, rng), {})
+                            for lvl, a, kw in calls[k.fwd]]
+            checked = check_kernels(
+                names, {n: [(f"{lvl}, dta", a, kw) for lvl, a, kw in c]
+                        for n, c in calls.items()}, rng)
+            report.update({n: lv for n, (lv, _err) in checked.items()})
+        split = task_split(g, int(opt.seed))
+        expect, n_train, n_val, lacking = finetune_expect(
+            opt, (*split, 1, "regr"), tspec, test_w)
+        _reset_launches()
+        t2 = time.perf_counter()
+        rmse, trained = run_task(task, opt, device="cuda", graphs=g)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t2
+        launches = _launches()
+        n_epochs = int(opt.finetune.n_epochs)
+        print(f"{label} training path: {n_epochs} epochs x {n_train} train "
+              f"batches, {n_val} val, {len(test_w)} test ({lacking} without "
+              f"atom, frag or fconn planes); test rmse {rmse:.5f}, run "
+              f"{run_s:.2f} s; kernels: "
+              + " ".join(f"{n}={c} (expected {expect[n]})"
+                         for n, c in launches.items() if c or expect[n]))
+        if not np.isfinite(rmse):
+            raise AssertionError(f"{label}: test rmse {rmse}")
+        for n, c in launches.items():
+            if c != expect[n]:
+                raise AssertionError(f"{label}: {n} launched {c} times on "
+                                     f"the training path, expected "
+                                     f"{expect[n]}")
+        paths[f"{task}{'_attr' if attr else ''}_train"] = launches
+        if not attr:
+            steps[task] = timed_train_step(trained, batch_np, dev, label,
+                                           std_loss(mean, sdev))
+        print(f"phase 27, {label}: {time.perf_counter() - t1:.1f} s")
+
+    # run_finetune with finetune.standardize=true (the esol config)
+    t1 = time.perf_counter()
+    sopt = smoke_opt(train=True)
+    for k, v in {"finetune.standardize": True,
+                 "finetune.n_epochs": TASK_EPOCHS,
+                 "exp_dir": os.path.join(REPO, "exps",
+                                         "chip_smoke_esol_std")}.items():
+        sopt.set_path(k, v)
+    expect = finetune_expect(sopt, datasets, spec, windows)[0]
+    _reset_launches()
+    value, smodel = run_finetune(sopt, datasets=datasets, device="cuda")
+    launches = _launches()
+    paths["finetune_standardized_train"] = launches
+    with open(os.path.join(sopt.exp_dir, f"preds_seed_{sopt.seed}.pkl"),
+              "rb") as f:
+        preds = pickle.load(f)
+    ys = np.stack([np.asarray(g_.y, np.float32).reshape(-1)[:1]
+                   for g_ in datasets[0]])
+    mean, sdev = ys.mean(axis=0), ys.std(axis=0) + np.float32(1e-5)
+    raw = []
+    with torch.no_grad():
+        for w in windows:
+            out = smodel.eval()(to_device(pad_batch(w, spec,
+                                                    n_tasks=datasets[3]),
+                                          dev)).cpu().numpy()
+            raw.append(out[:len(w)] * sdev + mean)
+    # the cached test loader yields its batches in a shuffled order
+    raw = np.sort(np.concatenate(raw), axis=0)
+    if raw.shape != preds["pred"].shape:
+        raise AssertionError(f"standardized finetune: {raw.shape} test "
+                             f"predictions, {preds['pred'].shape} written")
+    rerr = float(np.abs(raw - np.sort(preds["pred"], axis=0)).max())
+    rmse = float(np.sqrt(np.mean((preds["y"] - preds["pred"]) ** 2)))
+    print(f"standardized finetune (esol config, {TASK_EPOCHS} epochs): test "
+          f"rmse {value:.5f} (from the written predictions {rmse:.5f}); "
+          f"the test predictions vs the model's output x "
+          f"(sdev + 1e-5) + mean (train labels' mean {float(mean[0]):.4f}, "
+          f"sdev {float(sdev[0]):.4f}): max abs diff {rerr:.3e}; kernels: "
+          + " ".join(f"{n}={c} (expected {expect[n]})"
+                     for n, c in launches.items() if c or expect[n]))
+    if not (np.isfinite(value) and abs(rmse - value) <= 1e-5 * max(value, 1)
+            and rerr <= 1e-4 * max(float(np.abs(raw).max()), 1.0)):
+        raise AssertionError("the standardized finetune's metric is not "
+                             "finite or not in raw label space")
+    for n, c in launches.items():
+        if c != expect[n]:
+            raise AssertionError(f"standardized finetune: {n} launched {c} "
+                                 f"times, expected {expect[n]}")
+    print(f"phase 27, standardized finetune: "
+          f"{time.perf_counter() - t1:.1f} s")
+
+    # the protein encoders alone, and their share of the DTA step's busy
+    t1 = time.perf_counter()
+    dta_np = task_batches(task_opt("dta"), graphs["dta"])[2]
+    enc_rows = protein_ops(models, dta_np, dev, rng)
+    for row, step in zip(enc_rows, ("dta", "dta_cnn")):
+        st = steps[step]
+        print(f"{step} train step: wall {st['wall']:.2f} ms, device busy "
+              f"{st['busy']:.3f} ms, of which {row['op']} (forward + "
+              f"backward, measured alone) {row['device_ms']:.3f} ms "
+              f"({100 * row['device_ms'] / st['busy']:.1f}%); peak "
+              f"allocated {st['peak_mib']:.1f} MiB")
+    print(f"cdrp train step: wall {steps['cdrp']['wall']:.2f} ms, busy "
+          f"{steps['cdrp']['busy']:.3f} ms, peak allocated "
+          f"{steps['cdrp']['peak_mib']:.1f} MiB")
+    print(f"phase 27, protein encoders: {time.perf_counter() - t1:.1f} s; "
+          f"phase 27: {time.perf_counter() - t0:.1f} s")
+    return paths, report, steps, enc_rows
+
+
 def smoke_weights(datasets):
     """(FragNetFineTune's arguments for the smoke's esol model, its seeded
     weights on the CPU)."""
@@ -2856,11 +3361,15 @@ def main() -> int:
                              workers=max(1, (os.cpu_count() or 2) - 1))
     atexit.register(pending.close)  # a failing phase leaves none running
     opt = smoke_opt()
-    t0 = time.perf_counter()
+    t_feat = time.perf_counter()
     datasets = load_datasets(opt)
+    t_feat_end = time.perf_counter()
     train_g, val_g, test_g, n_tasks, _task = datasets
-    print(f"featurization: {time.perf_counter() - t0:.2f} s "
+    print(f"featurization: {t_feat_end - t_feat:.2f} s "
           f"({len(train_g)}/{len(val_g)}/{len(test_g)} graphs)")
+    # phase 27's sets, behind the pretraining set, once the esol set is
+    # done: the main process featurizes it beside the pool
+    task_graphs = TaskGraphs(pending)
     bs = int(opt.finetune.batch_size)
     spec, windows, batch_np = smoke_batch(opt, datasets)
     dev = torch.device("cuda")
@@ -3048,9 +3557,31 @@ def main() -> int:
         dev, datasets, spec, windows, batch_np, train_np, rng)
     print(f"phase 26: {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- 27. the DTA and CDRP tasks ----------------------------------------
+    t_phase = time.perf_counter()
+    task_paths, task_levels, _task_steps, _encoders = task_phase(
+        dev, task_graphs, datasets, spec, windows, rng)
+    pending.close()
+    # where the pool's work fell: the task sets' own wall is from the later
+    # of their queueing and the pretraining set's end to their own end
+    at = {k: v - t_all for k, v in pending.ready.items()}
+    queued = task_graphs.t0 - t_all
+    task_end = max(at["dta"], at["cdrp"])
+    print(f"host timeline (s after the start): esol featurization "
+          f"{t_feat - t_all:.2f}-{t_feat_end - t_all:.2f} (main process); "
+          f"pool of {pending.workers}: pretraining set "
+          f"{pending.t0 - t_all:.2f}-{at['pretrain']:.2f}, task sets queued "
+          f"at {queued:.2f}, done at {task_end:.2f} (dta {at['dta']:.2f}, "
+          f"cdrp {at['cdrp']:.2f}), {task_end - max(queued, at['pretrain']):.2f}"
+          f" s of the pool's wall")
+    for name, levels in task_levels.items():
+        # the DTA batch's levels stand beside the finetune layer's
+        report[name][0].extend(dict(p, on_path=False) for p in levels)
+    print(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
+
     paths = {"finetune_train": launches_t, "pretrain": launches_pt,
              "finetune_attr_train": launches_fa, "pretrain_attr": launches_pa,
-             **interp_paths, **family_paths}
+             **interp_paths, **family_paths, **task_paths}
     for run, per_rank in dist_runs.items():
         for r, counts in enumerate(per_rank):
             paths[f"{run}_rank{r}"] = counts

@@ -1,6 +1,8 @@
-"""Finetune model: encoder → masked sum-pool (atoms & frags by graph) →
-concat → FTHead. Reference: gat2.py:758-826 (FragNetFineTune); counterpart
-of fragnet_tpu/model/finetune.py."""
+"""Finetune models: encoder → masked sum-pool (atoms & frags by graph) →
+concat (FragNetFineTuneBase, the encoder-only module of the DTA and CDRP
+models) → FTHead (FragNetFineTune). Reference: gat2.py:758-826
+(FragNetFineTune) and train/finetune/finetune_dta.py:64-106
+(FragNetFineTuneBase); counterpart of fragnet_tpu/model/finetune.py."""
 
 from __future__ import annotations
 
@@ -15,11 +17,51 @@ from fragnet_tpu_torch.model.layers import KernelPolicy, LayerHooks
 from fragnet_tpu_torch.ops.segment import segment_sum
 
 
-class FragNetFineTune(nn.Module):
-    """The flagship finetune model (gat2.py:758-826). Parameters are drawn
-    from ``generator`` (a seeded ``torch.Generator``) on the CPU; move the
-    module to its device afterwards. ``ep`` (an EPContext) makes the encoder
-    edge-partitioned; the parameters are the same."""
+class FragNetFineTuneBase(nn.Module):
+    """Encoder + pooling: ``encode`` returns the (G, 2·emb) graph
+    representation, pooled atoms ‖ pooled fragments. The encoder is
+    ``pretrain``, as in the JAX module. Parameters are drawn from
+    ``generator`` (a seeded ``torch.Generator``) on the CPU; move the
+    module to its device afterwards. ``ep`` (an EPContext) makes the
+    encoder edge-partitioned; the parameters are the same."""
+
+    def __init__(self, num_layer: int = 4, drop_ratio: float = 0.15,
+                 num_heads: int = 4, emb_dim: int = 128,
+                 atom_features: int = 167, frag_features: int = 167,
+                 edge_features: int = 17, fedge_in: int = 6,
+                 fbond_edge_in: int = 6,
+                 policy: KernelPolicy = KernelPolicy(),
+                 generator: Optional[torch.Generator] = None, ep=None):
+        super().__init__()
+        self.pretrain = FragNet(
+            num_layer=num_layer, drop_ratio=drop_ratio, emb_dim=emb_dim,
+            atom_features=atom_features, frag_features=frag_features,
+            edge_features=edge_features, fedge_in=fedge_in,
+            fbond_edge_in=fbond_edge_in, num_heads=num_heads, policy=policy,
+            generator=generator, ep=ep)
+
+    def encode(self, batch, hooks: Optional[List[LayerHooks]] = None,
+               return_attentions: bool = False):
+        """``hooks``: one LayerHooks per encoder layer (interp/), or None;
+        with ``return_attentions`` the last layer's LayerAttn comes too."""
+        out = self.pretrain(batch, return_attentions=return_attentions,
+                            hooks=hooks)
+        x_atoms, x_frags = out[0], out[1]
+        G = batch.y.shape[0]
+        x_frags_pooled = segment_sum(x_frags, batch.frag_batch, G,
+                                     mask=batch.frag_mask)
+        x_atoms_pooled = segment_sum(x_atoms, batch.atom_batch, G,
+                                     mask=batch.atom_mask)
+        rep = torch.cat([x_atoms_pooled, x_frags_pooled], dim=1)
+        return (rep, out[4]) if return_attentions else rep
+
+    def forward(self, batch):
+        return self.encode(batch)
+
+
+class FragNetFineTune(FragNetFineTuneBase):
+    """The flagship finetune model (gat2.py:758-826): FragNetFineTuneBase's
+    representation through the FTHead ``fthead``."""
 
     def __init__(self, n_classes: int = 1, atom_features: int = 167,
                  frag_features: int = 167, edge_features: int = 17,
@@ -30,13 +72,12 @@ class FragNetFineTune(nn.Module):
                  emb_dim: int = 128, fthead: str = "FTHead3",
                  policy: KernelPolicy = KernelPolicy(),
                  generator: Optional[torch.Generator] = None, ep=None):
-        super().__init__()
         g = generator
-        self.pretrain = FragNet(
-            num_layer=num_layer, drop_ratio=drop_ratio, emb_dim=emb_dim,
-            atom_features=atom_features, frag_features=frag_features,
-            edge_features=edge_features, fedge_in=fedge_in,
-            fbond_edge_in=fbond_edge_in, num_heads=num_heads, policy=policy,
+        super().__init__(
+            num_layer=num_layer, drop_ratio=drop_ratio, num_heads=num_heads,
+            emb_dim=emb_dim, atom_features=atom_features,
+            frag_features=frag_features, edge_features=edge_features,
+            fedge_in=fedge_in, fbond_edge_in=fbond_edge_in, policy=policy,
             generator=g, ep=ep)
         cls = FTHEADS[fthead]
         in_dim = 2 * emb_dim  # pooled atoms ‖ pooled frags
@@ -57,16 +98,8 @@ class FragNetFineTune(nn.Module):
                 hooks: Optional[List[LayerHooks]] = None):
         """``hooks``: one LayerHooks per encoder layer (interp/), or None;
         with ``return_attentions`` the last layer's LayerAttn comes too."""
-        out = self.pretrain(batch, return_attentions=return_attentions,
-                            hooks=hooks)
-        x_atoms, x_frags = out[0], out[1]
-        G = batch.y.shape[0]
-        x_frags_pooled = segment_sum(x_frags, batch.frag_batch, G,
-                                     mask=batch.frag_mask)
-        x_atoms_pooled = segment_sum(x_atoms, batch.atom_batch, G,
-                                     mask=batch.atom_mask)
-        cat = torch.cat([x_atoms_pooled, x_frags_pooled], dim=1)
-        pred = self.fthead(cat).float()
+        out = self.encode(batch, hooks=hooks,
+                          return_attentions=return_attentions)
         if return_attentions:
-            return pred, out[4]
-        return pred
+            return self.fthead(out[0]).float(), out[1]
+        return self.fthead(out).float()

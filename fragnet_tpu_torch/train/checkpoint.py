@@ -36,6 +36,25 @@ names fragnet_tpu/train/checkpoint.py:_torch_key_to_flax_transformer reads:
                                → transformer{,2}.layers.{i}.linear_net.{0,3}.*
   ms_heads_{i}/*                      → ms_heads.{i}.*
 
+and, for the DTA and CDRP models (model/dta.py, model/cdrp.py), under the
+names fragnet_tpu/train/checkpoint.py:import_dta_state_dict and its
+``cdrp`` mapper read:
+
+  drug_model/<encoder path>           → drug_model.<its name above>
+  target_model/{word,position}_embeddings/embedding
+                               → target_model.emb.{word,position}_embeddings.weight
+  target_model/LayerNorm_0/{scale,bias} → target_model.emb.LayerNorm.{gamma,beta}
+  target_model/layers/<leaf> (stacked over depth, one slice per layer)
+                               → target_model.encoder.layer.{i}.<_DTA_LAYER[leaf]>
+  target_model/{embedding_xt,conv_xt_1,fc1_xt}/* → {embedding_xt,conv_xt_1,fc1_xt}.*
+  cell_model/predictor_{k}/*          → cell_model.predictor.{k}.*
+  {fc1,fc2}/*                         → {fc1,fc2}.*
+
+The attention's DenseGeneral kernels, (emb, H, Dh) and (H, Dh, emb), become
+(H·Dh, emb) and (emb, H·Dh) Linear weights and its (H, Dh) biases flat
+vectors; the CNN's Conv kernel (k, in, out) becomes the Conv1d weight
+(out, in, k).
+
 Dense kernels (in, out) become Linear weights (out, in); the scalar PReLU
 slope becomes the (1,) weight of ``nn.PReLU``. The way back is the JAX
 package's ``import_torch_state_dict``, whose mappers skip
@@ -108,20 +127,94 @@ def _torch_name(path: Tuple[str, ...]) -> str:
     raise KeyError(f"no port parameter for flax param {key!r}")
 
 
+# a stacked protein-transformer leaf (its path under target_model/layers)
+# → (the torch name inside target_model.encoder.layer.{i}, its kind)
+_DTA_LAYER = {
+    "attn/query/kernel": ("attention.self.query.weight", "qkv"),
+    "attn/query/bias": ("attention.self.query.bias", "flat"),
+    "attn/key/kernel": ("attention.self.key.weight", "qkv"),
+    "attn/key/bias": ("attention.self.key.bias", "flat"),
+    "attn/value/kernel": ("attention.self.value.weight", "qkv"),
+    "attn/value/bias": ("attention.self.value.bias", "flat"),
+    "attn/out/kernel": ("attention.output.dense.weight", "out"),
+    "attn/out/bias": ("attention.output.dense.bias", "flat"),
+    "ln1/scale": ("attention.output.LayerNorm.gamma", "flat"),
+    "ln1/bias": ("attention.output.LayerNorm.beta", "flat"),
+    "ffn1/kernel": ("intermediate.dense.weight", "out"),
+    "ffn1/bias": ("intermediate.dense.bias", "flat"),
+    "ffn2/kernel": ("output.dense.weight", "out"),
+    "ffn2/bias": ("output.dense.bias", "flat"),
+    "ln2/scale": ("output.LayerNorm.gamma", "flat"),
+    "ln2/bias": ("output.LayerNorm.beta", "flat"),
+}
+
+
+def _task_entries(path: Tuple[str, ...], arr: np.ndarray):
+    """The port's (name, array) entries for a leaf of the DTA or CDRP
+    models' own modules (not the drug encoder), or None for another
+    leaf."""
+    key = "/".join(path)
+    if path[0] == "target_model" and len(path) > 2 and path[1] == "layers":
+        name, kind = _DTA_LAYER[key[len("target_model/layers/"):]]
+        out = []
+        for i, a in enumerate(arr):  # one slice per layer
+            if kind == "qkv":        # (emb, H, Dh) → (H·Dh, emb)
+                a = a.reshape(a.shape[0], -1).T
+            elif kind == "out":      # (H, Dh, emb) or (in, out) → (out, in)
+                a = a.reshape(-1, a.shape[-1]).T
+            else:
+                a = a.reshape(-1)
+            out.append((f"target_model.encoder.layer.{i}.{name}", a))
+        return out
+    m = re.fullmatch(r"target_model/(word|position)_embeddings/embedding",
+                     key)
+    if m:
+        return [(f"target_model.emb.{m.group(1)}_embeddings.weight", arr)]
+    m = re.fullmatch(r"target_model/LayerNorm_0/(scale|bias)", key)
+    if m:
+        leaf = {"scale": "gamma", "bias": "beta"}[m.group(1)]
+        return [(f"target_model.emb.LayerNorm.{leaf}", arr)]
+    m = re.fullmatch(r"target_model/(embedding_xt|conv_xt_1|fc1_xt)/"
+                     r"(embedding|kernel|bias)", key)
+    if m:
+        if m.group(2) == "embedding":
+            return [(f"{m.group(1)}.weight", arr)]
+        if m.group(2) == "kernel":  # Dense (in, out); Conv (k, in, out)
+            arr = arr.transpose(tuple(range(arr.ndim))[::-1])
+        return [(f"{m.group(1)}.{_LEAF[m.group(2)]}", arr)]
+    m = re.fullmatch(r"cell_model/predictor_(\d+)/(kernel|bias)", key)
+    if m:
+        return [(f"cell_model.predictor.{m.group(1)}.{_LEAF[m.group(2)]}",
+                 arr.T if m.group(2) == "kernel" else arr)]
+    m = re.fullmatch(r"(fc1|fc2)/(kernel|bias)", key)
+    if m:
+        return [(f"{m.group(1)}.{_LEAF[m.group(2)]}",
+                 arr.T if m.group(2) == "kernel" else arr)]
+    return None
+
+
 def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """fragnet_tpu FragNetFineTune, FragNetPreTrain,
-    FragNetFineTuneTransformer{,2} or FragNetFineTuneMultiTask params → the
-    port's ``state_dict`` (f32 CPU tensors); raises KeyError on a param the
-    port has no name for."""
+    FragNetFineTuneTransformer{,2}, FragNetFineTuneMultiTask, DTAModel
+    (either protein encoder) or CDRPModel params → the port's
+    ``state_dict`` (f32 CPU tensors); raises KeyError on a param the port
+    has no name for."""
     tree = params["params"] if "params" in params else params
     out = {}
     for path, val in _flatten(tree):
         arr = np.asarray(val, dtype=np.float32)
-        if path[-1] == "kernel":
-            arr = arr.T
-        elif path[-1] == "alpha":
-            arr = arr.reshape(1)
-        out[_torch_name(path)] = torch.from_numpy(np.array(arr, copy=True))
+        entries = _task_entries(path, arr)
+        if entries is None:
+            prefix = ""
+            if path[0] == "drug_model":  # the DTA / CDRP drug encoder
+                prefix, path = "drug_model.", path[1:]
+            if path[-1] == "kernel":
+                arr = arr.T
+            elif path[-1] == "alpha":
+                arr = arr.reshape(1)
+            entries = [(prefix + _torch_name(path), arr)]
+        for name, a in entries:
+            out[name] = torch.from_numpy(np.array(a, copy=True))
     return out
 
 

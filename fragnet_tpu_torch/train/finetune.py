@@ -206,9 +206,6 @@ def _refuse_unported(opt, device) -> None:
         raise NotImplementedError("finetune.n_buckets > 1 (bucketed "
                                   "loaders) is not ported yet (ROADMAP.md "
                                   "Queue A6)")
-    if ft.get("standardize", False):
-        raise NotImplementedError("finetune.standardize is not ported yet "
-                                  "(ROADMAP.md Queue A10)")
 
 
 class _Silent:
@@ -228,8 +225,8 @@ def run_finetune(opt, quiet: bool = False, datasets=None,
                  device: Union[str, torch.device, None] = None,
                  rank_reports: Optional[list] = None):
     """The finetune run (the JAX package's run_finetune,
-    fragnet_tpu/train/finetune.py:210-484, without its bucketed and
-    standardized branches): build the model from ``seed``, load the encoder
+    fragnet_tpu/train/finetune.py:210-484, without its bucketed branch):
+    build the model from ``seed``, load the encoder
     from a pretrain checkpoint when ``pretrain.use`` and ``pretrain.chk``
     are set, train ``finetune.n_epochs`` epochs with Adam, validate,
     early-stop and save ``exp_dir/ft.ckpt`` on each improvement, log
@@ -465,6 +462,22 @@ def _run(opt, quiet, datasets, device, info):
                                           fp.device, scheduler=scheduler),
             eval_step=make_dp_eval_step(model, loss_name, fp.device),
             gather=gather_numpy)
+    elif ft.get("standardize", False) and task == "regr":
+        # target standardization (reference finetune_norm.py:28-43): the
+        # train graphs' per-task mean and population std; the loss on
+        # standardized labels, validation and test in raw label space.
+        # Under dist.mode=dp|ep the option has no effect, as in the JAX
+        # package
+        from fragnet_tpu_torch.train.tasks import make_standardized_ft_steps
+
+        ys = np.stack([np.asarray(g.y, np.float32).reshape(-1)[:n_tasks]
+                       for g in train_g])
+        y_mean, y_sdev = ys.mean(axis=0), ys.std(axis=0)
+        tr_step, ev_step = make_standardized_ft_steps(
+            model, optimizer, y_mean, y_sdev, fp.device, scheduler)
+        steps = dict(train_step=tr_step, eval_step=ev_step)
+        if say:
+            print(f"standardized targets: mean={y_mean} sdev={y_sdev}")
     if say and mode != "none":
         print(f"{'edge-partitioned' if mode == 'ep' else 'data-parallel'} "
               f"training over {S} ranks")

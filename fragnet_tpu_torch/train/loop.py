@@ -51,18 +51,23 @@ LOSSES = {"mse": mse_loss, "bce": bce_masked_loss}
 # steps
 # ---------------------------------------------------------------------------
 
+def _loss_fn(loss: Union[str, Callable]) -> Callable:
+    return LOSSES[loss] if isinstance(loss, str) else loss
+
+
 def make_train_step(model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer,
-                    loss_name: str = "mse",
+                    loss_name: Union[str, Callable] = "mse",
                     device: Union[str, torch.device] = "cuda",
                     scheduler=None) -> Callable:
     """``train_step(batch) -> loss`` for a numpy HierGraphBatch: the batch
     is moved to ``device``, the model runs in train mode (dropout on),
-    the masked loss is backpropagated, the optimizer steps, then the
-    scheduler, and the gradients are dropped.
+    the masked loss (a LOSSES name, or ``loss(pred, y, graph_mask)``) is
+    backpropagated, the optimizer steps, then the scheduler, and the
+    gradients are dropped.
     The loss comes back as a 0-d device tensor, so the step does not wait
     for the device."""
-    loss_fn = LOSSES[loss_name]
+    loss_fn = _loss_fn(loss_name)
 
     def train_step(batch):
         b = to_device(batch, device)
@@ -78,11 +83,12 @@ def make_train_step(model: torch.nn.Module,
     return train_step
 
 
-def make_eval_step(model: torch.nn.Module, loss_name: str = "mse",
+def make_eval_step(model: torch.nn.Module,
+                   loss_name: Union[str, Callable] = "mse",
                    device: Union[str, torch.device] = "cuda") -> Callable:
     """``eval_step(batch) -> (loss, pred)`` for a numpy HierGraphBatch; the
     batch is moved to ``device`` and the model runs in eval mode."""
-    loss_fn = LOSSES[loss_name]
+    loss_fn = _loss_fn(loss_name)
 
     def eval_step(batch):
         b = to_device(batch, device)

@@ -119,8 +119,10 @@ def test_tile_meta_and_planes_match_on_random_graphs():
 
 def test_port_imports_no_jax():
     """Importing every fragnet_tpu_torch module (and chip_smoke) leaves no
-    jax*, flax*, optax*, ml_dtypes or fragnet_tpu.* entry in sys.modules;
-    the modules walked include model/transformer.py."""
+    jax*, flax*, optax*, ml_dtypes, pandas or fragnet_tpu.* entry in
+    sys.modules; the modules walked include model/transformer.py and the
+    DTA / CDRP modules (data/{dta,cdrp}.py, model/{dta,cdrp}.py,
+    train/tasks.py)."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import fragnet_tpu_torch
@@ -131,11 +133,14 @@ def test_port_imports_no_jax():
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                            "ml_dtypes")
+                                            "ml_dtypes", "pandas")
                      or m == "fragnet_tpu" or m.startswith("fragnet_tpu."))
         print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 20
-                 or "fragnet_tpu_torch.model.transformer" not in names else 0)
+        need = {"fragnet_tpu_torch." + m for m in (
+            "model.transformer", "data.dta", "data.cdrp", "model.dta",
+            "model.cdrp", "train.tasks")}
+        sys.exit(1 if bad or len(names) < 20 or not need <= set(names)
+                 else 0)
     """)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
@@ -146,14 +151,15 @@ def test_port_imports_no_jax():
 
 def test_port_sources_import_no_jax():
     """No import statement anywhere in the port or chip_smoke.py — lazy
-    ones inside functions included — names jax, flax, optax, ml_dtypes or
-    fragnet_tpu."""
+    ones inside functions included — names jax, flax, optax, ml_dtypes,
+    pandas or fragnet_tpu."""
     import ast
 
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, files in os.walk(os.path.join(REPO, "fragnet_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
-    banned = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "fragnet_tpu")
+    banned = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "pandas",
+              "fragnet_tpu")
     for p in paths:
         with open(p) as f:
             tree = ast.parse(f.read())
