@@ -16,8 +16,9 @@ pretraining (configs/pt/unimol.yaml, full width: 4 layers, emb
 the packed transport — the interpreter (``FragNetInterpreter``:
 attention weights and masking contributions) on the finetuned model,
 the other models on the gat2 encoder (gat2_transformer,
-gat2_transformer2, gat2_multitask) through ``run_finetune``, and the DTA
-and CDRP tasks through ``run_task``.
+gat2_transformer2, gat2_multitask) and the variants and ablations
+(gat2_lite, gat2_edge, gcn2, gat, gcn, gcn3) through ``run_finetune``,
+and the DTA and CDRP tasks through ``run_task``.
 Phases:
 
   1. the card's name and power limit (nvidia-smi);
@@ -189,14 +190,29 @@ Phases:
      esol config for 2 epochs, launches exact, the test predictions the
      model's output in raw label space; then the protein transformer and
      the CNN forward + backward alone on the card, as torch ops: device ms,
-     kernels launched, bound.
+     kernels launched, bound;
+ 28. the model variants and ablations (model/variants.py, model/
+     ablations.py) on the esol config: gat2_lite, gat2_edge, gcn2, v1 gat
+     (its fixed 3 heads), gcn and gcn3: per model the prediction and one
+     train step's loss and gradients, card vs CPU, within 1e-3 of each
+     scale; run_finetune for 2 epochs with every launch count set to 0
+     just before it, the launches equal to finetune_expect's for the
+     model's GAT levels (gat_levels: none for gcn2, gcn, gcn3; K1 alone
+     for v1 gat, whose bond output reaches no prediction), losses finite;
+     a timed train step; gat2_lite also under the dense-attr policy; K1
+     and K2 against their plain versions at layer 0 of v1 gat's bond pass
+     (3 heads of 5 columns padded to 8; level tagged "v1 bond"); then the
+     attention-free aggregations (the GCN atom pass, the GIN bond and atom
+     aggregations, the fragment neighbour sum + frag_mlp) forward +
+     backward alone on the card, as torch ops: device ms, kernels
+     launched, bound, share of their model's step.
 
 Prints a ``{"kernels": [...]}`` JSON line (launches from the pretraining
 path of phase 11 for K1-K6, of phase 19 for K7-K9 (K9's: K8's, whose
 launches compute it) and of phase 21's rank 0 for K3, every path's — each
 rank's for phases 21, 23 and 24, the interpret path's of phase 25 under
-each policy, each phase-26 model's and phase-27 task's training path —
-beside them), and as the last line ``{"ok": true, "device": {...}}``. Exits
+each policy, each phase-26 model's, phase-27 task's and phase-28 model's
+training path — beside them), and as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero on any failure, without a CUDA device, or when run outside a
 checkout of the repository.
 """
@@ -918,31 +934,54 @@ def _planes_of(batch):
             if getattr(batch, lvl) is not None}
 
 
-def expected_launches(policy, n_layers: int, batches):
+def gat_levels(model_version: str, n_layers: int):
+    """({plane level: backward passes per train step} of each GAT level a
+    forward of ``model_version`` runs in every layer, {level: the kernel
+    route it takes whatever the policy says}). gat2 and the models on its
+    encoder run the bond, fconn, atom and frag passes; the backward runs
+    for every layer's bond, fconn and atom pass and for the last layer's
+    frag pass (each layer recomputes fragment features from atoms, so the
+    earlier frag outputs are off the loss's path). gat2_lite runs the bond
+    and atom passes, gat2_edge also the frag pass (over the connection
+    attributes). v1 gat runs the bond pass on the TCSR kernel, and its
+    output reaches no prediction (only the unused edge_embed), so no
+    backward runs; gcn2, gcn and gcn3 run no GAT pass."""
+    L = n_layers
+    if model_version == "gat2_lite":
+        return {"dp_bond": L, "dp_atom": L}, {}
+    if model_version == "gat2_edge":
+        return {"dp_bond": L, "dp_atom": L, "dp_frag": 1}, {}
+    if model_version == "gat":
+        return {"dp_bond": 0}, {"dp_bond": "tcsr"}
+    if model_version in ("gcn2", "gcn", "gcn3"):
+        return {}, {}
+    return {"dp_bond": L, "dp_fc": L, "dp_atom": L, "dp_frag": 1}, {}
+
+
+def expected_launches(policy, n_layers: int, batches,
+                      model_version: str = "gat2"):
     """Each GAT kernel's launches for ``batches`` = [(plane levels the
     batch carries, forwards, train steps)] under a KernelPolicy: per
-    forward each layer runs the bond, fconn, atom and frag passes, each
-    through the dense kernel its policy names when the batch has that
-    level's planes, else through the TCSR kernel (model/layers.py:
-    _gat_dispatch); per train step the backward of every layer's bond,
-    fconn and atom pass and of the last layer's frag pass (each layer
-    recomputes fragment features from atoms, so the earlier frag outputs
-    are off the loss's path). The plane builder is counted by the caller."""
+    forward each layer runs the GAT levels of ``model_version``
+    (gat_levels), each through the dense kernel its policy names when the
+    batch has that level's planes, else through the TCSR kernel
+    (model/layers.py:_gat_dispatch); per train step the backward passes
+    gat_levels counts. The plane builder is counted by the caller."""
     mode = {"dp_bond": policy.bond, "dp_fc": policy.fc,
             "dp_atom": "attr" if policy.attr else "tcsr",
             "dp_frag": "attr" if policy.attr else "tcsr"}
-    bwd_passes = {"dp_bond": n_layers, "dp_fc": n_layers,
-                  "dp_atom": n_layers, "dp_frag": 1}
+    bwd_passes, fixed = gat_levels(model_version, n_layers)
+    mode.update(fixed)
     kernels = {"planes": ("dense_gat_fwd", ("dense_gat_bwd",)),
                "attr": ("dense_attr_fwd", ("dense_attr_bwd",)),
                "tcsr": ("tcsr_gat_fwd", ("tcsr_gat_bwd",))}
     out = {n: 0 for n in KERNELS}
     for have, n_fwd, n_steps in batches:
-        for lvl, m in mode.items():
-            fwd, bwds = kernels[m if lvl in have else "tcsr"]
+        for lvl, n_bwd in bwd_passes.items():
+            fwd, bwds = kernels[mode[lvl] if lvl in have else "tcsr"]
             out[fwd] += n_layers * n_fwd
             for b in bwds:
-                out[b] += bwd_passes[lvl] * n_steps
+                out[b] += n_bwd * n_steps
     return out
 
 
@@ -1777,7 +1816,8 @@ def pretrain_attr_kernel_calls(calls_buf, dev, rng):
 
 def finetune_expect(fopt, datasets, spec, test_windows):
     """Each kernel's launches on ``run_finetune``'s path for ``fopt`` (its
-    kernel policy and epochs; 0 epochs is the prediction path), derived
+    model_version, kernel policy and epochs; 0 epochs is the prediction
+    path), derived
     from the loaders: under finetune.cache=auto the loaders are cached on
     the device, so every epoch runs the train batches of the first
     (shuffled) pass and the val batches, and the test batches run once;
@@ -1803,7 +1843,8 @@ def finetune_expect(fopt, datasets, spec, test_windows):
                             n_fwd, n_steps))
     lacking = sum(1 for have, _, _ in batches
                   if not {"dp_atom", "dp_frag", "dp_fc"} <= have)
-    return (expected_launches(resolve_kernel_policy(ft), L, batches),
+    return (expected_launches(resolve_kernel_policy(ft), L, batches,
+                              fopt.get("model_version", "gat2")),
             len(first), len(val_w), lacking)
 
 
@@ -3257,6 +3298,248 @@ def task_phase(dev, task_graphs, datasets, spec, windows, rng):
     return paths, report, steps, enc_rows
 
 
+# phase 28: the model variants (model/variants.py) and ablations
+# (model/ablations.py) at the esol config's width (v1 gat with its fixed 3
+# heads of 5 columns, padded to 8 on the TCSR kernel); gat2_lite also under
+# the dense-attr policy
+VARIANT_VERSIONS = ("gat2_lite", "gat2_edge", "gcn2", "gat", "gcn", "gcn3")
+VARIANT_RUNS = [(mv, False) for mv in VARIANT_VERSIONS] + [("gat2_lite",
+                                                            True)]
+V1_LEVEL = "v1 bond (H=3, D=8)"
+
+
+def _agg_cost(kind, rows, edges, width):
+    """(bytes, flops) of one forward + backward of an attention-free
+    aggregation on this batch's real rows: ``rows`` {name: count} of the
+    ``width``-wide tensors it reads or writes once each (inputs, the
+    cotangent, outputs, the inputs' gradients), ``edges`` the real edges
+    whose index pair and mask it reads; for "mlp" the two frag_mlp
+    matmuls (×3: the forward and the backward's two products) over
+    rows["frag"] fragments, and its weights read and their gradients
+    written once. Elementwise work is left out."""
+    nbytes = 4 * (width * sum(rows.values()) + 3 * edges)
+    flops = 0
+    if kind == "mlp":
+        w = 4 * width * width + 3 * width  # 2·w² weights each way + biases
+        nbytes += 4 * 2 * w
+        flops = 3 * 2 * rows["frag"] * 4 * width * width
+    return nbytes, flops
+
+
+def aggregation_ops(models, train_np, dev, rng):
+    """The attention-free aggregations of phase 28's models, run as torch
+    ops on the card (no TPU kernel exists for them): the GCN atom pass
+    (gcn2, gat, gcn), the GIN bond and atom aggregations (gcn3) and the
+    fragment neighbour sum + frag_mlp (all four), each forward + backward
+    alone with a numpy cotangent, on numpy inputs at the shapes of
+    ``train_np`` (the work does not depend on the values; layer 1's
+    weights of ``models``, {model_version: its trained model}, and the
+    batch's own cos-angles): device ms per call
+    (profiler), the device kernels it launches, event ms (host dispatch
+    included) and the bound over the real rows and edges. Returns [{op,
+    model, calls per step, device_ms, kernels, ms, bound_ms, bound_by}]."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fragnet_tpu_torch.graphs.batch import to_device
+    from fragnet_tpu_torch.model import ablations
+
+    b = to_device(train_np, dev)
+    A, E = b.x_atoms.shape[0], b.nf_bonds.shape[0]
+    n_atoms = int((b.atom_mask > 0).sum())
+    n_bonds = int((b.edge_mask > 0).sum())
+    n_bg = int((b.bg_mask > 0).sum())
+    n_frags = int((b.frag_mask > 0).sum())
+    n_fconn = int((b.fconn_mask > 0).sum())
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+
+    gcn = models["gcn"].eval().pretrain.layers[1]
+    gin = models["gcn3"].eval().pretrain.layers[1]
+    W = gcn.atom_embed.out_features
+    L = len(models["gcn"].pretrain.layers)
+    src, dst, e_mask = ablations._atom_self_loops(b, A)
+    ea = torch.cat([b.ea_bonds, b.ea_bonds.new_full((E, 1), 1.5)])
+    with torch.no_grad():
+        ea_emb = gin.edge_attr_bond_embed(ea)
+        nf_b = gin.edge_embed(draw(E, b.nf_bonds.shape[1]))
+        bonds = ablations.gin_bond_pass(ea_emb, nf_b, b)
+    cases = [  # (op, models, inputs, fn, cost kind, rows, edges)
+        ("GCN atom pass", "gcn2 / gat / gcn", (draw(A, W),),
+         lambda x: ablations.gcn_atom_pass(x, src, dst, e_mask,
+                                           b.atom_mask),
+         "agg", {"x": n_atoms, "g": n_atoms, "out": n_atoms,
+                 "dx": n_atoms}, n_bonds + n_atoms),
+        ("GIN bond aggregation", "gcn3", (ea_emb, nf_b),
+         lambda e, n: ablations.gin_bond_pass(e, n, b),
+         "agg", {"ea": n_bg + n_bonds, "nf": n_bonds, "g": n_bonds,
+                 "out": n_bonds, "dea": n_bg + n_bonds, "dnf": n_bonds},
+         n_bg + n_bonds),
+        ("GIN atom aggregation", "gcn3", (draw(A, W), bonds),
+         lambda x, e: ablations.gin_atom_pass(x, e, b),
+         "agg", {"x": n_atoms, "bonds": n_bonds, "g": n_atoms,
+                 "out": n_atoms, "dx": n_atoms, "dbonds": n_bonds},
+         n_bonds + n_atoms),
+        ("fragment neighbour MLP", "gcn2 / gat / gcn / gcn3",
+         (draw(A, W),),
+         lambda x: ablations.frag_neighbor_mlp(x, b, gcn.frag_mlp),
+         "mlp", {"x": n_atoms, "frag": n_frags, "g": n_frags,
+                 "out": n_frags, "dx": n_atoms},
+         n_atoms + n_fconn),
+    ]
+    out = []
+    for op, used_by, inputs, fn, kind, rows, edges in cases:
+        xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+        g = draw(*fn(*xs).shape)
+
+        def call():
+            torch.autograd.backward(fn(*xs), g)
+
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        n = 20
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+        busy, _rows = _busy(prof)
+        launched = sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)
+                       and e.self_device_time_total > 0)
+        if not busy > 0:
+            raise AssertionError(f"{op}: no device time profiled")
+        nbytes, flops = _agg_cost(kind, rows, edges, W)
+        bound, by = _bound_ms(nbytes, flops)
+        row = {"op": op, "models": used_by, "calls_per_step": L,
+               "device_ms": busy / n, "kernels": launched / n,
+               "ms": _median_ms(call, n=20), "bound_ms": bound,
+               "bound_by": by}
+        out.append(row)
+        print(f"aggregation {op} ({used_by}) forward + backward: device "
+              f"{row['device_ms']:.4f} ms in {row['kernels']:.0f} kernels, "
+              f"events {row['ms']:.4f} ms, bound {bound:.6f} ms ({by}: "
+              f"{nbytes} B, {flops} flop); {L} per train step")
+    return out
+
+
+def variant_phase(dev, datasets, spec, windows, batch_np, train_np, rng):
+    """Phase 28: gat2_lite, gat2_edge, gcn2, gat, gcn and gcn3 through the
+    port's entry points at the esol config's width: per model the
+    prediction and one train step's loss and gradients, card (kernels)
+    vs CPU (plain versions), same seeded weights and batch; run_finetune
+    for FAMILY_EPOCHS epochs with every launch count set to 0 just before
+    it, each kernel's launches equal to finetune_expect's (gat_levels: 0
+    for gcn2, gcn and gcn3) and every loss finite; a timed train step.
+    gat2_lite also trains under the dense-attr policy. K1 and K2 against
+    their plain versions at layer 0 of v1 gat's bond pass (H = 3, D = 8);
+    then aggregation_ops. Returns ({path: launches}, {kernel: report
+    levels} at the v1 shape, {model: step}, aggregation rows)."""
+    import numpy as np
+    import torch
+
+    from fragnet_tpu_torch.graphs.batch import to_device
+    from fragnet_tpu_torch.obs import read_scalars
+    from fragnet_tpu_torch.train.finetune import run_finetune
+
+    paths, steps, trained, report = {}, {}, {}, {}
+    n_tasks = datasets[3]
+    for mv, attr in VARIANT_RUNS:
+        t0 = time.perf_counter()
+        fopt = family_opt(mv, attr=attr)
+        label = mv + (" [dense-attr policy]" if attr else "")
+        if not attr:
+            model = build_model_cpu(fopt, n_tasks).eval()
+            card = copy.deepcopy(model).to(dev).eval()
+            with torch.no_grad():
+                pred_gpu = card(to_device(batch_np, dev)).cpu()
+                pred_cpu = model(to_device(batch_np, "cpu"))
+            G = int(fopt.finetune.batch_size)
+            if tuple(pred_gpu.shape) != (G, n_tasks):
+                raise AssertionError(f"{mv}: prediction shape "
+                                     f"{tuple(pred_gpu.shape)}")
+            fwd_err, fwd_rel = _diff(pred_gpu, pred_cpu)
+            l_cpu, l_gpu, worst, worst_name, n_par = train_grads_card_vs_cpu(
+                model, train_np, dev)
+            print(f"{label}: forward cpu vs gpu max_abs_err={fwd_err:.3e} "
+                  f"rel={fwd_rel:.3e} (limit {FORWARD_REL_LIMIT}); train "
+                  f"step loss {l_cpu:.6f} / {l_gpu:.6f}, worst relative "
+                  f"diff {worst:.3e} ({worst_name}) over {n_par} "
+                  f"parameters (limit {GRAD_REL_LIMIT})")
+            if not fwd_rel <= FORWARD_REL_LIMIT:
+                raise AssertionError(f"{mv}: card and CPU predictions "
+                                     f"disagree")
+            if not worst <= GRAD_REL_LIMIT:
+                raise AssertionError(f"{mv}: card and CPU gradients "
+                                     f"disagree")
+            if mv == "gat":
+                # K1 and K2 at the v1 bond shape: layer 0's K1 call of one
+                # forward, the backward's arguments as phase 4 makes them
+                n_layers = int(fopt.finetune.model.num_layer)
+                with _Capture(("tcsr_gat_fwd",)) as cap, torch.no_grad():
+                    card(to_device(batch_np, dev))
+                fwd = cap.calls["tcsr_gat_fwd"]
+                if len(fwd) != n_layers or fwd[0][0][1].shape[1] != 24:
+                    raise AssertionError(
+                        f"v1 gat: {len(fwd)} K1 calls in one forward, "
+                        f"row width {fwd[0][0][1].shape[1]}")
+                a, kw = fwd[0]
+                calls = {"tcsr_gat_fwd": [(V1_LEVEL, a, kw)],
+                         "tcsr_gat_bwd": [(V1_LEVEL, bwd_kernel_args(
+                             "tcsr_gat_fwd", a, kw, rng), {})]}
+                report.update({n: lv for n, (lv, _err) in check_kernels(
+                    ("tcsr_gat_fwd", "tcsr_gat_bwd"), calls, rng).items()})
+        expect, n_train, n_val, _ = finetune_expect(fopt, datasets, spec,
+                                                    windows)
+        _reset_launches()
+        t1 = time.perf_counter()
+        value, tr_model = run_finetune(fopt, datasets=datasets, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        launches = _launches()
+        paths[f"{mv}{'_attr' if attr else ''}_train"] = launches
+        losses = [r["value"] for r in read_scalars(fopt.exp_dir)
+                  if r["tag"] == "train/loss"][-FAMILY_EPOCHS:]
+        print(f"{label} training path: {FAMILY_EPOCHS} epochs x {n_train} "
+              f"train batches, {n_val} val, {len(windows)} test; test rmse "
+              f"{value:.5f}, train losses {[round(x, 5) for x in losses]}, "
+              f"run {run_s:.2f} s; kernels: "
+              + (" ".join(f"{n}={c} (expected {expect[n]})"
+                          for n, c in launches.items() if c or expect[n])
+                 or "none (expected none)"))
+        if len(losses) != FAMILY_EPOCHS or not np.isfinite(losses).all() \
+                or not np.isfinite(value):
+            raise AssertionError(f"{label}: training is not finite: losses "
+                                 f"{losses}, test rmse {value}")
+        for n, c in launches.items():
+            if c != expect[n]:
+                raise AssertionError(f"{label}: {n} launched {c} times on "
+                                     f"the training path, expected "
+                                     f"{expect[n]}")
+        if not attr:
+            steps[mv] = timed_train_step(tr_model, train_np, dev, mv)
+            trained[mv] = tr_model
+        print(f"phase 28, {label}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    aggs = aggregation_ops(trained, train_np, dev, rng)
+    for mv in ("gcn2", "gat", "gcn", "gcn3"):
+        mine = [r for r in aggs if mv in r["models"].split(" / ")]
+        per_step = sum(r["device_ms"] * r["calls_per_step"] for r in mine)
+        print(f"{mv} train step: device busy {steps[mv]['busy']:.3f} ms, of "
+              f"which its aggregations ("
+              + " + ".join(r["op"] for r in mine)
+              + f", forward + backward, measured alone) {per_step:.3f} ms "
+              f"({100 * per_step / steps[mv]['busy']:.1f}%)")
+    print(f"phase 28, aggregations: {time.perf_counter() - t0:.1f} s")
+    return paths, report, steps, aggs
+
+
 def smoke_weights(datasets):
     """(FragNetFineTune's arguments for the smoke's esol model, its seeded
     weights on the CPU)."""
@@ -3579,9 +3862,18 @@ def main() -> int:
         report[name][0].extend(dict(p, on_path=False) for p in levels)
     print(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- 28. the model variants and ablations --------------------------
+    t_phase = time.perf_counter()
+    variant_paths, v1_levels, _variant_steps, _aggs = variant_phase(
+        dev, datasets, spec, windows, batch_np, train_np, rng)
+    for name, levels in v1_levels.items():
+        # v1 gat's bond level stands beside the finetune layer's
+        report[name][0].extend(dict(p, on_path=False) for p in levels)
+    print(f"phase 28: {time.perf_counter() - t_phase:.1f} s")
+
     paths = {"finetune_train": launches_t, "pretrain": launches_pt,
              "finetune_attr_train": launches_fa, "pretrain_attr": launches_pa,
-             **interp_paths, **family_paths, **task_paths}
+             **interp_paths, **family_paths, **task_paths, **variant_paths}
     for run, per_rank in dist_runs.items():
         for r, counts in enumerate(per_rank):
             paths[f"{run}_rank{r}"] = counts

@@ -12,9 +12,28 @@ import torch
 import torch.nn as nn
 
 from fragnet_tpu_torch.model.fragnet import FragNet
-from fragnet_tpu_torch.model.heads import FTHEADS
+from fragnet_tpu_torch.model.heads import FTHEADS, pool_graphs
 from fragnet_tpu_torch.model.layers import KernelPolicy, LayerHooks
-from fragnet_tpu_torch.ops.segment import segment_sum
+
+
+def make_fthead(fthead: str, in_dim: int, n_classes: int, h1: int, h2: int,
+                h3: int, h4: int, drop_ratio: float, act: str,
+                generator: Optional[torch.Generator]) -> nn.Module:
+    """The FTHead ``fthead`` over an ``in_dim``-wide representation, with
+    the arguments the JAX package's FragNetFineTune (and _PooledHead of
+    its variants) gives each head."""
+    cls = FTHEADS[fthead]
+    g = generator
+    if fthead in ("FTHead1", "FTHead2"):
+        return cls(in_dim, n_classes=n_classes, generator=g)
+    if fthead == "FTHead3":
+        return cls(in_dim, h1=h1, h2=h2, h3=h3, h4=h4, drop_ratio=drop_ratio,
+                   n_classes=n_classes, act=act, generator=g)
+    if fthead == "FTHead4":
+        return cls(in_dim, h1=h1, act=act, n_classes=n_classes,
+                   drop_ratio=drop_ratio, generator=g)
+    return cls(in_dim, h1=h1, h2=h2, drop_ratio=drop_ratio,
+               n_classes=n_classes, act=act, generator=g)
 
 
 class FragNetFineTuneBase(nn.Module):
@@ -46,13 +65,7 @@ class FragNetFineTuneBase(nn.Module):
         with ``return_attentions`` the last layer's LayerAttn comes too."""
         out = self.pretrain(batch, return_attentions=return_attentions,
                             hooks=hooks)
-        x_atoms, x_frags = out[0], out[1]
-        G = batch.y.shape[0]
-        x_frags_pooled = segment_sum(x_frags, batch.frag_batch, G,
-                                     mask=batch.frag_mask)
-        x_atoms_pooled = segment_sum(x_atoms, batch.atom_batch, G,
-                                     mask=batch.atom_mask)
-        rep = torch.cat([x_atoms_pooled, x_frags_pooled], dim=1)
+        rep = pool_graphs(out[0], out[1], batch)
         return (rep, out[4]) if return_attentions else rep
 
     def forward(self, batch):
@@ -79,20 +92,9 @@ class FragNetFineTune(FragNetFineTuneBase):
             frag_features=frag_features, edge_features=edge_features,
             fedge_in=fedge_in, fbond_edge_in=fbond_edge_in, policy=policy,
             generator=g, ep=ep)
-        cls = FTHEADS[fthead]
-        in_dim = 2 * emb_dim  # pooled atoms ‖ pooled frags
-        if fthead in ("FTHead1", "FTHead2"):
-            self.fthead = cls(in_dim, n_classes=n_classes, generator=g)
-        elif fthead == "FTHead3":
-            self.fthead = cls(in_dim, h1=h1, h2=h2, h3=h3, h4=h4,
-                              drop_ratio=drop_ratio, n_classes=n_classes,
-                              act=act, generator=g)
-        elif fthead == "FTHead4":
-            self.fthead = cls(in_dim, h1=h1, act=act, n_classes=n_classes,
-                              drop_ratio=drop_ratio, generator=g)
-        else:
-            self.fthead = cls(in_dim, h1=h1, h2=h2, drop_ratio=drop_ratio,
-                              n_classes=n_classes, act=act, generator=g)
+        # over pooled atoms ‖ pooled frags
+        self.fthead = make_fthead(fthead, 2 * emb_dim, n_classes, h1, h2, h3,
+                                  h4, drop_ratio, act, g)
 
     def forward(self, batch, return_attentions: bool = False,
                 hooks: Optional[List[LayerHooks]] = None):

@@ -15,6 +15,17 @@ from fragnet_tpu_torch.model.layers import torch_linear_init_
 from fragnet_tpu_torch.ops.segment import segment_sum
 
 
+def pool_graphs(x_atoms, x_frags, batch) -> torch.Tensor:
+    """The (G, 2·emb) graph representation every head reads: masked
+    sum-pools of the atom and fragment features by graph, atoms ‖
+    fragments."""
+    G = batch.y.shape[0]
+    return torch.cat([
+        segment_sum(x_atoms, batch.atom_batch, G, mask=batch.atom_mask),
+        segment_sum(x_frags, batch.frag_batch, G, mask=batch.frag_mask)],
+        dim=1)
+
+
 def make_activation(name: str) -> Callable:
     """The nine activation choices of FTHead3/4/5 (gat2.py:600-622).
     torch RReLU at eval uses slope (lower+upper)/2 = (1/8 + 1/3)/2."""
@@ -193,11 +204,5 @@ class PretrainTask(nn.Module):
         bl = self.bl_layers(self.bl_reduce_layer(pair))
         ba = self.ba_layers(x_atoms)
         da = self.da_layers(edge_attr)
-        G = batch.y.shape[0]
-        x_frags_pooled = segment_sum(x_frags, batch.frag_batch, G,
-                                     mask=batch.frag_mask)
-        x_atoms_pooled = segment_sum(x_atoms, batch.atom_batch, G,
-                                     mask=batch.atom_mask)
-        energy = self.FC_layers(torch.cat([x_atoms_pooled, x_frags_pooled],
-                                          dim=1))
+        energy = self.FC_layers(pool_graphs(x_atoms, x_frags, batch))
         return bl, ba, da, energy

@@ -13,7 +13,9 @@ edge_partition.py): each rank passes its shard of every level's edges to
 the K3 pass (ops/tcsr_gat.py:tcsr_gat_pass_ep), node state replicated. The
 attention vectors are computed only when asked for. ``LayerHooks`` (the
 interpretability masks, interp/) zero rows of the bond, atom and fconn
-passes' outputs, whichever kernel ran the pass.
+passes' outputs, whichever kernel ran the pass. The bond, atom and
+fragment passes are methods of ``_BondAtomPasses``, which FragNetLayer and
+the gat2_lite and gat2_edge layers (model/variants.py) build on.
 
 Parameter names are the reference torch names (gat2.py): projection_b/a/fb,
 edge_attr_bond_embed, edge_attr_fbond_embed and the attention vectors
@@ -264,18 +266,17 @@ class LayerAttn:
     fbonds: torch.Tensor  # (C, H)
 
 
-class FragNetLayer(nn.Module):
-    """One four-level message-passing layer (f32). With ``ep`` (an
-    EPContext) it runs edge-partitioned: the batch holds this rank's slice
-    of the edge fields (dist/edge_partition.py:ep_local_batch) and every GAT
-    pass is the K3 pass."""
+class _BondAtomPasses(nn.Module):
+    """The bond-graph and atom-graph GAT passes of FragNetLayer (passes 1
+    and 2, gat2.py:137-224) with their parameters — edge_attr_bond_embed,
+    projection_b, a_b, projection_a, a — and the fragment-level pass
+    (pass 5) as a method over a given attention vector. FragNetLayer and
+    the gat2_lite / gat2_edge layers (model/variants.py) build on it."""
 
-    def __init__(self, atom_in: int = 128, atom_out: int = 128,
-                 edge_in: int = 128, edge_out: int = 128,
-                 fedge_in: int = 128, bond_edge_in: int = 1,
-                 fbond_edge_in: int = 6, num_heads: int = 4,
-                 policy: KernelPolicy = KernelPolicy(),
-                 generator: Optional[torch.Generator] = None, ep=None):
+    def __init__(self, atom_in: int, atom_out: int, edge_in: int,
+                 edge_out: int, bond_edge_in: int, num_heads: int,
+                 policy: KernelPolicy, generator: Optional[torch.Generator],
+                 ep=None):
         super().__init__()
         H = num_heads
         self.num_heads = H
@@ -291,26 +292,16 @@ class FragNetLayer(nn.Module):
         self.a_b = _attn_param(H, 3 * eph, g)
         self.projection_a = _linear(atom_in, aph * H, "torch", g)
         self.a = _attn_param(H, 2 * aph + edge_out, g)
-        self.edge_attr_fbond_embed = _linear(fbond_edge_in, eph, "torch", g)
-        self.projection_fb = _linear(fedge_in, eph * H, "torch", g)
-        self.f_a_b = _attn_param(H, 3 * eph, g)
-        self.f = _attn_param(H, 2 * aph + edge_out, g)
 
-    def forward(self, x_atoms, nf_bonds, nf_fbonds, batch,
-                need_attn: bool = False,
-                hooks: Optional[LayerHooks] = None):
+    def bond_pass(self, nf_bonds, batch, need_attn: bool = False,
+                  hooks: Optional[LayerHooks] = None):
+        """Pass 1, the bond-graph GAT (gat2.py:137-169): (new bond
+        features (E, edge_out), masked, the hooks' rows zeroed; attention
+        by source or None)."""
         hooks = hooks or LayerHooks()
-        H = self.num_heads
-        pol = self.policy
-        ep = self.ep
+        H, pol, ep = self.num_heads, self.policy, self.ep
         edge_out_ph = self.edge_out // H
-        atom_out_ph = self.atom_out // H
-        edge_mask = batch.edge_mask
-        A = x_atoms.shape[0]
         E = nf_bonds.shape[0]
-        C = nf_fbonds.shape[0]
-
-        # ---- pass 1: bond-graph GAT (gat2.py:137-169) --------------------
         ea_b = self.edge_attr_bond_embed(batch.ea_bonds)          # (EB, Dp)
         nf_b = self.projection_b(nf_bonds).reshape(E, H, edge_out_ph)
         fold_b = None
@@ -325,9 +316,19 @@ class FragNetLayer(nn.Module):
             fold=fold_b, need_attn=need_attn, ep=ep)
         new_bond_features = _zero_rows(bond_out.reshape(E, -1),
                                        hooks.bond_pair(), hooks.bond_rows)
-        new_bond_features = new_bond_features * edge_mask[:, None]
+        return new_bond_features * batch.edge_mask[:, None], attn_bonds
 
-        # ---- pass 2: atom-graph GAT with self-loops (gat2.py:178-224) ----
+    def atom_pass(self, x_atoms, new_bond_features, batch,
+                  need_attn: bool = False,
+                  hooks: Optional[LayerHooks] = None):
+        """Pass 2, the atom-graph GAT with self-loops (gat2.py:178-224),
+        the bond features as edge attributes: (new atom features (A,
+        atom_out), masked, the hooks' rows zeroed; attention by source or
+        None)."""
+        hooks = hooks or LayerHooks()
+        H, pol, ep = self.num_heads, self.policy, self.ep
+        edge_mask = batch.edge_mask
+        A = x_atoms.shape[0]
         # self-loops appended after real edges, zero edge attrs
         # (gat2.py:179-185); the kernel folds them in analytically, so the
         # appended arrays are built only for the segment path
@@ -347,7 +348,7 @@ class FragNetLayer(nn.Module):
                    torch.cat([new_bond_features,
                               new_bond_features.new_zeros((A, self.edge_out))]),
                    torch.cat([edge_mask, edge_mask.new_ones((A,))]))
-        nf_a = self.projection_a(x_atoms).reshape(A, H, atom_out_ph)
+        nf_a = self.projection_a(x_atoms).reshape(A, H, self.atom_out // H)
         atom_out_feats, attn_atoms = _gat_dispatch(
             nf_a, ea_a, batch.edge_src, batch.edge_dst, mask_a, self.a,
             num_nodes=A, tm=batch.tm_atom, dp=batch.dp_atom,
@@ -357,7 +358,77 @@ class FragNetLayer(nn.Module):
                                  hooks.atom_mask, hooks.atom_rows)
         if hooks.atom_zero_vec is not None:
             x_atoms_new = x_atoms_new * (1.0 - hooks.atom_zero_vec)[:, None]
-        x_atoms_new = x_atoms_new * batch.atom_mask[:, None]
+        return x_atoms_new * batch.atom_mask[:, None], attn_atoms
+
+    def frag_pass(self, x_frags, ea_f, avec, batch, need_attn: bool = False,
+                  self_loops: bool = False):
+        """Pass 5, the fragment-graph GAT over edge attributes ``ea_f`` (C,
+        edge_out) with attention vector ``avec`` (gat2.py:283-316): the
+        fragment features enter per head WITHOUT projection. With
+        ``self_loops`` each fragment also attends to itself with zero edge
+        attributes (gat2_edge's add_frag_self_loops). Returns (new fragment
+        features (F, atom_out), masked; attention by source or None)."""
+        F_ = x_frags.shape[0]
+        nf_f = x_frags.reshape(F_, self.num_heads, -1)
+        mask_f, ep, seg = batch.fconn_mask, self.ep, None
+        if ep is not None:
+            Cs = batch.frag_src.shape[0]
+            ea_f = ea_f[ep.rank * Cs:(ep.rank + 1) * Cs]
+            mask_f = mask_f[ep.rank * Cs:(ep.rank + 1) * Cs]
+        elif self_loops and batch.tm_frag is None:
+            sl = torch.arange(F_, dtype=batch.frag_src.dtype,
+                              device=x_frags.device)
+            seg = (torch.cat([batch.frag_src, sl]),
+                   torch.cat([batch.frag_dst, sl]),
+                   torch.cat([ea_f, ea_f.new_zeros((F_, ea_f.shape[1]))]),
+                   torch.cat([mask_f, mask_f.new_ones((F_,))]))
+        frag_out, attn_frags = _gat_dispatch(
+            nf_f, ea_f, batch.frag_src, batch.frag_dst, mask_f, avec,
+            num_nodes=F_, tm=batch.tm_frag, dp=batch.dp_frag,
+            mode="attr" if self.policy.attr else "tcsr",
+            self_loops=self_loops, seg=seg, need_attn=need_attn, ep=ep)
+        return frag_out.reshape(F_, -1) * batch.frag_mask[:, None], attn_frags
+
+
+class FragNetLayer(_BondAtomPasses):
+    """One four-level message-passing layer (f32). With ``ep`` (an
+    EPContext) it runs edge-partitioned: the batch holds this rank's slice
+    of the edge fields (dist/edge_partition.py:ep_local_batch) and every GAT
+    pass is the K3 pass."""
+
+    def __init__(self, atom_in: int = 128, atom_out: int = 128,
+                 edge_in: int = 128, edge_out: int = 128,
+                 fedge_in: int = 128, bond_edge_in: int = 1,
+                 fbond_edge_in: int = 6, num_heads: int = 4,
+                 policy: KernelPolicy = KernelPolicy(),
+                 generator: Optional[torch.Generator] = None, ep=None):
+        super().__init__(atom_in, atom_out, edge_in, edge_out, bond_edge_in,
+                         num_heads, policy, generator, ep)
+        H = num_heads
+        eph = edge_out // H
+        aph = atom_out // H
+        g = generator
+        self.edge_attr_fbond_embed = _linear(fbond_edge_in, eph, "torch", g)
+        self.projection_fb = _linear(fedge_in, eph * H, "torch", g)
+        self.f_a_b = _attn_param(H, 3 * eph, g)
+        self.f = _attn_param(H, 2 * aph + edge_out, g)
+
+    def forward(self, x_atoms, nf_bonds, nf_fbonds, batch,
+                need_attn: bool = False,
+                hooks: Optional[LayerHooks] = None):
+        hooks = hooks or LayerHooks()
+        H = self.num_heads
+        pol = self.policy
+        ep = self.ep
+        edge_out_ph = self.edge_out // H
+        C = nf_fbonds.shape[0]
+
+        # ---- pass 1: bond-graph GAT (gat2.py:137-169) --------------------
+        new_bond_features, attn_bonds = self.bond_pass(nf_bonds, batch,
+                                                       need_attn, hooks)
+        # ---- pass 2: atom-graph GAT with self-loops (gat2.py:178-224) ----
+        x_atoms_new, attn_atoms = self.atom_pass(x_atoms, new_bond_features,
+                                                 batch, need_attn, hooks)
 
         # ---- pass 3: atom → fragment pooling (gat2.py:234) ----------------
         # incoming fragment state is recomputed from atoms every layer (the
@@ -383,18 +454,8 @@ class FragNetLayer(nn.Module):
         new_fbond_features = new_fbond_features * batch.fconn_mask[:, None]
 
         # ---- pass 5: frag-graph GAT (gat2.py:283-316) ---------------------
-        # fragment node features enter per head WITHOUT projection
-        nf_f = x_frags.reshape(F_, H, -1)
-        ea_f, mask_f = new_fbond_features, batch.fconn_mask
-        if ep is not None:
-            Cs = batch.frag_src.shape[0]
-            ea_f = new_fbond_features[ep.rank * Cs:(ep.rank + 1) * Cs]
-            mask_f = batch.fconn_mask[ep.rank * Cs:(ep.rank + 1) * Cs]
-        frag_out, attn_frags = _gat_dispatch(
-            nf_f, ea_f, batch.frag_src, batch.frag_dst, mask_f, self.f,
-            num_nodes=F_, tm=batch.tm_frag, dp=batch.dp_frag,
-            mode="attr" if pol.attr else "tcsr", need_attn=need_attn, ep=ep)
-        x_frags_new = frag_out.reshape(F_, -1) * batch.frag_mask[:, None]
+        x_frags_new, attn_frags = self.frag_pass(
+            x_frags, new_fbond_features, self.f, batch, need_attn)
 
         attn = None
         if need_attn:

@@ -29,7 +29,7 @@ import torch
 import torch.nn as nn
 
 from fragnet_tpu_torch.model.fragnet import FragNet
-from fragnet_tpu_torch.model.heads import _dense
+from fragnet_tpu_torch.model.heads import _dense, pool_graphs
 from fragnet_tpu_torch.model.layers import KernelPolicy, xavier_gain_
 from fragnet_tpu_torch.ops.segment import segment_softmax, segment_sum
 
@@ -202,15 +202,6 @@ def _encoder(num_layer, drop_ratio, num_heads, emb_dim, atom_features,
                    num_heads=num_heads, policy=policy, generator=generator)
 
 
-def _pool(x_atoms, x_frags, batch):
-    """Masked sum-pool of atoms and of fragments by graph, concatenated."""
-    G = batch.y.shape[0]
-    return torch.cat([
-        segment_sum(x_atoms, batch.atom_batch, G, mask=batch.atom_mask),
-        segment_sum(x_frags, batch.frag_batch, G, mask=batch.frag_mask)],
-        dim=1)
-
-
 class FragNetFineTuneTransformer(nn.Module):
     """FragNet encoder + TransformerConv post-processing + lin1/out
     (gat2.py:832-890). The reference applies ``atom_transformer`` to both
@@ -250,7 +241,7 @@ class FragNetFineTuneTransformer(nn.Module):
                      else self.frag_transformer)
         x_frags = frag_conv(x_frags, batch.frag_src, batch.frag_dst,
                             batch.fconn_mask, batch.frag_mask)
-        x = self.dropout(_pool(x_atoms, x_frags, batch))
+        x = self.dropout(pool_graphs(x_atoms, x_frags, batch))
         x = self.dropout(torch.relu(self.lin1(x)))
         return self.out(x).float()
 
@@ -289,7 +280,7 @@ class FragNetFineTuneTransformer2(nn.Module):
                                    batch.atom_mask, G)
         x_frags = self.transformer2(x_frags, batch.frag_batch,
                                     batch.frag_mask, G)
-        x = self.dropout(_pool(x_atoms, x_frags, batch))
+        x = self.dropout(pool_graphs(x_atoms, x_frags, batch))
         x = self.dropout(torch.relu(self.lin1(x)))
         return self.out(x).float()
 
@@ -323,6 +314,6 @@ class FragNetFineTuneMultiTask(nn.Module):
 
     def forward(self, batch):
         x_atoms, x_frags, _, _ = self.pretrain(batch)
-        x = self.dropout(_pool(x_atoms, x_frags, batch))
+        x = self.dropout(pool_graphs(x_atoms, x_frags, batch))
         x = self.dropout(torch.relu(self.lin1(x)))
         return torch.cat([h(x) for h in self.ms_heads], dim=1).float()

@@ -36,6 +36,15 @@ names fragnet_tpu/train/checkpoint.py:_torch_key_to_flax_transformer reads:
                                → transformer{,2}.layers.{i}.linear_net.{0,3}.*
   ms_heads_{i}/*                      → ms_heads.{i}.*
 
+and, for the variants and ablations (model/variants.py,
+model/ablations.py), under the names of the JAX package's
+``_torch_key_to_flax_{lite,edge,gcn2,gat1}`` mappers:
+
+  pretrain/layers_{i}/{atom_embed,edge_embed,cnx_attr_transform}/*
+                               → pretrain.layers.{i}.{...}.*
+  pretrain/layers_{i}/frag_mlp_{0,1}/* → pretrain.layers.{i}.frag_mlp.{0,2}.*
+  (family="gat") pretrain/layers_{i}/… → pretrain.layer{i+1}.…
+
 and, for the DTA and CDRP models (model/dta.py, model/cdrp.py), under the
 names fragnet_tpu/train/checkpoint.py:import_dta_state_dict and its
 ``cdrp`` mapper read:
@@ -73,7 +82,9 @@ import numpy as np
 import torch
 
 _LINEARS = ("projection_b", "projection_a", "projection_fb",
-            "edge_attr_bond_embed", "edge_attr_fbond_embed")
+            "edge_attr_bond_embed", "edge_attr_fbond_embed", "atom_embed",
+            "edge_embed", "cnx_attr_transform")
+_FRAG_MLP = {"frag_mlp_0": "frag_mlp.0", "frag_mlp_1": "frag_mlp.2"}
 _LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight"}
 
 
@@ -91,8 +102,9 @@ def _torch_name(path: Tuple[str, ...]) -> str:
     if m:
         return f"pretrain.layers.{m.group(1)}.{m.group(2)}"
     m = re.fullmatch(r"pretrain/layers_(\d+)/(\w+)/(kernel|bias)", key)
-    if m and m.group(2) in _LINEARS:
-        return f"pretrain.layers.{m.group(1)}.{m.group(2)}.{_LEAF[m.group(3)]}"
+    if m and (m.group(2) in _LINEARS or m.group(2) in _FRAG_MLP):
+        mod = _FRAG_MLP.get(m.group(2), m.group(2))
+        return f"pretrain.layers.{m.group(1)}.{mod}.{_LEAF[m.group(3)]}"
     m = re.fullmatch(r"head/_MLPHead_0/predictor_(\d+)/(kernel|bias)", key)
     if m:
         return f"fthead.predictor.{m.group(1)}.{_LEAF[m.group(2)]}"
@@ -193,12 +205,22 @@ def _task_entries(path: Tuple[str, ...], arr: np.ndarray):
     return None
 
 
-def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def state_dict_from_jax(params: Mapping[str, Any],
+                        family: str = "gat2") -> Dict[str, torch.Tensor]:
     """fragnet_tpu FragNetFineTune, FragNetPreTrain,
-    FragNetFineTuneTransformer{,2}, FragNetFineTuneMultiTask, DTAModel
-    (either protein encoder) or CDRPModel params → the port's
-    ``state_dict`` (f32 CPU tensors); raises KeyError on a param the port
-    has no name for."""
+    FragNetFineTuneTransformer{,2}, FragNetFineTuneMultiTask, the variants
+    and ablations, DTAModel (either protein encoder) or CDRPModel params →
+    the port's ``state_dict`` (f32 CPU tensors); raises KeyError on a param
+    the port has no name for. ``family`` is the model_version the params
+    belong to: the same JAX path has another torch name in v1 ``gat``,
+    whose layers are ``pretrain.layer{i+1}``; every other family (and the
+    pretraining, DTA and CDRP models) takes the default. gcn and gcn3 get
+    gcn2's names; the JAX package has no mapper for them, so their port
+    checkpoints have no way back."""
+    from fragnet_tpu_torch.train.finetune import MODEL_VERSIONS
+
+    if family not in MODEL_VERSIONS:
+        raise ValueError(f"unknown family {family!r}")
     tree = params["params"] if "params" in params else params
     out = {}
     for path, val in _flatten(tree):
@@ -213,6 +235,10 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             elif path[-1] == "alpha":
                 arr = arr.reshape(1)
             entries = [(prefix + _torch_name(path), arr)]
+        if family == "gat":  # the reference's fixed attributes layer1..
+            entries = [(re.sub(r"^pretrain\.layers\.(\d+)\.",
+                               lambda m: f"pretrain.layer{int(m[1]) + 1}.",
+                               name), a) for name, a in entries]
         for name, a in entries:
             out[name] = torch.from_numpy(np.array(a, copy=True))
     return out

@@ -5,8 +5,11 @@ per-level kernel policy, resolved in one place for every entry point.
   * ``device`` — CUDA unless the caller asks for the CPU; a CUDA request
     with no card raises instead of falling back;
   * ``dtype``  — f32 only in this slice (bf16 raises, ROADMAP.md);
-  * ``tcsr``   — on by default on CUDA for the families on the gat2
-    encoder (TCSR_FAMILIES), so batches carry TCSR tile metadata and tile-aligned dense planes (``align`` follows it,
+  * ``tcsr``   — on by default on CUDA for the families that run GAT
+    passes (TCSR_FAMILIES: those on the gat2 encoder, and gat2_lite,
+    gat2_edge and v1 gat, which the JAX package leaves out because it runs
+    them on its segment path), so batches carry TCSR tile metadata and
+    tile-aligned dense planes (``align`` follows it,
     graphs/hiergraph.py:spec_for) and every GAT pass runs a kernel. That
     holds under ``dist.mode=dp`` too (the JAX package turns TCSR off there
     and runs the segment path, which the port has on the CPU only). Under
@@ -31,10 +34,13 @@ import torch
 
 from fragnet_tpu_torch.model.layers import KernelPolicy
 
-# model families whose layers consume TCSR tile metadata (FragNet core)
+# model families whose layers consume TCSR tile metadata: the FragNet
+# core and the variants whose GAT passes run on its kernels on the card
+# (gcn2, gcn and gcn3 run no GAT pass)
 TCSR_FAMILIES = frozenset({"gat2", "gat2_masked", "gat2_masked2",
                            "gat2_transformer", "gat2_transformer2",
-                           "gat2_multitask"})
+                           "gat2_multitask", "gat2_lite", "gat2_edge",
+                           "gat"})
 
 # device budget for dataset caching (the JAX package's conservative value;
 # leaves room for parameters, activations and workspace)

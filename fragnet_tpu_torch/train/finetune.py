@@ -11,8 +11,9 @@ Usage:
 
 The finetune: SMILES → graphs → tile-aligned padded batches with TCSR
 metadata and dense planes → the config's ``model_version`` (gat2's
-FragNetFineTune, or gat2_transformer, gat2_transformer2, gat2_multitask
-on the same encoder) → masked loss → backward
+FragNetFineTune; gat2_transformer, gat2_transformer2, gat2_multitask on
+the same encoder; the variants gat2_lite, gat2_edge, gcn2; the ablations
+gat, gcn, gcn3) → masked loss → backward
 through the GAT kernels → Adam, with validation, early stopping and a
 checkpoint every epoch, then the test metric on the best parameters and
 ``preds_seed_{seed}.pkl``. ``finetune.n_epochs=0`` runs the prediction path
@@ -42,25 +43,20 @@ def seed_everything(seed: int) -> None:
     torch.manual_seed(seed)
 
 
-# the model families on the gat2 encoder that the port runs
-# (model/finetune.py, model/transformer.py), and where the rest are queued
-PORTED_FAMILIES = ("gat2", "gat2_transformer", "gat2_transformer2",
-                   "gat2_multitask")
-_QUEUED = {mv: "ROADMAP.md Queue A, A9b: the segment-only models"
-           for mv in ("gat2_lite", "gat2_edge", "gcn2", "gat", "gcn", "gcn3")}
+# the model_versions of the JAX package's build_model: gat2 and the models
+# on its encoder (model/finetune.py, model/transformer.py), the variants
+# (model/variants.py) and the ablations (model/ablations.py)
+MODEL_VERSIONS = ("gat2", "gat2_transformer", "gat2_transformer2",
+                  "gat2_multitask", "gat2_lite", "gat2_edge", "gcn2", "gat",
+                  "gcn", "gcn3")
 
 
 def _model_version(opt, ep=False) -> str:
-    """The config's model_version, checked: a family that is not ported
-    yet raises NotImplementedError naming its queue item, an unknown one
-    ValueError, and edge-partitioned training of a family other than gat2
-    ValueError, as in the JAX package."""
+    """The config's model_version, checked: an unknown one raises
+    ValueError, and so does edge-partitioned training of a family other
+    than gat2, as in the JAX package."""
     mv = opt.get("model_version", "gat2")
-    if mv in _QUEUED:
-        raise NotImplementedError(f"model_version={mv!r} is not ported yet "
-                                  f"({_QUEUED[mv]}); the port has "
-                                  f"{', '.join(PORTED_FAMILIES)}")
-    if mv not in PORTED_FAMILIES:
+    if mv not in MODEL_VERSIONS:
         raise ValueError(f"unknown model_version {mv!r}")
     if ep and mv != "gat2":
         raise ValueError("edge-partitioned training currently supports "
@@ -70,7 +66,8 @@ def _model_version(opt, ep=False) -> str:
 
 def model_kwargs(opt, n_classes: int) -> dict:
     """FragNetFineTune's arguments (the gat2 model) from the config's
-    finetune.model; build_model takes the other families' from them."""
+    finetune.model; build_model takes the other families' from them (the
+    variants take them all)."""
     _model_version(opt)
     m = opt.finetune.model
     return dict(
@@ -94,8 +91,10 @@ def model_kwargs(opt, n_classes: int) -> dict:
 def build_model(opt, n_classes: int, policy=None,
                 generator: Optional[torch.Generator] = None, ep=None):
     """The config's model_version (the JAX package's build_model,
-    fragnet_tpu/train/finetune.py:52-155, for the ported families) with its
-    defaults there; gat2 edge-partitioned with ``ep`` (an EPContext)."""
+    fragnet_tpu/train/finetune.py:52-155) with its defaults there; gat2
+    edge-partitioned with ``ep`` (an EPContext). The ablations (gat, gcn,
+    gcn3) take no num_heads, fthead or kernel policy: v1's bond pass runs
+    on the TCSR kernel whatever ``kernel.bond`` says."""
     from fragnet_tpu_torch.model.layers import KernelPolicy
 
     mv = _model_version(opt, ep=ep is not None)
@@ -105,6 +104,21 @@ def build_model(opt, n_classes: int, policy=None,
         from fragnet_tpu_torch.model.finetune import FragNetFineTune
 
         return FragNetFineTune(**kw, **common, ep=ep)
+    if mv in ("gat2_lite", "gat2_edge", "gcn2"):
+        from fragnet_tpu_torch.model import variants
+
+        cls = {"gat2_lite": variants.FragNetFineTuneLite,
+               "gat2_edge": variants.FragNetFineTuneEdge,
+               "gcn2": variants.FragNetFineTuneGCN}[mv]
+        return cls(**kw, **common)
+    if mv in ("gat", "gcn", "gcn3"):
+        from fragnet_tpu_torch.model.ablations import _AblationFineTune
+
+        return _AblationFineTune(
+            kind=mv, n_classes=n_classes, num_layer=kw["num_layer"],
+            drop_ratio=kw["drop_ratio"], emb_dim=kw["emb_dim"],
+            atom_features=kw["atom_features"],
+            edge_features=kw["edge_features"], generator=generator)
     from fragnet_tpu_torch.model import transformer
 
     m = opt.finetune.model

@@ -7,7 +7,8 @@ with an H100 (no JAX needed there, hence ``--noconftest``):
 
 Inputs are random tile-local graphs made with numpy from a seed, at the
 esol model's head shapes (H = 4, D = 32) and both node tiles the batcher
-uses (128, 256); the backward kernels also get sources outside the
+uses (128, 256), and K1 / K2 at v1 gat's padded bond shape (H = 3, D =
+8); the backward kernels also get sources outside the
 destination tile (TCSR) and an empty tile. The TCSR kernels (K1 forward,
 K2 backward, and K2's edge-partitioned entry point for K3 on both shards)
 and the dense kernels (K4 forward, K5 backward) are also held on the
@@ -152,8 +153,8 @@ def test_dense_gat_fwd_matches_plain(cuda, tn, R):
     assert float(out[2 * tn:].abs().max()) == 0.0
 
 
-def _tcsr_case(cuda, rng, tn, self_loops):
-    H, D, te, n_tiles = 4, 32, 256, 3
+def _tcsr_case(cuda, rng, tn, self_loops, H=4, D=32):
+    te, n_tiles = 256, 3
     src, dst, mask = _graph(rng, tn, n_tiles, 3, te, empty_tile=1,
                             cross=True)
     mask[3] = 0.0  # one masked real edge
@@ -222,6 +223,37 @@ def test_dense_gat_bwd_matches_plain(cuda, tn, R):
         _close(k, p)
     for k in got[:3]:  # the empty tile
         assert float(k[2 * tn:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("self_loops", [False, True])
+def test_tcsr_gat_at_the_v1_bond_shape_matches_plain(cuda, self_loops):
+    """K1 and K2 at H = 3, D = 8: v1 gat's bond pass, its 5-wide heads
+    zero-padded to 8 (model/ablations.py). The padded columns of nf are
+    0, as the model gives them, and so are those of out."""
+    rng = np.random.default_rng(30 + self_loops)
+    args = _tcsr_case(cuda, rng, 128, self_loops, H=3, D=8)
+    nf = args[1]
+    N = nf.shape[0]
+    nf.view(N, 3, 8)[:, :, 5:] = 0.0
+    n0 = tcsr_gat.KERNEL.launches
+    out, m, den = tcsr_gat.tcsr_gat_fwd(*args)
+    torch.cuda.synchronize()
+    assert tcsr_gat.KERNEL.launches == n0 + 1
+    out_p, m_p, den_p = tcsr_gat.tcsr_gat_fwd_plain(*args)
+    _close(out, out_p)
+    _close(den, den_p)
+    _close_m(m, m_p)
+    assert float(out.view(N, 3, 8)[:, :, 5:].abs().max()) == 0.0
+    g = torch.from_numpy(rng.standard_normal((N, 24)).astype(np.float32)
+                         ).to(cuda)
+    s = (g.view(N, 3, 8) * out.view(N, 3, 8)).sum(-1)
+    n0 = tcsr_gat.KERNEL_BWD.launches
+    got = tcsr_gat.tcsr_gat_bwd(*args[:7], m, den, g, s, self_loops)
+    torch.cuda.synchronize()
+    assert tcsr_gat.KERNEL_BWD.launches == n0 + 1
+    want = tcsr_gat.tcsr_gat_bwd_plain(*args[:7], m, den, g, s, self_loops)
+    for k, p in zip(got, want):
+        _close(k, p)
 
 
 def test_tcsr_pass_gradients_match_cpu(cuda):

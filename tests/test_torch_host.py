@@ -122,7 +122,8 @@ def test_port_imports_no_jax():
     jax*, flax*, optax*, ml_dtypes, pandas or fragnet_tpu.* entry in
     sys.modules; the modules walked include model/transformer.py and the
     DTA / CDRP modules (data/{dta,cdrp}.py, model/{dta,cdrp}.py,
-    train/tasks.py)."""
+    train/tasks.py) and the variants and ablations (model/variants.py,
+    model/ablations.py)."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import fragnet_tpu_torch
@@ -138,7 +139,8 @@ def test_port_imports_no_jax():
         print(len(names), bad)
         need = {"fragnet_tpu_torch." + m for m in (
             "model.transformer", "data.dta", "data.cdrp", "model.dta",
-            "model.cdrp", "train.tasks")}
+            "model.cdrp", "train.tasks", "model.variants",
+            "model.ablations")}
         sys.exit(1 if bad or len(names) < 20 or not need <= set(names)
                  else 0)
     """)

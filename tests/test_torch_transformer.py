@@ -440,16 +440,13 @@ def test_run_finetune_cpu_trains_and_predicts(graphs, tmp_path, mv):
 
 def test_refusals(tmp_path):
     """Edge-partitioned training of a family other than gat2 raises
-    ValueError before any rank starts, as in the JAX package; a family
-    not ported yet raises NotImplementedError naming its queue item."""
+    ValueError before any rank starts, as in the JAX package; so does an
+    unknown model_version."""
     opt = _opt(tmp_path, "gat2_transformer", "regr")
     opt.set_path("dist", {"mode": "ep", "n_devices": 2})
     with pytest.raises(ValueError, match="model_version=gat2"):
         run_finetune(opt, device="cpu")
     opt = _opt(tmp_path, "gat2_transformer", "regr")
-    opt.set_path("model_version", "gat2_lite")
-    with pytest.raises(NotImplementedError, match="Queue A, A9b"):
-        build_model(opt, n_classes=1)
     opt.set_path("model_version", "gat3")
     with pytest.raises(ValueError, match="unknown model_version"):
         build_model(opt, n_classes=1)
