@@ -18,7 +18,9 @@ attention weights and masking contributions) on the finetuned model,
 the other models on the gat2 encoder (gat2_transformer,
 gat2_transformer2, gat2_multitask) and the variants and ablations
 (gat2_lite, gat2_edge, gcn2, gat, gcn, gcn3) through ``run_finetune``,
-and the DTA and CDRP tasks through ``run_task``.
+the DTA and CDRP tasks through ``run_task``, and the HP search, k-fold CV,
+bucketed finetuning and auxiliary pretraining (``run_hp_search``,
+``run_finetune_cv``, ``finetune.n_buckets``, ``pretrain.mode``).
 Phases:
 
   1. the card's name and power limit (nvidia-smi);
@@ -205,14 +207,38 @@ Phases:
      attention-free aggregations (the GCN atom pass, the GIN bond and atom
      aggregations, the fragment neighbour sum + frag_mlp) forward +
      backward alone on the card, as torch ops: device ms, kernels
-     launched, bound, share of their model's step.
+     launched, bound, share of their model's step;
+ 29. the HP search, CV, bucketed finetuning and auxiliary pretraining at
+     the esol config's width on phase 3's graphs: (a) run_hp_search
+     (backend builtin, 3 trials, seed 0) through the port's ft objective,
+     the graphs read from pickles: per trial the launches equal to
+     run_expect's, its params, wall and peak memory, the memory held
+     between trials flat; every trial read back from the study's sqlite
+     table COMPLETE with a finite value (a trial that raised would be
+     FAIL, scored 1000.0); (b) the widest trial of the space (FTHead3
+     h1-h4 2048, prelu, batch 128): prediction and a train step's
+     gradients card vs CPU within 1e-3 of scale, a timed train step, K1,
+     K2, K4, K5 against their plain versions at its layer 0 (levels tagged
+     "hp batch 128");
+     (c) run_finetune_cv, 3 folds x 1 epoch, launches equal to the folds'
+     run_expect, scores finite; (d) run_finetune with finetune.n_buckets=3
+     for 2 epochs, default and dense-attr policies, launches equal to
+     bucket_expect's (from the buckets' batches), then a timed train step
+     on the smallest bucket's first batch and K1, K2, K4, K5, K7, K8
+     against their plain versions at its layer 0 (levels tagged "bucket
+     0"); (e) run_pretrain with pretrain.mode=
+     property (mse, a CSV of the 24 smallest molecules and their labels)
+     and =structure (ring counts, cel), one epoch each, launches equal to
+     aux_expect's, losses finite, the structure model's logits card vs CPU
+     within 1e-3 of scale.
 
 Prints a ``{"kernels": [...]}`` JSON line (launches from the pretraining
 path of phase 11 for K1-K6, of phase 19 for K7-K9 (K9's: K8's, whose
 launches compute it) and of phase 21's rank 0 for K3, every path's — each
 rank's for phases 21, 23 and 24, the interpret path's of phase 25 under
 each policy, each phase-26 model's, phase-27 task's and phase-28 model's
-training path — beside them), and as the last line ``{"ok": true, "device": {...}}``. Exits
+training path, and phase 29's HP trials, CV, bucketed and auxiliary runs —
+beside them), and as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero on any failure, without a CUDA device, or when run outside a
 checkout of the repository.
 """
@@ -3540,6 +3566,501 @@ def variant_phase(dev, datasets, spec, windows, batch_np, train_np, rng):
     return paths, report, steps, aggs
 
 
+# phase 29: the HP search, k-fold CV, bucketed finetuning and auxiliary
+# pretraining at the esol config's width on phase 3's graphs (the HP and CV
+# runs read them from pickles, as a user's data.create output)
+HP_TRIALS = 3
+HP_SEED = 0
+# the widest trial the search space holds: FTHead3 at h1-h4 2048, prelu,
+# batch 128
+WIDEST_OVERRIDES = {**{f"finetune.model.h{i}": 2048 for i in range(1, 5)},
+                    "finetune.model.act": "prelu",
+                    "finetune.batch_size": 128}
+WIDEST_LEVEL = "hp batch 128"
+CV_FOLDS = 3
+N_BUCKETS = 3
+BUCKET_EPOCHS = 2
+BUCKET_LEVEL = "bucket 0"
+# auxiliary pretraining: a property table of phase 3's smallest molecules
+# (the run featurizes them again, twice in structure mode)
+AUX_MOLECULES = 24
+AUX_BATCH = 8
+
+
+def phase29_opt(name: str, *overrides):
+    """The training path's config (smoke_opt(train=True)) for one epoch in
+    exps/chip_smoke_{name}, with ``overrides`` ({dotted key: value})."""
+    opt = smoke_opt(train=True)
+    for ov in ({"finetune.n_epochs": 1,
+                "exp_dir": os.path.join(REPO, "exps", f"chip_smoke_{name}")},
+               *overrides):
+        for k, v in ov.items():
+            opt.set_path(k, v)
+    return opt
+
+
+def pickled_datasets(datasets, out_dir):
+    """Phase 3's splits as pickles under ``out_dir`` (what data.create
+    writes): the finetune keys that make load_datasets read them."""
+    from fragnet_tpu_torch.data.datasets import save_pickle_dataset
+
+    keys = {"finetune.n_classes": datasets[3],
+            "finetune.target_type": datasets[4]}
+    for name, graphs in zip(("train", "val", "test"), datasets[:3]):
+        path = os.path.join(out_dir, f"{name}.pkl")
+        save_pickle_dataset(graphs, path)
+        keys[f"finetune.{name}.path"] = path
+    return keys
+
+
+def run_expect(fopt, datasets):
+    """finetune_expect for ``run_finetune(fopt, datasets=datasets)`` at
+    the config's batch size: the spec and test windows as the run builds
+    them (spec_for depends on the graphs' order, so each fold and batch
+    size gets its own)."""
+    from fragnet_tpu_torch.data.batcher import BatchLoader
+    from fragnet_tpu_torch.graphs.hiergraph import spec_for
+
+    train_g, val_g, test_g, n_tasks, _task = datasets
+    bs = int(fopt.finetune.batch_size)
+    spec = spec_for(train_g + val_g + test_g, batch_size=bs, tcsr=True)
+    test_w = list(BatchLoader(test_g, bs, spec=spec,
+                              n_tasks=n_tasks)._windows())
+    return finetune_expect(fopt, datasets, spec, test_w)
+
+
+def bucket_expect(fopt, datasets):
+    """Each kernel's launches on run_finetune's bucketed path
+    (``finetune.n_buckets``): the device cache holds the train loader's
+    first (shuffled) pass over the buckets, replayed every epoch, and the
+    val batches (each epoch); the test batches run once; each batch's
+    passes counted by expected_launches from the planes it carries.
+    Returns (counts, train, val and test batches)."""
+    from fragnet_tpu_torch.data.batcher import BucketedBatchLoader
+    from fragnet_tpu_torch.train.fastpath import resolve_kernel_policy
+
+    ft = fopt.finetune
+    n_epochs, seed = int(ft.n_epochs), int(fopt.seed)
+    bs, L = int(ft.batch_size), int(ft.model.num_layer)
+    train_g, val_g, test_g, n_tasks, _task = datasets
+    kw = dict(n_buckets=int(ft.n_buckets), n_tasks=n_tasks,
+              spec_kwargs={"tcsr": True})
+    first = list(BucketedBatchLoader(train_g, bs, shuffle=True, seed=seed,
+                                     **kw))
+    val = list(BucketedBatchLoader(val_g, bs, **kw))
+    test = list(BucketedBatchLoader(test_g, bs, **kw))
+    batches = ([(_planes_of(b), n_epochs, n_epochs) for b in first]
+               + [(_planes_of(b), n_epochs, 0) for b in val]
+               + [(_planes_of(b), 1, 0) for b in test])
+    return (expected_launches(resolve_kernel_policy(ft), L, batches,
+                              fopt.get("model_version", "gat2")),
+            len(first), len(val), len(test))
+
+
+def aux_opt(mode: str, csv_path: str):
+    """The auxiliary pretraining config at the esol config's encoder
+    widths: ``property`` (mse on the table's column) or ``structure``
+    (ring counts, 31 classes, cel) for one epoch."""
+    from fragnet_tpu_torch.config import Config
+
+    return Config({
+        **{k: ESOL_CONFIG[k] for k in ("seed", "atom_features",
+                                       "frag_features", "edge_features",
+                                       "fedge_in", "fbond_edge_in")},
+        "exp_dir": os.path.join(REPO, "exps", f"chip_smoke_aux_{mode}"),
+        "pretrain": {
+            "mode": mode, "loss": "cel" if mode == "structure" else "mse",
+            "prop_csv": csv_path,
+            "model": {k: ESOL_CONFIG["finetune"]["model"][k]
+                      for k in ("num_layer", "num_heads", "drop_ratio",
+                                "emb_dim")},
+            "batch_size": AUX_BATCH, "n_epochs": 1, "lr": 1.0e-4}})
+
+
+def aux_table(datasets, path: str):
+    """The AUX_MOLECULES smallest of phase 3's graphs (fewest atoms, in
+    their order) written to ``path`` as a property table (smiles, y: the
+    synthetic label). Returns those graphs."""
+    import csv
+
+    graphs = [g for part in datasets[:3] for g in part]
+    keep = sorted(sorted(range(len(graphs)),
+                         key=lambda i: graphs[i].n_atoms)[:AUX_MOLECULES])
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["smiles", "y"])
+        for i in keep:
+            w.writerow([graphs[i].smiles, repr(float(graphs[i].y[0]))])
+    return [graphs[i] for i in keep]
+
+
+def aux_expect(popt, graphs):
+    """Each kernel's launches on run_aux_pretrain's path for ``graphs``
+    (the table's molecules, featurized as the run featurizes them): the
+    seeded train / val split, cached loaders (the train loader's first
+    pass replayed each epoch), as finetune_expect counts them. Returns
+    (counts, train batches, val batches)."""
+    from fragnet_tpu_torch.data.batcher import BatchLoader
+    from fragnet_tpu_torch.graphs.hiergraph import pad_batch, spec_for
+    from fragnet_tpu_torch.train.fastpath import resolve_kernel_policy
+    from fragnet_tpu_torch.train.pretrain import split_graphs
+
+    pt = popt.pretrain
+    n_epochs, seed, bs = int(pt.n_epochs), int(popt.seed), int(pt.batch_size)
+    train_g, val_g = split_graphs(graphs, seed)
+    spec = spec_for(graphs, batch_size=bs, tcsr=True)
+    first = list(BatchLoader(train_g, bs, spec=spec, shuffle=True,
+                             seed=seed)._windows())
+    val_w = list(BatchLoader(val_g, bs, spec=spec)._windows())
+    batches = [(_planes_of(pad_batch(w, spec)), n_epochs, steps)
+               for ws, steps in ((first, n_epochs), (val_w, 0)) for w in ws]
+    return (expected_launches(resolve_kernel_policy(pt),
+                              int(pt.model.num_layer), batches),
+            len(first), len(val_w))
+
+
+def _check_launches(label, launches, expect):
+    print(f"{label} kernels: "
+          + " ".join(f"{n}={c} (expected {expect[n]})"
+                     for n, c in launches.items() if c or expect[n]))
+    for n, c in launches.items():
+        if c != expect[n]:
+            raise AssertionError(f"{label}: {n} launched {c} times, "
+                                 f"expected {expect[n]}")
+
+
+def _tagged(calls, tag):
+    return {n: [(f"{lvl}, {tag}", a, kw) for lvl, a, kw in c]
+            for n, c in calls.items()}
+
+
+def gat_kernel_calls(n_layers, model, batch, rng, tag):
+    """{kernel: [(level, args, kwargs)]} for K1, K2, K4 and K5 at layer 0
+    of one forward of ``model`` on ``batch`` (levels tagged ``tag``), the
+    backward's arguments as phase 4 makes them."""
+    calls = _tagged(layer0_kernel_calls(n_layers, model, batch), tag)
+    for name in GAT_KERNELS:
+        k = KERNELS[name]
+        if k.fwd is not None:
+            calls[name] = [(lvl, bwd_kernel_args(k.fwd, a, kw, rng), {})
+                           for lvl, a, kw in calls[k.fwd]]
+    return calls
+
+
+def hp_search_phase(datasets, base):
+    """Phase 29 (a): run_hp_search(backend="builtin", HP_TRIALS trials,
+    seed HP_SEED) over the esol config read from pickles, through the
+    port's ft objective on the card wrapped to count: per trial every
+    launch count set to 0 just before the objective and compared with
+    run_expect after it (a mismatch raises, which the study records as a
+    FAIL), the params, wall, peak allocated memory and the memory still
+    allocated once the trial's objects are collected (a leak across
+    trials would climb). Then every trial read back from the study's
+    sqlite table: all COMPLETE with a finite value, none FAIL or
+    FAILURE_SCORE. Returns {path: launches} per trial."""
+    import gc
+    import math
+    import shutil
+    import sqlite3
+
+    import torch
+
+    from fragnet_tpu_torch.hp.search import (FAILURE_SCORE, run_hp_search,
+                                             task_objective)
+
+    shutil.rmtree(base.exp_dir, ignore_errors=True)  # no resumed study
+    objective = task_objective("ft", device="cuda")
+    trials, held = [], []
+
+    def train_fn(opt):
+        gc.collect()
+        held.append(torch.cuda.memory_allocated())
+        expect = run_expect(opt, datasets)[0]
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        value = objective(opt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        m = opt.finetune.model
+        trials.append(launches)
+        print(f"hp trial {len(trials)}: h1-h4 {m.h1}/{m.h2}/{m.h3}/{m.h4} "
+              f"act {m.act} drop {m.drop_ratio} batch "
+              f"{opt.finetune.batch_size} lr {opt.finetune.lr:.3e}: test "
+              f"rmse {value:.5f}, wall {wall:.2f} s, peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB")
+        _check_launches(f"hp trial {len(trials)}", launches, expect)
+        return value
+
+    study = run_hp_search(base, n_trials=HP_TRIALS, backend="builtin",
+                          seed=HP_SEED, train_fn=train_fn)
+    gc.collect()
+    held.append(torch.cuda.memory_allocated())
+    rows = sqlite3.connect(os.path.join(base.exp_dir, "hp.sqlite")).execute(
+        "SELECT id, state, value FROM trials WHERE study=? ORDER BY id",
+        (study.name,)).fetchall()
+    print(f"hp study: {rows}; allocated before each trial and after the "
+          f"last: {[round(h / 2 ** 20, 1) for h in held]} MiB")
+    bad = [r for r in rows if r[1] != "COMPLETE" or r[2] is None
+           or not math.isfinite(r[2]) or r[2] == FAILURE_SCORE]
+    if len(rows) != HP_TRIALS or bad or len(trials) != HP_TRIALS:
+        raise AssertionError(f"hp search: {len(rows)} trials, failed or "
+                             f"not finite: {bad}")
+    # held[0] precedes the first trial's one-time allocations (e.g. the
+    # cuBLAS workspace in a fresh process); from the first trial's end on,
+    # what stays allocated must not climb
+    if max(held[1:]) > held[1] + 16 * 2 ** 20:
+        raise AssertionError(f"device memory held across trials climbs: "
+                             f"{held}")
+    return {f"hp_trial{i + 1}": c for i, c in enumerate(trials)}
+
+
+def widest_trial_phase(datasets, dev, rng):
+    """Phase 29 (b): the search space's widest model (WIDEST_OVERRIDES) on
+    the first train batch of 128 slots: prediction and one train step's
+    loss and gradients, card vs CPU, a timed train step (timed_train_step:
+    wall, busy, peak memory), and K1, K2, K4, K5 against their plain
+    versions at its layer 0 (levels tagged WIDEST_LEVEL). Returns the
+    kernels' report levels."""
+    import torch
+
+    from fragnet_tpu_torch.data.batcher import BatchLoader
+    from fragnet_tpu_torch.graphs.batch import to_device
+    from fragnet_tpu_torch.graphs.hiergraph import pad_batch, spec_for
+
+    wopt = phase29_opt("widest", WIDEST_OVERRIDES)
+    train_g, val_g, test_g, n_tasks, _task = datasets
+    bs, seed = int(wopt.finetune.batch_size), int(wopt.seed)
+    spec = spec_for(train_g + val_g + test_g, batch_size=bs, tcsr=True)
+    window = next(BatchLoader(train_g, bs, spec=spec, shuffle=True,
+                              seed=seed)._windows())
+    batch_np = pad_batch(window, spec, n_tasks=n_tasks)
+    model = build_model_cpu(wopt, n_tasks).eval()
+    card = copy.deepcopy(model).to(dev).eval()
+    with torch.no_grad():
+        pred_gpu = card(to_device(batch_np, dev)).cpu()
+        pred_cpu = model(to_device(batch_np, "cpu"))
+    fwd_err, fwd_rel = _diff(pred_gpu, pred_cpu)
+    l_cpu, l_gpu, worst, worst_name, n_par = train_grads_card_vs_cpu(
+        model, batch_np, dev)
+    print(f"widest trial ({len(window)} graphs in {bs} slots, "
+          f"{sum(p.numel() for p in model.parameters())} parameters): "
+          f"forward cpu vs gpu max_abs_err={fwd_err:.3e} rel={fwd_rel:.3e} "
+          f"(limit {FORWARD_REL_LIMIT}); train step loss {l_cpu:.6f} / "
+          f"{l_gpu:.6f}, worst relative diff {worst:.3e} ({worst_name}) over "
+          f"{n_par} parameters (limit {GRAD_REL_LIMIT})")
+    if tuple(pred_gpu.shape) != (bs, n_tasks) or \
+            not fwd_rel <= FORWARD_REL_LIMIT or not worst <= GRAD_REL_LIMIT:
+        raise AssertionError("the widest trial's card and CPU predictions "
+                             "or gradients disagree")
+    timed_train_step(card, batch_np, dev, "widest hp trial, batch 128")
+    calls = gat_kernel_calls(int(wopt.finetune.model.num_layer), card,
+                             to_device(batch_np, dev), rng, WIDEST_LEVEL)
+    return {n: lv for n, (lv, _e) in check_kernels(GAT_KERNELS, calls,
+                                                   rng).items()}
+
+
+def cv_phase(datasets, base):
+    """Phase 29 (c): run_finetune_cv over CV_FOLDS folds for one epoch
+    each, every launch count set to 0 just before it: the launches equal
+    the sum of each fold's run_expect, every fold's score finite, and
+    cv_scores.pkl holds them. Returns the launches."""
+    import math
+    import pickle
+
+    from fragnet_tpu_torch.data.splitters import cv_random_split
+    from fragnet_tpu_torch.train.cv import run_finetune_cv
+
+    train_g, val_g, test_g, n_tasks, task = datasets
+    pool = list(train_g) + list(val_g)
+    expect = {n: 0 for n in KERNELS}
+    for tr, va in cv_random_split(len(pool), n_folds=CV_FOLDS,
+                                  seed=int(base.seed)):
+        fold = ([pool[i] for i in tr], [pool[i] for i in va], test_g,
+                n_tasks, task)
+        for n, c in run_expect(base, fold)[0].items():
+            expect[n] += c
+    _reset_launches()
+    t0 = time.perf_counter()
+    mean, std, scores = run_finetune_cv(base, n_folds=CV_FOLDS, quiet=True,
+                                        device="cuda")
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    with open(os.path.join(base.exp_dir, "cv_scores.pkl"), "rb") as f:
+        saved = pickle.load(f)
+    print(f"cv: {CV_FOLDS} folds x 1 epoch, test rmse {scores} (mean "
+          f"{mean:.5f} +/- {std:.5f}), run {wall:.2f} s")
+    if len(scores) != CV_FOLDS or not all(map(math.isfinite, scores)) \
+            or saved["scores"] != scores:
+        raise AssertionError(f"cv scores not finite or not saved: {scores}")
+    _check_launches("cv", launches, expect)
+    return launches
+
+
+def bucket_phase(datasets, dev, rng):
+    """Phase 29 (d): run_finetune with finetune.n_buckets = N_BUCKETS for
+    BUCKET_EPOCHS epochs, under the default and the dense-attr policy,
+    every launch count set to 0 just before each: the launches equal
+    bucket_expect's, the losses finite. Then a timed train step on the
+    smallest bucket's first batch, and K1, K2, K4, K5 and K7, K8 against
+    their plain versions at its layer 0 (levels tagged BUCKET_LEVEL).
+    Returns ({path: launches}, the kernels' report levels)."""
+    import numpy as np
+    import torch
+
+    from fragnet_tpu_torch.data.batcher import BucketedBatchLoader
+    from fragnet_tpu_torch.graphs.batch import to_device
+    from fragnet_tpu_torch.obs import read_scalars
+    from fragnet_tpu_torch.train.fastpath import resolve_kernel_policy
+    from fragnet_tpu_torch.train.finetune import build_model, run_finetune
+
+    paths = {}
+    for attr in (False, True):
+        label = "buckets" + ("_attr" if attr else "")
+        bopt = phase29_opt(label, {"finetune.n_buckets": N_BUCKETS,
+                                   "finetune.n_epochs": BUCKET_EPOCHS},
+                           ({f"finetune.{k}": v for k, v in
+                             ATTR_KERNEL.items()} if attr else {}))
+        expect, n_train, n_val, n_test = bucket_expect(bopt, datasets)
+        _reset_launches()
+        t0 = time.perf_counter()
+        value, _model = run_finetune(bopt, quiet=True, datasets=datasets,
+                                     device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        paths[label] = _launches()
+        losses = [r["value"] for r in read_scalars(bopt.exp_dir)
+                  if r["tag"] == "train/loss"][-BUCKET_EPOCHS:]
+        print(f"{label}: {N_BUCKETS} buckets, {BUCKET_EPOCHS} epochs x "
+              f"{n_train} train batches, {n_val} val, {n_test} test; test "
+              f"rmse {value:.5f}, train losses "
+              f"{[round(x, 5) for x in losses]}, run {wall:.2f} s")
+        if len(losses) != BUCKET_EPOCHS or not np.isfinite(losses).all() \
+                or not np.isfinite(value):
+            raise AssertionError(f"{label}: not finite: {losses}, {value}")
+        _check_launches(label, paths[label], expect)
+    opt = smoke_opt(train=True)
+    train_g, n_tasks = datasets[0], datasets[3]
+    small = BucketedBatchLoader(train_g, int(opt.finetune.batch_size),
+                                n_buckets=N_BUCKETS, n_tasks=n_tasks,
+                                spec_kwargs={"tcsr": True}).loaders[0]
+    batch_np = next(iter(small))
+    batch = to_device(batch_np, dev)
+    spec = small.spec
+    print(f"bucket 0: {len(small.graphs)} graphs; spec atoms {spec.n_atoms}, "
+          f"edges {spec.n_edges}, frags {spec.n_frags}, fconn "
+          f"{spec.n_fconn}, bond-graph edges {spec.n_bg_edges}")
+    L = int(opt.finetune.model.num_layer)
+    card = build_model_cpu(opt, n_tasks).to(dev).eval()
+    timed_train_step(card, batch_np, dev, "bucket 0")
+    calls = gat_kernel_calls(L, card, batch, rng, BUCKET_LEVEL)
+    aopt = smoke_opt(attr=True)
+    acard = build_model(aopt, n_classes=n_tasks,
+                        policy=resolve_kernel_policy(aopt.finetune),
+                        generator=torch.Generator().manual_seed(0))
+    acard = acard.to(dev).eval()
+    fwd = layer0_kernel_calls(L, acard, batch, names=("dense_attr_fwd",))
+    calls.update(_attr_calls(_tagged(fwd, BUCKET_LEVEL)["dense_attr_fwd"],
+                             rng))
+    report = check_kernels(GAT_KERNELS + ATTR_KERNELS, calls, rng)
+    return paths, {n: lv for n, (lv, _e) in report.items()}
+
+
+def aux_phase(datasets, dev):
+    """Phase 29 (e): run_pretrain with pretrain.mode = property (mse on a
+    table of phase 3's AUX_MOLECULES smallest molecules and their labels)
+    and = structure (ring counts, cel), one epoch each, every launch count
+    set to 0 just before each: launches equal aux_expect's, losses finite;
+    then the structure model's logits (its checkpoint on a finetune batch
+    of phase 3), card vs CPU within 1e-3 of scale. Returns {path:
+    launches}."""
+    import math
+
+    import torch
+
+    from fragnet_tpu_torch.data.batcher import BatchLoader
+    from fragnet_tpu_torch.graphs.batch import to_device
+    from fragnet_tpu_torch.graphs.hiergraph import pad_batch, spec_for
+    from fragnet_tpu_torch.obs import read_scalars
+    from fragnet_tpu_torch.train.pretrain import build_aux_model, run_pretrain
+
+    csv_path = os.path.join(REPO, "exps", "chip_smoke_aux", "props.csv")
+    graphs = aux_table(datasets, csv_path)
+    paths, ckpts = {}, {}
+    for mode in ("property", "structure"):
+        popt = aux_opt(mode, csv_path)
+        expect, n_train, n_val = aux_expect(popt, graphs)
+        _reset_launches()
+        t0 = time.perf_counter()
+        best, ckpts[mode] = run_pretrain(popt, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        paths[f"aux_{mode}"] = _launches()
+        scal = read_scalars(popt.exp_dir)
+        losses = [r["value"] for r in scal
+                  if r["tag"] in ("train/loss", "val/loss")][-2:]
+        print(f"aux pretrain ({mode}, {popt.pretrain.loss}): "
+              f"{len(graphs)} molecules, {n_train} train batches, {n_val} "
+              f"val; train / val loss {losses}, run {wall:.2f} s "
+              f"(featurization included)")
+        if len(losses) != 2 or not all(map(math.isfinite, losses)) \
+                or not math.isfinite(best):
+            raise AssertionError(f"aux pretrain ({mode}): not finite: "
+                                 f"{losses}")
+        _check_launches(f"aux_{mode}", paths[f"aux_{mode}"], expect)
+    model = build_aux_model(aux_opt("structure", csv_path), 31)
+    model.load_state_dict(torch.load(ckpts["structure"], map_location="cpu",
+                                     weights_only=True))
+    model.eval()
+    bs = AUX_BATCH
+    spec = spec_for(graphs, batch_size=bs, tcsr=True)
+    batch_np = pad_batch(next(BatchLoader(graphs, bs, spec=spec)._windows()),
+                         spec)
+    card = copy.deepcopy(model).to(dev)
+    with torch.no_grad():
+        got = card(to_device(batch_np, dev)).cpu()
+        want = model(to_device(batch_np, "cpu"))
+    err, rel = _diff(got, want)
+    print(f"structure model logits {tuple(got.shape)} cpu vs gpu: "
+          f"max_abs_err={err:.3e} rel={rel:.3e} (limit {FORWARD_REL_LIMIT})")
+    if tuple(got.shape) != (bs, 31) or not rel <= FORWARD_REL_LIMIT:
+        raise AssertionError("the structure model's card and CPU logits "
+                             "disagree")
+    return paths
+
+
+def phase29(dev, datasets, rng):
+    """Phase 29: (a) the HP search, (b) its widest trial, (c) CV, (d) the
+    bucketed finetune, (e) auxiliary pretraining. Returns ({path:
+    launches}, {kernel: report levels} at the "hp batch 128" and "bucket
+    0" levels)."""
+    t0 = time.perf_counter()
+    pickles = pickled_datasets(
+        datasets, os.path.join(REPO, "exps", "chip_smoke_pickles"))
+    paths = hp_search_phase(datasets, phase29_opt("hp", pickles))
+    print(f"phase 29 (a), hp search: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    levels = widest_trial_phase(datasets, dev, rng)
+    print(f"phase 29 (b), widest trial: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    paths["cv"] = cv_phase(datasets, phase29_opt("cv", pickles))
+    print(f"phase 29 (c), cv: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    bucket_paths, bucket_levels = bucket_phase(datasets, dev, rng)
+    paths.update(bucket_paths)
+    for n, lv in bucket_levels.items():
+        levels.setdefault(n, []).extend(lv)
+    print(f"phase 29 (d), buckets: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    paths.update(aux_phase(datasets, dev))
+    print(f"phase 29 (e), auxiliary pretraining: "
+          f"{time.perf_counter() - t1:.1f} s; phase 29: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return paths, levels
+
+
 def smoke_weights(datasets):
     """(FragNetFineTune's arguments for the smoke's esol model, its seeded
     weights on the CPU)."""
@@ -3871,9 +4392,19 @@ def main() -> int:
         report[name][0].extend(dict(p, on_path=False) for p in levels)
     print(f"phase 28: {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- 29. HP search, CV, bucketed finetuning, auxiliary pretraining ----
+    t_phase = time.perf_counter()
+    p29_paths, p29_levels = phase29(dev, datasets, rng)
+    for name, levels in p29_levels.items():
+        # the widest trial's and the smallest bucket's levels stand beside
+        # the finetune layer's
+        report[name][0].extend(dict(p, on_path=False) for p in levels)
+    print(f"phase 29: {time.perf_counter() - t_phase:.1f} s")
+
     paths = {"finetune_train": launches_t, "pretrain": launches_pt,
              "finetune_attr_train": launches_fa, "pretrain_attr": launches_pa,
-             **interp_paths, **family_paths, **task_paths, **variant_paths}
+             **interp_paths, **family_paths, **task_paths, **variant_paths,
+             **p29_paths}
     for run, per_rank in dist_runs.items():
         for r, counts in enumerate(per_rank):
             paths[f"{run}_rank{r}"] = counts

@@ -1,2 +1,4 @@
-"""Datasets: featurization, MoleculeNet tables, splitters, batching and a
-synthetic molecule generator (host code copied from fragnet_tpu.data)."""
+"""Datasets: featurization, MoleculeNet tables, splitters, batching, a
+synthetic molecule generator, and the ingest of real tables — GDSC, UniMol
+LMDB files and the dataset-creation CLI (host code copied from
+fragnet_tpu.data, pandas tables as column dicts)."""

@@ -1,7 +1,7 @@
 """Static-shape batch loader: shuffling and padding to one PadSpec, the
 packed single-buffer transport (data/packing.py) with threaded or spawned
-pack workers, and the dataset caches (counterpart of
-fragnet_tpu/data/batcher.py without BucketedBatchLoader).
+pack workers, the dataset caches, and size-bucketed loading (counterpart
+of fragnet_tpu/data/batcher.py).
 
 Replacement for torch DataLoader + collate_fn: every emitted batch has the
 shape of one PadSpec; molecules are packed greedily until a cap would
@@ -456,3 +456,80 @@ class DeviceCacheLoader:
         self._epoch += 1
         for i in order:
             yield self.batches[i]
+
+
+class BucketedBatchLoader:
+    """Multi-bucket static-shape loader (SURVEY §7 step 7's bucketing policy).
+
+    Molecules are sorted by message-edge count and split into ``n_buckets``
+    quantile groups; each group gets its own PadSpec from its OWN size
+    distribution (``spec_for(group, batch_size, **spec_kwargs)``, so with
+    ``tcsr`` each bucket's batches carry their TCSR metadata and dense
+    planes), so small molecules stop paying the p95-of-everything padding
+    tax. Batches from different buckets interleave in a shuffled order each
+    epoch — the JAX package's order, batch for batch.
+
+    Iterates and has a length as BatchLoader (an upper bound: a bucket's
+    windows may be fewer); ``specs`` lists the per-bucket PadSpecs.
+    """
+
+    def __init__(
+        self,
+        graphs: Sequence[MolGraph],
+        batch_size: int,
+        n_buckets: int = 3,
+        shuffle: bool = False,
+        seed: int = 0,
+        n_tasks: int = 1,
+        with_targets: bool = False,
+        on_oversize: str = "skip",
+        spec_kwargs: Optional[dict] = None,
+    ):
+        graphs = list(graphs)
+        if not graphs:
+            raise ValueError("empty dataset")
+        n_buckets = max(1, min(n_buckets, len(graphs)))
+        key = np.array([g.n_edges + g.n_bg_edges for g in graphs])
+        order = np.argsort(key, kind="stable")
+        bounds = np.linspace(0, len(graphs), n_buckets + 1).astype(int)
+        self.loaders: List[BatchLoader] = []
+        kw = spec_kwargs or {}
+        for b in range(n_buckets):
+            idx = order[bounds[b]:bounds[b + 1]]
+            if len(idx) == 0:
+                continue
+            group = [graphs[i] for i in idx]
+            spec = spec_for(group, batch_size, **kw)
+            self.loaders.append(BatchLoader(
+                group, batch_size, spec=spec, shuffle=shuffle,
+                seed=seed + b, n_tasks=n_tasks, with_targets=with_targets,
+                on_oversize=on_oversize,
+            ))
+        self.shuffle = shuffle
+        self.seed = seed
+        self._epoch = 0
+
+    @property
+    def specs(self) -> List[PadSpec]:
+        return [l.spec for l in self.loaders]
+
+    def __len__(self) -> int:
+        return sum(len(l) for l in self.loaders)
+
+    def __iter__(self) -> Iterator[HierGraphBatch]:
+        # materialize per-bucket iterators and interleave in shuffled order
+        streams = [iter(l) for l in self.loaders]
+        schedule = np.concatenate(
+            [np.full(len(l), i) for i, l in enumerate(self.loaders)])
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + 7919 * self._epoch)
+            rng.shuffle(schedule)
+            self._epoch += 1
+        for s in schedule:
+            b = next(streams[s], None)
+            if b is not None:
+                yield b
+        # drain any stragglers (len() is an upper-bound estimate per bucket)
+        for st in streams:
+            for b in st:
+                yield b

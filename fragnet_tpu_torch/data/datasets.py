@@ -5,6 +5,10 @@ Reference: fragnet/dataset/dataset.py (FinetuneData:65-111, get_pt_dataset:
 targets → conformer → FragmentedMol → MolGraph arrays, with multiprocessing
 featurization and pickle shard persistence.
 
+A table is a column dict (column name → a list or numpy array, with
+``"smiles"``), where the JAX package takes a pandas DataFrame; a DataFrame
+also works, since only ``df[column]`` is read.
+
 Pickles written by the JAX package hold ``fragnet_tpu.graphs.build.MolGraph``
 objects; ``load_pickle_dataset`` maps that class to the port's MolGraph, so
 reading them never imports the JAX package.
@@ -65,6 +69,61 @@ def build_graphs(
             if progress and (i + 1) % 200 == 0:
                 print(f"featurized {i + 1}/{len(jobs)}")
     return [g for g in out if g is not None]
+
+
+def _target_rows(df, target) -> List[list]:
+    """Each row's targets: the ``target`` column (a name) or columns (a
+    list or tuple), one list per row."""
+    names = list(target) if isinstance(target, (list, tuple)) else [target]
+    return [list(row) for row in zip(*(list(df[t]) for t in names))]
+
+
+class FinetuneData:
+    """Table → graphs (reference FinetuneData, dataset.py:65-111)."""
+
+    def __init__(self, target_name, data_type: str = "exp1s",
+                 frag_type: str = "brics"):
+        self.target = target_name
+        self.data_type = data_type
+        self.frag_type = frag_type
+
+    def get_ft_dataset(self, df, n_workers: int = 0) -> List[MolGraph]:
+        return build_graphs(
+            list(df["smiles"]), _target_rows(df, self.target),
+            frag_type=self.frag_type, data_type=self.data_type,
+            n_workers=n_workers,
+        )
+
+
+class FinetuneMultiConfData:
+    """Table → finetune graphs with multiple conformers per SMILES
+    (reference FinetuneMultiConfData, dataset.py:225-270: 10 ETKDG/MMFF
+    conformers each, all sharing the molecule's label)."""
+
+    def __init__(self, target_name, data_type: str = "exp1s",
+                 frag_type: str = "brics", num_conf: int = 10,
+                 max_iters: int = 500):
+        self.target = target_name
+        self.data_type = data_type
+        self.frag_type = frag_type
+        self.num_conf = num_conf
+        self.max_iters = max_iters
+
+    def get_ft_dataset(self, df, seed: int = 42) -> List[MolGraph]:
+        builder = GraphBuilder(self.data_type)
+        out: List[MolGraph] = []
+        for s, y in zip(df["smiles"], _target_rows(df, self.target)):
+            r = engine.mol_3d_multi(s, num_conf=self.num_conf, seed=seed,
+                                    max_iters=self.max_iters)
+            if r is None:
+                continue
+            mol, confs = r
+            for conf, _energy in confs:
+                g = builder.build(mol, conf, y, smiles=s,
+                                  frag_type=self.frag_type)
+                if g is not None:
+                    out.append(g)
+        return out
 
 
 class PretrainData:

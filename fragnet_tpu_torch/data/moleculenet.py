@@ -125,3 +125,44 @@ def load_moleculenet(
 
 def target_columns(df: Dict[str, object]) -> List[str]:
     return [c for c in df if c != "smiles"]
+
+
+class MoleculeDataset:
+    """Routing façade over the per-dataset loaders — the analog of
+    fragnet/dataset/custom_dataset.py:7-27 (MoleBert-loader routing for
+    tox21/toxcast/clintox/sider/bbbp/hiv/muv/pcba). ``get_data`` returns the
+    list-of-records shape the reference builds from PyG ``Data`` objects."""
+
+    ROUTED = ("tox21", "toxcast", "clintox", "sider", "bbbp", "hiv",
+              "muv", "pcba")
+
+    def __init__(self, name: str, data_dir: Optional[str] = None):
+        self.name = _canonical_name(name)
+        if self.name not in self.ROUTED:
+            raise KeyError(f"{name!r} is not routed by MoleculeDataset "
+                           f"(custom_dataset.py:12-27); use load_moleculenet")
+        self.data_dir = data_dir
+
+    def get_data(self) -> List[dict]:
+        # reference reads data_dir/<name>/raw/<name>.csv
+        # (custom_dataset.py:31-33); accept that layout plus flat CSVs
+        candidates = []
+        if self.data_dir:
+            candidates = [
+                os.path.join(self.data_dir, self.name, "raw",
+                             f"{self.name}.csv"),
+                os.path.join(self.data_dir, f"{self.name}.csv"),
+            ]
+        df = None
+        for p in candidates:
+            if os.path.exists(p):
+                df = load_moleculenet_csv(self.name, p)
+                break
+        if df is None:
+            df = load_moleculenet(self.name, data_dir=self.data_dir)
+        tcols = target_columns(df)
+        return [
+            {"smiles": s, "y": [[float(df[t][i]) for t in tcols]]}
+            for i, s in enumerate(df["smiles"])
+            if s is not None
+        ]

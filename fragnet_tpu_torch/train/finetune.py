@@ -216,10 +216,6 @@ def _refuse_unported(opt, device) -> None:
     if dist.get("multihost", False) and str(device) == "cpu":
         raise NotImplementedError("dist.multihost on the CPU is not ported; "
                                   "start the ranks with torchrun")
-    if int(ft.get("n_buckets", 1)) > 1:
-        raise NotImplementedError("finetune.n_buckets > 1 (bucketed "
-                                  "loaders) is not ported yet (ROADMAP.md "
-                                  "Queue A6)")
 
 
 class _Silent:
@@ -239,7 +235,7 @@ def run_finetune(opt, quiet: bool = False, datasets=None,
                  device: Union[str, torch.device, None] = None,
                  rank_reports: Optional[list] = None):
     """The finetune run (the JAX package's run_finetune,
-    fragnet_tpu/train/finetune.py:210-484, without its bucketed branch):
+    fragnet_tpu/train/finetune.py:210-484):
     build the model from ``seed``, load the encoder
     from a pretrain checkpoint when ``pretrain.use`` and ``pretrain.chk``
     are set, train ``finetune.n_epochs`` epochs with Adam, validate,
@@ -250,7 +246,9 @@ def run_finetune(opt, quiet: bool = False, datasets=None,
     parameters).
 
     ``dist.mode``: ``none`` runs on one device, caching the loaders on it as
-    ``finetune.cache`` says (``fastpath.maybe_cache``); ``dp`` (data
+    ``finetune.cache`` says (``fastpath.maybe_cache``), with one PadSpec
+    per size bucket when ``finetune.n_buckets`` > 1
+    (``BucketedBatchLoader``); ``dp`` (data
     parallel) and ``ep`` (edge-partitioned, the K3 kernels) run
     ``dist.n_devices`` ranks of a process group. Inside a group (torchrun's
     RANK environment, or one the caller joined) this process runs its rank;
@@ -392,6 +390,7 @@ def _run(opt, quiet, datasets, device, info):
                         generator=torch.Generator().manual_seed(seed), ep=ep)
     model = model.to(fp.device)
 
+    n_buckets = int(ft.get("n_buckets", 1))
     if mode == "dp":
         # this rank's micro-batch of every window of bs × S graphs
         from fragnet_tpu_torch.dist.data_parallel import DPBatchLoader
@@ -403,6 +402,18 @@ def _run(opt, quiet, datasets, device, info):
                                    n_tasks=n_tasks, on_oversize="error")
         test_loader = DPBatchLoader(test_g, bs, S, spec, rank=rank,
                                     n_tasks=n_tasks, on_oversize="error")
+    elif n_buckets > 1 and mode == "none":
+        # size-bucketed padding (SURVEY §7 step 7): one PadSpec per size
+        # quantile instead of one p95 spec for everything
+        from fragnet_tpu_torch.data.batcher import BucketedBatchLoader
+
+        kw = dict(n_buckets=n_buckets, n_tasks=n_tasks,
+                  spec_kwargs={"tcsr": fp.tcsr})
+        train_loader = BucketedBatchLoader(train_g, bs, shuffle=True,
+                                           seed=seed, **kw)
+        val_loader = BucketedBatchLoader(val_g, bs, on_oversize="error", **kw)
+        test_loader = BucketedBatchLoader(test_g, bs, on_oversize="error",
+                                          **kw)
     else:
         train_loader = BatchLoader(train_g, bs, spec=spec, shuffle=True,
                                    seed=seed, n_tasks=n_tasks)
@@ -428,10 +439,14 @@ def _run(opt, quiet, datasets, device, info):
             print(f"ep fused kernel active (tn={ep_tn} te={ep_te})")
     if mode == "none":
         # device-resident caching: after the first pass the input pipeline
-        # costs nothing (DeviceCacheLoader; reshuffles batch ORDER per epoch)
+        # costs nothing (DeviceCacheLoader; reshuffles batch ORDER per
+        # epoch). A bucketed loader has no single spec: the budget is
+        # checked against the global one, as in the JAX package
         train_loader, val_loader, test_loader = (
-            fastpath.maybe_cache(ld, fp.device, spec=spec, n_tasks=n_tasks,
-                                 policy=fp.cache, seed=seed + i)
+            fastpath.maybe_cache(ld, fp.device,
+                                 spec=getattr(ld, "spec", spec),
+                                 n_tasks=n_tasks, policy=fp.cache,
+                                 seed=seed + i)
             for i, ld in enumerate((train_loader, val_loader, test_loader)))
     # the JAX package draws an init batch here (model.init), which advances
     # the train loader's shuffle state; drawing it too keeps both packages

@@ -17,8 +17,11 @@ set), training runs from packed single-buffer batches (data/packing.py):
 kept on the device when they fit ``pretrain.hbm_cache_gb``, else in host
 memory within ``pretrain.host_cache_gb``, else packed every epoch by spawned
 workers. The step decodes each buffer on the device and rebuilds the dense
-planes there with the plane builder kernel (ops/dense_gat.py). Property and
-structure pretraining (``pretrain.mode``) are not ported (ROADMAP.md A7).
+planes there with the plane builder kernel (ops/dense_gat.py).
+
+``pretrain.mode=property|structure`` runs the auxiliary pretraining
+(``run_aux_pretrain``): FragNetFineTune on a property table's columns or on
+each molecule's ring count (31 classes, ``pretrain.loss=cel``).
 """
 
 from __future__ import annotations
@@ -149,13 +152,178 @@ def _mean(losses: List[torch.Tensor]) -> float:
     return float(torch.stack(losses).double().sum()) / len(losses)
 
 
-def run_aux_pretrain(opt, quiet: bool = False):
-    """Molecular-property / structure-property pretraining (the JAX
-    package's run_aux_pretrain) — not ported: it reads property tables
-    with pandas."""
-    raise NotImplementedError(
-        f"pretrain.mode={opt.pretrain.get('mode')!r} (property/structure "
-        f"pretraining) is not ported yet (ROADMAP.md Queue A7)")
+def structure_ring_count(mol) -> int:
+    """SSSR ring count via the cyclomatic number B − A + components — the
+    nRings structure-pretraining target (pretrain_gat_str.py; n_classes=31)
+    of a chem/mol.py molecule (the JAX package's also takes an RDKit one,
+    which neither package's machines have)."""
+    return max(0, mol.GetNumBonds() - mol.GetNumAtoms()
+               + len(mol.connected_components()))
+
+
+def aux_targets(opt):
+    """(SMILES, per-molecule target lists, n_classes) of the auxiliary
+    pretraining: ``pretrain.prop_csv``'s rows (or ``n_synthetic`` synthetic
+    molecules) with their property columns (``target_pos`` picks one), or
+    in ``structure`` mode each molecule's ring count (molecules whose 3D
+    embedding fails are dropped)."""
+    from fragnet_tpu_torch.chem import engine
+    from fragnet_tpu_torch.data.synthetic import synthetic_dataset
+    from fragnet_tpu_torch.data.tables import read_csv
+
+    seed = int(opt.get("seed", 42))
+    pt = opt.pretrain
+    prop_csv = pt.get("prop_csv", None)
+    if prop_csv:
+        # the numbers parsed as pandas' read_csv parses them
+        df = read_csv(prop_csv)
+    else:
+        df = synthetic_dataset(n=int(pt.get("n_synthetic", 128)),
+                               task="regression", seed=seed)
+    smiles = list(df["smiles"])
+    if pt.get("mode", "property") == "structure":
+        # ring-count target computed on the fly (pretrain_gat_str.py)
+        pairs = []
+        for s in smiles:
+            r = engine.mol_3d(s, seed=seed)
+            if r:
+                pairs.append((s, [float(structure_ring_count(r[0]))]))
+        return ([p[0] for p in pairs], [p[1] for p in pairs],
+                int(pt.get("n_classes", 31)))
+    tcols = [c for c in df if c != "smiles"]
+    tp = pt.get("target_pos", None)
+    if tp is not None:
+        tcols = [tcols[int(tp)]]
+    targets = [[float(df[c][i]) for c in tcols] for i in range(len(smiles))]
+    return smiles, targets, int(pt.get("n_classes", len(tcols)))
+
+
+def cel_loss(out: torch.Tensor, y: torch.Tensor,
+             graph_mask: torch.Tensor) -> torch.Tensor:
+    """Integer-class cross-entropy on the labels ``y[:, 0]`` over real
+    graphs (optax.softmax_cross_entropy_with_integer_labels, masked, over
+    max(Σ mask, 1)); padding graphs carry label 0 and mask 0 and add
+    nothing."""
+    labels = y[:, 0].long()
+    ls = torch.nn.functional.cross_entropy(out, labels, reduction="none")
+    return torch.sum(ls * graph_mask) / torch.clamp(torch.sum(graph_mask),
+                                                    min=1.0)
+
+
+def build_aux_model(opt, n_classes: int, policy=None,
+                    generator: Optional[torch.Generator] = None):
+    """The auxiliary pretraining's model: FragNetFineTune with
+    ``n_classes`` outputs at ``pretrain.model``'s encoder widths (its head
+    at the class defaults, as the JAX package builds it)."""
+    from fragnet_tpu_torch.model.finetune import FragNetFineTune
+    from fragnet_tpu_torch.model.layers import KernelPolicy
+
+    m = opt.pretrain.get("model", {})
+    return FragNetFineTune(
+        n_classes=n_classes,
+        num_layer=int(m.get("num_layer", 4)),
+        num_heads=int(m.get("num_heads", 4)),
+        drop_ratio=float(m.get("drop_ratio", 0.15)),
+        emb_dim=int(m.get("emb_dim", 128)),
+        atom_features=int(opt.get("atom_features", 167)),
+        frag_features=int(opt.get("frag_features", 167)),
+        edge_features=int(opt.get("edge_features", 17)),
+        fedge_in=int(opt.get("fedge_in", 6)),
+        fbond_edge_in=int(opt.get("fbond_edge_in", 6)),
+        policy=policy or KernelPolicy(), generator=generator,
+    )
+
+
+def run_aux_pretrain(opt, quiet: bool = False,
+                     device: Union[str, torch.device, None] = None):
+    """Molecular-property / structure-property pretraining — the analogs of
+    pretrain_gat_mol.py:33-97 (multi-property regression from a CSV keyed by
+    SMILES) and pretrain_gat_str.py (ring-count classification); the JAX
+    package's run_aux_pretrain. Model is the standard finetune
+    architecture (the reference trains FragNetFineTune on the auxiliary
+    target); the checkpoint ``exp_dir/<chkpoint_name>`` is its state dict,
+    whose ``pretrain.*`` encoder ``run_finetune`` transfers with
+    ``pretrain.use``. Loss ``mse`` or ``cel`` (``pretrain.loss``; the
+    structure mode's classes take ``cel``). Runs on CUDA unless
+    ``device="cpu"``. Returns (best score, checkpoint path)."""
+    from fragnet_tpu_torch.data.batcher import BatchLoader
+    from fragnet_tpu_torch.data.datasets import build_graphs
+    from fragnet_tpu_torch.graphs.hiergraph import spec_for
+    from fragnet_tpu_torch.obs import ScalarLogger
+    from fragnet_tpu_torch.train import fastpath
+    from fragnet_tpu_torch.train.checkpoint import save_params
+    from fragnet_tpu_torch.train.earlystop import EarlyStopping
+    from fragnet_tpu_torch.train.finetune import seed_everything
+    from fragnet_tpu_torch.train.loop import (TrainerFineTune,
+                                              make_eval_step, make_train_step)
+    from fragnet_tpu_torch.train.optim import make_optimizer
+
+    seed = int(opt.get("seed", 42))
+    seed_everything(seed)
+    exp_dir = opt.get("exp_dir", "exps/pt_aux")
+    os.makedirs(exp_dir, exist_ok=True)
+    pt = opt.pretrain
+    mode = pt.get("mode", "property")
+    loss_name = pt.get("loss", "mse")
+
+    smiles, targets, n_classes = aux_targets(opt)
+    graphs = build_graphs(smiles, targets)
+    if not quiet:
+        print(f"aux pretrain ({mode}): {len(graphs)} graphs, "
+              f"n_classes={n_classes}, loss={loss_name}")
+    train_g, val_g = split_graphs(graphs, seed)
+
+    fp = fastpath.resolve(pt, model_version="gat2", device=device)
+    bs = int(pt.get("batch_size", 32))
+    spec = spec_for(graphs, batch_size=bs, tcsr=fp.tcsr)
+    n_tasks_data = 1 if (mode == "structure" or loss_name == "cel") else n_classes
+    train_loader = BatchLoader(train_g, bs, spec=spec, shuffle=True,
+                               seed=seed, n_tasks=n_tasks_data)
+    val_loader = BatchLoader(val_g, bs, spec=spec, n_tasks=n_tasks_data)
+    train_loader = fastpath.maybe_cache(train_loader, fp.device, spec=spec,
+                                        n_tasks=n_tasks_data,
+                                        policy=fp.cache, seed=seed)
+    val_loader = fastpath.maybe_cache(val_loader, fp.device, spec=spec,
+                                      n_tasks=n_tasks_data,
+                                      policy=fp.cache, seed=seed + 1)
+
+    model = build_aux_model(opt, n_classes, policy=fp.kernel,
+                            generator=torch.Generator().manual_seed(seed)
+                            ).to(fp.device)
+    # the JAX package draws an init batch here (model.init), which advances
+    # the train loader's shuffle state
+    next(iter(train_loader))
+    optimizer, _ = make_optimizer(model.parameters(),
+                                  pt.get("optimizer", "adam"),
+                                  lr=float(pt.get("lr", 1e-4)))
+
+    steps = {}
+    if loss_name == "cel":
+        # integer-class cross-entropy (pretrain_gat_mol.py:80 'cel' branch)
+        steps = dict(
+            train_step=make_train_step(model, optimizer, cel_loss,
+                                       fp.device),
+            eval_step=make_eval_step(model, cel_loss, fp.device))
+    trainer = TrainerFineTune(model, optimizer, target_type="regr",
+                              device=fp.device, **steps)
+
+    ckpt = os.path.join(exp_dir, pt.get("chkpoint_name", "pt_aux.ckpt"))
+    es = EarlyStopping(patience=int(pt.get("es_patience", 50)), path=ckpt,
+                       save_fn=save_params)
+    t0 = time.time()
+    with ScalarLogger(exp_dir) as logger:
+        for epoch in range(int(pt.get("n_epochs", 50))):
+            train_loss = trainer.train_epoch(train_loader)
+            val_loss = trainer.validate(val_loader)
+            es(val_loss, model)
+            logger.log("train/loss", train_loss, epoch)
+            logger.log("val/loss", val_loss, epoch)
+            if not quiet and epoch % 5 == 0:
+                print(f"epoch {epoch:4d} train {train_loss:.5f} "
+                      f"val {val_loss:.5f} [{time.time() - t0:.1f}s]")
+            if es.early_stop:
+                break
+    return es.best_score, ckpt
 
 
 def load_pretrain_graphs(opt) -> list:
@@ -255,7 +423,7 @@ def run_pretrain(opt, quiet: bool = False,
 
     pt = opt.pretrain
     if pt.get("mode", "geometric") in ("property", "structure"):
-        return run_aux_pretrain(opt, quiet=quiet)
+        return run_aux_pretrain(opt, quiet=quiet, device=device)
     model_version = pt.get("model_version", "gat2")
     fp = fastpath.resolve(pt, model_version=model_version, device=device)
     seed = int(opt.get("seed", 42))

@@ -122,8 +122,9 @@ def test_port_imports_no_jax():
     jax*, flax*, optax*, ml_dtypes, pandas or fragnet_tpu.* entry in
     sys.modules; the modules walked include model/transformer.py and the
     DTA / CDRP modules (data/{dta,cdrp}.py, model/{dta,cdrp}.py,
-    train/tasks.py) and the variants and ablations (model/variants.py,
-    model/ablations.py)."""
+    train/tasks.py), the variants and ablations (model/variants.py,
+    model/ablations.py), and the HP search, CV and ingest modules
+    (hp/search.py, train/cv.py, data/{gdsc,create,lmdb_io,tables}.py)."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import fragnet_tpu_torch
@@ -140,7 +141,8 @@ def test_port_imports_no_jax():
         need = {"fragnet_tpu_torch." + m for m in (
             "model.transformer", "data.dta", "data.cdrp", "model.dta",
             "model.cdrp", "train.tasks", "model.variants",
-            "model.ablations")}
+            "model.ablations", "hp.search", "train.cv", "data.gdsc",
+            "data.create", "data.lmdb_io", "data.tables")}
         sys.exit(1 if bad or len(names) < 20 or not need <= set(names)
                  else 0)
     """)

@@ -298,8 +298,6 @@ def _small_opt(tmp_path, **finetune):
 
 
 def test_run_finetune_refuses_what_it_does_not_run(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue A6"):
-        run_finetune(_small_opt(tmp_path, n_buckets=2), device="cpu")
     opt = _small_opt(tmp_path)
     opt.set_path("dist", {"mode": "ep", "tcsr": False})
     with pytest.raises(NotImplementedError, match="dist.tcsr=false"):

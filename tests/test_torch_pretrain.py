@@ -372,8 +372,6 @@ def test_jax_pickle_shards_load_as_port_graphs(tmp_path, graphs):
 
 
 def test_run_pretrain_refuses_what_it_does_not_run(tmp_path):
-    with pytest.raises(NotImplementedError, match="property/structure"):
-        run_pretrain(_pt_opt(tmp_path, mode="property"), device="cpu")
     with pytest.raises(ValueError, match="model_version"):
         port_pretrain.build_pretrain_model(_pt_opt(tmp_path,
                                                    model_version="lite"))

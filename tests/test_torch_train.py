@@ -90,7 +90,7 @@ def test_schedule_values_match_optax(schedule, total, warmup, end):
 
 
 @pytest.mark.parametrize("call", [
-    lambda: make_schedule("cosine_warmup", 0.01),
+    lambda: make_schedule("exponential", 0.01),
     lambda: make_optimizer([torch.nn.Parameter(torch.zeros(1))], "rmsprop"),
 ], ids=["schedule", "optimizer"])
 def test_unported_optimizer_options_raise(call):
