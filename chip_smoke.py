@@ -20,7 +20,9 @@ gat2_transformer2, gat2_multitask) and the variants and ablations
 (gat2_lite, gat2_edge, gcn2, gat, gcn, gcn3) through ``run_finetune``,
 the DTA and CDRP tasks through ``run_task``, and the HP search, k-fold CV,
 bucketed finetuning and auxiliary pretraining (``run_hp_search``,
-``run_finetune_cv``, ``finetune.n_buckets``, ``pretrain.mode``).
+``run_finetune_cv``, ``finetune.n_buckets``, ``pretrain.mode``), and the
+esol recipe in bf16 (``finetune.dtype=bf16``: the bf16 forms of K1, K2,
+K4, K5).
 Phases:
 
   1. the card's name and power limit (nvidia-smi);
@@ -230,15 +232,30 @@ Phases:
      property (mse, a CSV of the 24 smallest molecules and their labels)
      and =structure (ring counts, cel), one epoch each, launches equal to
      aux_expect's, losses finite, the structure model's logits card vs CPU
-     within 1e-3 of scale.
+     within 1e-3 of scale;
+ 30. bf16 compute (finetune.dtype=bf16) on the main path (bf16_phase):
+     (a) the bf16 entries of K1, K2, K4 and K5 against their plain
+     versions at layer 0 of a bf16 forward of the esol batch (levels
+     tagged "bf16"; every kernel output is f32, held to 1e-4 of its
+     scale), timed as in phase 4, their bounds with nf at 2 bytes; (b) one
+     bf16 forward and one train step card vs CPU, carried weights, dropout
+     off: predictions within 2e-2 of their scale; the gradients' distance
+     from the f32 twin's (each parameter's relative to its norm, root mean
+     square over the parameters) within twice the CPU bf16's + 1e-3; (c)
+     run_finetune in bf16 for 2 epochs, launches exact — the bf16 entries
+     as finetune_expect counts the f32 ones, the f32 entries 0 — losses
+     finite, the test RMSE beside its f32 twin's (same data and seed, no
+     claim); (d) a timed bf16 train step (wall, busy, peak memory) beside
+     phase 8's f32 step.
 
 Prints a ``{"kernels": [...]}`` JSON line (launches from the pretraining
 path of phase 11 for K1-K6, of phase 19 for K7-K9 (K9's: K8's, whose
 launches compute it) and of phase 21's rank 0 for K3, every path's — each
 rank's for phases 21, 23 and 24, the interpret path's of phase 25 under
 each policy, each phase-26 model's, phase-27 task's and phase-28 model's
-training path, and phase 29's HP trials, CV, bucketed and auxiliary runs —
-beside them), and as the last line ``{"ok": true, "device": {...}}``. Exits
+training path, phase 29's HP trials, CV, bucketed and auxiliary runs, and
+phase 30's bf16 training path, whose launches the bf16 entries' lines
+carry — beside them), and as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero on any failure, without a CUDA device, or when run outside a
 checkout of the repository.
 """
@@ -520,7 +537,8 @@ def _scale_floor(name, args) -> float:
     smoke's batch, at every layer — leaving round-off of terms of size |s|.
     0 for a forward kernel."""
     idx = {"tcsr_gat_bwd": 10, "dense_gat_bwd": 8,
-           "dense_attr_bwd": 12, "tcsr_gat_ep_bwd": 10}.get(name)
+           "dense_attr_bwd": 12, "tcsr_gat_ep_bwd": 10}.get(
+               KERNELS[name].wrapper or name)
     return 0.0 if idx is None else float(args[idx].abs().max())
 
 
@@ -668,10 +686,10 @@ def _tcsr_cost(args):
     D = HD // H
     n_edges = int((emask > 0).sum())
     n_tiles = meta.ew_blk.shape[0]
-    # inputs read once (node arrays, the real edges' scalars, tile windows)
-    # + outputs written once
-    nbytes = 4 * (N * (2 * H + HD) + n_edges * (H + 3) + 2 * n_tiles
-                  + N * (HD + 2 * H))
+    # inputs read once (node arrays — nf at its own width, 2 bytes in bf16
+    # — the real edges' scalars, tile windows) + outputs written once
+    nbytes = 4 * (N * 2 * H + n_edges * (H + 3) + 2 * n_tiles
+                  + N * (HD + 2 * H)) + nf.element_size() * N * HD
     flops = n_edges * H * (2 * D + 6) + N * HD
     return nbytes, flops
 
@@ -684,10 +702,11 @@ def _dense_cost(args):
     HD = nf.shape[1]
     nnz = int((planes.view(T, R + 1, tn, tn)[:, 0] > 0).sum())
     # inputs read once: the adjacency planes, the nonzeros' R attribute
-    # values (the attribute planes hold nothing else), wd, ws, nf, vc;
-    # outputs written once: out, m, den. Work at the nonzeros only
-    nbytes = 4 * (T * tn * tn + nnz * R + 2 * N * H + N * HD + vc.numel()
-                  + N * (HD + 2 * H))
+    # values (the attribute planes hold nothing else), wd, ws, nf (at its
+    # own width), vc; outputs written once: out, m, den. Work at the
+    # nonzeros only
+    nbytes = 4 * (T * tn * tn + nnz * R + 2 * N * H + vc.numel()
+                  + N * (HD + 2 * H)) + nf.element_size() * N * HD
     flops = nnz * H * (2 * R + 4) + 2 * nnz * HD
     return nbytes, flops
 
@@ -700,10 +719,12 @@ def _tcsr_bwd_cost(args):
     E = src.shape[0]
     n_edges = int((emask > 0).sum())
     n_tiles = meta.ew_blk.shape[0]
-    # inputs read once (node arrays, m/den/s, g, the real edges' scalars,
-    # tile windows) + outputs written once (d_wn, d_nf, d_w_ea)
-    nbytes = 4 * (N * (2 * H + HD) + 3 * N * H + N * HD + n_edges * (H + 3)
-                  + 2 * n_tiles + N * (2 * H + HD) + E * H)
+    # inputs read once (node arrays — nf at its own width — m/den/s, g,
+    # the real edges' scalars, tile windows) + outputs written once (d_wn,
+    # d_nf, d_w_ea)
+    nbytes = 4 * (N * 2 * H + 3 * N * H + N * HD + n_edges * (H + 3)
+                  + 2 * n_tiles + N * (2 * H + HD) + E * H) \
+        + nf.element_size() * N * HD
     items = n_edges + (N if self_loops else 0)
     flops = items * H * (4 * D + 10)
     return nbytes, flops
@@ -751,10 +772,11 @@ def _dense_bwd_cost(args):
     D = HD // H
     nnz = int((planes.view(T, R + 1, tn, tn)[:, 0] > 0).sum())
     # inputs read once: the adjacency planes, the nonzeros' R attribute
-    # values, wd, ws, m, den, s, nf, g, vc; outputs written once: d_wd,
-    # d_ws, d_nf, d_vc. Work at the nonzeros only
-    nbytes = 4 * (T * tn * tn + nnz * R + 5 * N * H + 2 * N * HD
-                  + vc.numel() + 2 * N * H + N * HD + vc.numel())
+    # values, wd, ws, m, den, s, nf (at its own width), g, vc; outputs
+    # written once: d_wd, d_ws, d_nf, d_vc. Work at the nonzeros only
+    nbytes = 4 * (T * tn * tn + nnz * R + 5 * N * H + N * HD
+                  + vc.numel() + 2 * N * H + N * HD + vc.numel()) \
+        + nf.element_size() * N * HD
     flops = nnz * H * (4 * D + 2 * R + 6)
     return nbytes, flops
 
@@ -854,6 +876,8 @@ class Kernel(NamedTuple):
     fwd: Optional[str]       # the forward kernel this is the backward of
     source: str
     replaces: str            # the TPU kernel, file:line
+    wrapper: Optional[str] = None  # its wrapper, where not named as it is:
+                                   # a dtype form of the wrapper's kernel
 
 
 # every kernel of the path, by wrapper name
@@ -896,6 +920,31 @@ KERNELS = {
                               "tcsr_gat_ep_fwd",
                               "fragnet_tpu_torch/csrc/tcsr_gat_bwd.cu",
                               "fragnet_tpu/ops/pallas_gat.py:635"),
+    # the bf16 forms of K1, K2, K4 and K5: the same wrappers with bf16 nf
+    # launch these entries (the JAX package's dt_name = bfloat16 builds,
+    # pallas_gat.py:361 / dense_gat.py:704)
+    "tcsr_gat_fwd_bf16": Kernel("tcsr_gat", "KERNEL_BF16",
+                                "tcsr_gat_fwd_plain", _tcsr_cost, None,
+                                "fragnet_tpu_torch/csrc/tcsr_gat_fwd.cu",
+                                "fragnet_tpu/ops/pallas_gat.py:105",
+                                "tcsr_gat_fwd"),
+    "tcsr_gat_bwd_bf16": Kernel("tcsr_gat", "KERNEL_BWD_BF16",
+                                "tcsr_gat_bwd_plain", _tcsr_bwd_cost,
+                                "tcsr_gat_fwd_bf16",
+                                "fragnet_tpu_torch/csrc/tcsr_gat_bwd.cu",
+                                "fragnet_tpu/ops/pallas_gat.py:199",
+                                "tcsr_gat_bwd"),
+    "dense_gat_fwd_bf16": Kernel("dense_gat", "KERNEL_BF16",
+                                 "dense_gat_fwd_plain", _dense_cost, None,
+                                 "fragnet_tpu_torch/csrc/dense_gat_fwd.cu",
+                                 "fragnet_tpu/ops/dense_gat.py:387",
+                                 "dense_gat_fwd"),
+    "dense_gat_bwd_bf16": Kernel("dense_gat", "KERNEL_BWD_BF16",
+                                 "dense_gat_bwd_plain", _dense_bwd_cost,
+                                 "dense_gat_fwd_bf16",
+                                 "fragnet_tpu_torch/csrc/dense_gat_bwd.cu",
+                                 "fragnet_tpu/ops/dense_gat.py:419",
+                                 "dense_gat_bwd"),
 }
 # the GAT kernels of the default policy, which phase 4 captures from a
 # finetune forward, and the dense-attr kernels, which phase 16 captures
@@ -903,6 +952,10 @@ GAT_KERNELS = ("tcsr_gat_fwd", "tcsr_gat_bwd", "dense_gat_fwd",
                "dense_gat_bwd")
 ATTR_KERNELS = ("dense_attr_fwd", "dense_attr_bwd")
 EP_KERNELS = ("tcsr_gat_ep_fwd", "tcsr_gat_ep_bwd")
+# the bf16 forms of the GAT kernels, which phase 30 captures from a bf16
+# finetune forward, by their f32 form
+BF16_OF = {n: f"{n}_bf16" for n in GAT_KERNELS}
+BF16_KERNELS = tuple(BF16_OF.values())
 # layer 0's edge-partitioned passes, in call order
 EP_LEVELS = ["bond", "atom (self-loops in the combine)", "fconn", "frag"]
 # K9, the TPU emit kernel, has no launch of its own: K8 computes d_wea in
@@ -926,6 +979,22 @@ def _counter(name):
     return mod, getattr(mod, k.counter)
 
 
+def _wrapper(name):
+    """The wrapper that launches kernel ``name`` (for a bf16 form: the f32
+    form's wrapper, given bf16 node features)."""
+    return getattr(_counter(name)[0], KERNELS[name].wrapper or name)
+
+
+def as_bf16(expect):
+    """Launch counts of the f32 GAT kernels moved to their bf16 forms: a
+    path in bf16 launches the bf16 entries where f32 launches the f32
+    ones, and no f32 GAT entry."""
+    out = dict(expect)
+    for n32, n16 in BF16_OF.items():
+        out[n16], out[n32] = out[n32], 0
+    return out
+
+
 def _reset_launches():
     for name in KERNELS:
         _counter(name)[1].launches = 0
@@ -943,14 +1012,14 @@ def bwd_kernel_args(fwd_name, args, kw, rng):
     import numpy as np
     import torch
 
-    mod, _ = _counter(fwd_name)
-    out, m, den = getattr(mod, fwd_name)(*args, **kw)
+    out, m, den = _wrapper(fwd_name)(*args, **kw)
     N, HD = out.shape
     H = m.shape[1]
     g = torch.from_numpy(rng.standard_normal((N, HD)).astype(np.float32)
                          ).to(out.device)
     s = (g.view(N, H, -1) * out.view(N, H, -1)).sum(-1)
-    k = {"tcsr_gat_fwd": 7, "dense_gat_fwd": 5, "dense_attr_fwd": 9}[fwd_name]
+    k = {"tcsr_gat_fwd": 7, "dense_gat_fwd": 5,
+         "dense_attr_fwd": 9}[KERNELS[fwd_name].wrapper or fwd_name]
     return tuple(args[:k]) + (m, den, g, s) + tuple(args[k:])
 
 
@@ -1033,7 +1102,7 @@ def check_kernels(names, calls, rng, check_scales=None):
     for name in names:
         k = KERNELS[name]
         mod, _ = _counter(name)
-        wrapper, plain = getattr(mod, name), getattr(mod, k.plain)
+        wrapper, plain = _wrapper(name), getattr(mod, k.plain)
         per_level, seeded_err = [], 0.0
         emit, emit_seeded_err = [], 0.0
         for lvl, args, kw in calls[name]:
@@ -1165,10 +1234,21 @@ def _busy(prof):
 
 
 # the name of each wrapper's CUDA kernel in a profile's rows (csrc/*.cu;
-# K3's entry points launch K1's and K2's kernels)
+# K3's entry points launch K1's and K2's kernels, the bf16 entries the
+# same kernels' bf16 instances)
 KERNEL_KEYS = {PLANES: "dense_planes_kernel",
                "tcsr_gat_ep_fwd": "tcsr_gat_fwd_kernel",
-               "tcsr_gat_ep_bwd": "tcsr_gat_bwd_kernel"}
+               "tcsr_gat_ep_bwd": "tcsr_gat_bwd_kernel",
+               **{n16: f"{n32}_kernel" for n32, n16 in BF16_OF.items()}}
+# a bf16 instance's row names its nf type (csrc: bf16_bits)
+BF16_ROW = "unsigned short"
+
+
+def _row_of(name, key) -> bool:
+    """Whether a profile row ``key`` is kernel ``name``'s: its CUDA kernel,
+    in the instance of its nf type."""
+    return (KERNEL_KEYS.get(name, f"{name}_kernel") in key
+            and (BF16_ROW in key) == (name in BF16_KERNELS))
 
 
 def kernel_device_ms(busy, launched):
@@ -1177,8 +1257,7 @@ def kernel_device_ms(busy, launched):
     launch counts of the profiled window; 0.0 for the others, whose
     kernel a sibling entry point may share); raises where a launched
     kernel reads 0 ms, as a renamed kernel would."""
-    out = {n: sum(ms for key, ms in busy
-                  if KERNEL_KEYS.get(n, f"{n}_kernel") in key)
+    out = {n: sum(ms for key, ms in busy if _row_of(n, key))
            if launched[n] else 0.0 for n in KERNELS}
     silent = [n for n, c in launched.items() if c and not out[n] > 0]
     if silent:
@@ -4061,6 +4140,215 @@ def phase29(dev, datasets, rng):
     return paths, levels
 
 
+# phase 30: bf16 compute (finetune.dtype=bf16) on the main path: the esol
+# recipe at full width, its GAT passes on the bf16 entries of K1, K2, K4, K5
+BF16_OVERRIDES = {
+    "finetune.dtype": "bf16",
+    "finetune.n_epochs": 2,
+    "exp_dir": os.path.join(REPO, "exps", "chip_smoke_esol_bf16"),
+}
+# the f32 twin: the same data, seed and epochs in f32, for the test RMSE
+# beside bf16's
+BF16_TWIN_OVERRIDES = {
+    "finetune.n_epochs": 2,
+    "exp_dir": os.path.join(REPO, "exps", "chip_smoke_esol_bf16_twin"),
+}
+# bf16 against f32 differs by bf16's rounding (the JAX package's own gap
+# on the CPU: 1.4e-2 to 6.5e-2 of the prediction scale at these widths).
+# The card is held to the CPU's bf16 within 2e-2 of the prediction scale.
+# Its gradients are held against the CPU's f32 ones: their distance from
+# them, each parameter's relative to its own norm, as a root mean square
+# over the parameters, within twice the CPU bf16 gradients' own plus 1e-3
+# — a card's bf16 is no further from exact than the CPU's. A bound between
+# the two bf16 gradients alone would not hold at this width: the ReLU
+# units of the 1024-wide head whose input lies within bf16's rounding of 0
+# switch between devices, moving whole rows of the head's gradients (on
+# an H100: card vs CPU up to 3.7 of a gradient's largest entry, on one
+# that is 0 in exact arithmetic; CPU bf16 vs f32 up to 5.6e-1 of a
+# gradient's norm); nor does a bound on each parameter alone, which one
+# run's rounding decides (layer 1's atom attention vector 8.3e-2 of its
+# norm from f32 on the card, 3.5e-2 on the CPU, in one run). The
+# per-parameter and card-vs-CPU distances are printed beside (limit none).
+# 1e-4 of the largest gradient's norm is every gradient's round-off floor
+# (an embed bias's is 0 in exact arithmetic).
+BF16_PRED_LIMIT = 2e-2
+BF16_GRAD_FLOOR = 1e-4
+
+
+def bf16_opt(twin: bool = False):
+    """The training path's config (smoke_opt(train=True)) in bf16 for 2
+    epochs, or (``twin``) its f32 twin."""
+    opt = smoke_opt(train=True)
+    for k, v in (BF16_TWIN_OVERRIDES if twin else BF16_OVERRIDES).items():
+        opt.set_path(k, v)
+    return opt
+
+
+def bf16_grads_vs_f32(cpu_model, train_np, dev, n_tasks):
+    """Phase 30 (b)'s gradient check: one train step's loss and gradients
+    of the bf16 model on the card and on the CPU, and of its f32 twin (the
+    same weights) on the CPU, dropout off. Each parameter's distance from
+    the f32 gradient relative to its norm (norms floored at
+    BF16_GRAD_FLOOR of the largest); the card's root mean square over the
+    parameters must lie within 2 × the CPU bf16's + 1e-3. The worst
+    parameter of each and the card-vs-CPU bf16 distance (largest entry,
+    relative to the gradient's largest) are printed beside."""
+    import torch
+
+    from fragnet_tpu_torch.graphs.batch import to_device
+    from fragnet_tpu_torch.train.loop import LOSSES
+
+    f32_model = build_model_cpu(bf16_opt(twin=True), n_tasks).eval()
+    f32_model.load_state_dict(cpu_model.state_dict())
+
+    def loss_and_grads(m, d):
+        m_d = copy.deepcopy(m).to(d).eval()
+        b_d = to_device(train_np, d)
+        value = LOSSES["mse"](m_d(b_d), b_d.y, b_d.graph_mask)
+        value.backward()
+        return float(value.detach()), {
+            n: p.grad.detach().cpu() for n, p in m_d.named_parameters()
+            if p.grad is not None}
+
+    l_card, g_card = loss_and_grads(cpu_model, dev)
+    l_cpu, g_cpu = loss_and_grads(cpu_model, torch.device("cpu"))
+    l_32, g_32 = loss_and_grads(f32_model, torch.device("cpu"))
+    if set(g_card) != set(g_cpu) or set(g_cpu) != set(g_32):
+        raise AssertionError("bf16: gradients on one device only")
+    top = max(float(g.norm()) for g in g_32.values())
+    dist = {"card": {}, "cpu": {}}
+    card_cpu, cc_name = 0.0, None
+    for n, g in g_32.items():
+        sc = max(float(g.norm()), BF16_GRAD_FLOOR * top)
+        for dev_name, gd in (("card", g_card), ("cpu", g_cpu)):
+            dist[dev_name][n] = float((gd[n] - g).norm()) / sc
+        cc = float((g_card[n] - g_cpu[n]).abs().max()) / max(
+            float(g_cpu[n].abs().max()), 1e-30)
+        if cc > card_cpu:
+            card_cpu, cc_name = cc, n
+    rms = {k: statistics.fmean(x * x for x in d.values()) ** 0.5
+           for k, d in dist.items()}
+    worst = {k: max(d.items(), key=lambda kv: kv[1])
+             for k, d in dist.items()}
+    print(f"bf16 train step: loss card {l_card:.6f}, cpu {l_cpu:.6f}, f32 "
+          f"{l_32:.6f}; gradients against f32 over {len(g_32)} parameters "
+          f"(each relative to its norm): root mean square card "
+          f"{rms['card']:.3e}, cpu {rms['cpu']:.3e} (limit 2x + 1e-3); "
+          f"worst card {worst['card'][1]:.3e} ({worst['card'][0]}), cpu "
+          f"{worst['cpu'][1]:.3e} ({worst['cpu'][0]}); card vs cpu bf16 up "
+          f"to {card_cpu:.3e} of a gradient's largest entry ({cc_name})")
+    if not rms["card"] <= 2 * rms["cpu"] + 1e-3:
+        raise AssertionError("bf16: the card's gradients are further from "
+                             "f32 than twice the CPU's")
+
+
+def bf16_phase(dev, datasets, spec, windows, batch_np, train_np,
+               step_default, rng):
+    """Phase 30: the esol recipe with finetune.dtype=bf16. (a) K1, K2, K4,
+    K5's bf16 entries against their plain versions at layer 0 of a bf16
+    forward of the esol batch (levels tagged "bf16"), timed, their bounds
+    with nf at 2 bytes; every output is f32 (out, m, den, the gradients),
+    held to 1e-4 of its scale. (b) One bf16 forward, card vs CPU, carried
+    weights, dropout off: predictions within BF16_PRED_LIMIT of their
+    scale; one train step's gradients against the f32 twin's
+    (bf16_grads_vs_f32). (c) run_finetune in bf16 for 2 epochs, every
+    launch count set to 0 just before it: the bf16 entries launch as
+    finetune_expect
+    counts the f32 ones, the f32 entries not at all; losses finite; the
+    test RMSE beside the f32 twin's (same data and seed; no claim). (d) A
+    timed bf16 train step beside phase 8's f32 step. Returns (the bf16
+    kernels' report, the bf16 path's launches)."""
+    import numpy as np
+    import torch
+
+    from fragnet_tpu_torch.graphs.batch import to_device
+    from fragnet_tpu_torch.obs import read_scalars
+    from fragnet_tpu_torch.train.finetune import run_finetune
+
+    t0 = time.perf_counter()
+    opt = bf16_opt()
+    n_tasks = datasets[3]
+    L = int(opt.finetune.model.num_layer)
+    cpu_model = build_model_cpu(opt, n_tasks).eval()
+    model = copy.deepcopy(cpu_model).to(dev).eval()
+    if model.pretrain.layers[0].dtype != torch.bfloat16:
+        raise AssertionError("phase 30's model does not compute in bf16")
+
+    # (a) the bf16 entries at layer 0 of a bf16 forward
+    captured = layer0_kernel_calls(L, model, to_device(batch_np, dev))
+    calls = {}
+    for n32, per_level in captured.items():
+        calls[BF16_OF[n32]] = [(f"{lvl}, bf16", a, kw)
+                               for lvl, a, kw in per_level]
+        if any(a[3 if n32 == "dense_gat_fwd" else 1].dtype != torch.bfloat16
+               for _, a, _ in per_level):
+            raise AssertionError(f"{n32}: a bf16 forward passed f32 nf")
+    for name in BF16_KERNELS:
+        fwd = KERNELS[name].fwd
+        if fwd is not None:
+            calls[name] = [(lvl, bwd_kernel_args(fwd, a, kw, rng), {})
+                           for lvl, a, kw in calls[fwd]]
+    report = check_kernels(BF16_KERNELS, calls, rng)
+    print(f"phase 30 (a): {time.perf_counter() - t0:.1f} s")
+
+    # (b) one forward and one train step's gradients, card vs CPU
+    with torch.no_grad():
+        pred_gpu = model(to_device(batch_np, dev)).cpu()
+        pred_cpu = cpu_model(to_device(batch_np, "cpu"))
+    fwd_err, fwd_rel = _diff(pred_gpu, pred_cpu)
+    print(f"bf16 forward cpu vs gpu: max_abs_err={fwd_err:.3e} "
+          f"rel={fwd_rel:.3e} (limit {BF16_PRED_LIMIT})")
+    if not fwd_rel <= BF16_PRED_LIMIT:
+        raise AssertionError("bf16: card and CPU predictions disagree")
+    bf16_grads_vs_f32(cpu_model, train_np, dev, n_tasks)
+
+    # (c) the bf16 training path, then its f32 twin
+    expect32, n_train, n_val, _ = finetune_expect(opt, datasets, spec,
+                                                  windows)
+    runs = {}
+    for twin in (False, True):
+        fopt = bf16_opt(twin)
+        label = "f32 twin" if twin else "bf16"
+        _reset_launches()
+        t1 = time.perf_counter()
+        value, tr_model = run_finetune(fopt, datasets=datasets,
+                                       device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        launches = _launches()
+        n_ep = int(fopt.finetune.n_epochs)
+        losses = [r["value"] for r in read_scalars(fopt.exp_dir)
+                  if r["tag"] == "train/loss"][-n_ep:]
+        runs[label] = (value, tr_model, launches)
+        print(f"{label} training path: {n_ep} epochs x {n_train} train "
+              f"batches, {n_val} val, {len(windows)} test; test rmse "
+              f"{value:.5f}, train losses {[round(x, 5) for x in losses]}, "
+              f"run {run_s:.2f} s")
+        if len(losses) != n_ep or not np.isfinite(losses).all() \
+                or not np.isfinite(value):
+            raise AssertionError(f"{label}: training is not finite: losses "
+                                 f"{losses}, test rmse {value}")
+        _check_launches(f"{label} training path", launches,
+                        expect32 if twin else as_bf16(expect32))
+    print(f"test rmse after 2 epochs, same data and seed: bf16 "
+          f"{runs['bf16'][0]:.5f}, f32 {runs['f32 twin'][0]:.5f} (no claim: "
+          f"one seed, 2 epochs)")
+    print(f"phase 30 (b, c): {time.perf_counter() - t0:.1f} s")
+
+    # (d) one bf16 train step beside phase 8's f32 step
+    step = timed_train_step(runs["bf16"][1], train_np, dev, "bf16")
+    print(f"train step, bf16 vs f32 (phase 8): wall {step['wall']:.2f} / "
+          f"{step_default['wall']:.2f} ms, busy {step['busy']:.3f} / "
+          f"{step_default['busy']:.3f} ms, peak allocated "
+          f"{step['peak_mib']:.1f} / {step_default['peak_mib']:.1f} MiB; "
+          f"the GAT kernels' device ms: "
+          + ", ".join(f"{n} {step['kernels'][n]:.4f} / "
+                      f"{step_default['kernels'][n32]:.4f}"
+                      for n32, n in BF16_OF.items()))
+    print(f"phase 30: {time.perf_counter() - t0:.1f} s")
+    return report, runs["bf16"][2]
+
+
 def smoke_weights(datasets):
     """(FragNetFineTune's arguments for the smoke's esol model, its seeded
     weights on the CPU)."""
@@ -4106,13 +4394,16 @@ def ep_step_ranks(kw, sd, ep_np):
 
 
 def build_model_cpu(opt, n_tasks):
-    """The smoke's esol model, seeded, on the CPU."""
+    """The smoke's esol model, seeded, on the CPU, in the compute type its
+    config names (finetune.dtype)."""
     import torch
 
+    from fragnet_tpu_torch.train.fastpath import resolve_dtype
     from fragnet_tpu_torch.train.finetune import build_model
 
     return build_model(opt, n_classes=n_tasks,
-                       generator=torch.Generator().manual_seed(0))
+                       generator=torch.Generator().manual_seed(0),
+                       dtype=resolve_dtype(opt.finetune))
 
 
 def main() -> int:
@@ -4129,6 +4420,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 GEMMs reduce in f32, as XLA's do (run_finetune sets it too)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t_all = time.perf_counter()
 
     # ---- 1. the card ------------------------------------------------------
@@ -4401,7 +4694,16 @@ def main() -> int:
         report[name][0].extend(dict(p, on_path=False) for p in levels)
     print(f"phase 29: {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- 30. bf16 compute on the main path ---------------------------------
+    t_phase = time.perf_counter()
+    bf16_report, launches_16 = bf16_phase(dev, datasets, spec, windows,
+                                          batch_np, train_np, step_default,
+                                          rng)
+    report.update(bf16_report)
+    print(f"phase 30: {time.perf_counter() - t_phase:.1f} s")
+
     paths = {"finetune_train": launches_t, "pretrain": launches_pt,
+             "finetune_bf16_train": launches_16,
              "finetune_attr_train": launches_fa, "pretrain_attr": launches_pa,
              **interp_paths, **family_paths, **task_paths, **variant_paths,
              **p29_paths}
@@ -4426,6 +4728,7 @@ def main() -> int:
             **({"computed_in": EMIT_IN} if name == EMIT else {}),
             "launches": (launches_pa if counted in ATTR_KERNELS
                          else dist_runs["finetune_ep"][0] if name in EP_KERNELS
+                         else launches_16 if name in BF16_KERNELS
                          else launches_pt)[counted],
             "launches_by_path": {p: c[counted] for p, c in paths.items()},
             "max_abs_err": max([seeded_err]

@@ -61,12 +61,21 @@
 // step loop are not carried over, nor its dense (tn x tn) per-head matmuls:
 // the adjacency is sparse, and TF32 products would not keep the 1e-4
 // agreement.
+//
+// dense_gat_bwd_bf16 is the same kernel with nf in bf16 (the JAX package's
+// bf16 compute, dense_gat.py:_build's dt_name, l.704-706): both roles read
+// nf rows as a lane's four columns in one 8-byte load, widened to f32
+// exactly; g, s, m, den, the planes and every output stay f32
+// (dense_gat.py:790 casts g to f32; s comes from the forward's f32 out),
+// so a one-neighbour row still cancels exactly.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace cg = cooperative_groups;
+
+typedef unsigned short bf16_bits;  // one bf16 value, as stored
 
 namespace {
 
@@ -81,6 +90,16 @@ __device__ __forceinline__ float leaky(float x, float slope) {
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
+}
+
+// four adjacent bf16 columns as one 8-byte load, widened to f32 exactly (a
+// bf16 is the high half of its f32)
+__device__ __forceinline__ float4 ld4(const bf16_bits* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
 }
 
 // The per-head dot g[i]·nf[j] is summed in one fixed order, the order in
@@ -116,12 +135,13 @@ __device__ __forceinline__ int list_nonzeros(const float (&a)[JPL],
   return n;
 }
 
-template <int H, int JPL, int NV>  // tn = 32 * JPL; H*D <= 128 * NV
+// tn = 32 * JPL; H*D <= 128 * NV; T: nf's element type
+template <int H, int JPL, int NV, typename T>
 __global__ void __launch_bounds__(kThreads) dense_gat_bwd_kernel(
     const float* __restrict__ planes,  // (n_tiles, (R+1)*tn, tn)
     const float* __restrict__ wd,      // (N, H)
     const float* __restrict__ ws,      // (N, H)
-    const float* __restrict__ nf,      // (N, H*D)
+    const T* __restrict__ nf,          // (N, H*D), f32 or bf16
     const float* __restrict__ vc,      // (R+1, H): rows v[0..R-1], then c
     const float* __restrict__ m,       // (N, H)
     const float* __restrict__ den,     // (N, H)
@@ -323,9 +343,9 @@ __global__ void __launch_bounds__(kThreads) dense_gat_bwd_kernel(
   }
 }
 
-template <int H, int JPL, int NV>
+template <int H, int JPL, int NV, typename T>
 int launch(const float* planes, const float* wd, const float* ws,
-           const float* nf, const float* vc, const float* m,
+           const T* nf, const float* vc, const float* m,
            const float* den, const float* g, const float* s, float* d_wd,
            float* d_ws, float* d_nf, float* d_vc, int n_tiles, int D, int R,
            float slope, cudaStream_t stream) {
@@ -344,24 +364,57 @@ int launch(const float* planes, const float* wd, const float* ws,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(
-      &cfg, dense_gat_bwd_kernel<H, JPL, NV>, planes, wd, ws, nf, vc, m, den,
+      &cfg, dense_gat_bwd_kernel<H, JPL, NV, T>, planes, wd, ws, nf, vc, m, den,
       g, s, d_wd, d_ws, d_nf, d_vc, D, R, slope, n_slices);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <int H, int NV>
+template <int H, int NV, typename T>
 int launch_tn(int tn, const float* planes, const float* wd, const float* ws,
-              const float* nf, const float* vc, const float* m,
+              const T* nf, const float* vc, const float* m,
               const float* den, const float* g, const float* s, float* d_wd,
               float* d_ws, float* d_nf, float* d_vc, int n_tiles, int D,
               int R, float slope, cudaStream_t st) {
   switch (tn) {
-    case 32: return launch<H, 1, NV>(planes, wd, ws, nf, vc, m, den, g, s, d_wd, d_ws, d_nf, d_vc, n_tiles, D, R, slope, st);
-    case 64: return launch<H, 2, NV>(planes, wd, ws, nf, vc, m, den, g, s, d_wd, d_ws, d_nf, d_vc, n_tiles, D, R, slope, st);
-    case 128: return launch<H, 4, NV>(planes, wd, ws, nf, vc, m, den, g, s, d_wd, d_ws, d_nf, d_vc, n_tiles, D, R, slope, st);
-    case 256: return launch<H, 8, NV>(planes, wd, ws, nf, vc, m, den, g, s, d_wd, d_ws, d_nf, d_vc, n_tiles, D, R, slope, st);
+    case 32: return launch<H, 1, NV, T>(planes, wd, ws, nf, vc, m, den, g, s, d_wd, d_ws, d_nf, d_vc, n_tiles, D, R, slope, st);
+    case 64: return launch<H, 2, NV, T>(planes, wd, ws, nf, vc, m, den, g, s, d_wd, d_ws, d_nf, d_vc, n_tiles, D, R, slope, st);
+    case 128: return launch<H, 4, NV, T>(planes, wd, ws, nf, vc, m, den, g, s, d_wd, d_ws, d_nf, d_vc, n_tiles, D, R, slope, st);
+    case 256: return launch<H, 8, NV, T>(planes, wd, ws, nf, vc, m, den, g, s, d_wd, d_ws, d_nf, d_vc, n_tiles, D, R, slope, st);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int launch_h(const void* planes, const void* wd, const void* ws,
+             const void* nf, const void* vc, const void* m, const void* den,
+             const void* g, const void* s, void* d_wd, void* d_ws,
+             void* d_nf, void* d_vc, int n_tiles, int tn, int H, int D,
+             int R, float slope, void* stream) {
+  // D/4 lanes per head, a power of two up to 32; H*D <= 256
+  const int w = D / 4;
+  if (R < 0 || R + 1 > 32 || D % 4 || w < 1 || w > 32 || (w & (w - 1))
+      || H * D > 256)
+    return (int)cudaErrorInvalidValue;
+  const float* a[8] = {(const float*)planes, (const float*)wd,
+                       (const float*)ws, (const float*)vc, (const float*)m,
+                       (const float*)den, (const float*)g, (const float*)s};
+  const T* x = (const T*)nf;
+  float* o[4] = {(float*)d_wd, (float*)d_ws, (float*)d_nf, (float*)d_vc};
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool wide = H * D > 128;
+#define DGB_ARGS tn, a[0], a[1], a[2], x, a[3], a[4], a[5], a[6], a[7], \
+    o[0], o[1], o[2], o[3], n_tiles, D, R, slope, st
+  switch (H) {
+    case 1: return launch_tn<1, 1, T>(DGB_ARGS);
+    case 2: return wide ? launch_tn<2, 2, T>(DGB_ARGS)
+                        : launch_tn<2, 1, T>(DGB_ARGS);
+    case 4: return wide ? launch_tn<4, 2, T>(DGB_ARGS)
+                        : launch_tn<4, 1, T>(DGB_ARGS);
+    case 8: return wide ? launch_tn<8, 2, T>(DGB_ARGS)
+                        : launch_tn<8, 1, T>(DGB_ARGS);
+  }
+#undef DGB_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
@@ -372,30 +425,25 @@ extern "C" int dense_gat_bwd(
     const void* vc, const void* m, const void* den, const void* g,
     const void* s, void* d_wd, void* d_ws, void* d_nf, void* d_vc,
     int n_tiles, int tn, int H, int D, int R, float slope, void* stream) {
-  // D/4 lanes per head, a power of two up to 32; H*D <= 256
-  const int w = D / 4;
-  if (R < 0 || R + 1 > 32 || D % 4 || w < 1 || w > 32 || (w & (w - 1))
-      || H * D > 256)
-    return (int)cudaErrorInvalidValue;
-  const float* a[9] = {(const float*)planes, (const float*)wd,
-                       (const float*)ws, (const float*)nf, (const float*)vc,
-                       (const float*)m, (const float*)den, (const float*)g,
-                       (const float*)s};
-  float* o[4] = {(float*)d_wd, (float*)d_ws, (float*)d_nf, (float*)d_vc};
-  cudaStream_t st = (cudaStream_t)stream;
-  const bool wide = H * D > 128;
-  switch (H) {
-    case 1: return launch_tn<1, 1>(tn, a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], o[0], o[1], o[2], o[3], n_tiles, D, R, slope, st);
-    case 2: return wide ? launch_tn<2, 2>(tn, a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], o[0], o[1], o[2], o[3], n_tiles, D, R, slope, st)
-                        : launch_tn<2, 1>(tn, a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], o[0], o[1], o[2], o[3], n_tiles, D, R, slope, st);
-    case 4: return wide ? launch_tn<4, 2>(tn, a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], o[0], o[1], o[2], o[3], n_tiles, D, R, slope, st)
-                        : launch_tn<4, 1>(tn, a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], o[0], o[1], o[2], o[3], n_tiles, D, R, slope, st);
-    case 8: return wide ? launch_tn<8, 2>(tn, a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], o[0], o[1], o[2], o[3], n_tiles, D, R, slope, st)
-                        : launch_tn<8, 1>(tn, a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], o[0], o[1], o[2], o[3], n_tiles, D, R, slope, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return launch_h<float>(planes, wd, ws, nf, vc, m, den, g, s, d_wd, d_ws,
+                         d_nf, d_vc, n_tiles, tn, H, D, R, slope, stream);
+}
+
+// nf in bf16 (8-byte aligned rows); every other argument as above
+extern "C" int dense_gat_bwd_bf16(
+    const void* planes, const void* wd, const void* ws, const void* nf,
+    const void* vc, const void* m, const void* den, const void* g,
+    const void* s, void* d_wd, void* d_ws, void* d_nf, void* d_vc,
+    int n_tiles, int tn, int H, int D, int R, float slope, void* stream) {
+  return launch_h<bf16_bits>(planes, wd, ws, nf, vc, m, den, g, s, d_wd,
+                             d_ws, d_nf, d_vc, n_tiles, tn, H, D, R, slope,
+                             stream);
 }
 
 extern "C" const char* dense_gat_bwd_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+extern "C" const char* dense_gat_bwd_bf16_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

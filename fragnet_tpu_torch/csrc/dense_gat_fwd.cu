@@ -37,9 +37,18 @@
 // needs. The summation order is fixed, so the result is the same from run
 // to run. The TPU kernel's (8, .) paddings of wsT and vc and its
 // G-tiles-per-step loop are not carried over.
+//
+// dense_gat_fwd_bf16 is the same kernel with nf in bf16 (the JAX package's
+// bf16 compute, dense_gat.py:_build's dt_name, l.704-706): each nf[j] row
+// read takes a lane's four columns as one 8-byte load, widened to f32
+// exactly; planes, wd, ws, vc, the softmax and the sums stay f32, and out,
+// m, den are written in f32. A one-neighbour row's out is nf[j] widened,
+// bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+typedef unsigned short bf16_bits;  // one bf16 value, as stored
 
 namespace {
 
@@ -58,12 +67,23 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-template <int H, int NV>  // float4 column groups per lane: H*D <= 128 * NV
+// four adjacent bf16 columns as one 8-byte load, widened to f32 exactly (a
+// bf16 is the high half of its f32)
+__device__ __forceinline__ float4 ld4(const bf16_bits* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// NV: float4 column groups per lane (H*D <= 128 * NV); T: nf's element type
+template <int H, int NV, typename T>
 __global__ void __launch_bounds__(kThreads) dense_gat_fwd_kernel(
     const float* __restrict__ planes,  // (n_tiles, (R+1)*tn, tn)
     const float* __restrict__ wd,      // (N, H)
     const float* __restrict__ ws,      // (N, H)
-    const float* __restrict__ nf,      // (N, H*D)
+    const T* __restrict__ nf,          // (N, H*D), f32 or bf16
     const float* __restrict__ vc,      // (R+1, H): rows v[0..R-1], then c
     float* __restrict__ out,           // (N, H*D)
     float* __restrict__ m_out,         // (N, H)
@@ -233,27 +253,56 @@ __global__ void __launch_bounds__(kThreads) dense_gat_fwd_kernel(
   }
 }
 
-template <int H, int NV>
+template <int H, int NV, typename T>
 int launch(const float* planes, const float* wd, const float* ws,
-           const float* nf, const float* vc, float* out, float* m,
-           float* den, int n_tiles, int tn, int D, int R, float slope,
+           const T* nf, const float* vc, float* out, float* m, float* den,
+           int n_tiles, int tn, int D, int R, float slope,
            cudaStream_t stream) {
   const dim3 grid(tn / kRows, n_tiles);
-  dense_gat_fwd_kernel<H, NV><<<grid, kThreads, 0, stream>>>(
+  dense_gat_fwd_kernel<H, NV, T><<<grid, kThreads, 0, stream>>>(
       planes, wd, ws, nf, vc, out, m, den, tn, D, R, slope);
   return (int)cudaGetLastError();
 }
 
-template <int H>
+template <int H, typename T>
 int launch_nv(const float* planes, const float* wd, const float* ws,
-              const float* nf, const float* vc, float* out, float* m,
+              const T* nf, const float* vc, float* out, float* m,
               float* den, int n_tiles, int tn, int D, int R, float slope,
               cudaStream_t s) {
   if (H * D <= 128)
-    return launch<H, 1>(planes, wd, ws, nf, vc, out, m, den, n_tiles, tn, D,
-                        R, slope, s);
-  return launch<H, 2>(planes, wd, ws, nf, vc, out, m, den, n_tiles, tn, D, R,
-                      slope, s);
+    return launch<H, 1, T>(planes, wd, ws, nf, vc, out, m, den, n_tiles, tn,
+                           D, R, slope, s);
+  return launch<H, 2, T>(planes, wd, ws, nf, vc, out, m, den, n_tiles, tn, D,
+                         R, slope, s);
+}
+
+template <typename T>
+int launch_h(const void* planes, const void* wd, const void* ws,
+             const void* nf, const void* vc, void* out, void* m, void* den,
+             int n_tiles, int tn, int H, int D, int R, float slope,
+             void* stream) {
+  // lanes read the adjacency and nf four columns at a time (a lane's four
+  // columns in one head): tn in {32, 64, 128, 256}, D a multiple of 4,
+  // H*D <= 256
+  if ((tn != 32 && tn != 64 && tn != 128 && tn != 256) || D <= 0 || D % 4
+      || H * D > 256 || R < 0 || R + 1 > 32)
+    return (int)cudaErrorInvalidValue;
+  const float* p = (const float*)planes;
+  const float* a = (const float*)wd;
+  const float* b = (const float*)ws;
+  const T* x = (const T*)nf;
+  const float* v = (const float*)vc;
+  float* o = (float*)out;
+  float* mm = (float*)m;
+  float* dd = (float*)den;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (H) {
+    case 1: return launch_nv<1, T>(p, a, b, x, v, o, mm, dd, n_tiles, tn, D, R, slope, s);
+    case 2: return launch_nv<2, T>(p, a, b, x, v, o, mm, dd, n_tiles, tn, D, R, slope, s);
+    case 4: return launch_nv<4, T>(p, a, b, x, v, o, mm, dd, n_tiles, tn, D, R, slope, s);
+    case 8: return launch_nv<8, T>(p, a, b, x, v, o, mm, dd, n_tiles, tn, D, R, slope, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -262,29 +311,23 @@ extern "C" int dense_gat_fwd(
     const void* planes, const void* wd, const void* ws, const void* nf,
     const void* vc, void* out, void* m, void* den, int n_tiles, int tn,
     int H, int D, int R, float slope, void* stream) {
-  // lanes read the adjacency and nf in float4 (a lane's four columns in one
-  // head): tn in {32, 64, 128, 256}, D a multiple of 4, H*D <= 256
-  if ((tn != 32 && tn != 64 && tn != 128 && tn != 256) || D <= 0 || D % 4
-      || H * D > 256 || R < 0 || R + 1 > 32)
-    return (int)cudaErrorInvalidValue;
-  const float* p = (const float*)planes;
-  const float* a = (const float*)wd;
-  const float* b = (const float*)ws;
-  const float* x = (const float*)nf;
-  const float* v = (const float*)vc;
-  float* o = (float*)out;
-  float* mm = (float*)m;
-  float* dd = (float*)den;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (H) {
-    case 1: return launch_nv<1>(p, a, b, x, v, o, mm, dd, n_tiles, tn, D, R, slope, s);
-    case 2: return launch_nv<2>(p, a, b, x, v, o, mm, dd, n_tiles, tn, D, R, slope, s);
-    case 4: return launch_nv<4>(p, a, b, x, v, o, mm, dd, n_tiles, tn, D, R, slope, s);
-    case 8: return launch_nv<8>(p, a, b, x, v, o, mm, dd, n_tiles, tn, D, R, slope, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return launch_h<float>(planes, wd, ws, nf, vc, out, m, den, n_tiles, tn, H,
+                         D, R, slope, stream);
+}
+
+// nf in bf16 (8-byte aligned rows); every other argument as above
+extern "C" int dense_gat_fwd_bf16(
+    const void* planes, const void* wd, const void* ws, const void* nf,
+    const void* vc, void* out, void* m, void* den, int n_tiles, int tn,
+    int H, int D, int R, float slope, void* stream) {
+  return launch_h<bf16_bits>(planes, wd, ws, nf, vc, out, m, den, n_tiles,
+                             tn, H, D, R, slope, stream);
 }
 
 extern "C" const char* dense_gat_fwd_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+extern "C" const char* dense_gat_fwd_bf16_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

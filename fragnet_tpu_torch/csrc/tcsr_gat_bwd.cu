@@ -71,9 +71,19 @@
 // l.635, _unnorm_bwd l.707): the destination grid is the shard's n_grid
 // tiles from tile *t0 (device memory), m, den, g, s hold the grid's rows,
 // and the source role still covers every node of the batch.
+//
+// tcsr_gat_bwd_bf16 is the same kernel with nf in bf16 (the JAX package's
+// bf16 compute, pallas_gat.py:_build's dt_name, l.361-364): its window
+// reads of nf take a lane's four columns as one 8-byte load, widened to f32
+// exactly; g, s, m, den and every output stay f32 (pallas_gat.py:511 casts
+// g to f32; s comes from the forward's f32 out). A one-neighbour row still
+// cancels exactly: out = nf[src] widened, the same values this kernel reads.
+// K3's entry stays f32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+typedef unsigned short bf16_bits;  // one bf16 value, as stored
 
 namespace {
 
@@ -82,9 +92,10 @@ constexpr int kThreads = 32 * kRows;  // also the window edges of one round
 constexpr int kUnroll = 4;            // edges whose loads a warp has in flight
 constexpr unsigned kFull = 0xffffffffu;
 
+template <typename T>  // nf's element type: float or bf16_bits
 struct Args {
   const float* wn;      // (N, 2H): [w_dst | w_src]
-  const float* nf;      // (N, H*D)
+  const T* nf;          // (N, H*D)
   const float* w_ea;    // (E, H)
   const int* src;       // (E,)
   const int* dst;       // (E,)
@@ -110,6 +121,16 @@ __device__ __forceinline__ float leaky(float x, float slope) {
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
+}
+
+// four adjacent bf16 columns as one 8-byte load, widened to f32 exactly (a
+// bf16 is the high half of its f32)
+__device__ __forceinline__ float4 ld4(const bf16_bits* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
 }
 
 // The per-head dot in the order of torch's sum over the last dimension on
@@ -162,9 +183,10 @@ __device__ __forceinline__ int compact(bool keep, int lane, int warp,
   return total;
 }
 
-template <int NV>  // float4 column groups per lane: H*D <= 128 * NV
+// NV: float4 column groups per lane (H*D <= 128 * NV); T: nf's element type
+template <int NV, typename T>
 __global__ void __launch_bounds__(kThreads) tcsr_gat_bwd_kernel(
-    const Args a, int n_dst_blocks) {
+    const Args<T> a, int n_dst_blocks) {
   __shared__ int st_row[kThreads];  // a staged edge's row in the slice
   __shared__ int st_oth[kThreads];  // its other end (src or dst)
   __shared__ int st_eid[kThreads];
@@ -431,7 +453,8 @@ __global__ void __launch_bounds__(kThreads) tcsr_gat_bwd_kernel(
   }
 }
 
-int launch(const Args& a, void* stream) {
+template <typename T>
+int launch(const Args<T>& a, void* stream) {
   // lanes read nf and g in float4 and sum a head's D/4 lanes by shuffles:
   // D/4 a power of two up to 32, H*D <= 256; slices of kRows rows
   const int w = a.D / 4;
@@ -444,10 +467,30 @@ int launch(const Args& a, void* stream) {
   const int n_src = a.n_nodes / kRows;
   cudaStream_t st = (cudaStream_t)stream;
   if (a.H * a.D <= 128)
-    tcsr_gat_bwd_kernel<1><<<n_dst + n_src, kThreads, 0, st>>>(a, n_dst);
+    tcsr_gat_bwd_kernel<1, T><<<n_dst + n_src, kThreads, 0, st>>>(a, n_dst);
   else
-    tcsr_gat_bwd_kernel<2><<<n_dst + n_src, kThreads, 0, st>>>(a, n_dst);
+    tcsr_gat_bwd_kernel<2, T><<<n_dst + n_src, kThreads, 0, st>>>(a, n_dst);
   return (int)cudaGetLastError();
+}
+
+// the single-device entry points (no grid offset; every node a grid row)
+template <typename T>
+int launch_single(const void* wn, const void* nf, const void* w_ea,
+                  const void* src, const void* dst, const void* emask,
+                  const void* ew_blk, const void* cw, const void* sw_tile,
+                  const void* m, const void* den, const void* g,
+                  const void* s, void* d_wn, void* d_nf, void* d_w_ea,
+                  int n_tiles, int n_edges, int tn, int te, int k_src, int H,
+                  int D, int self_loops, float slope, void* stream) {
+  const Args<T> a = {(const float*)wn, (const T*)nf, (const float*)w_ea,
+                     (const int*)src, (const int*)dst, (const float*)emask,
+                     nullptr, (const int*)ew_blk, (const int*)cw,
+                     (const int*)sw_tile, (const float*)m,
+                     (const float*)den, (const float*)g, (const float*)s,
+                     (float*)d_wn, (float*)d_nf, (float*)d_w_ea, n_tiles,
+                     n_tiles * tn, n_edges, tn, te, k_src, H, D, self_loops,
+                     slope};
+  return launch<T>(a, stream);
 }
 
 }  // namespace
@@ -459,14 +502,24 @@ extern "C" int tcsr_gat_bwd(
     const void* s, void* d_wn, void* d_nf, void* d_w_ea, int n_tiles,
     int n_edges, int tn, int te, int k_src, int H, int D, int self_loops,
     float slope, void* stream) {
-  const Args a = {(const float*)wn, (const float*)nf, (const float*)w_ea,
-                  (const int*)src, (const int*)dst, (const float*)emask,
-                  nullptr, (const int*)ew_blk, (const int*)cw,
-                  (const int*)sw_tile, (const float*)m, (const float*)den,
-                  (const float*)g, (const float*)s, (float*)d_wn,
-                  (float*)d_nf, (float*)d_w_ea, n_tiles, n_tiles * tn,
-                  n_edges, tn, te, k_src, H, D, self_loops, slope};
-  return launch(a, stream);
+  return launch_single<float>(wn, nf, w_ea, src, dst, emask, ew_blk, cw,
+                              sw_tile, m, den, g, s, d_wn, d_nf, d_w_ea,
+                              n_tiles, n_edges, tn, te, k_src, H, D,
+                              self_loops, slope, stream);
+}
+
+// nf in bf16 (8-byte aligned rows); every other argument as above
+extern "C" int tcsr_gat_bwd_bf16(
+    const void* wn, const void* nf, const void* w_ea, const void* src,
+    const void* dst, const void* emask, const void* ew_blk, const void* cw,
+    const void* sw_tile, const void* m, const void* den, const void* g,
+    const void* s, void* d_wn, void* d_nf, void* d_w_ea, int n_tiles,
+    int n_edges, int tn, int te, int k_src, int H, int D, int self_loops,
+    float slope, void* stream) {
+  return launch_single<bf16_bits>(wn, nf, w_ea, src, dst, emask, ew_blk, cw,
+                                  sw_tile, m, den, g, s, d_wn, d_nf, d_w_ea,
+                                  n_tiles, n_edges, tn, te, k_src, H, D,
+                                  self_loops, slope, stream);
 }
 
 // K3's backward: one shard's grid of n_grid tiles from tile *t0 (device);
@@ -480,17 +533,21 @@ extern "C" int tcsr_gat_ep_bwd(
     const void* g, const void* s, void* d_wn, void* d_nf, void* d_w_ea,
     int n_grid, int n_nodes, int n_edges, int tn, int te, int k_src, int H,
     int D, float slope, void* stream) {
-  const Args a = {(const float*)wn, (const float*)nf, (const float*)w_ea,
-                  (const int*)src, (const int*)dst, (const float*)emask,
-                  (const int*)t0, (const int*)ew_blk, (const int*)cw,
-                  (const int*)sw_tile, (const float*)m, (const float*)den,
-                  (const float*)g, (const float*)s, (float*)d_wn,
-                  (float*)d_nf, (float*)d_w_ea, n_grid, n_nodes, n_edges,
-                  tn, te, k_src, H, D, 0, slope};
-  return launch(a, stream);
+  const Args<float> a = {
+      (const float*)wn, (const float*)nf, (const float*)w_ea,
+      (const int*)src, (const int*)dst, (const float*)emask, (const int*)t0,
+      (const int*)ew_blk, (const int*)cw, (const int*)sw_tile,
+      (const float*)m, (const float*)den, (const float*)g, (const float*)s,
+      (float*)d_wn, (float*)d_nf, (float*)d_w_ea, n_grid, n_nodes, n_edges,
+      tn, te, k_src, H, D, 0, slope};
+  return launch<float>(a, stream);
 }
 
 extern "C" const char* tcsr_gat_bwd_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+extern "C" const char* tcsr_gat_bwd_bf16_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 

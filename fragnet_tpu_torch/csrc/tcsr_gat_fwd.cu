@@ -45,9 +45,18 @@
 // for it); the edge arrays and the windows ew_blk / cw are the shard's,
 // node arrays stay whole, and row i of out, m, den holds absolute node
 // t0 * tn + i. No self-loops: the combine adds them once.
+//
+// tcsr_gat_fwd_bf16 is the same kernel with nf in bf16, the node-feature
+// type of the JAX package's bf16 compute (pallas_gat.py:_build's dt_name,
+// l.361-364): a lane reads its four columns as one 8-byte load and widens
+// them to f32 exactly; wn, w_ea, the softmax and the sums stay f32, and out,
+// m, den are written in f32 as in the f32 form. It halves the bytes of the
+// nf[src] gathers, the kernel's largest reads. K3's entry stays f32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+typedef unsigned short bf16_bits;  // one bf16 value, as stored
 
 namespace {
 
@@ -61,10 +70,25 @@ __device__ __forceinline__ float leaky(float x, float slope) {
   return x > 0.f ? x : slope * x;
 }
 
-template <int NV>  // float4 column groups per lane: H*D <= 128 * NV
+// four adjacent columns of a node-feature row, as f32: one 16-byte load of
+// f32, or one 8-byte load of bf16 widened exactly (a bf16 is the high half
+// of its f32)
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const bf16_bits* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// NV: float4 column groups per lane (H*D <= 128 * NV); T: nf's element type
+template <int NV, typename T>
 __global__ void __launch_bounds__(kThreads) tcsr_gat_fwd_kernel(
     const float* __restrict__ wn,      // (N, 2H): [w_dst | w_src]
-    const float* __restrict__ nf,      // (N, H*D)
+    const T* __restrict__ nf,          // (N, H*D), f32 or bf16
     const float* __restrict__ w_ea,    // (E, H)
     const int* __restrict__ src,       // (E,)
     const int* __restrict__ dst,       // (E,)
@@ -105,8 +129,7 @@ __global__ void __launch_bounds__(kThreads) tcsr_gat_fwd_kernel(
     if (self_loops) {
       mx[v] = leaky(wdst[v] + w[H + hd[v]], slope);
       dn[v] = 1.f;
-      acc[v] = on[v] ? *reinterpret_cast<const float4*>(
-                           nf + (size_t)node * HD + col[v])
+      acc[v] = on[v] ? ld4(nf + (size_t)node * HD + col[v])
                      : make_float4(0.f, 0.f, 0.f, 0.f);
     } else {
       mx[v] = kNeg;
@@ -165,10 +188,8 @@ __global__ void __launch_bounds__(kThreads) tcsr_gat_fwd_kernel(
         for (int u = 0; u < kUnroll; ++u)
 #pragma unroll
           for (int v = 0; v < NV; ++v) {
-            x[u][v] = ok[u] && on[v]
-                ? *reinterpret_cast<const float4*>(
-                      nf + (size_t)ss[u] * HD + col[v])
-                : make_float4(0.f, 0.f, 0.f, 0.f);
+            x[u][v] = ok[u] && on[v] ? ld4(nf + (size_t)ss[u] * HD + col[v])
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
             zs[u][v] = ok[u] ? wn[(size_t)ss[u] * 2 * H + H + hd[v]]
                                + w_ea[(size_t)ee[u] * H + hd[v]]
                              : 0.f;
@@ -207,6 +228,7 @@ __global__ void __launch_bounds__(kThreads) tcsr_gat_fwd_kernel(
   }
 }
 
+template <typename T>
 int launch(const void* wn, const void* nf, const void* w_ea, const void* src,
            const void* dst, const void* emask, const void* t0,
            const void* ew_blk, const void* cw, void* out, void* m, void* den,
@@ -215,20 +237,18 @@ int launch(const void* wn, const void* nf, const void* w_ea, const void* src,
   if (D % 4 || H * D > 256 || tn % kRows) return (int)cudaErrorInvalidValue;
   const dim3 grid(tn / kRows, n_grid);
   cudaStream_t st = (cudaStream_t)stream;
-  const float* a[3] = {(const float*)wn, (const float*)nf,
-                       (const float*)w_ea};
   if (H * D <= 128)
-    tcsr_gat_fwd_kernel<1><<<grid, kThreads, 0, st>>>(
-        a[0], a[1], a[2], (const int*)src, (const int*)dst,
-        (const float*)emask, (const int*)t0, (const int*)ew_blk,
-        (const int*)cw, (float*)out, (float*)m, (float*)den, tn, te, H, D,
-        self_loops, slope);
+    tcsr_gat_fwd_kernel<1, T><<<grid, kThreads, 0, st>>>(
+        (const float*)wn, (const T*)nf, (const float*)w_ea, (const int*)src,
+        (const int*)dst, (const float*)emask, (const int*)t0,
+        (const int*)ew_blk, (const int*)cw, (float*)out, (float*)m,
+        (float*)den, tn, te, H, D, self_loops, slope);
   else
-    tcsr_gat_fwd_kernel<2><<<grid, kThreads, 0, st>>>(
-        a[0], a[1], a[2], (const int*)src, (const int*)dst,
-        (const float*)emask, (const int*)t0, (const int*)ew_blk,
-        (const int*)cw, (float*)out, (float*)m, (float*)den, tn, te, H, D,
-        self_loops, slope);
+    tcsr_gat_fwd_kernel<2, T><<<grid, kThreads, 0, st>>>(
+        (const float*)wn, (const T*)nf, (const float*)w_ea, (const int*)src,
+        (const int*)dst, (const float*)emask, (const int*)t0,
+        (const int*)ew_blk, (const int*)cw, (float*)out, (float*)m,
+        (float*)den, tn, te, H, D, self_loops, slope);
   return (int)cudaGetLastError();
 }
 
@@ -239,8 +259,20 @@ extern "C" int tcsr_gat_fwd(
     const void* dst, const void* emask, const void* ew_blk, const void* cw,
     void* out, void* m, void* den, int n_tiles, int tn, int te, int H,
     int D, int self_loops, float slope, void* stream) {
-  return launch(wn, nf, w_ea, src, dst, emask, nullptr, ew_blk, cw, out, m,
-                den, n_tiles, tn, te, H, D, self_loops, slope, stream);
+  return launch<float>(wn, nf, w_ea, src, dst, emask, nullptr, ew_blk, cw,
+                       out, m, den, n_tiles, tn, te, H, D, self_loops, slope,
+                       stream);
+}
+
+// nf in bf16 (8-byte aligned rows); every other argument as above
+extern "C" int tcsr_gat_fwd_bf16(
+    const void* wn, const void* nf, const void* w_ea, const void* src,
+    const void* dst, const void* emask, const void* ew_blk, const void* cw,
+    void* out, void* m, void* den, int n_tiles, int tn, int te, int H,
+    int D, int self_loops, float slope, void* stream) {
+  return launch<bf16_bits>(wn, nf, w_ea, src, dst, emask, nullptr, ew_blk,
+                           cw, out, m, den, n_tiles, tn, te, H, D,
+                           self_loops, slope, stream);
 }
 
 // K3's forward: one shard's grid of n_grid tiles from tile *t0 (device).
@@ -249,11 +281,15 @@ extern "C" int tcsr_gat_ep_fwd(
     const void* dst, const void* emask, const void* t0, const void* ew_blk,
     const void* cw, void* out, void* m, void* den, int n_grid, int tn,
     int te, int H, int D, float slope, void* stream) {
-  return launch(wn, nf, w_ea, src, dst, emask, t0, ew_blk, cw, out, m, den,
-                n_grid, tn, te, H, D, 0, slope, stream);
+  return launch<float>(wn, nf, w_ea, src, dst, emask, t0, ew_blk, cw, out,
+                       m, den, n_grid, tn, te, H, D, 0, slope, stream);
 }
 
 extern "C" const char* tcsr_gat_fwd_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+extern "C" const char* tcsr_gat_fwd_bf16_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 

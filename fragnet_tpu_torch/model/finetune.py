@@ -42,7 +42,9 @@ class FragNetFineTuneBase(nn.Module):
     ``pretrain``, as in the JAX module. Parameters are drawn from
     ``generator`` (a seeded ``torch.Generator``) on the CPU; move the
     module to its device afterwards. ``ep`` (an EPContext) makes the
-    encoder edge-partitioned; the parameters are the same."""
+    encoder edge-partitioned; the parameters are the same. ``dtype`` (f32
+    or bf16) is the encoder's compute type; the pooling promotes to f32
+    (the masks are f32), so the representation is f32."""
 
     def __init__(self, num_layer: int = 4, drop_ratio: float = 0.15,
                  num_heads: int = 4, emb_dim: int = 128,
@@ -50,14 +52,15 @@ class FragNetFineTuneBase(nn.Module):
                  edge_features: int = 17, fedge_in: int = 6,
                  fbond_edge_in: int = 6,
                  policy: KernelPolicy = KernelPolicy(),
-                 generator: Optional[torch.Generator] = None, ep=None):
+                 generator: Optional[torch.Generator] = None, ep=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.pretrain = FragNet(
             num_layer=num_layer, drop_ratio=drop_ratio, emb_dim=emb_dim,
             atom_features=atom_features, frag_features=frag_features,
             edge_features=edge_features, fedge_in=fedge_in,
             fbond_edge_in=fbond_edge_in, num_heads=num_heads, policy=policy,
-            generator=generator, ep=ep)
+            generator=generator, ep=ep, dtype=dtype)
 
     def encode(self, batch, hooks: Optional[List[LayerHooks]] = None,
                return_attentions: bool = False):
@@ -74,7 +77,9 @@ class FragNetFineTuneBase(nn.Module):
 
 class FragNetFineTune(FragNetFineTuneBase):
     """The flagship finetune model (gat2.py:758-826): FragNetFineTuneBase's
-    representation through the FTHead ``fthead``."""
+    representation through the FTHead ``fthead``, which runs in f32 whatever
+    the encoder's ``dtype`` (the JAX head is a Dense with dtype None over
+    the f32 pooled representation)."""
 
     def __init__(self, n_classes: int = 1, atom_features: int = 167,
                  frag_features: int = 167, edge_features: int = 17,
@@ -84,14 +89,15 @@ class FragNetFineTune(FragNetFineTuneBase):
                  h3: int = 256, h4: int = 256, act: str = "celu",
                  emb_dim: int = 128, fthead: str = "FTHead3",
                  policy: KernelPolicy = KernelPolicy(),
-                 generator: Optional[torch.Generator] = None, ep=None):
+                 generator: Optional[torch.Generator] = None, ep=None,
+                 dtype: torch.dtype = torch.float32):
         g = generator
         super().__init__(
             num_layer=num_layer, drop_ratio=drop_ratio, num_heads=num_heads,
             emb_dim=emb_dim, atom_features=atom_features,
             frag_features=frag_features, edge_features=edge_features,
             fedge_in=fedge_in, fbond_edge_in=fbond_edge_in, policy=policy,
-            generator=g, ep=ep)
+            generator=g, ep=ep, dtype=dtype)
         # over pooled atoms ‖ pooled frags
         self.fthead = make_fthead(fthead, 2 * emb_dim, n_classes, h1, h2, h3,
                                   h4, drop_ratio, act, g)

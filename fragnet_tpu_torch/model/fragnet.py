@@ -10,7 +10,9 @@ fragnet_tpu/model/fragnet.py):
   * ReLU + dropout between layers, applied to all four streams.
 
 ``ep`` (an EPContext, dist/edge_partition.py) builds edge-partitioned
-layers (the JAX package's ``ep_axis``).
+layers (the JAX package's ``ep_axis``); ``dtype`` (f32 or bf16) is every
+layer's compute type (the JAX package's ``FragNet.dtype``), and the four
+streams leave the encoder in it.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ class FragNet(nn.Module):
                  frag_features: int = 167, edge_features: int = 17,
                  fedge_in: int = 6, fbond_edge_in: int = 6,
                  num_heads: int = 4, policy: KernelPolicy = KernelPolicy(),
-                 generator: Optional[torch.Generator] = None, ep=None):
+                 generator: Optional[torch.Generator] = None, ep=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.drop = nn.Dropout(drop_ratio)
         self.layers = nn.ModuleList([
@@ -46,6 +49,7 @@ class FragNet(nn.Module):
                 policy=policy,
                 generator=generator,
                 ep=ep,
+                dtype=dtype,
             )
             for i in range(num_layer)
         ])

@@ -17,6 +17,14 @@ passes' outputs, whichever kernel ran the pass. The bond, atom and
 fragment passes are methods of ``_BondAtomPasses``, which FragNetLayer and
 the gat2_lite and gat2_edge layers (model/variants.py) build on.
 
+``dtype`` is the compute type of FragNetLayer (the JAX package's
+``FragNetLayer.dtype``, model/layers.py:228-264): f32, or bf16 to halve the
+node-feature bytes the kernels read. Parameters stay f32 (Adam updates
+them, as optax does); every Linear runs as flax's ``Dense(dtype=dt)`` —
+input, weight and bias cast to dt (``_linear_dt``) — the layer's inputs
+and masks are cast to dt, the logits, softmax and the kernels' sums stay
+f32 (ops/), and ``_fold_planes`` applies the embed in dt and folds in f32.
+
 Parameter names are the reference torch names (gat2.py): projection_b/a/fb,
 edge_attr_bond_embed, edge_attr_fbond_embed and the attention vectors
 a_b/a/f/f_a_b. The reference also constructs modules that never affect the
@@ -31,6 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from fragnet_tpu_torch.ops.dense_gat import (dense_attr_gat_pass,
                                              dense_gat_pass)
@@ -177,15 +186,29 @@ def _gat_dispatch(
     return out, (attn if need_attn else None)
 
 
+def _linear_dt(lin: nn.Linear, x: torch.Tensor,
+               dt: torch.dtype) -> torch.Tensor:
+    """``lin`` applied as flax's ``Dense(dtype=dt)``: input, weight and bias
+    cast to ``dt``, the result in ``dt``; autograd carries the gradients
+    back to the f32 parameters. In f32 the module itself."""
+    if dt == lin.weight.dtype:
+        return lin(x.to(dt))
+    return F.linear(x.to(dt), lin.weight.to(dt), lin.bias.to(dt))
+
+
 def _fold_planes(emb: nn.Linear, raw_dim: int, avec: torch.Tensor,
-                 dp0: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                 dp0: int, dt: torch.dtype
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fold an edge-attr embed Linear + the a_ea slice of the attention
     vector into the (v (R, H), c (H,)) rank terms the planes kernel consumes
-    — basis-applied through the SAME module, as the JAX package does."""
+    — basis-applied through the SAME module in the compute type ``dt``,
+    then folded in f32, as the JAX package does (layers.py:201-213)."""
     H = avec.shape[0]
-    dev, dt = avec.device, emb.weight.dtype
-    bias_row = emb(torch.zeros((1, raw_dim), dtype=dt, device=dev))
-    Wt = emb(torch.eye(raw_dim, dtype=dt, device=dev)) - bias_row  # (R, Dp)
+    dev = avec.device
+    bias_row = _linear_dt(emb, torch.zeros((1, raw_dim), dtype=dt,
+                                           device=dev), dt)
+    Wt = _linear_dt(emb, torch.eye(raw_dim, dtype=dt, device=dev),
+                    dt) - bias_row  # (R, Dp)
     a_ea = avec[:, dp0:2 * dp0].float()
     v = Wt.float() @ a_ea.T
     c = (bias_row.float() @ a_ea.T).reshape(H)
@@ -276,10 +299,11 @@ class _BondAtomPasses(nn.Module):
     def __init__(self, atom_in: int, atom_out: int, edge_in: int,
                  edge_out: int, bond_edge_in: int, num_heads: int,
                  policy: KernelPolicy, generator: Optional[torch.Generator],
-                 ep=None):
+                 ep=None, dtype: torch.dtype = torch.float32):
         super().__init__()
         H = num_heads
         self.num_heads = H
+        self.dtype = dtype
         self.atom_out = atom_out
         self.edge_out = edge_out
         self.policy = policy
@@ -299,24 +323,26 @@ class _BondAtomPasses(nn.Module):
         features (E, edge_out), masked, the hooks' rows zeroed; attention
         by source or None)."""
         hooks = hooks or LayerHooks()
-        H, pol, ep = self.num_heads, self.policy, self.ep
+        H, pol, ep, dt = self.num_heads, self.policy, self.ep, self.dtype
         edge_out_ph = self.edge_out // H
         E = nf_bonds.shape[0]
-        ea_b = self.edge_attr_bond_embed(batch.ea_bonds)          # (EB, Dp)
-        nf_b = self.projection_b(nf_bonds).reshape(E, H, edge_out_ph)
+        ea_b = _linear_dt(self.edge_attr_bond_embed, batch.ea_bonds,
+                          dt)                                    # (EB, Dp)
+        nf_b = _linear_dt(self.projection_b, nf_bonds, dt).reshape(
+            E, H, edge_out_ph)
         fold_b = None
         if ep is None and pol.bond == "planes" and batch.dp_bond is not None:
             # raw bond-graph edge attr is the 1-dim cos-angle → rank-1 fold
             fold_b = _fold_planes(self.edge_attr_bond_embed,
                                   batch.ea_bonds.shape[1], self.a_b,
-                                  edge_out_ph)
+                                  edge_out_ph, dt)
         bond_out, attn_bonds = _gat_dispatch(
             nf_b, ea_b, batch.bg_src, batch.bg_dst, batch.bg_mask, self.a_b,
             num_nodes=E, tm=batch.tm_bond, dp=batch.dp_bond, mode=pol.bond,
             fold=fold_b, need_attn=need_attn, ep=ep)
         new_bond_features = _zero_rows(bond_out.reshape(E, -1),
                                        hooks.bond_pair(), hooks.bond_rows)
-        return new_bond_features * batch.edge_mask[:, None], attn_bonds
+        return new_bond_features * batch.edge_mask.to(dt)[:, None], attn_bonds
 
     def atom_pass(self, x_atoms, new_bond_features, batch,
                   need_attn: bool = False,
@@ -348,7 +374,8 @@ class _BondAtomPasses(nn.Module):
                    torch.cat([new_bond_features,
                               new_bond_features.new_zeros((A, self.edge_out))]),
                    torch.cat([edge_mask, edge_mask.new_ones((A,))]))
-        nf_a = self.projection_a(x_atoms).reshape(A, H, self.atom_out // H)
+        nf_a = _linear_dt(self.projection_a, x_atoms, self.dtype).reshape(
+            A, H, self.atom_out // H)
         atom_out_feats, attn_atoms = _gat_dispatch(
             nf_a, ea_a, batch.edge_src, batch.edge_dst, mask_a, self.a,
             num_nodes=A, tm=batch.tm_atom, dp=batch.dp_atom,
@@ -358,7 +385,8 @@ class _BondAtomPasses(nn.Module):
                                  hooks.atom_mask, hooks.atom_rows)
         if hooks.atom_zero_vec is not None:
             x_atoms_new = x_atoms_new * (1.0 - hooks.atom_zero_vec)[:, None]
-        return x_atoms_new * batch.atom_mask[:, None], attn_atoms
+        return x_atoms_new * batch.atom_mask.to(self.dtype)[:, None], \
+            attn_atoms
 
     def frag_pass(self, x_frags, ea_f, avec, batch, need_attn: bool = False,
                   self_loops: bool = False):
@@ -387,23 +415,26 @@ class _BondAtomPasses(nn.Module):
             num_nodes=F_, tm=batch.tm_frag, dp=batch.dp_frag,
             mode="attr" if self.policy.attr else "tcsr",
             self_loops=self_loops, seg=seg, need_attn=need_attn, ep=ep)
-        return frag_out.reshape(F_, -1) * batch.frag_mask[:, None], attn_frags
+        frag_mask = batch.frag_mask.to(self.dtype)
+        return frag_out.reshape(F_, -1) * frag_mask[:, None], attn_frags
 
 
 class FragNetLayer(_BondAtomPasses):
-    """One four-level message-passing layer (f32). With ``ep`` (an
+    """One four-level message-passing layer, computing in ``dtype`` (f32
+    or bf16; parameters f32, logits and softmax f32). With ``ep`` (an
     EPContext) it runs edge-partitioned: the batch holds this rank's slice
     of the edge fields (dist/edge_partition.py:ep_local_batch) and every GAT
-    pass is the K3 pass."""
+    pass is the K3 pass (f32 only)."""
 
     def __init__(self, atom_in: int = 128, atom_out: int = 128,
                  edge_in: int = 128, edge_out: int = 128,
                  fedge_in: int = 128, bond_edge_in: int = 1,
                  fbond_edge_in: int = 6, num_heads: int = 4,
                  policy: KernelPolicy = KernelPolicy(),
-                 generator: Optional[torch.Generator] = None, ep=None):
+                 generator: Optional[torch.Generator] = None, ep=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(atom_in, atom_out, edge_in, edge_out, bond_edge_in,
-                         num_heads, policy, generator, ep)
+                         num_heads, policy, generator, ep, dtype)
         H = num_heads
         eph = edge_out // H
         aph = atom_out // H
@@ -420,8 +451,12 @@ class FragNetLayer(_BondAtomPasses):
         H = self.num_heads
         pol = self.policy
         ep = self.ep
+        dt = self.dtype
         edge_out_ph = self.edge_out // H
         C = nf_fbonds.shape[0]
+        # the layer's inputs in the compute type (layers.py:256-264)
+        x_atoms, nf_bonds, nf_fbonds = (x.to(dt) for x in
+                                        (x_atoms, nf_bonds, nf_fbonds))
 
         # ---- pass 1: bond-graph GAT (gat2.py:137-169) --------------------
         new_bond_features, attn_bonds = self.bond_pass(nf_bonds, batch,
@@ -437,21 +472,23 @@ class FragNetLayer(_BondAtomPasses):
         x_frags = segment_sum(x_atoms_new, batch.atom_to_frag, F_)
 
         # ---- pass 4: fconn-graph GAT (gat2.py:238-278) --------------------
-        ea_fb = self.edge_attr_fbond_embed(batch.ea_fbonds)
-        nf_fb = self.projection_fb(nf_fbonds).reshape(C, H, edge_out_ph)
+        ea_fb = _linear_dt(self.edge_attr_fbond_embed, batch.ea_fbonds, dt)
+        nf_fb = _linear_dt(self.projection_fb, nf_fbonds, dt).reshape(
+            C, H, edge_out_ph)
         fold_f = None
         if ep is None and pol.fc == "planes" and batch.dp_fc is not None:
             # raw fconn attrs are the 6-dim connection one-hot sums → rank-6
             fold_f = _fold_planes(self.edge_attr_fbond_embed,
                                   batch.ea_fbonds.shape[1], self.f_a_b,
-                                  edge_out_ph)
+                                  edge_out_ph, dt)
         fbond_out, attn_fbonds = _gat_dispatch(
             nf_fb, ea_fb, batch.fc_src, batch.fc_dst, batch.fc_mask,
             self.f_a_b, num_nodes=C, tm=batch.tm_fc, dp=batch.dp_fc,
             mode=pol.fc, fold=fold_f, need_attn=need_attn, ep=ep)
         new_fbond_features = _zero_rows(fbond_out.reshape(C, -1),
                                         hooks.fconn_pair(), hooks.fconn_rows)
-        new_fbond_features = new_fbond_features * batch.fconn_mask[:, None]
+        new_fbond_features = new_fbond_features \
+            * batch.fconn_mask.to(dt)[:, None]
 
         # ---- pass 5: frag-graph GAT (gat2.py:283-316) ---------------------
         x_frags_new, attn_frags = self.frag_pass(

@@ -15,6 +15,9 @@
 On every device these run as torch ops (ops/segment.py, ``torch.einsum``),
 as the JAX package runs them in XLA: the JAX package has no Pallas kernel
 for them. The encoder's GAT passes take the kernels as in FragNetFineTune.
+``dtype`` (f32 or bf16) is the encoder's compute type; the post-processing
+runs in the promoted type, f32, as the JAX modules' Dense layers (dtype
+None, f32 parameters) promote a bf16 input.
 Parameters use the reference torch names (``lin_query``, ``qkv_proj``,
 ``norm1``, ``linear_net.0``, ``ms_heads.{i}``, ...) and are drawn from
 ``generator`` on the CPU, each with the JAX package's initializer.
@@ -194,12 +197,20 @@ class TransformerEncoder(nn.Module):
 
 def _encoder(num_layer, drop_ratio, num_heads, emb_dim, atom_features,
              frag_features, edge_features, fedge_in, fbond_edge_in, policy,
-             generator) -> FragNet:
+             generator, dtype) -> FragNet:
     return FragNet(num_layer=num_layer, drop_ratio=drop_ratio,
                    emb_dim=emb_dim, atom_features=atom_features,
                    frag_features=frag_features, edge_features=edge_features,
                    fedge_in=fedge_in, fbond_edge_in=fbond_edge_in,
-                   num_heads=num_heads, policy=policy, generator=generator)
+                   num_heads=num_heads, policy=policy, generator=generator,
+                   dtype=dtype)
+
+
+def _promoted(*xs):
+    """The encoder's outputs in the type a Dense with f32 parameters
+    promotes them to (f32), where the post-processing runs."""
+    return tuple(x.to(torch.promote_types(x.dtype, torch.float32))
+                 for x in xs)
 
 
 class FragNetFineTuneTransformer(nn.Module):
@@ -217,12 +228,13 @@ class FragNetFineTuneTransformer(nn.Module):
                  fbond_edge_in: int = 6,
                  compat_shared_transformer: bool = True,
                  policy: KernelPolicy = KernelPolicy(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         g = generator
         self.pretrain = _encoder(num_layer, drop_ratio, num_heads, emb_dim,
                                  atom_features, frag_features, edge_features,
-                                 fedge_in, fbond_edge_in, policy, g)
+                                 fedge_in, fbond_edge_in, policy, g, dtype)
         self.atom_transformer = TransformerConv(emb_dim, emb_dim,
                                                 transformer_heads, g)
         self.frag_transformer = TransformerConv(emb_dim, emb_dim,
@@ -233,7 +245,7 @@ class FragNetFineTuneTransformer(nn.Module):
         self.compat_shared_transformer = compat_shared_transformer
 
     def forward(self, batch):
-        x_atoms, x_frags, _, _ = self.pretrain(batch)
+        x_atoms, x_frags = _promoted(*self.pretrain(batch)[:2])
         x_atoms = self.atom_transformer(x_atoms, batch.edge_src,
                                         batch.edge_dst, batch.edge_mask,
                                         batch.atom_mask)
@@ -258,12 +270,13 @@ class FragNetFineTuneTransformer2(nn.Module):
                  frag_features: int = 167, edge_features: int = 17,
                  fedge_in: int = 6, fbond_edge_in: int = 6,
                  policy: KernelPolicy = KernelPolicy(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         g = generator
         self.pretrain = _encoder(num_layer, drop_ratio, num_heads, emb_dim,
                                  atom_features, frag_features, edge_features,
-                                 fedge_in, fbond_edge_in, policy, g)
+                                 fedge_in, fbond_edge_in, policy, g, dtype)
         kw = dict(num_layers=num_attn_layer2, input_dim=emb_dim,
                   num_heads=num_attn_heads2, dim_feedforward=2 * emb_dim,
                   dropout=drop_ratio2, max_seq_len=max_seq_len, generator=g)
@@ -274,7 +287,7 @@ class FragNetFineTuneTransformer2(nn.Module):
         self.dropout = nn.Dropout(drop_ratio)
 
     def forward(self, batch):
-        x_atoms, x_frags, _, _ = self.pretrain(batch)
+        x_atoms, x_frags = _promoted(*self.pretrain(batch)[:2])
         G = batch.y.shape[0]
         x_atoms = self.transformer(x_atoms, batch.atom_batch,
                                    batch.atom_mask, G)
@@ -300,12 +313,13 @@ class FragNetFineTuneMultiTask(nn.Module):
                  edge_features: int = 17, fedge_in: int = 6,
                  fbond_edge_in: int = 6,
                  policy: KernelPolicy = KernelPolicy(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         g = generator
         self.pretrain = _encoder(num_layer, drop_ratio, num_heads, emb_dim,
                                  atom_features, frag_features, edge_features,
-                                 fedge_in, fbond_edge_in, policy, g)
+                                 fedge_in, fbond_edge_in, policy, g, dtype)
         self.lin1 = _dense(2 * emb_dim, 2 * emb_dim, g)
         self.ms_heads = nn.ModuleList([
             _dense(2 * emb_dim, n_classes, g)

@@ -5,9 +5,9 @@ shared library with a plain C interface and loaded with ``ctypes``; no
 PyTorch header is compiled, so a build takes seconds. Libraries go to
 ``fragnet_tpu_torch/_build/`` (git-ignored), named by a hash of the source,
 and are built on first use. ``build_all`` starts one ``nvcc`` per source at
-once. One source may export several launchers (a kernel and its
-edge-partitioned entry point); each has its own ``CudaKernel`` and launch
-count, and they share the library.
+once. One source may export several launchers (a kernel, its bf16 form
+and its edge-partitioned entry point); each has its own ``CudaKernel`` and
+launch count, and they share the library.
 
 Every exported launcher takes device pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launch; the wrapper
@@ -34,6 +34,10 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+
+# where the bf16 forms of the kernels not yet ported (K3, K6, K7, K8) are
+# queued; their wrappers, and the paths that would run them, raise naming it
+BF16_LATER = "ROADMAP.md Queue A item 5, slice 16"
 
 # every CudaKernel of the port's own sources, in the order of definition
 REGISTRY: List["CudaKernel"] = []

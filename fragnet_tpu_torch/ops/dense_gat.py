@@ -35,6 +35,15 @@ of both, ``dense_attr_bwd_plain`` and ``dense_attr_emit_plain``, and
 joining the kernels as the autograd boundary (dense_gat.py:584-628), and
 ``dense_attr_gat_pass`` with its epilogue (dense_gat.py:632-686). Math
 contract: ops/segment.py:gat_attention_pass.
+
+Node features in bf16 (the JAX package's bf16 compute, dense_gat.py:
+_make_op's dt_name): K4 and K5 have a bf16 entry each
+(``dense_gat_fwd_bf16`` and ``dense_gat_bwd_bf16`` in the same sources,
+each with its own launch count), which reads ``nf`` in bf16 and keeps
+planes, logits, softmax, ``out`` (cast to bf16 by the pass afterwards), g,
+s and every gradient in f32; the plain versions widen a bf16 ``nf`` at
+entry. The plane builder (K6) and the dense-attr pass (K7, K8) run f32
+only and refuse bf16 (ROADMAP.md Queue A item 5, slice 16).
 """
 
 from __future__ import annotations
@@ -67,6 +76,23 @@ KERNEL_ATTR = _cuda.CudaKernel(
 KERNEL_ATTR_BWD = _cuda.CudaKernel(
     "dense_attr_bwd.cu", "dense_attr_bwd",
     [_VP] * 19 + [_LL] + [_I] * 7 + [ctypes.c_float, _VP])
+KERNEL_BF16 = _cuda.CudaKernel(
+    "dense_gat_fwd.cu", "dense_gat_fwd_bf16",
+    [_VP] * 8 + [_I] * 5 + [ctypes.c_float, _VP])
+KERNEL_BWD_BF16 = _cuda.CudaKernel(
+    "dense_gat_bwd.cu", "dense_gat_bwd_bf16",
+    [_VP] * 13 + [_I] * 5 + [ctypes.c_float, _VP])
+# the node-feature types K4 and K5 read: {dtype: (forward, backward)}
+_NF_KERNELS = {torch.float32: (KERNEL, KERNEL_BWD),
+               torch.bfloat16: (KERNEL_BF16, KERNEL_BWD_BF16)}
+
+
+def _refuse_bf16(name, *tensors):
+    """The f32-only kernels (K6, K7, K8) and their passes raise on a bf16
+    tensor, on every device: no quiet widening to f32."""
+    if any(t is not None and t.dtype == torch.bfloat16 for t in tensors):
+        raise NotImplementedError(f"{name} runs f32 only; its bf16 form is "
+                                  f"not ported yet ({_cuda.BF16_LATER})")
 
 _KERNEL_H = (1, 2, 4, 8)
 _KERNEL_TN = (32, 64, 128, 256)
@@ -168,7 +194,9 @@ def build_dense_planes_device(src, dst, edge_mask, edge_attr, n_nodes: int,
     ``edge_attr`` (E, R) f32 or None (R = 0). On a CUDA tensor this launches
     csrc/dense_planes.cu (which replaces dense_gat.py:_plane_builder_kernel);
     on a CPU tensor it runs the plain version. Exact for batches that
-    packing.dp_level_ok admits (tile-local, no repeated (dst, src) slot)."""
+    packing.dp_level_ok admits (tile-local, no repeated (dst, src) slot).
+    bf16 attributes raise (K6's bf16 form is not ported)."""
+    _refuse_bf16("build_dense_planes_device", edge_attr)
     if src.device.type == "cpu":
         return build_dense_planes_device_plain(src, dst, edge_mask,
                                                edge_attr, n_nodes, meta)
@@ -206,7 +234,9 @@ def build_dense_planes_device(src, dst, edge_mask, edge_attr, n_nodes: int,
 
 def dense_gat_fwd_plain(planes, wd, ws, nf, vc, slope: float = 0.2):
     """Plain PyTorch version of the forward kernel: same inputs, same
-    (out (N, H*D), m (N, H), den (N, H))."""
+    (out (N, H*D), m (N, H), den (N, H)); a bf16 ``nf`` is widened to f32
+    first."""
+    nf = nf.float()
     T, rows, tn = planes.shape
     R = rows // tn - 1
     N, H = wd.shape
@@ -230,9 +260,14 @@ def dense_gat_fwd_plain(planes, wd, ws, nf, vc, slope: float = 0.2):
 
 def _check_cuda(name, planes, wd, ws, nf, vc, extra=()):
     """Raise unless the kernels take these tensors; returns (T, tn, R, N,
-    H, HD). ``extra`` adds (name, tensor, shape) f32 arrays."""
+    H, HD). ``nf`` is f32 or bf16, every other array f32; ``extra`` adds
+    (name, tensor, shape) f32 arrays. A lane reads four adjacent columns of
+    nf in one load: nf 16-byte aligned in f32, 8 in bf16."""
     if nf.device.type != "cuda":
         raise ValueError(f"no {name} kernel for device {nf.device}")
+    if nf.dtype not in _NF_KERNELS:
+        raise ValueError(f"{name}: nf has dtype {nf.dtype}, expected "
+                         f"float32 or bfloat16")
     T, rows, tn = planes.shape
     R = rows // tn - 1
     N, H = wd.shape
@@ -246,7 +281,9 @@ def _check_cuda(name, planes, wd, ws, nf, vc, extra=()):
                           ("wd", wd, (N, H)), ("ws", ws, (N, H)),
                           ("nf", nf, (N, HD)), ("vc", vc, (R + 1, H))
                           ) + tuple(extra):
-        _cuda.check(t, arg, torch.float32, shape, nf.device)
+        _cuda.check(t, arg, nf.dtype if arg == "nf" else torch.float32,
+                    shape, nf.device)
+    _cuda.check_aligned(nf, "nf", 4 * nf.element_size())
     return T, tn, R, N, H, HD
 
 
@@ -254,27 +291,27 @@ def dense_gat_fwd(planes, wd, ws, nf, vc, slope: float = 0.2):
     """Forward kernel wrapper: (out (N, H*D), m (N, H), den (N, H)) f32.
 
     ``planes`` (n_tiles, (R+1)*tn, tn) f32, ``wd``/``ws`` (N, H) f32, ``nf``
-    (N, H*D) f32, ``vc`` (R+1, H) f32 — rows v[0..R-1], then c."""
+    (N, H*D) f32 or bf16 (the bf16 entry), ``vc`` (R+1, H) f32 — rows
+    v[0..R-1], then c."""
     if nf.device.type == "cpu":
         return dense_gat_fwd_plain(planes, wd, ws, nf, vc, slope)
     T, tn, R, N, H, HD = _check_cuda("dense_gat_fwd", planes, wd, ws, nf, vc)
-    # lanes read the adjacency rows and nf in float4, a lane's four columns
-    # in one head
+    # lanes read the adjacency rows and nf four columns at a time, a lane's
+    # four columns in one head
     D = HD // H
     if D % 4 or HD > 256:
         raise ValueError(f"dense_gat_fwd: H={H} D={D} unsupported (D a "
                          f"multiple of 4, H*D <= 256)")
     _cuda.check_aligned(planes, "planes", 16)
-    _cuda.check_aligned(nf, "nf", 16)
     dev = nf.device
     f32 = torch.float32
     out = torch.empty((N, HD), dtype=f32, device=dev)
     m = torch.empty((N, H), dtype=f32, device=dev)
     den = torch.empty((N, H), dtype=f32, device=dev)
     P = _cuda.ptr
-    KERNEL.launch(P(planes), P(wd), P(ws), P(nf), P(vc), P(out), P(m),
-                  P(den), T, tn, H, HD // H, R, ctypes.c_float(slope),
-                  _cuda.stream_ptr(dev))
+    _NF_KERNELS[nf.dtype][0].launch(
+        P(planes), P(wd), P(ws), P(nf), P(vc), P(out), P(m), P(den), T, tn,
+        H, HD // H, R, ctypes.c_float(slope), _cuda.stream_ptr(dev))
     return out, m, den
 
 
@@ -284,7 +321,8 @@ def dense_gat_bwd_plain(planes, wd, ws, nf, vc, m, den, g, s,
     formulas (not autograd of the plain forward, so the two check each
     other): (d_wd (N, H), d_ws (N, H), d_nf (N, H*D) — the Pᵀg aggregation
     only — and d_vc (R+1, H)) for the cotangent ``g`` (N, H*D) of out, with
-    ``s`` (N, H) = Σ_d g·out."""
+    ``s`` (N, H) = Σ_d g·out; a bf16 ``nf`` is widened to f32 first."""
+    nf = nf.float()
     T, rows, tn = planes.shape
     R = rows // tn - 1
     N, H = wd.shape
@@ -312,7 +350,8 @@ def dense_gat_bwd_plain(planes, wd, ws, nf, vc, m, den, g, s,
 
 def dense_gat_bwd(planes, wd, ws, nf, vc, m, den, g, s, slope: float = 0.2):
     """Backward kernel wrapper: (d_wd (N, H), d_ws (N, H), d_nf (N, H*D),
-    d_vc (R+1, H)) f32, from the forward's inputs, its (m, den), the
+    d_vc (R+1, H)) f32, from the forward's inputs (``nf`` f32 or bf16, the
+    bf16 entry), its (m, den), the
     cotangent ``g`` (N, H*D) of out and ``s`` (N, H) = Σ_d g·out. The
     kernel writes per-tile partials of d_vc; they are summed here."""
     if nf.device.type == "cpu":
@@ -323,12 +362,12 @@ def dense_gat_bwd(planes, wd, ws, nf, vc, m, den, g, s, slope: float = 0.2):
         "dense_gat_bwd", planes, wd, ws, nf, vc,
         extra=(("m", m, (N, H)), ("den", den, (N, H)),
                ("g", g, tuple(nf.shape)), ("s", s, (N, H))))
-    # lanes read nf and g in float4, a head's D/4 lanes summed by shuffles
+    # lanes read nf and g four columns at a time, a head's D/4 lanes summed
+    # by shuffles
     D = HD // H
     if D % 4 or D // 4 not in (1, 2, 4, 8, 16, 32) or HD > 256:
         raise ValueError(f"dense_gat_bwd: H={H} D={D} unsupported (D in "
                          f"4, 8, ..., 128; H*D <= 256)")
-    _cuda.check_aligned(nf, "nf", 16)
     _cuda.check_aligned(g, "g", 16)
     dev = nf.device
     f32 = torch.float32
@@ -337,10 +376,10 @@ def dense_gat_bwd(planes, wd, ws, nf, vc, m, den, g, s, slope: float = 0.2):
     d_nf = torch.empty((N, HD), dtype=f32, device=dev)
     d_vc = torch.empty((T, R + 1, H), dtype=f32, device=dev)
     P = _cuda.ptr
-    KERNEL_BWD.launch(P(planes), P(wd), P(ws), P(nf), P(vc), P(m), P(den),
-                      P(g), P(s), P(d_wd), P(d_ws), P(d_nf), P(d_vc), T, tn,
-                      H, HD // H, R, ctypes.c_float(slope),
-                      _cuda.stream_ptr(dev))
+    _NF_KERNELS[nf.dtype][1].launch(
+        P(planes), P(wd), P(ws), P(nf), P(vc), P(m), P(den), P(g), P(s),
+        P(d_wd), P(d_ws), P(d_nf), P(d_vc), T, tn, H, HD // H, R,
+        ctypes.c_float(slope), _cuda.stream_ptr(dev))
     return d_wd, d_ws, d_nf, d_vc.sum(0)
 
 
@@ -368,24 +407,29 @@ def head_dot(g: torch.Tensor, out: torch.Tensor, H: int) -> torch.Tensor:
 class DenseGatFn(torch.autograd.Function):
     """(wd, ws, nf, vc) → (out, m, den) through the forward kernel over
     ``planes``, with the backward kernel as its gradient (dense_gat.py:
-    775-809). ``m`` and ``den`` carry no gradient; ``planes`` gets none."""
+    775-809). ``m`` and ``den`` carry no gradient; ``planes`` gets none.
+    ``nf_k``, where given, is the tensor the kernels read — ``nf`` in the
+    compute dtype (bf16), ``nf`` itself its f32 widening — so d_nf (f32)
+    joins the prologue's gradient in f32 and is rounded once, as op_bwd's
+    single cast does. s is summed from the f32 ``out``."""
 
     @staticmethod
-    def forward(ctx, planes, wd, ws, nf, vc, slope):
-        out, m, den = dense_gat_fwd(planes, wd, ws, nf, vc, slope)
-        ctx.save_for_backward(planes, wd, ws, nf, vc, out, m, den)
+    def forward(ctx, planes, wd, ws, nf, vc, slope, nf_k=None):
+        nf_k = nf if nf_k is None else nf_k
+        out, m, den = dense_gat_fwd(planes, wd, ws, nf_k, vc, slope)
+        ctx.save_for_backward(planes, wd, ws, nf_k, vc, out, m, den)
         ctx.slope = slope
         ctx.mark_non_differentiable(m, den)
         return out, m, den
 
     @staticmethod
     def backward(ctx, g_out, _g_m, _g_den):
-        planes, wd, ws, nf, vc, out, m, den = ctx.saved_tensors
+        planes, wd, ws, nf_k, vc, out, m, den = ctx.saved_tensors
         g = g_out.float().contiguous()
         s = head_dot(g, out, wd.shape[1])
-        d_wd, d_ws, d_nf, d_vc = dense_gat_bwd(planes, wd, ws, nf, vc, m, den,
-                                               g, s, ctx.slope)
-        return None, d_wd, d_ws, d_nf, d_vc, None
+        d_wd, d_ws, d_nf, d_vc = dense_gat_bwd(planes, wd, ws, nf_k, vc, m,
+                                               den, g, s, ctx.slope)
+        return None, d_wd, d_ws, d_nf, d_vc, None, None
 
 
 def dense_gat_pass(
@@ -408,7 +452,9 @@ def dense_gat_pass(
     (model/layers.py:_fold_planes).
 
     Differentiable w.r.t. the node features, ``v``, ``c`` and the attention
-    vector through ``DenseGatFn``.
+    vector through ``DenseGatFn``. Node features in f32 or bf16: the kernels
+    read them in that type, everything else is f32, and ``out`` comes back
+    in the node features' type (dense_gat.py:_make_op).
 
     Returns (out (N,H,D), attn_by_src (N,H) or None); the attention vector
     (gat2.py:165-167 summed-by-source probabilities) is rebuilt from
@@ -422,9 +468,10 @@ def dense_gat_pass(
     wd = torch.einsum("nhd,hd->nh", nf32, a_dst)
     ws = torch.einsum("nhd,hd->nh", nf32, a_src)
     vc = torch.cat([v.float(), c.float().reshape(1, H)], dim=0)
+    nf_k = node_feats_h.reshape(N, H * D).contiguous().detach()
     out, m, den = DenseGatFn.apply(planes, wd.contiguous(), ws.contiguous(),
                                    nf32.reshape(N, H * D).contiguous(),
-                                   vc.contiguous(), negative_slope)
+                                   vc.contiguous(), negative_slope, nf_k)
     out = out.reshape(N, H, D).to(node_feats_h.dtype)
     if not return_attention:
         return out, None
@@ -626,7 +673,9 @@ def dense_attr_fwd(adj, wd, ws, nf, w_ea, src, dst, emask, meta,
     ``ws`` (N, H), ``nf`` (N, H*D), ``w_ea`` (E, H) f32; ``src`` / ``dst``
     (E,) int32, ``emask`` (E,) f32; ``meta`` holds ``ew_blk`` and ``cw``
     (n_tiles,) int32 tensors on the same device. At most one counted edge
-    per (dst, src) slot (packing.dp_level_ok)."""
+    per (dst, src) slot (packing.dp_level_ok). bf16 raises (K7's bf16 form
+    is not ported)."""
+    _refuse_bf16("dense_attr_fwd", nf, w_ea)
     if nf.device.type == "cpu":
         return dense_attr_fwd_plain(adj, wd, ws, nf, w_ea, src, dst, emask,
                                     meta, self_loops, slope)
@@ -661,7 +710,9 @@ def dense_attr_bwd(adj, wd, ws, nf, w_ea, src, dst, emask, meta, m, den, g,
     stored. The kernel writes every element it returns, each edge's d_wea
     included, so all five start empty. At most one counted edge per (dst,
     src) slot (packing.dp_level_ok). On CPU tensors: the plain versions in
-    a row (``dense_attr_bwd_emit_plain``)."""
+    a row (``dense_attr_bwd_emit_plain``). bf16 raises (K8's bf16 form is
+    not ported)."""
+    _refuse_bf16("dense_attr_bwd", nf, w_ea)
     if nf.device.type == "cpu":
         return dense_attr_bwd_emit_plain(adj, wd, ws, nf, w_ea, src, dst,
                                          emask, meta, m, den, g, s,
@@ -753,6 +804,7 @@ def dense_attr_gat_pass(
     ``return_attention``."""
     from fragnet_tpu_torch.ops.tcsr_gat import attention_by_source
 
+    _refuse_bf16("dense_attr_gat_pass", node_feats_h, edge_attr)
     N, H, D = node_feats_h.shape
     Da = edge_attr.shape[-1]
     nf32 = node_feats_h.float()

@@ -26,6 +26,15 @@ TCSR layout of ops/tcsr.py, in four parts:
 
 A CUDA tensor goes through the kernels or the call raises; only CPU tensors
 take the plain versions.
+
+Node features in bf16 (the JAX package's bf16 compute, pallas_gat.py:
+_make_op's dt_name): K1 and K2 have a bf16 entry each (``tcsr_gat_fwd_bf16``
+and ``tcsr_gat_bwd_bf16`` in the same sources, each with its own launch
+count), which reads ``nf`` in bf16 and keeps everything else f32: wn, w_ea,
+the softmax state, ``out`` (cast to bf16 by the pass afterwards), g, s and
+every gradient. The plain versions widen a bf16 ``nf`` at entry. K3's entry
+points stay f32: ``tcsr_gat_pass_ep`` refuses bf16 (ROADMAP.md Queue A
+item 5, slice 16).
 """
 
 from __future__ import annotations
@@ -51,11 +60,35 @@ KERNEL = _cuda.CudaKernel(
 KERNEL_BWD = _cuda.CudaKernel(
     "tcsr_gat_bwd.cu", "tcsr_gat_bwd",
     [_VP] * 16 + [_I] * 8 + [ctypes.c_float, _VP])
+KERNEL_BF16 = _cuda.CudaKernel(
+    "tcsr_gat_fwd.cu", "tcsr_gat_fwd_bf16",
+    [_VP] * 11 + [_I] * 6 + [ctypes.c_float, _VP])
+KERNEL_BWD_BF16 = _cuda.CudaKernel(
+    "tcsr_gat_bwd.cu", "tcsr_gat_bwd_bf16",
+    [_VP] * 16 + [_I] * 8 + [ctypes.c_float, _VP])
 
-# the widest row the kernels take (H*D, lanes of float4) and their rows per
-# block (csrc/tcsr_gat_fwd.cu, csrc/tcsr_gat_bwd.cu kRows)
+# the widest row the kernels take (H*D, lanes of four columns) and their
+# rows per block (csrc/tcsr_gat_fwd.cu, csrc/tcsr_gat_bwd.cu kRows)
 _MAX_HD = 256
 _ROWS = 8
+# the node-feature types the kernels read: {dtype: (forward, backward)}
+_NF_KERNELS = {torch.float32: (KERNEL, KERNEL_BWD),
+               torch.bfloat16: (KERNEL_BF16, KERNEL_BWD_BF16)}
+
+
+def _nf_kernels(name, nf):
+    """(forward, backward) CudaKernel for ``nf``'s dtype; raises on any
+    other than f32 and bf16."""
+    if nf.dtype not in _NF_KERNELS:
+        raise ValueError(f"{name}: nf has dtype {nf.dtype}, expected "
+                         f"float32 or bfloat16")
+    return _NF_KERNELS[nf.dtype]
+
+
+def _check_nf_aligned(nf):
+    """A lane reads four adjacent columns of nf in one load: 16 bytes of
+    f32, 8 of bf16."""
+    _cuda.check_aligned(nf, "nf", 4 * nf.element_size())
 
 
 def prologue(nf: torch.Tensor, ea: torch.Tensor, a: torch.Tensor
@@ -77,7 +110,9 @@ def tcsr_gat_fwd_plain(wn, nf, w_ea, src, dst, emask, meta: TileMeta,
                        self_loops: bool, slope: float = 0.2):
     """Plain PyTorch version of the forward kernel: same inputs, same
     (out (N, H*D), m (N, H), den (N, H)). It reads every kept edge directly
-    (TileMeta guarantees each lies in its tile's window)."""
+    (TileMeta guarantees each lies in its tile's window); a bf16 ``nf`` is
+    widened to f32 first."""
+    nf = nf.float()
     N, HD = nf.shape
     H = wn.shape[1] // 2
     D = HD // H
@@ -109,6 +144,7 @@ def _check_cuda(name, wn, nf, w_ea, src, dst, emask, meta: TileMeta,
     n_tiles). ``extra`` adds (name, tensor, dtype, shape) node arrays."""
     if nf.device.type != "cuda":
         raise ValueError(f"no {name} kernel for device {nf.device}")
+    _nf_kernels(name, nf)
     N, HD = nf.shape
     H = wn.shape[1] // 2
     E = src.shape[0]
@@ -119,7 +155,7 @@ def _check_cuda(name, wn, nf, w_ea, src, dst, emask, meta: TileMeta,
     n_tiles = N // tn
     f32, i32 = torch.float32, torch.int32
     for arg, t, dt, shape in (
-            ("wn", wn, f32, (N, 2 * H)), ("nf", nf, f32, (N, HD)),
+            ("wn", wn, f32, (N, 2 * H)), ("nf", nf, nf.dtype, (N, HD)),
             ("w_ea", w_ea, f32, (E, H)), ("src", src, i32, (E,)),
             ("dst", dst, i32, (E,)), ("emask", emask, f32, (E,)),
             ("ew_blk", meta.ew_blk, i32, (n_tiles,)),
@@ -130,22 +166,24 @@ def _check_cuda(name, wn, nf, w_ea, src, dst, emask, meta: TileMeta,
 
 def _check_fwd(name, nf, H: int, tn: int):
     """Raise unless the forward kernel (csrc/tcsr_gat_fwd.cu) takes this row
-    width and tile: lanes read nf in float4 (D a multiple of 4, nf 16-byte
-    aligned, H*D <= 256) and a block takes _ROWS rows of a tile."""
+    width and tile: lanes read nf four columns at a time (D a multiple of 4,
+    nf 16-byte aligned in f32, 8 in bf16, H*D <= 256) and a block takes
+    _ROWS rows of a tile."""
     HD = nf.shape[1]
     D = HD // H
     if D % 4 or HD > _MAX_HD or tn % _ROWS:
         raise ValueError(f"{name}: H={H} D={D} tn={tn} unsupported (D a "
                          f"multiple of 4, H*D <= {_MAX_HD}, tn a multiple "
                          f"of {_ROWS})")
-    _cuda.check_aligned(nf, "nf", 16)
+    _check_nf_aligned(nf)
 
 
 def tcsr_gat_fwd(wn, nf, w_ea, src, dst, emask, meta: TileMeta,
                  self_loops: bool, slope: float = 0.2):
     """Forward kernel wrapper: (out (N, H*D), m (N, H), den (N, H)) f32.
 
-    ``wn`` (N, 2H) f32, ``nf`` (N, H*D) f32, ``w_ea`` (E, H) f32, ``src`` /
+    ``wn`` (N, 2H) f32, ``nf`` (N, H*D) f32 or bf16 (the bf16 entry),
+    ``w_ea`` (E, H) f32, ``src`` /
     ``dst`` (E,) int32, ``emask`` (E,) f32; ``meta`` holds ``ew_blk`` and
     ``cw`` (n_tiles,) int32 tensors on the same device."""
     if nf.device.type == "cpu":
@@ -160,10 +198,10 @@ def tcsr_gat_fwd(wn, nf, w_ea, src, dst, emask, meta: TileMeta,
     m = torch.empty((N, H), dtype=torch.float32, device=dev)
     den = torch.empty((N, H), dtype=torch.float32, device=dev)
     P = _cuda.ptr
-    KERNEL.launch(P(wn), P(nf), P(w_ea), P(src), P(dst), P(emask),
-                  P(meta.ew_blk), P(meta.cw), P(out), P(m), P(den),
-                  n_tiles, tn, meta.te, H, HD // H, int(bool(self_loops)),
-                  ctypes.c_float(slope), _cuda.stream_ptr(dev))
+    _nf_kernels("tcsr_gat_fwd", nf)[0].launch(
+        P(wn), P(nf), P(w_ea), P(src), P(dst), P(emask), P(meta.ew_blk),
+        P(meta.cw), P(out), P(m), P(den), n_tiles, tn, meta.te, H, HD // H,
+        int(bool(self_loops)), ctypes.c_float(slope), _cuda.stream_ptr(dev))
     return out, m, den
 
 
@@ -172,7 +210,9 @@ def tcsr_gat_bwd_plain(wn, nf, w_ea, src, dst, emask, meta: TileMeta, m, den,
     """Plain PyTorch version of the backward kernel, written out from the
     formulas (not autograd of the plain forward, so the two check each
     other): (d_wn (N, 2H), d_nf (N, H*D), d_w_ea (E, H)) for the cotangent
-    ``g`` (N, H*D) of out, with ``s`` (N, H) = Σ_d g·out."""
+    ``g`` (N, H*D) of out, with ``s`` (N, H) = Σ_d g·out; a bf16 ``nf`` is
+    widened to f32 first."""
+    nf = nf.float()
     N, HD = nf.shape
     H = wn.shape[1] // 2
     D = HD // H
@@ -205,9 +245,10 @@ def tcsr_gat_bwd_plain(wn, nf, w_ea, src, dst, emask, meta: TileMeta, m, den,
 
 def _check_bwd(name, nf, g, H: int, tn: int):
     """Raise unless the backward kernel (csrc/tcsr_gat_bwd.cu) takes this
-    row width and tile: lanes read nf and g in float4 and sum a head's D/4
-    lanes by shuffles (D/4 a power of two up to 32, H*D <= 256, both 16-byte
-    aligned), and a block takes _ROWS rows."""
+    row width and tile: lanes read nf and g four columns at a time and sum a
+    head's D/4 lanes by shuffles (D/4 a power of two up to 32, H*D <= 256,
+    g 16-byte aligned, nf 16 in f32 and 8 in bf16), and a block takes
+    _ROWS rows."""
     HD = nf.shape[1]
     D = HD // H
     if D % 4 or D // 4 not in (1, 2, 4, 8, 16, 32) or HD > _MAX_HD \
@@ -215,14 +256,15 @@ def _check_bwd(name, nf, g, H: int, tn: int):
         raise ValueError(f"{name}: H={H} D={D} tn={tn} unsupported (D in 4, "
                          f"8, ..., 128; H*D <= {_MAX_HD}; tn a multiple of "
                          f"{_ROWS})")
-    _cuda.check_aligned(nf, "nf", 16)
+    _check_nf_aligned(nf)
     _cuda.check_aligned(g, "g", 16)
 
 
 def tcsr_gat_bwd(wn, nf, w_ea, src, dst, emask, meta: TileMeta, m, den, g, s,
                  self_loops: bool, slope: float = 0.2):
     """Backward kernel wrapper: (d_wn (N, 2H), d_nf (N, H*D), d_w_ea (E, H))
-    f32, from the forward's inputs, its (m, den), the cotangent ``g`` (N,
+    f32, from the forward's inputs (``nf`` f32 or bf16, the bf16 entry),
+    its (m, den), the cotangent ``g`` (N,
     H*D) of out and ``s`` (N, H) = Σ_d g·out. Masked edges get exactly 0.
     ``meta`` holds ``ew_blk``, ``cw`` and ``sw_tile`` (n_tiles,) int32
     tensors on the same device; the kernel writes every output element."""
@@ -242,12 +284,12 @@ def tcsr_gat_bwd(wn, nf, w_ea, src, dst, emask, meta: TileMeta, m, den, g, s,
     d_nf = torch.empty((N, HD), dtype=f32, device=dev)
     d_w_ea = torch.empty((E, H), dtype=f32, device=dev)
     P = _cuda.ptr
-    KERNEL_BWD.launch(P(wn), P(nf), P(w_ea), P(src), P(dst), P(emask),
-                      P(meta.ew_blk), P(meta.cw), P(meta.sw_tile), P(m),
-                      P(den), P(g), P(s), P(d_wn), P(d_nf), P(d_w_ea),
-                      n_tiles, E, meta.tn, meta.te, meta.k_src, H, HD // H,
-                      int(bool(self_loops)), ctypes.c_float(slope),
-                      _cuda.stream_ptr(dev))
+    _nf_kernels("tcsr_gat_bwd", nf)[1].launch(
+        P(wn), P(nf), P(w_ea), P(src), P(dst), P(emask), P(meta.ew_blk),
+        P(meta.cw), P(meta.sw_tile), P(m), P(den), P(g), P(s), P(d_wn),
+        P(d_nf), P(d_w_ea), n_tiles, E, meta.tn, meta.te, meta.k_src, H,
+        HD // H, int(bool(self_loops)), ctypes.c_float(slope),
+        _cuda.stream_ptr(dev))
     return d_wn, d_nf, d_w_ea
 
 
@@ -255,28 +297,34 @@ class TcsrGatFn(torch.autograd.Function):
     """(wn, nf, w_ea) → (out, m, den) through the forward kernel, with the
     backward kernel as its gradient (pallas_gat.py:493-555). ``m`` and
     ``den`` carry no gradient; ``emask`` and the metadata get none (JAX
-    returns zeros for emask)."""
+    returns zeros for emask). ``nf_k``, where given, is the tensor the
+    kernels read — ``nf`` in the compute dtype (bf16), ``nf`` itself its f32
+    widening — so d_nf (f32) joins the prologue's gradient in f32 and is
+    rounded to bf16 once, as op_bwd's single cast (pallas_gat.py:551) does.
+    s is summed from the f32 ``out`` (pallas_gat.py:512)."""
 
     @staticmethod
-    def forward(ctx, wn, nf, w_ea, src, dst, emask, meta, self_loops, slope):
-        out, m, den = tcsr_gat_fwd(wn, nf, w_ea, src, dst, emask, meta,
+    def forward(ctx, wn, nf, w_ea, src, dst, emask, meta, self_loops, slope,
+                nf_k=None):
+        nf_k = nf if nf_k is None else nf_k
+        out, m, den = tcsr_gat_fwd(wn, nf_k, w_ea, src, dst, emask, meta,
                                    self_loops, slope)
-        ctx.save_for_backward(wn, nf, w_ea, src, dst, emask, out, m, den)
+        ctx.save_for_backward(wn, nf_k, w_ea, src, dst, emask, out, m, den)
         ctx.meta, ctx.self_loops, ctx.slope = meta, self_loops, slope
         ctx.mark_non_differentiable(m, den)
         return out, m, den
 
     @staticmethod
     def backward(ctx, g_out, _g_m, _g_den):
-        wn, nf, w_ea, src, dst, emask, out, m, den = ctx.saved_tensors
-        N, HD = nf.shape
+        wn, nf_k, w_ea, src, dst, emask, out, m, den = ctx.saved_tensors
+        N, HD = nf_k.shape
         H = wn.shape[1] // 2
         g = g_out.float().contiguous()
         s = (g.view(N, H, -1) * out.view(N, H, -1)).sum(-1)   # _hsum_xla
-        d_wn, d_nf, d_w_ea = tcsr_gat_bwd(wn, nf, w_ea, src, dst, emask,
+        d_wn, d_nf, d_w_ea = tcsr_gat_bwd(wn, nf_k, w_ea, src, dst, emask,
                                           ctx.meta, m, den, g, s,
                                           ctx.self_loops, ctx.slope)
-        return d_wn, d_nf, d_w_ea, None, None, None, None, None, None
+        return (d_wn, d_nf, d_w_ea) + (None,) * 7
 
 
 def attention_by_source(wn, w_ea, src, dst, emask, m, den, self_loops: bool,
@@ -319,17 +367,22 @@ def tcsr_gat_pass(
     are folded in analytically when ``self_loops`` (the atom pass,
     gat2.py:179-185: appended after real edges with zero edge attrs).
     Differentiable w.r.t. the node features, edge attrs and attention vector
-    through ``TcsrGatFn``.
+    through ``TcsrGatFn``. Node features in f32 or bf16: the kernels read
+    them in that type, the logits, softmax and sums are f32, and ``out``
+    comes back in the node features' type (pallas_gat.py:496-502).
 
     Returns ``(out (N,H,D), attn_by_src (N,H) or None)``; the attention
     vector is computed only when ``return_attention`` and carries no
     gradient."""
     N, H, D = node_feats_h.shape
-    wn, w_ea = prologue(node_feats_h, edge_attr, attn_vec)
+    nf32 = node_feats_h.float()
+    wn, w_ea = prologue(nf32, edge_attr, attn_vec)
     emask = edge_mask.float().contiguous()
+    nf_k = node_feats_h.reshape(N, H * D).contiguous()
     out, m, den = TcsrGatFn.apply(
-        wn.contiguous(), node_feats_h.float().reshape(N, H * D).contiguous(),
-        w_ea.contiguous(), src, dst, emask, meta, self_loops, negative_slope)
+        wn.contiguous(), nf32.reshape(N, H * D).contiguous(),
+        w_ea.contiguous(), src, dst, emask, meta, self_loops, negative_slope,
+        nf_k.detach())
     out = out.reshape(N, H, D).to(node_feats_h.dtype)
     if not return_attention:
         return out, None
@@ -540,6 +593,11 @@ def tcsr_gat_pass_ep(
     every parameter gradient over the ranks (dist/data_parallel.py:
     average_gradients)."""
 
+    if node_feats_h.dtype != torch.float32:
+        raise NotImplementedError(
+            f"the edge-partitioned pass (K3) runs f32 only; its "
+            f"{node_feats_h.dtype} form is not ported yet "
+            f"({_cuda.BF16_LATER})")
     N, H, D = node_feats_h.shape
     HD = H * D
     S = meta.ew_blk.shape[0]

@@ -4,7 +4,15 @@ per-level kernel policy, resolved in one place for every entry point.
 
   * ``device`` — CUDA unless the caller asks for the CPU; a CUDA request
     with no card raises instead of falling back;
-  * ``dtype``  — f32 only in this slice (bf16 raises, ROADMAP.md);
+  * ``dtype``  — the compute type (``dtype: f32|bf16``), f32 by default:
+    the JAX package picks bf16 only on a TPU (fastpath.py:85), and the
+    card is not one. bf16 runs on one device under the default kernel
+    policy for the families of ``_DTYPE_FAMILIES`` (``supports_dtype``;
+    build_model builds the others in f32, as the JAX package does) with
+    the bf16 forms of K1, K2, K4 and K5; the dense-attr policy,
+    ``dist.mode=dp|ep`` (``check_dtype_scope``) and the pretraining and
+    task trainers (``require_f32``) raise, naming ROADMAP.md's slice 16,
+    instead of running f32;
   * ``tcsr``   — on by default on CUDA for the families that run GAT
     passes (TCSR_FAMILIES: those on the gat2 encoder, and gat2_lite,
     gat2_edge and v1 gat, which the JAX package leaves out because it runs
@@ -33,6 +41,7 @@ from typing import Union
 import torch
 
 from fragnet_tpu_torch.model.layers import KernelPolicy
+from fragnet_tpu_torch.ops._cuda import BF16_LATER
 
 # model families whose layers consume TCSR tile metadata: the FragNet
 # core and the variants whose GAT passes run on its kernels on the card
@@ -41,6 +50,17 @@ TCSR_FAMILIES = frozenset({"gat2", "gat2_masked", "gat2_masked2",
                            "gat2_transformer", "gat2_transformer2",
                            "gat2_multitask", "gat2_lite", "gat2_edge",
                            "gat"})
+
+# families that accept a compute dtype: the JAX package's _DTYPE_FAMILIES,
+# its TCSR_FAMILIES (fastpath.py:33-41) — gat2, the models on its encoder
+# and the masked pretraining models
+_DTYPE_FAMILIES = frozenset({"gat2", "gat2_masked", "gat2_masked2",
+                             "gat2_transformer", "gat2_transformer2",
+                             "gat2_multitask"})
+
+_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+           "f32": torch.float32, "fp32": torch.float32,
+           "float32": torch.float32}
 
 # device budget for dataset caching (the JAX package's conservative value;
 # leaves room for parameters, activations and workspace)
@@ -53,6 +73,52 @@ class FastPath:
     device: torch.device
     cache: str = "auto"      # 'auto' | 'on' | 'off'
     kernel: KernelPolicy = KernelPolicy()
+    dtype: torch.dtype = torch.float32
+
+    @property
+    def dtype_name(self) -> str:
+        return "bf16" if self.dtype == torch.bfloat16 else "f32"
+
+
+def supports_dtype(model_version: str) -> bool:
+    """Whether ``model_version``'s model takes a compute dtype (the JAX
+    package's supports_dtype)."""
+    return model_version in _DTYPE_FAMILIES
+
+
+def resolve_dtype(section) -> torch.dtype:
+    """The section's ``dtype``: f32 (the default) or bf16."""
+    dname = str(section.get("dtype", "f32")).lower()
+    if dname not in _DTYPES:
+        raise ValueError(f"unknown dtype {dname!r} (bf16|f32)")
+    return _DTYPES[dname]
+
+
+def check_dtype_scope(dtype: torch.dtype, kernel: KernelPolicy,
+                      dist_mode: str = "none") -> None:
+    """Raise where bf16 asks for a path whose bf16 form is not ported:
+    the dense-attr policy (K6-K8) and ``dist.mode=dp|ep`` (K3) — never a
+    quiet f32 run."""
+    if dtype != torch.bfloat16:
+        return
+    if kernel.attr or kernel.fc == "attr":
+        raise NotImplementedError(
+            f"dtype=bf16 under the dense-attr kernel policy (kernel.attr="
+            f"{kernel.attr}, kernel.fc={kernel.fc}) is not ported yet: bf16 "
+            f"runs the default policy ({BF16_LATER})")
+    if dist_mode in ("dp", "ep"):
+        raise NotImplementedError(
+            f"dtype=bf16 with dist.mode={dist_mode} is not ported yet: bf16 "
+            f"runs on one device ({BF16_LATER})")
+
+
+def require_f32(section, entry: str) -> None:
+    """Raise when the config section of ``entry`` (a trainer whose bf16
+    form is not ported) asks for bf16."""
+    if resolve_dtype(section) != torch.float32:
+        raise NotImplementedError(
+            f"{entry} with dtype=bf16 is not ported yet: it runs f32 "
+            f"({BF16_LATER})")
 
 
 def resolve_device(device: Union[str, torch.device, None] = None
@@ -94,18 +160,14 @@ def resolve(section, model_version: str = "gat2",
     """``section`` is the finetune/pretrain config subtree (supports .get);
     ``dist_mode`` the run's ``dist.mode`` (none|dp|ep)."""
     dev = resolve_device(device)
-    dname = str(section.get("dtype", "f32")).lower()
-    if dname in ("bf16", "bfloat16"):
-        raise NotImplementedError(
-            "finetune.dtype=bf16 is not ported yet: this slice runs f32 "
-            "(ROADMAP.md, later items: bf16)")
-    if dname not in ("f32", "fp32", "float32"):
-        raise ValueError(f"unknown dtype {dname!r} (bf16|f32)")
+    dtype = resolve_dtype(section)
+    kernel = resolve_kernel_policy(section)
+    check_dtype_scope(dtype, kernel, dist_mode)
     tcsr_default = model_version in TCSR_FAMILIES and (
         dev.type == "cuda" or dist_mode == "ep")
     tcsr = bool(section.get("tcsr", tcsr_default))
     return FastPath(tcsr=tcsr, device=dev, cache=resolve_cache(section),
-                    kernel=resolve_kernel_policy(section))
+                    kernel=kernel, dtype=dtype)
 
 
 def padded_batch_bytes(spec, n_tasks: int = 1) -> int:

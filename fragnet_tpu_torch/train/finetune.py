@@ -89,21 +89,28 @@ def model_kwargs(opt, n_classes: int) -> dict:
 
 
 def build_model(opt, n_classes: int, policy=None,
-                generator: Optional[torch.Generator] = None, ep=None):
+                generator: Optional[torch.Generator] = None, ep=None,
+                dtype: Optional[torch.dtype] = None):
     """The config's model_version (the JAX package's build_model,
     fragnet_tpu/train/finetune.py:52-155) with its defaults there; gat2
     edge-partitioned with ``ep`` (an EPContext). The ablations (gat, gcn,
     gcn3) take no num_heads, fthead or kernel policy: v1's bond pass runs
-    on the TCSR kernel whatever ``kernel.bond`` says."""
+    on the TCSR kernel whatever ``kernel.bond`` says. ``dtype`` (the
+    compute type) reaches only the families that take one
+    (fastpath.supports_dtype, as the JAX package's :77-79); the others are
+    built in f32."""
     from fragnet_tpu_torch.model.layers import KernelPolicy
+    from fragnet_tpu_torch.train.fastpath import supports_dtype
 
     mv = _model_version(opt, ep=ep is not None)
     kw = model_kwargs(opt, n_classes)
     common = dict(policy=policy or KernelPolicy(), generator=generator)
+    dkw = {"dtype": dtype} if dtype is not None and supports_dtype(mv) \
+        else {}
     if mv == "gat2":
         from fragnet_tpu_torch.model.finetune import FragNetFineTune
 
-        return FragNetFineTune(**kw, **common, ep=ep)
+        return FragNetFineTune(**kw, **common, ep=ep, **dkw)
     if mv in ("gat2_lite", "gat2_edge", "gcn2"):
         from fragnet_tpu_torch.model import variants
 
@@ -128,20 +135,21 @@ def build_model(opt, n_classes: int, policy=None,
     if mv == "gat2_transformer":
         return transformer.FragNetFineTuneTransformer(
             n_classes=n_classes, h1=kw["h1"],
-            transformer_heads=m.get("transformer_heads", 1), **enc, **common)
+            transformer_heads=m.get("transformer_heads", 1), **enc, **common,
+            **dkw)
     if mv == "gat2_transformer2":
         return transformer.FragNetFineTuneTransformer2(
             n_classes=n_classes, h1=kw["h1"],
             num_attn_layer2=m.get("num_attn_layer2", 6),
             num_attn_heads2=m.get("num_attn_heads2", 4),
             drop_ratio2=m.get("drop_ratio2", 0.3),
-            max_seq_len=m.get("max_seq_len", 64), **enc, **common)
+            max_seq_len=m.get("max_seq_len", 64), **enc, **common, **dkw)
     # gat2_multitask: one scalar head per task, flattened to (G, n_tasks)
     # for the masked multi-task losses
     return transformer.FragNetFineTuneMultiTask(
         n_classes=1, n_multi_task_heads=m.get("n_multi_task_heads",
                                               n_classes),
-        **enc, **common)
+        **enc, **common, **dkw)
 
 
 def load_datasets(opt):
@@ -206,9 +214,16 @@ def _dist_mode(opt) -> str:
 
 
 def _refuse_unported(opt, device) -> None:
+    from fragnet_tpu_torch.train import fastpath
+
     ft = opt.finetune
     dist = opt.get("dist", None) or {}
     _model_version(opt, ep=_dist_mode(opt) == "ep")
+    # bf16 with the dense-attr policy or dp / ep: refused before any rank
+    # starts
+    fastpath.check_dtype_scope(fastpath.resolve_dtype(ft),
+                               fastpath.resolve_kernel_policy(ft),
+                               _dist_mode(opt))
     if _dist_mode(opt) == "ep" and not dist.get("tcsr", ft.get("tcsr", True)):
         raise NotImplementedError(
             "dist.mode=ep with dist.tcsr=false (the edge-partitioned segment "
@@ -363,8 +378,13 @@ def _run(opt, quiet, datasets, device, info):
     if say:
         print(f"datasets: train={len(train_g)} val={len(val_g)} "
               f"test={len(test_g)} tasks={n_tasks} type={task}")
-        print(f"fastpath: tcsr={fp.tcsr} dtype=f32 cache={fp.cache} "
-              f"device={fp.device}")
+        print(f"fastpath: tcsr={fp.tcsr} dtype={fp.dtype_name} "
+              f"cache={fp.cache} device={fp.device}")
+    if fp.dtype == torch.bfloat16 and fp.device.type == "cuda":
+        # bf16 GEMMs reduce in f32, as XLA's do (cuBLAS may otherwise
+        # reduce split-K partial sums in bf16)
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
 
     bs = int(ft.get("batch_size", 16))
     ep = None
@@ -387,7 +407,8 @@ def _run(opt, quiet, datasets, device, info):
         spec = spec_for(train_g + val_g + test_g, batch_size=bs,
                         tcsr=fp.tcsr)
     model = build_model(opt, n_classes=n_tasks, policy=fp.kernel,
-                        generator=torch.Generator().manual_seed(seed), ep=ep)
+                        generator=torch.Generator().manual_seed(seed), ep=ep,
+                        dtype=fp.dtype)
     model = model.to(fp.device)
 
     n_buckets = int(ft.get("n_buckets", 1))

@@ -263,6 +263,7 @@ def run_aux_pretrain(opt, quiet: bool = False,
     exp_dir = opt.get("exp_dir", "exps/pt_aux")
     os.makedirs(exp_dir, exist_ok=True)
     pt = opt.pretrain
+    fastpath.require_f32(pt, "run_aux_pretrain")
     mode = pt.get("mode", "property")
     loss_name = pt.get("loss", "mse")
 
@@ -424,6 +425,7 @@ def run_pretrain(opt, quiet: bool = False,
     pt = opt.pretrain
     if pt.get("mode", "geometric") in ("property", "structure"):
         return run_aux_pretrain(opt, quiet=quiet, device=device)
+    fastpath.require_f32(pt, "run_pretrain")
     model_version = pt.get("model_version", "gat2")
     fp = fastpath.resolve(pt, model_version=model_version, device=device)
     seed = int(opt.get("seed", 42))

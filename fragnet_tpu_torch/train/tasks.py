@@ -212,6 +212,7 @@ def run_task(task: str, opt, quiet: bool = False,
     seed = int(opt.get("seed", 42))
     exp_dir = opt.get("exp_dir", f"exps/{task}")
     ft = opt.finetune
+    fastpath.require_f32(ft, "run_task")
     # the drug encoder is the gat2 FragNet core: TCSR batches and kernels
     fp = fastpath.resolve(ft, model_version="gat2", device=device)
     seed_everything(seed)

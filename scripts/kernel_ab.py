@@ -197,6 +197,10 @@ def main() -> int:
                          text=True, check=True).stdout.strip())
     pairs, bases = {}, {}
     for name in cs.KERNELS:
+        if cs.KERNELS[name].wrapper:
+            print(f"{name}: a dtype form of {cs.KERNELS[name].wrapper}'s "
+                  f"kernel, not captured here, skipped")
+            continue
         _mod, change = cs._counter(name)
         base_path = os.path.join(args.base_csrc, change.source)
         if not os.path.exists(base_path):

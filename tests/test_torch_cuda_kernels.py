@@ -29,6 +29,12 @@ graphs (kept cross-tile edges, a padded tail) and on the seeded tile-local
 cases at H 1, 4, 8 (each twice, to equal bits); K8's d_wea is held to the
 plain emit of the plain backward's d_zpre planes, and its per-head dot is
 pinned to torch's order by an exact cancellation.
+K1, K2, K4 and K5 also have a bf16 entry (nf read in bf16, everything else
+f32): each is held against its plain version (which widens nf to f32 at
+entry) at the esol head shape, both node tiles and every level kind, with
+its own launch count and the f32 entry's untouched, the same bits twice,
+the exact one-neighbour cancellations, and the 8-byte alignment and dtype
+its wrapper demands.
 """
 
 import dataclasses
@@ -852,12 +858,15 @@ def test_row_sliced_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         tbwd(4, 32, g=torch.zeros(N * 128 + 1, device=cuda)[1:].view(N, 128))
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("H,D", [(4, 32), (8, 32), (2, 8)])
-def test_dense_gat_bwd_cancels_exactly_with_one_neighbour(cuda, H, D):
+def test_dense_gat_bwd_cancels_exactly_with_one_neighbour(cuda, H, D, dt):
     """A row with one neighbour has P = 1 and out = nf[j], so its d_zpre =
     g·nf[j] − s is 0 in exact arithmetic. With s summed in the kernel's
     order (dense_gat.head_dot) it is 0 on the card too: d_wd, d_ws and d_vc
-    are exactly 0, not round-off, while d_nf = g[i] at j."""
+    are exactly 0, not round-off, while d_nf = g[i] at j. In bf16 the f32
+    out is nf[j] widened, the values the backward reads."""
     rng = np.random.default_rng(90 + H + D)
     tn, n_tiles, R = 128, 2, 1
     N = tn * n_tiles
@@ -870,7 +879,8 @@ def test_dense_gat_bwd_cancels_exactly_with_one_neighbour(cuda, H, D):
         tn=tn)
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
     draw = lambda *shape: T(rng.standard_normal(shape).astype(np.float32))
-    args = (T(planes), draw(N, H), draw(N, H), draw(N, H * D), draw(R + 1, H))
+    args = (T(planes), draw(N, H), draw(N, H), draw(N, H * D).to(dt),
+            draw(R + 1, H))
     out, m, den = dense_gat.dense_gat_fwd(*args)
     g = draw(N, H * D)
     d_wd, d_ws, d_nf, d_vc = dense_gat.dense_gat_bwd(
@@ -878,7 +888,7 @@ def test_dense_gat_bwd_cancels_exactly_with_one_neighbour(cuda, H, D):
     torch.cuda.synchronize()
     for k in (d_wd, d_ws, d_vc):
         assert float(k.abs().max()) == 0.0
-    assert torch.equal(out, args[3][T(src).long()])
+    assert torch.equal(out, args[3][T(src).long()].float())
     _close(d_nf[T(src).long()], g)
 
 
@@ -1017,14 +1027,18 @@ def test_tcsr_gat_ep_bwd_matches_plain_on_cases(cuda, tn, H):
         assert float(got[2][mask == 0].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("H,D", [(4, 32), (8, 16), (2, 64)])
-def test_tcsr_gat_bwd_cancels_exactly_with_one_neighbour(cuda, H, D):
+def test_tcsr_gat_bwd_cancels_exactly_with_one_neighbour(cuda, H, D, dt):
     """A row with one kept in-edge has p = 1 and out = nf[src], so its
     d_zpre = g·nf[src] − s is 0 in exact arithmetic. K2 sums the dot in the
     order in which torch sums s = (g·out).sum(-1) on the card (D ≤ 64), so
     it is 0 on the card too, through the single-device entry point and
     through K3's with s = −dV as the edge-partitioned pass's autograd
-    computes it: d_wn and d_w_ea exactly 0, while d_nf[src] = g[dst]."""
+    computes it: d_wn and d_w_ea exactly 0, while d_nf[src] = g[dst]. In
+    bf16 (the single-device entries; K3 is f32 only) the f32 out is
+    nf[src] widened, the values K2 reads."""
     from fragnet_tpu_torch.ops.tcsr import build_ep_tile_meta
 
     rng = np.random.default_rng(140 + H + D)
@@ -1041,9 +1055,10 @@ def test_tcsr_gat_bwd_cancels_exactly_with_one_neighbour(cuda, H, D):
                                sw_tile=T(meta.sw_tile),
                                flat_slot=T(meta.flat_slot))
     wn, nf, w_ea, g = draw(N, 2 * H), draw(N, H * D), draw(N, H), draw(N, H * D)
+    nf = nf.to(dt)
     ints = (T(src), T(dst), T(mask))
     out, m, den = tcsr_gat.tcsr_gat_fwd(wn, nf, w_ea, *ints, meta, False)
-    assert torch.equal(out, nf[ints[0].long()])
+    assert torch.equal(out, nf[ints[0].long()].float())
     s = (g.view(N, H, D) * out.view(N, H, D)).sum(-1)
     d_wn, d_nf, d_w_ea = tcsr_gat.tcsr_gat_bwd(wn, nf, w_ea, *ints, meta, m,
                                                den, g, s, False)
@@ -1051,6 +1066,8 @@ def test_tcsr_gat_bwd_cancels_exactly_with_one_neighbour(cuda, H, D):
     for k in (d_wn, d_w_ea):
         assert float(k.abs().max()) == 0.0
     _close(d_nf[ints[0].long()], g)
+    if dt != torch.float32:
+        return
 
     emeta = build_ep_tile_meta(src, dst, mask, N, S, tn=tn, te=te)
     emeta = dataclasses.replace(emeta, **{
@@ -1246,3 +1263,169 @@ def test_interpreter_raises_without_tcsr_on_the_card(cuda):
     assert bare.tm_atom is None and bare.dp_bond is None
     with pytest.raises(RuntimeError, match="segment path runs on the CPU"):
         gpu.predict(bare)
+
+
+# --------------------------------------------------------------------------
+# the bf16 entries of K1, K2, K4 and K5 (nf in bf16, everything else f32)
+# --------------------------------------------------------------------------
+
+_BF16_COUNTERS = {"tcsr": (tcsr_gat.KERNEL_BF16, tcsr_gat.KERNEL_BWD_BF16,
+                           tcsr_gat.KERNEL, tcsr_gat.KERNEL_BWD),
+                  "dense": (dense_gat.KERNEL_BF16, dense_gat.KERNEL_BWD_BF16,
+                            dense_gat.KERNEL, dense_gat.KERNEL_BWD)}
+
+
+def _counts(kind):
+    return tuple(k.launches for k in _BF16_COUNTERS[kind])
+
+
+@pytest.mark.parametrize("tn", [128, 256])
+@pytest.mark.parametrize("case", ["tcsr", "tcsr-self-loops", "dense-R1",
+                                  "dense-R6"])
+def test_bf16_entries_match_plain(cuda, tn, case):
+    """K1/K2 (TCSR, cross-tile sources, a masked edge, an empty tile) and
+    K4/K5 (dense planes, R = 1 and 6) with bf16 nf: each output within
+    1e-4 of its scale of the plain version on the same bf16 inputs, the
+    bf16 entries launched once each and the f32 entries not at all, and
+    the same bits from a second call."""
+    rng = np.random.default_rng(200 + tn + len(case))
+    bf = torch.bfloat16
+    if case.startswith("tcsr"):
+        kind, self_loops = "tcsr", case.endswith("self-loops")
+        args = list(_tcsr_case(cuda, rng, tn, self_loops))
+        args[1] = args[1].to(bf)
+        fwd, bwd = tcsr_gat.tcsr_gat_fwd, tcsr_gat.tcsr_gat_bwd
+        fwd_p, bwd_p = tcsr_gat.tcsr_gat_fwd_plain, tcsr_gat.tcsr_gat_bwd_plain
+
+        def bwd_args(out, m, den, g):
+            N, H = m.shape
+            s = (g.view(N, H, -1) * out.view(N, H, -1)).sum(-1)
+            return (*args[:7], m, den, g, s, self_loops)
+    else:
+        kind, R = "dense", int(case[-1])
+        H, D, n_tiles = 4, 32, 3
+        src, dst, mask = _graph(rng, tn, n_tiles, 3, 32, empty_tile=2)
+        N = n_tiles * tn
+        ea = rng.standard_normal((len(src), R)).astype(np.float32)
+        planes = dense_gat.build_dense_planes(src, dst, mask, ea, N, tn=tn)
+        T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+        draw = lambda *shape: T(rng.standard_normal(shape).astype(np.float32))
+        args = [T(planes), draw(N, H), draw(N, H), draw(N, H * D).to(bf),
+                draw(R + 1, H)]
+        fwd, bwd = dense_gat.dense_gat_fwd, dense_gat.dense_gat_bwd
+        fwd_p, bwd_p = dense_gat.dense_gat_fwd_plain, \
+            dense_gat.dense_gat_bwd_plain
+
+        def bwd_args(out, m, den, g):
+            return (*args, m, den, g, dense_gat.head_dot(g, out, H))
+    n0 = _counts(kind)
+    got = fwd(*args)
+    torch.cuda.synchronize()
+    assert _counts(kind) == (n0[0] + 1, n0[1], n0[2], n0[3])
+    for k, p in zip(got, fwd_p(*args)):
+        _close_m(k, p)
+    assert all(torch.equal(a, b) for a, b in zip(got, fwd(*args)))
+    out, m, den = got
+    g = torch.from_numpy(rng.standard_normal(tuple(out.shape)).astype(
+        np.float32)).to(cuda)
+    bargs = bwd_args(out, m, den, g)
+    n1 = _counts(kind)
+    grads = bwd(*bargs)
+    torch.cuda.synchronize()
+    assert _counts(kind) == (n1[0], n1[1] + 1, n1[2], n1[3])
+    for k, p in zip(grads, bwd_p(*bargs)):
+        _close(k, p)
+    assert all(torch.equal(a, b) for a, b in zip(grads, bwd(*bargs)))
+
+
+def test_bf16_passes_match_cpu(cuda):
+    """The TCSR pass with bf16 node features and edge attributes, forward
+    and backward through TcsrGatFn on the card (the bf16 entries) and on
+    the CPU (the plain versions): out and the bf16 gradients d_nf, d_ea
+    within one bf16 ulp of each element (both round the same f32 sums,
+    taken in another order, once; a gradient 0 in exact arithmetic within
+    1e-5 of the scale), the attention vector's f32 gradient within 1e-4 of
+    its scale."""
+    rng = np.random.default_rng(230)
+    bf = torch.bfloat16
+    H, D, Da, tn, te = 4, 32, 8, 128, 256
+    src, dst, mask = _graph(rng, tn, 2, 3, te)
+    N, E = 2 * tn, len(src)
+    meta = build_tile_meta(src, dst, mask, N, tn=tn, te=te)
+    cpu_meta = dataclasses.replace(meta, **{
+        f: torch.from_numpy(getattr(meta, f))
+        for f in ("ew_blk", "cw", "sw_tile", "flat_slot")})
+    card_meta = dataclasses.replace(cpu_meta, **{
+        f: getattr(cpu_meta, f).to(cuda)
+        for f in ("ew_blk", "cw", "sw_tile", "flat_slot")})
+    nf = torch.from_numpy(rng.standard_normal((N, H, D)).astype(
+        np.float32)).to(bf)
+    ea = torch.from_numpy(rng.standard_normal((E, Da)).astype(
+        np.float32)).to(bf)
+    a = torch.from_numpy(rng.standard_normal((H, 2 * D + Da)).astype(
+        np.float32))
+    g = torch.from_numpy(rng.standard_normal((N, H, D)).astype(np.float32))
+    ints = [torch.from_numpy(x) for x in (src, dst, mask)]
+
+    def run(dev, meta_):
+        xs = [x.to(dev).requires_grad_() for x in (nf, ea, a)]
+        n0 = tcsr_gat.KERNEL_BF16.launches, tcsr_gat.KERNEL_BWD_BF16.launches
+        out, _ = tcsr_gat.tcsr_gat_pass(xs[0], xs[1], *(t.to(dev)
+                                                        for t in ints),
+                                        xs[2], meta_, self_loops=True)
+        grads = torch.autograd.grad((out.float() * g.to(dev)).sum(), xs)
+        n1 = tcsr_gat.KERNEL_BF16.launches, tcsr_gat.KERNEL_BWD_BF16.launches
+        return out.cpu(), [x.cpu() for x in grads], (n1[0] - n0[0],
+                                                     n1[1] - n0[1])
+
+    out_c, grads_c, n_c = run(torch.device("cpu"), cpu_meta)
+    out_k, grads_k, n_k = run(cuda, card_meta)
+    assert n_c == (0, 0) and n_k == (1, 1)
+    assert out_k.dtype == bf and grads_k[0].dtype == bf
+
+    def within_ulp(k, p):
+        k, p = k.detach().float(), p.detach().float()
+        big = torch.maximum(k.abs(), p.abs())
+        ulp = torch.exp2(torch.floor(torch.log2(big.clamp(min=2.0 ** -126)))
+                         - 7)
+        err = (k - p).abs()
+        assert bool(((err <= ulp) | (err <= 1e-5 * float(p.abs().max())))
+                    .all())
+
+    within_ulp(out_k, out_c)
+    within_ulp(grads_k[0], grads_c[0])
+    within_ulp(grads_k[1], grads_c[1])
+    _close(grads_k[2], grads_c[2])
+
+
+def test_bf16_entries_refuse_what_they_do_not_take(cuda):
+    """The bf16 entries read a lane's four columns as one 8-byte load: an
+    nf not 8-byte aligned is refused, as is an nf of another type (f16);
+    the f32-only K3 and dense-attr wrappers refuse bf16."""
+    N, H, D, tn = 128, 4, 32, 128
+    z = lambda *shape: torch.zeros(shape, device=cuda)
+    bf = torch.bfloat16
+    planes = z(1, 2 * tn, tn)
+    odd = torch.zeros(N * H * D + 2, device=cuda, dtype=bf)[2:].view(N,
+                                                                     H * D)
+    ok = torch.zeros(N * H * D + 4, device=cuda, dtype=bf)[4:].view(N, H * D)
+    dense_gat.dense_gat_fwd(planes, z(N, H), z(N, H), ok, z(2, H))  # taken
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        dense_gat.dense_gat_fwd(planes, z(N, H), z(N, H), odd, z(2, H))
+    with pytest.raises(ValueError, match="dtype"):
+        dense_gat.dense_gat_fwd(planes, z(N, H), z(N, H),
+                                ok.to(torch.float16), z(2, H))
+    case = kernel_case(1, 32)
+    T, meta = _case_tensors(cuda, case, 32, 64)
+    Nc, E = case.n_nodes, len(case.src)
+    ints = (T(case.src), T(case.dst), T(case.mask))
+    nf = torch.zeros(Nc * 128 + 2, device=cuda, dtype=bf)[2:].view(Nc, 128)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        tcsr_gat.tcsr_gat_fwd(z(Nc, 8), nf, z(E, 4), *ints, meta, False)
+    with pytest.raises(ValueError, match="dtype"):
+        tcsr_gat.tcsr_gat_fwd(z(Nc, 8), z(Nc, 128).half(), z(E, 4), *ints,
+                              meta, False)
+    with pytest.raises(NotImplementedError, match="slice 16"):
+        dense_gat.dense_attr_fwd(z(1, tn, tn), z(N, H), z(N, H),
+                                 z(N, H * D).to(bf), z(E, H), *ints, meta,
+                                 False)

@@ -314,8 +314,15 @@ def test_run_finetune_refuses_what_it_does_not_run(tmp_path):
                       torch.empty((8,), device="meta"),
                       torch.empty((4, 20), device="meta"), num_nodes=8,
                       tm=None, dp=None, mode="tcsr", ep=EPContext(0, 2))
-    with pytest.raises(NotImplementedError, match="bf16"):
-        run_finetune(_small_opt(tmp_path, dtype="bf16"), device="cpu")
+    # bf16 runs on one device under the default policy; its dense-attr and
+    # dp / ep forms are slice 16's and raise (tests/test_torch_bf16.py)
+    with pytest.raises(NotImplementedError, match="slice 16"):
+        run_finetune(_small_opt(tmp_path, dtype="bf16",
+                                kernel={"attr": True}), device="cpu")
+    bf16_ep = _small_opt(tmp_path, dtype="bf16")
+    bf16_ep.set_path("dist", {"mode": "ep", "n_devices": 2})
+    with pytest.raises(NotImplementedError, match="slice 16"):
+        run_finetune(bf16_ep, device="cpu")
     with pytest.raises(ValueError, match="bond='attr' is refused"):
         run_finetune(_small_opt(tmp_path, kernel={"bond": "attr"}),
                      device="cpu")
