@@ -649,7 +649,7 @@ def seeded_attr_call(call, rng):
 
     lvl, args, kw = call
     drawn = tuple(torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(
-        np.float32)).to(t.device) for t in args[1:5])
+        np.float32)).to(t.device, t.dtype) for t in args[1:5])
     return (f"{lvl}, seeded", (args[0],) + drawn + tuple(args[5:]), kw)
 
 
@@ -739,10 +739,10 @@ def _ep_cost(args):
     Ng = Tg * meta.tn
     n_edges = int((emask > 0).sum())
     # as _tcsr_cost over the shard's kept edges and its Ng grid rows: the
-    # grid's node arrays, the edges' scalars and the windows read once, the
-    # grid's out, m, den written once
-    nbytes = 4 * (Ng * (2 * H + HD) + n_edges * (H + 3) + 2 * Tg
-                  + Ng * (HD + 2 * H))
+    # grid's node arrays (nf at its own width), the edges' scalars and the
+    # windows read once, the grid's out, m, den written once
+    nbytes = 4 * (Ng * 2 * H + n_edges * (H + 3) + 2 * Tg
+                  + Ng * (HD + 2 * H)) + nf.element_size() * Ng * HD
     flops = n_edges * H * (2 * D + 6) + Ng * HD
     return nbytes, flops
 
@@ -756,9 +756,11 @@ def _ep_bwd_cost(args):
     Tg = meta.n_tiles_grid
     Ng = Tg * meta.tn
     n_edges = int((emask > 0).sum())
-    # as _tcsr_bwd_cost over the shard's kept edges and its grid rows
-    nbytes = 4 * (Ng * (2 * H + HD) + 3 * Ng * H + Ng * HD
-                  + n_edges * (H + 3) + 2 * Tg + Ng * (2 * H + HD) + Es * H)
+    # as _tcsr_bwd_cost over the shard's kept edges and its grid rows (nf
+    # at its own width)
+    nbytes = 4 * (Ng * 2 * H + 3 * Ng * H + Ng * HD + n_edges * (H + 3)
+                  + 2 * Tg + Ng * (2 * H + HD) + Es * H) \
+        + nf.element_size() * Ng * HD
     flops = n_edges * H * (4 * D + 10)
     return nbytes, flops
 
@@ -788,10 +790,11 @@ def _attr_cost(args):
     HD = nf.shape[1]
     nnz = int((adj > 0).sum())
     n_edges = int((emask > 0).sum())
-    # the adjacency planes, wd, ws, nf, the real edges' w_ea and scalars and
-    # the tile windows read once; out, m, den written once
-    nbytes = 4 * (T * tn * tn + 2 * N * H + N * HD + n_edges * (H + 3)
-                  + 2 * T + N * (HD + 2 * H))
+    # the adjacency planes, wd, ws, nf (at its own width), the real edges'
+    # w_ea and scalars and the tile windows read once; out, m, den written
+    # once
+    nbytes = 4 * (T * tn * tn + 2 * N * H + n_edges * (H + 3) + 2 * T
+                  + N * (HD + 2 * H)) + nf.element_size() * N * HD
     flops = (T * tn * tn * H * 5 + 2 * nnz * HD
              + (2 * N * HD if self_loops else 0))
     return nbytes, flops
@@ -807,11 +810,12 @@ def _attr_bwd_cost(args):
     nnz = int((adj > 0).sum())
     n_edges = int((emask > 0).sum())
     E = src.shape[0]
-    # inputs read once (adjacency, wd, ws, m, den, s, nf, g, the real
-    # edges' w_ea and scalars, windows) + outputs written once (d_wd, d_ws,
-    # d_wself, d_nf, d_wea for every edge)
-    nbytes = 4 * (T * tn * tn + 5 * N * H + 2 * N * HD + n_edges * (H + 3)
-                  + 2 * T + 3 * N * H + N * HD + E * H)
+    # inputs read once (adjacency, wd, ws, m, den, s, nf at its own width,
+    # g, the real edges' w_ea and scalars, windows) + outputs written once
+    # (d_wd, d_ws, d_wself, d_nf, d_wea for every edge)
+    nbytes = 4 * (T * tn * tn + 5 * N * H + N * HD + n_edges * (H + 3)
+                  + 2 * T + 3 * N * H + N * HD + E * H) \
+        + nf.element_size() * N * HD
     flops = (T * tn * tn * H * 6 + nnz * H * (4 * D + 6)
              + (N * H * (4 * D + 10) if self_loops else 0))
     return nbytes, flops
@@ -945,6 +949,31 @@ KERNELS = {
                                  "fragnet_tpu_torch/csrc/dense_gat_bwd.cu",
                                  "fragnet_tpu/ops/dense_gat.py:419",
                                  "dense_gat_bwd"),
+    # the bf16 forms of K7, K8 (with K9 in its launch) and K3 (the JAX
+    # package's _build_attr / _make_ep_op dt_name = bfloat16 builds,
+    # dense_gat.py:476 / pallas_gat.py:786)
+    "dense_attr_fwd_bf16": Kernel("dense_gat", "KERNEL_ATTR_BF16",
+                                  "dense_attr_fwd_plain", _attr_cost, None,
+                                  "fragnet_tpu_torch/csrc/dense_attr_fwd.cu",
+                                  "fragnet_tpu/ops/dense_gat.py:216",
+                                  "dense_attr_fwd"),
+    "dense_attr_bwd_bf16": Kernel("dense_gat", "KERNEL_ATTR_BWD_BF16",
+                                  "dense_attr_bwd_emit_plain",
+                                  _attr_bwd_cost, "dense_attr_fwd_bf16",
+                                  "fragnet_tpu_torch/csrc/dense_attr_bwd.cu",
+                                  "fragnet_tpu/ops/dense_gat.py:276",
+                                  "dense_attr_bwd"),
+    "tcsr_gat_ep_fwd_bf16": Kernel("tcsr_gat", "KERNEL_EP_BF16",
+                                   "tcsr_gat_ep_fwd_plain", _ep_cost, None,
+                                   "fragnet_tpu_torch/csrc/tcsr_gat_fwd.cu",
+                                   "fragnet_tpu/ops/pallas_gat.py:635",
+                                   "tcsr_gat_ep_fwd"),
+    "tcsr_gat_ep_bwd_bf16": Kernel("tcsr_gat", "KERNEL_EP_BWD_BF16",
+                                   "tcsr_gat_ep_bwd_plain", _ep_bwd_cost,
+                                   "tcsr_gat_ep_fwd_bf16",
+                                   "fragnet_tpu_torch/csrc/tcsr_gat_bwd.cu",
+                                   "fragnet_tpu/ops/pallas_gat.py:635",
+                                   "tcsr_gat_ep_bwd"),
 }
 # the GAT kernels of the default policy, which phase 4 captures from a
 # finetune forward, and the dense-attr kernels, which phase 16 captures
@@ -952,10 +981,14 @@ GAT_KERNELS = ("tcsr_gat_fwd", "tcsr_gat_bwd", "dense_gat_fwd",
                "dense_gat_bwd")
 ATTR_KERNELS = ("dense_attr_fwd", "dense_attr_bwd")
 EP_KERNELS = ("tcsr_gat_ep_fwd", "tcsr_gat_ep_bwd")
-# the bf16 forms of the GAT kernels, which phase 30 captures from a bf16
-# finetune forward, by their f32 form
-BF16_OF = {n: f"{n}_bf16" for n in GAT_KERNELS}
+# the bf16 form of every GAT kernel, by its f32 form: phase 30 captures
+# those of the default policy from a bf16 finetune forward (GAT_BF16),
+# phase 31 the dense-attr and edge-partitioned ones (ATTR_BF16, EP_BF16)
+BF16_OF = {n: f"{n}_bf16" for n in GAT_KERNELS + ATTR_KERNELS + EP_KERNELS}
 BF16_KERNELS = tuple(BF16_OF.values())
+GAT_BF16 = tuple(BF16_OF[n] for n in GAT_KERNELS)
+ATTR_BF16 = tuple(BF16_OF[n] for n in ATTR_KERNELS)
+EP_BF16 = tuple(BF16_OF[n] for n in EP_KERNELS)
 # layer 0's edge-partitioned passes, in call order
 EP_LEVELS = ["bond", "atom (self-loops in the combine)", "fconn", "frag"]
 # K9, the TPU emit kernel, has no launch of its own: K8 computes d_wea in
@@ -1236,10 +1269,11 @@ def _busy(prof):
 # the name of each wrapper's CUDA kernel in a profile's rows (csrc/*.cu;
 # K3's entry points launch K1's and K2's kernels, the bf16 entries the
 # same kernels' bf16 instances)
-KERNEL_KEYS = {PLANES: "dense_planes_kernel",
-               "tcsr_gat_ep_fwd": "tcsr_gat_fwd_kernel",
-               "tcsr_gat_ep_bwd": "tcsr_gat_bwd_kernel",
-               **{n16: f"{n32}_kernel" for n32, n16 in BF16_OF.items()}}
+_KEYS32 = {PLANES: "dense_planes_kernel",
+           "tcsr_gat_ep_fwd": "tcsr_gat_fwd_kernel",
+           "tcsr_gat_ep_bwd": "tcsr_gat_bwd_kernel"}
+KERNEL_KEYS = {**_KEYS32, **{n16: _KEYS32.get(n32, f"{n32}_kernel")
+                             for n32, n16 in BF16_OF.items()}}
 # a bf16 instance's row names its nf type (csrc: bf16_bits)
 BF16_ROW = "unsigned short"
 
@@ -2006,7 +2040,8 @@ def attr_phases(dev, datasets, spec, windows, batch, train_np, step_default,
                 pgraphs, rng):
     """Phases 16-19: the dense-attr kernel policy. Returns (K7-K9's kernel
     report (K9's from K8's launch), with the batch-512 levels marked off the kernels' line sums,
-    launches on the finetune path, launches on the pretraining path)."""
+    launches on the finetune path, launches on the pretraining path, phase
+    18's timed train step)."""
     # ---- 16. K7, K8 (and K9 in it) against their plain versions ----------
     t0 = time.perf_counter()
     calls = attr_kernel_calls(datasets[3], batch, rng)
@@ -2067,8 +2102,7 @@ def attr_phases(dev, datasets, spec, windows, batch, train_np, step_default,
     if worst > GRAD_REL_LIMIT:
         raise AssertionError("card and CPU dense-attr pretrain gradients "
                              "disagree")
-    return report, launches_ft, launches_pt
-
+    return report, launches_ft, launches_pt, step_attr
 
 
 EP_SHARDS = 2
@@ -2181,6 +2215,24 @@ def drive_dist(opt, datasets, expects, label: str, backend: str):
     rmse, _model = run_finetune(opt, datasets=datasets, device="cuda",
                                 rank_reports=reports)
     run_s = time.perf_counter() - t0
+    out = check_rank_reports(opt, reports, expects, label)
+    first = reports[0]
+    if rmse != first["value"] or first["backend"] != backend or (
+            len(reports) > 1 and any(_launches().values())):
+        raise AssertionError(f"{label}: backend {first['backend']}, or the "
+                             f"launching process ran kernels or returned "
+                             f"another value")
+    print(f"{label}: {len(reports)} ranks over {first['backend']}, run "
+          f"{run_s:.2f} s (spawn and rank start-up included)")
+    return out
+
+
+def check_rank_reports(opt, reports, expects, label: str):
+    """Each rank's report of a run_finetune under opt's dist.mode: its
+    losses and test metric finite and equal across the ranks, its
+    launches equal to ``expects[rank]``. Returns [each rank's launches]."""
+    import numpy as np
+
     out = []
     for r in reports:
         got = _rank_launches(r)
@@ -2206,13 +2258,6 @@ def drive_dist(opt, datasets, expects, label: str, backend: str):
         if (r["value"], r["train_loss"], r["val_score"]) != (
                 first["value"], first["train_loss"], first["val_score"]):
             raise AssertionError(f"{label}: ranks disagree")
-    if rmse != first["value"] or first["backend"] != backend or (
-            len(reports) > 1 and any(_launches().values())):
-        raise AssertionError(f"{label}: backend {first['backend']}, or the "
-                             f"launching process ran kernels or returned "
-                             f"another value")
-    print(f"{label}: {len(reports)} ranks over {first['backend']}, run "
-          f"{run_s:.2f} s (spawn and rank start-up included)")
     return out
 
 
@@ -2283,7 +2328,8 @@ def ep_kernel_calls(captured, rng):
         meta = dataclasses.replace(meta, **{
             f: torch.from_numpy(getattr(meta, f)).to(dev)
             for f in ("t0", "ew_blk", "sw_tile", "flat_slot", "cw")})
-        wn_s, nf_s = draw(*wn.shape, dev=dev), draw(*nf.shape, dev=dev)
+        wn_s = draw(*wn.shape, dev=dev)
+        nf_s = draw(*nf.shape, dev=dev).to(nf.dtype)
         es = src_c.shape[0]
         for r in range(EP_SHARDS):
             sl = slice(r * es, (r + 1) * es)
@@ -2323,10 +2369,34 @@ def check_ep_scales(name, lvl, args, got, want):
                                  f"its comparison shows nothing")
 
 
+def bf16_dist_opt(mode: str, n_ranks: int):
+    """dist_opt(mode, n_ranks, ...) in bf16 for BF16_REST_EPOCHS epochs, in
+    its own exp_dir (phase 31 (e))."""
+    opt = dist_opt(mode, n_ranks, BF16_REST_EPOCHS)
+    opt.set_path("finetune.dtype", "bf16")
+    opt.set_path("exp_dir", os.path.join(REPO, "exps",
+                                         f"chip_smoke_{mode}{n_ranks}_bf16"))
+    return opt
+
+
+def dist_ranks(calls):
+    """``calls`` [(fn, args)] in one start of EP_SHARDS ranks on the card
+    (dist/checks.py:timed_calls_rank): for each call, ([each rank's
+    result], the slowest rank's seconds)."""
+    from fragnet_tpu_torch.dist import checks
+    from fragnet_tpu_torch.dist.launch import run_ranks
+
+    res = run_ranks(checks.timed_calls_rank, EP_SHARDS, (calls,),
+                    device="cuda", timeout_s=120, join_timeout_s=600,
+                    workdir=os.path.join(REPO, "exps"))
+    return [([r[i][0] for r in res], max(r[i][1] for r in res))
+            for i in range(len(calls))]
+
+
 def ep_dp_phases(dev, datasets, spec, train_np, step_default, rng):
     """Phases 20-24: edge-partitioned and data-parallel finetuning on
     torch.distributed. Returns (K3's kernel report, {path: [launches per
-    rank]})."""
+    rank]}, phase 31 (e)'s bf16 results from the same ranks)."""
     import dataclasses
 
     import torch
@@ -2334,9 +2404,9 @@ def ep_dp_phases(dev, datasets, spec, train_np, step_default, rng):
     from fragnet_tpu_torch.dist import checks
     from fragnet_tpu_torch.dist.data_parallel import (DPBatchLoader,
                                                       stack_for_dp)
-    from fragnet_tpu_torch.dist.launch import run_ranks
     from fragnet_tpu_torch.graphs.batch import to_device
     from fragnet_tpu_torch.ops.tcsr import build_tile_meta
+    from fragnet_tpu_torch.train.finetune import _finetune_rank
     from fragnet_tpu_torch.train.loop import mse_loss
 
     topt = smoke_opt(train=True)
@@ -2348,11 +2418,22 @@ def ep_dp_phases(dev, datasets, spec, train_np, step_default, rng):
     runs = {}
 
     # ---- 20 + 22. one EP train step on 2 ranks (layer 0's K3 inputs) ------
+    # the same ranks then run phase 31 (e)'s bf16 EP step and bf16 EP
+    # finetune path (a new start of the ranks costs seconds)
     t0 = time.perf_counter()
-    res = ep_step_ranks(kw, sd, ep_np)
+    eopt16 = bf16_dist_opt("ep", S)
+    (res, _), (res16, step16_s), (ep16, run16_s) = dist_ranks([
+        (checks.ep_card_step_rank, (kw, sd, ep_np)),
+        (checks.ep_card_step_rank, (dict(kw, dtype=torch.bfloat16), sd,
+                                    ep_np)),
+        (_finetune_rank, (eopt16.to_dict(), True, datasets, "cuda"))])
     step_s = time.perf_counter() - t0
+    bf16 = {"ep_steps": res16, "ep_run": (eopt16, ep16),
+            "ep_s": step16_s + run16_s}
     print(f"phase 22's EP step on {S} ranks (spawn included), which captures "
-          f"phase 20's inputs: {step_s:.1f} s")
+          f"phase 20's inputs: {step_s - bf16['ep_s']:.1f} s (and phase 31 "
+          f"(e)'s bf16 EP step {step16_s:.1f} s and bf16 EP finetune path "
+          f"{run16_s:.1f} s in the same ranks)")
     t0 = time.perf_counter()
     report = check_kernels(EP_KERNELS, ep_kernel_calls(
         [r["calls"] for r in res], rng), rng, check_scales=check_ep_scales)
@@ -2419,7 +2500,9 @@ def ep_dp_phases(dev, datasets, spec, train_np, step_default, rng):
               f"single-device step (phase 8): wall "
               f"{step_default['wall']:.2f} ms, device busy "
               f"{step_default['busy']:.3f} ms")
-    print(f"phase 22: {step_s + time.perf_counter() - t0:.1f} s")
+    bf16.update(ep_ref=ref_np, ep_steps32=res)
+    print(f"phase 22: {step_s - bf16['ep_s'] + time.perf_counter() - t0:.1f}"
+          f" s")
 
     # ---- 23. the DP finetune path, 2 ranks over gloo, and its gradients ----
     t0 = time.perf_counter()
@@ -2429,10 +2512,12 @@ def ep_dp_phases(dev, datasets, spec, train_np, step_default, rng):
     runs["finetune_dp"] = drive_dist(dopt, datasets, expects, "DP finetune",
                                      "gloo")
     kw0 = dict(kw, drop_ratio=0.0)
-    dres = run_ranks(checks.dp_step_rank, S,
-                     (kw0, sd, train_g, spec, bs, 1e-4, "cuda"),
-                     device="cuda", timeout_s=120, join_timeout_s=600,
-                     workdir=os.path.join(REPO, "exps"))
+    # the same ranks then run phase 31 (e)'s bf16 DP finetune path
+    dopt16 = bf16_dist_opt("dp", S)
+    (dres, _), (dp16, dp16_s) = dist_ranks([
+        (checks.dp_step_rank, (kw0, sd, train_g, spec, bs, 1e-4, "cuda")),
+        (_finetune_rank, (dopt16.to_dict(), True, datasets, "cuda"))])
+    bf16.update(dp_run=(dopt16, dp16), dp_s=dp16_s)
     win = DPBatchLoader(train_g, bs, S, spec).windows()[0]
     mean = {}
     for r in range(S):
@@ -2459,7 +2544,8 @@ def ep_dp_phases(dev, datasets, spec, train_np, step_default, rng):
           f"{GRAD_REL_LIMIT})")
     if worst > GRAD_REL_LIMIT:
         raise AssertionError("DP gradients disagree with the mean")
-    print(f"phase 23: {time.perf_counter() - t0:.1f} s")
+    print(f"phase 23: {time.perf_counter() - t0 - dp16_s:.1f} s (and phase "
+          f"31 (e)'s bf16 DP finetune path {dp16_s:.1f} s in the same ranks)")
 
     # ---- 24. NCCL at world size 1 ------------------------------------------
     t0 = time.perf_counter()
@@ -2472,7 +2558,7 @@ def ep_dp_phases(dev, datasets, spec, train_np, step_default, rng):
         d1, datasets, dp_expect(d1, datasets, spec, 1)[0],
         "DP finetune, 1 rank", "nccl")
     print(f"phase 24: {time.perf_counter() - t0:.1f} s")
-    return report, runs
+    return report, runs, bf16
 
 
 # phase 25: the molecules the interpreter explains — aspirin; benzene (one
@@ -4184,7 +4270,7 @@ def bf16_opt(twin: bool = False):
     return opt
 
 
-def bf16_grads_vs_f32(cpu_model, train_np, dev, n_tasks):
+def bf16_grads_vs_f32(cpu_model, train_np, dev, n_tasks, twin_opt=None):
     """Phase 30 (b)'s gradient check: one train step's loss and gradients
     of the bf16 model on the card and on the CPU, and of its f32 twin (the
     same weights) on the CPU, dropout off. Each parameter's distance from
@@ -4192,13 +4278,15 @@ def bf16_grads_vs_f32(cpu_model, train_np, dev, n_tasks):
     BF16_GRAD_FLOOR of the largest); the card's root mean square over the
     parameters must lie within 2 × the CPU bf16's + 1e-3. The worst
     parameter of each and the card-vs-CPU bf16 distance (largest entry,
-    relative to the gradient's largest) are printed beside."""
+    relative to the gradient's largest) are printed beside. ``twin_opt``
+    (default: phase 30's twin) names the f32 twin's config."""
     import torch
 
     from fragnet_tpu_torch.graphs.batch import to_device
     from fragnet_tpu_torch.train.loop import LOSSES
 
-    f32_model = build_model_cpu(bf16_opt(twin=True), n_tasks).eval()
+    f32_model = build_model_cpu(twin_opt or bf16_opt(twin=True),
+                                n_tasks).eval()
     f32_model.load_state_dict(cpu_model.state_dict())
 
     def loss_and_grads(m, d):
@@ -4283,12 +4371,12 @@ def bf16_phase(dev, datasets, spec, windows, batch_np, train_np,
         if any(a[3 if n32 == "dense_gat_fwd" else 1].dtype != torch.bfloat16
                for _, a, _ in per_level):
             raise AssertionError(f"{n32}: a bf16 forward passed f32 nf")
-    for name in BF16_KERNELS:
+    for name in GAT_BF16:
         fwd = KERNELS[name].fwd
         if fwd is not None:
             calls[name] = [(lvl, bwd_kernel_args(fwd, a, kw, rng), {})
                            for lvl, a, kw in calls[fwd]]
-    report = check_kernels(BF16_KERNELS, calls, rng)
+    report = check_kernels(GAT_BF16, calls, rng)
     print(f"phase 30 (a): {time.perf_counter() - t0:.1f} s")
 
     # (b) one forward and one train step's gradients, card vs CPU
@@ -4342,11 +4430,278 @@ def bf16_phase(dev, datasets, spec, windows, batch_np, train_np,
           f"{step_default['busy']:.3f} ms, peak allocated "
           f"{step['peak_mib']:.1f} / {step_default['peak_mib']:.1f} MiB; "
           f"the GAT kernels' device ms: "
-          + ", ".join(f"{n} {step['kernels'][n]:.4f} / "
+          + ", ".join(f"{BF16_OF[n32]} "
+                      f"{step['kernels'][BF16_OF[n32]]:.4f} / "
                       f"{step_default['kernels'][n32]:.4f}"
-                      for n32, n in BF16_OF.items()))
+                      for n32 in GAT_KERNELS))
     print(f"phase 30: {time.perf_counter() - t0:.1f} s")
     return report, runs["bf16"][2]
+
+
+# phase 31: bf16 on the rest of the JAX package's bf16 paths — the
+# dense-attr policy (K7, K8 with K9), geometric pretraining through the
+# packed transport (K6 on widened bf16 attributes), auxiliary pretraining,
+# DP and EP (K3) — each path for one epoch
+BF16_REST_EPOCHS = 1
+BF16_PT_OVERRIDES = {
+    "pretrain.dtype": "bf16",
+    "pretrain.n_epochs": BF16_REST_EPOCHS,
+    "exp_dir": os.path.join(REPO, "exps", "chip_smoke_pt_bf16"),
+}
+
+
+def bf16_attr_opt(twin: bool = False):
+    """The dense-attr training path's config (smoke_opt(train=True,
+    attr=True)) in bf16 for BF16_REST_EPOCHS epochs, or (``twin``) its f32
+    twin, each in its own exp_dir."""
+    opt = smoke_opt(train=True, attr=True)
+    opt.set_path("finetune.n_epochs", BF16_REST_EPOCHS)
+    if not twin:
+        opt.set_path("finetune.dtype", "bf16")
+    opt.set_path("exp_dir", os.path.join(
+        REPO, "exps", "chip_smoke_esol_attr_bf16" + ("_twin" if twin else "")))
+    return opt
+
+
+def _finite_run(label, exp_dir, n_epochs, value):
+    """The last ``n_epochs`` train losses of a run's scalars, raising unless
+    they and ``value`` are finite."""
+    import numpy as np
+
+    from fragnet_tpu_torch.obs import read_scalars
+
+    losses = [r["value"] for r in read_scalars(exp_dir)
+              if r["tag"] == "train/loss"][-n_epochs:]
+    if len(losses) != n_epochs or not np.isfinite(losses + [value]).all():
+        raise AssertionError(f"{label}: not finite: train losses {losses}, "
+                             f"value {value}")
+    return losses
+
+
+def bf16_rest_phase(dev, datasets, spec, windows, batch_np, train_np,
+                    step_attr, pgraphs, dist16, rng):
+    """Phase 31: bf16 on the paths beyond phase 30's. (a) The bf16 entries
+    of K7 and K8 (with K9's d_wea, exactly 0 off the counted edges) at
+    layer 0 of a bf16 forward of the esol batch under the dense-attr
+    policy, with a seeded case per level, and of K3 at each rank's layer-0
+    shards of the bf16 EP step that phase 22's ranks ran (``dist16``), with
+    seeded shards: each against its plain version at 1e-4 of the output's
+    scale, timed. (b) finetune.dtype=bf16 under the dense-attr policy:
+    card vs CPU predictions within BF16_PRED_LIMIT, a train step's
+    gradients against the f32 twin's (bf16_grads_vs_f32), run_finetune for
+    BF16_REST_EPOCHS epochs with exact launches, a timed step beside phase
+    18's f32 one. (c) Geometric pretraining in bf16 through the packed
+    transport (batch 64, one epoch, the HBM tier): exact launches; a bf16
+    buffer's device planes equal K6's planes of the widened attributes and
+    the plain builder's. (d) run_aux_pretrain in bf16 (property mode), one
+    epoch, exact launches. (e) The bf16 EP and DP finetune paths that
+    phases 22 and 23's ranks ran: each rank's launches exact, losses finite
+    and equal across the ranks; the bf16 EP step's predictions within
+    BF16_PRED_LIMIT of the one-device bf16 step's, its wall and busy time
+    beside f32's. Every path's bf16 GAT entries launch as its f32 ones
+    would, and no f32 GAT entry launches. Returns (the bf16 K7, K8, K3
+    report, {path: launches}, the launches on the dense-attr and EP paths
+    by "attr" / "ep")."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from fragnet_tpu_torch.data.batcher import BatchLoader
+    from fragnet_tpu_torch.data.packing import unpack_batch
+    from fragnet_tpu_torch.graphs.batch import to_device
+    from fragnet_tpu_torch.graphs.hiergraph import spec_for
+    from fragnet_tpu_torch.ops import dense_gat
+    from fragnet_tpu_torch.train.finetune import run_finetune
+    from fragnet_tpu_torch.train.pretrain import run_pretrain, split_graphs
+
+    S = EP_SHARDS
+    n_tasks = datasets[3]
+    bf = torch.bfloat16
+    paths = {}
+
+    # (a) the bf16 entries of K7, K8 and K3 against their plain versions
+    t0 = time.perf_counter()
+    opt = bf16_attr_opt()
+    L = int(opt.finetune.model.num_layer)
+    cpu_model = build_model_cpu(opt, n_tasks).eval()
+    model = copy.deepcopy(cpu_model).to(dev).eval()
+    lay = model.pretrain.layers[0]
+    if lay.dtype != bf or not lay.policy.attr or lay.policy.fc != "attr":
+        raise AssertionError("phase 31's model is not bf16 under the "
+                             "dense-attr policy")
+    fwd = layer0_kernel_calls(L, model, to_device(batch_np, dev),
+                              names=("dense_attr_fwd",))["dense_attr_fwd"]
+    fwd = [(f"{lvl}, bf16", a, kw) for lvl, a, kw in fwd]
+    fwd += [seeded_attr_call(c, rng) for c in fwd]
+    ep = ep_kernel_calls([r["calls"] for r in dist16["ep_steps"]], rng)
+    calls = {
+        "dense_attr_fwd_bf16": fwd,
+        "dense_attr_bwd_bf16": [
+            (lvl, bwd_kernel_args("dense_attr_fwd_bf16", a, kw, rng), {})
+            for lvl, a, kw in fwd],
+        **{BF16_OF[n]: [(f"{lvl}, bf16", a, kw) for lvl, a, kw in ep[n]]
+           for n in EP_KERNELS}}
+    for name, cs in calls.items():
+        i = 3 if name.startswith("dense_attr") else 1
+        if any(a[i].dtype != bf for _, a, _ in cs):
+            raise AssertionError(f"{name}: a case with f32 nf")
+    report = check_kernels(ATTR_BF16, calls, rng)
+    report.update(check_kernels(EP_BF16, calls, rng,
+                                check_scales=check_ep_scales))
+    for lvl, a, kw in calls["dense_attr_bwd_bf16"]:
+        got = dense_gat.dense_attr_bwd(*a, **kw)
+        want = dense_gat.dense_attr_bwd_emit_plain(*a, **kw)
+        floor = 0.0 if "seeded" in lvl else _scale_floor(
+            "dense_attr_bwd_bf16", a)
+        emit_levels(a, got[4], want[4], _diff(got[4], want[4], floor))
+    print(f"bf16 K8's d_wea (K9 in its launch) against the plain pair and "
+          f"0 off the counted edges at all "
+          f"{len(calls['dense_attr_bwd_bf16'])} levels")
+    print(f"phase 31 (a): {time.perf_counter() - t0:.1f} s")
+
+    # (b) the dense-attr finetune path in bf16
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        pred_gpu = model(to_device(batch_np, dev)).cpu()
+        pred_cpu = cpu_model(to_device(batch_np, "cpu"))
+    fwd_err, fwd_rel = _diff(pred_gpu, pred_cpu)
+    print(f"bf16 dense-attr forward cpu vs gpu: max_abs_err={fwd_err:.3e} "
+          f"rel={fwd_rel:.3e} (limit {BF16_PRED_LIMIT})")
+    if not fwd_rel <= BF16_PRED_LIMIT:
+        raise AssertionError("bf16 dense-attr: card and CPU predictions "
+                             "disagree")
+    bf16_grads_vs_f32(cpu_model, train_np, dev, n_tasks,
+                      twin_opt=bf16_attr_opt(twin=True))
+    expect32, n_train, n_val, _ = finetune_expect(opt, datasets, spec,
+                                                  windows)
+    _reset_launches()
+    t1 = time.perf_counter()
+    value, tr_model = run_finetune(opt, datasets=datasets, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches_attr = _launches()
+    losses = _finite_run("bf16 dense-attr training path", opt.exp_dir,
+                         BF16_REST_EPOCHS, value)
+    print(f"bf16 dense-attr training path: {BF16_REST_EPOCHS} epoch x "
+          f"{n_train} train batches, {n_val} val, {len(windows)} test; test "
+          f"rmse {value:.5f}, train losses {[round(x, 5) for x in losses]}, "
+          f"run {run_s:.2f} s")
+    _check_launches("bf16 dense-attr training path", launches_attr,
+                    as_bf16(expect32))
+    paths["finetune_attr_bf16_train"] = launches_attr
+    step = timed_train_step(tr_model, train_np, dev, "bf16 dense-attr")
+    print(f"train step under the dense-attr policy, bf16 vs f32 (phase 18): "
+          f"wall {step['wall']:.2f} / {step_attr['wall']:.2f} ms, busy "
+          f"{step['busy']:.3f} / {step_attr['busy']:.3f} ms, peak allocated "
+          f"{step['peak_mib']:.1f} / {step_attr['peak_mib']:.1f} MiB; the "
+          f"GAT kernels' device ms: "
+          + ", ".join(f"{BF16_OF[n]} {step['kernels'][BF16_OF[n]]:.4f} / "
+                      f"{step_attr['kernels'][n]:.4f}"
+                      for n in ("dense_gat_fwd", "dense_gat_bwd")
+                      + ATTR_KERNELS))
+    print(f"phase 31 (b): {time.perf_counter() - t0:.1f} s")
+
+    # (c) geometric pretraining in bf16 through the packed transport
+    t0 = time.perf_counter()
+    popt = pt_opt(PT_OVERRIDES, BF16_PT_OVERRIDES)
+    expect, n_train, n_val, levels = pretrain_expect(popt, pgraphs, 1, 1)
+    print(f"bf16 pretraining path: {n_train} train steps, {n_val} val "
+          f"batches at batch {popt.pretrain.batch_size}; device planes per "
+          f"train step: {levels}")
+    paths["pretrain_bf16"], _ckpt = drive_pretrain(popt, pgraphs,
+                                                   as_bf16(expect), "HBM")
+    seed, bs = int(popt.seed), int(popt.pretrain.batch_size)
+    train_g, _val_g = split_graphs(pgraphs, seed)
+    loader = BatchLoader(train_g, bs, spec=spec_for(pgraphs, bs, tcsr=True),
+                         with_targets=True, pack=True, compute_dtype="bf16")
+    buf = torch.from_numpy(next(iter(loader))).to(dev)
+    up = unpack_batch(buf, loader.layout, ("dp_bond", "dp_fc"))
+    if up.ea_bonds.dtype != bf:
+        raise AssertionError("the bf16 layout's ea_bonds decode as "
+                             f"{up.ea_bonds.dtype}")
+    for lvl, (s_, d_, m_, ea) in {
+            "dp_bond": ("bg_src", "bg_dst", "bg_mask", up.ea_bonds),
+            "dp_fc": ("fc_src", "fc_dst", "fc_mask", up.ea_fbonds)}.items():
+        got = getattr(up, lvl)
+        args = (getattr(up, s_), getattr(up, d_), getattr(up, m_))
+        n_nodes = got.shape[0] * got.shape[2]
+        tm = getattr(up, "tm_" + lvl[3:])
+        want = dense_gat.build_dense_planes_device(*args, ea.float(),
+                                                   n_nodes, tm)
+        cpu_tm = dataclasses.replace(tm, **{
+            f: getattr(tm, f).cpu() for f in ("ew_blk", "sw_tile",
+                                              "flat_slot", "cw")})
+        plain = dense_gat.build_dense_planes_device_plain(
+            *(a.cpu() for a in args), ea.float().cpu(), n_nodes, cpu_tm)
+        if not (torch.equal(got, want) and torch.equal(got.cpu(), plain)):
+            raise AssertionError(f"{lvl}: the planes of bf16 attributes are "
+                                 f"not those of their widening")
+    print(f"bf16 packed batch ({loader.layout.total_bytes} bytes, ea_bonds "
+          f"in bf16): dp_bond and dp_fc from bf16 attributes equal K6's and "
+          f"the plain builder's planes of the widened attributes exactly")
+    print(f"phase 31 (c): {time.perf_counter() - t0:.1f} s")
+
+    # (d) auxiliary pretraining in bf16
+    t0 = time.perf_counter()
+    csv_path = os.path.join(REPO, "exps", "chip_smoke_aux", "props.csv")
+    graphs = aux_table(datasets, csv_path)
+    aopt = aux_opt("property", csv_path)
+    aopt.set_path("pretrain.dtype", "bf16")
+    aopt.set_path("exp_dir", os.path.join(REPO, "exps",
+                                          "chip_smoke_aux_property_bf16"))
+    expect, n_train, n_val = aux_expect(aopt, graphs)
+    _reset_launches()
+    best, _ckpt = run_pretrain(aopt, device="cuda")
+    torch.cuda.synchronize()
+    paths["aux_property_bf16"] = _launches()
+    losses = _finite_run("bf16 aux pretraining", aopt.exp_dir, 1, best)
+    print(f"bf16 aux pretrain (property): {len(graphs)} molecules, "
+          f"{n_train} train batches, {n_val} val; train losses {losses}")
+    _check_launches("aux_property_bf16", paths["aux_property_bf16"],
+                    as_bf16(expect))
+    print(f"phase 31 (d): {time.perf_counter() - t0:.1f} s")
+
+    # (e) EP and DP in bf16, from phases 22's and 23's ranks
+    t0 = time.perf_counter()
+    eopt, reports = dist16["ep_run"]
+    exp_ep, steps = ep_expect(eopt, datasets, S)
+    ep_launches = check_rank_reports(eopt, reports, [as_bf16(exp_ep)] * S,
+                                     "bf16 EP finetune")
+    print(f"bf16 EP finetune path: {S} ranks, {steps} train steps, test "
+          f"rmse {reports[0]['value']:.5f}")
+    dopt, reports = dist16["dp_run"]
+    exp_dp, steps = dp_expect(dopt, datasets, spec, S)
+    dp_launches = check_rank_reports(dopt, reports,
+                                     [as_bf16(e) for e in exp_dp],
+                                     "bf16 DP finetune")
+    print(f"bf16 DP finetune path: {S} ranks, {steps} train steps, test "
+          f"rmse {reports[0]['value']:.5f}")
+    for r in range(S):
+        paths[f"finetune_ep_bf16_rank{r}"] = ep_launches[r]
+        paths[f"finetune_dp_bf16_rank{r}"] = dp_launches[r]
+    opt16 = smoke_opt(train=True)
+    opt16.set_path("finetune.dtype", "bf16")
+    one = build_model_cpu(opt16, n_tasks).to(dev).eval()
+    with torch.no_grad():
+        pred = one(to_device(dist16["ep_ref"], dev)).cpu()
+    for r, (res, res32) in enumerate(zip(dist16["ep_steps"],
+                                         dist16["ep_steps32"])):
+        err, rel = _diff(res["pred"].cpu(), pred)
+        print(f"bf16 EP step rank {r} vs the one-device bf16 card step: "
+              f"prediction max_abs_err={err:.3e} rel={rel:.3e} (limit "
+              f"{BF16_PRED_LIMIT}); loss {res['loss']:.6f}; wall "
+              f"{res['wall_ms']:.2f} ms, busy {res['busy_ms']:.3f} ms, K3 "
+              f"device {res['k3_device_ms']:.3f} ms (f32, phase 22: "
+              f"{res32['wall_ms']:.2f}, {res32['busy_ms']:.3f}, "
+              f"{res32['k3_device_ms']:.3f})")
+        if not rel <= BF16_PRED_LIMIT or not math.isfinite(res["loss"]):
+            raise AssertionError("the bf16 EP step disagrees with the "
+                                 "one-device bf16 step")
+    print(f"phase 31 (e): {time.perf_counter() - t0:.1f} s here (the runs: "
+          f"EP {dist16['ep_s']:.1f} s, DP {dist16['dp_s']:.1f} s in phases "
+          f"22's and 23's ranks)")
+    return report, paths, {"attr": launches_attr, "ep": ep_launches[0]}
 
 
 def smoke_weights(datasets):
@@ -4394,14 +4749,17 @@ def ep_step_ranks(kw, sd, ep_np):
 
 
 def build_model_cpu(opt, n_tasks):
-    """The smoke's esol model, seeded, on the CPU, in the compute type its
-    config names (finetune.dtype)."""
+    """The smoke's esol model, seeded, on the CPU, in the compute type and
+    under the kernel policy its config names (finetune.dtype,
+    finetune.kernel)."""
     import torch
 
-    from fragnet_tpu_torch.train.fastpath import resolve_dtype
+    from fragnet_tpu_torch.train.fastpath import (resolve_dtype,
+                                                  resolve_kernel_policy)
     from fragnet_tpu_torch.train.finetune import build_model
 
     return build_model(opt, n_classes=n_tasks,
+                       policy=resolve_kernel_policy(opt.finetune),
                        generator=torch.Generator().manual_seed(0),
                        dtype=resolve_dtype(opt.finetune))
 
@@ -4628,14 +4986,14 @@ def main() -> int:
         report[name][0].extend(dict(p, on_path=False) for p in levels)
 
     # ---- 16.-19. the dense-attr kernel policy ------------------------------
-    attr_report, launches_fa, launches_pa = attr_phases(
+    attr_report, launches_fa, launches_pa, step_attr = attr_phases(
         dev, datasets, spec, windows, batch, train_np, step_default, pgraphs,
         rng)
     report.update(attr_report)
 
     # ---- 20.-24. edge-partitioned and data-parallel finetuning -------------
-    ep_report, dist_runs = ep_dp_phases(dev, datasets, spec, train_np,
-                                        step_default, rng)
+    ep_report, dist_runs, bf16_dist = ep_dp_phases(
+        dev, datasets, spec, train_np, step_default, rng)
     report.update(ep_report)
 
     # ---- 25. interpretability: attention weights and contributions ------
@@ -4702,11 +5060,25 @@ def main() -> int:
     report.update(bf16_report)
     print(f"phase 30: {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- 31. bf16 on the rest of the bf16 paths ----------------------------
+    t_phase = time.perf_counter()
+    rest_report, rest_paths, rest_main = bf16_rest_phase(
+        dev, datasets, spec, windows, batch_np, train_np, step_attr,
+        pgraphs, bf16_dist, rng)
+    report.update(rest_report)
+    in_ranks = bf16_dist["ep_s"] + bf16_dist["dp_s"]
+    print(f"phase 31: {time.perf_counter() - t_phase + in_ranks:.1f} s "
+          f"({in_ranks:.1f} s of it in phase 22's and 23's ranks); build of "
+          f"the sources of its entries: "
+          + ", ".join(f"{src} {_cuda.BUILD_SECONDS[src]:.1f} s"
+                      for src in sorted({KERNELS[n].source.rsplit("/", 1)[1]
+                                         for n in ATTR_BF16 + EP_BF16})))
+
     paths = {"finetune_train": launches_t, "pretrain": launches_pt,
              "finetune_bf16_train": launches_16,
              "finetune_attr_train": launches_fa, "pretrain_attr": launches_pa,
              **interp_paths, **family_paths, **task_paths, **variant_paths,
-             **p29_paths}
+             **p29_paths, **rest_paths}
     for run, per_rank in dist_runs.items():
         for r, counts in enumerate(per_rank):
             paths[f"{run}_rank{r}"] = counts
@@ -4726,9 +5098,11 @@ def main() -> int:
             "replaces": (EMIT_REPLACES if name == EMIT
                          else KERNELS[name].replaces),
             **({"computed_in": EMIT_IN} if name == EMIT else {}),
-            "launches": (launches_pa if counted in ATTR_KERNELS
+            "launches": (rest_main["attr"] if name in ATTR_BF16
+                         else rest_main["ep"] if name in EP_BF16
+                         else launches_pa if counted in ATTR_KERNELS
                          else dist_runs["finetune_ep"][0] if name in EP_KERNELS
-                         else launches_16 if name in BF16_KERNELS
+                         else launches_16 if name in GAT_BF16
                          else launches_pt)[counted],
             "launches_by_path": {p: c[counted] for p, c in paths.items()},
             "max_abs_err": max([seeded_err]

@@ -85,9 +85,20 @@
 // as the math says. The TPU kernel's one-hot matmuls that rebuild the dense
 // W planes chunk by chunk (Mosaic has no cheap indexed load) are not
 // carried over.
+//
+// dense_attr_bwd_bf16 is the same kernel with nf in bf16 (the JAX package's
+// bf16 compute, dense_gat.py:_build_attr's dt_name, l.476-479, for the
+// backward's pallas_call at l.515): both roles read nf rows as a lane's
+// four columns in one 8-byte load, widened to f32 exactly; the adjacency,
+// wd, ws, w_ea, m, den, g, s and every output stay f32 (op_bwd casts g to
+// f32; s comes from the forward's f32 out), and the emit's d_wea is the same
+// f32 product. A one-neighbour row still cancels exactly: out is nf[j]
+// widened, the same values this kernel reads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+typedef unsigned short bf16_bits;  // one bf16 value, as stored
 
 namespace {
 
@@ -101,7 +112,7 @@ struct Args {
   const float* adj;     // (n_tiles, tn, tn), tile stride adj_stride
   const float* wd;      // (N, H)
   const float* ws;      // (N, H)
-  const float* nf;      // (N, H*D)
+  const void* nf;       // (N, H*D), f32 or bf16 (the kernel's T)
   const float* w_ea;    // (E, H)
   const int* src;       // (E,)
   const int* dst;       // (E,)
@@ -128,6 +139,16 @@ __device__ __forceinline__ float leaky(float x, float slope) {
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
+}
+
+// four adjacent bf16 columns as one 8-byte load, widened to f32 exactly (a
+// bf16 is the high half of its f32)
+__device__ __forceinline__ float4 ld4(const bf16_bits* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
 }
 
 // The per-head dot in the order of torch's sum over the last dimension on
@@ -224,7 +245,8 @@ __device__ __forceinline__ void store_zeros(const Args& a, int e) {
   for (int h = 0; h < a.H; ++h) a.d_wea[(size_t)e * a.H + h] = 0.f;
 }
 
-template <int NV>  // float4 column groups per lane: H*D <= 128 * NV
+// NV: float4 column groups per lane (H*D <= 128 * NV); T: nf's element type
+template <int NV, typename T>
 __global__ void __launch_bounds__(kThreads) dense_attr_bwd_kernel(
     const Args a, int n_row_blocks) {
   __shared__ int lst[kRows][kMaxTn];    // a warp's nonzero columns (rows)
@@ -234,6 +256,7 @@ __global__ void __launch_bounds__(kThreads) dense_attr_bwd_kernel(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tn = a.tn, H = a.H, HD = a.H * a.D, W = a.D >> 2;
   const float slope = a.slope;
+  const T* nf = static_cast<const T*>(a.nf);
   const bool col_role = (int)blockIdx.x >= n_row_blocks;
   const int b = col_role ? blockIdx.x - n_row_blocks : blockIdx.x;
   const int slices = tn / kRows;
@@ -275,7 +298,7 @@ __global__ void __launch_bounds__(kThreads) dense_attr_bwd_kernel(
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       gi[v] = on[v] ? ld4(a.g + node * HD + col[v]) : zero4;
-      xi[v] = on[v] && a.self_loops ? ld4(a.nf + node * HD + col[v]) : zero4;
+      xi[v] = on[v] && a.self_loops ? ld4(nf + node * HD + col[v]) : zero4;
       wdi[v] = a.wd[node * H + hd[v]];
       wsi[v] = a.ws[node * H + hd[v]];
       mi[v] = a.m[node * H + hd[v]];
@@ -328,7 +351,7 @@ __global__ void __launch_bounds__(kThreads) dense_attr_bwd_kernel(
         const size_t nj = (size_t)node0 + js[u];
 #pragma unroll
         for (int v = 0; v < NV; ++v) {
-          x[u][v] = ok && on[v] ? ld4(a.nf + nj * HD + col[v]) : zero4;
+          x[u][v] = ok && on[v] ? ld4(nf + nj * HD + col[v]) : zero4;
           wsj[u][v] = a.ws[nj * H + hd[v]];
           wea[u][v] = e >= 0 ? a.w_ea[(size_t)e * H + hd[v]] : 0.f;
         }
@@ -384,7 +407,7 @@ __global__ void __launch_bounds__(kThreads) dense_attr_bwd_kernel(
   float wsj[NV], wdj[NV], mj[NV], dgj[NV], dws[NV];
 #pragma unroll
   for (int v = 0; v < NV; ++v) {
-    xj[v] = on[v] ? ld4(a.nf + node * HD + col[v]) : zero4;
+    xj[v] = on[v] ? ld4(nf + node * HD + col[v]) : zero4;
     gj[v] = on[v] && a.self_loops ? ld4(a.g + node * HD + col[v]) : zero4;
     wsj[v] = a.ws[node * H + hd[v]];
     wdj[v] = a.wd[node * H + hd[v]];
@@ -476,15 +499,14 @@ __global__ void __launch_bounds__(kThreads) dense_attr_bwd_kernel(
   }
 }
 
-}  // namespace
-
-extern "C" int dense_attr_bwd(
-    const void* adj, const void* wd, const void* ws, const void* nf,
-    const void* w_ea, const void* src, const void* dst, const void* emask,
-    const void* ew_blk, const void* cw, const void* m, const void* den,
-    const void* g, const void* s, void* d_wd, void* d_ws, void* d_wself,
-    void* d_nf, void* d_wea, long long adj_stride, int n_tiles, int tn, int H,
-    int D, int E, int te, int self_loops, float slope, void* stream) {
+template <typename T>
+int launch(const void* adj, const void* wd, const void* ws, const void* nf,
+           const void* w_ea, const void* src, const void* dst,
+           const void* emask, const void* ew_blk, const void* cw,
+           const void* m, const void* den, const void* g, const void* s,
+           void* d_wd, void* d_ws, void* d_wself, void* d_nf, void* d_wea,
+           long long adj_stride, int n_tiles, int tn, int H, int D, int E,
+           int te, int self_loops, float slope, void* stream) {
   // lanes read the adjacency rows, nf and g in float4 and sum a head's D/4
   // lanes by shuffles: D/4 a power of two up to 32, H*D <= 256; tn in {32,
   // 64, 128, 256} (slices of kRows rows, float4 adjacency rows)
@@ -494,22 +516,55 @@ extern "C" int dense_attr_bwd(
       || E < 0 || te <= 0 || adj_stride % 4)
     return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return 0;
-  const Args a = {(const float*)adj, (const float*)wd, (const float*)ws,
-                  (const float*)nf, (const float*)w_ea, (const int*)src,
-                  (const int*)dst, (const float*)emask, (const int*)ew_blk,
-                  (const int*)cw, (const float*)m, (const float*)den,
-                  (const float*)g, (const float*)s, (float*)d_wd,
-                  (float*)d_ws, (float*)d_wself, (float*)d_nf, (float*)d_wea,
-                  adj_stride, n_tiles, E, tn, te, H, D, self_loops, slope};
+  const Args a = {(const float*)adj, (const float*)wd, (const float*)ws, nf,
+                  (const float*)w_ea, (const int*)src, (const int*)dst,
+                  (const float*)emask, (const int*)ew_blk, (const int*)cw,
+                  (const float*)m, (const float*)den, (const float*)g,
+                  (const float*)s, (float*)d_wd, (float*)d_ws,
+                  (float*)d_wself, (float*)d_nf, (float*)d_wea, adj_stride,
+                  n_tiles, E, tn, te, H, D, self_loops, slope};
   const int n_row = n_tiles * (tn / kRows);
   cudaStream_t st = (cudaStream_t)stream;
   if (H * D <= 128)
-    dense_attr_bwd_kernel<1><<<2 * n_row, kThreads, 0, st>>>(a, n_row);
+    dense_attr_bwd_kernel<1, T><<<2 * n_row, kThreads, 0, st>>>(a, n_row);
   else
-    dense_attr_bwd_kernel<2><<<2 * n_row, kThreads, 0, st>>>(a, n_row);
+    dense_attr_bwd_kernel<2, T><<<2 * n_row, kThreads, 0, st>>>(a, n_row);
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+extern "C" int dense_attr_bwd(
+    const void* adj, const void* wd, const void* ws, const void* nf,
+    const void* w_ea, const void* src, const void* dst, const void* emask,
+    const void* ew_blk, const void* cw, const void* m, const void* den,
+    const void* g, const void* s, void* d_wd, void* d_ws, void* d_wself,
+    void* d_nf, void* d_wea, long long adj_stride, int n_tiles, int tn, int H,
+    int D, int E, int te, int self_loops, float slope, void* stream) {
+  return launch<float>(adj, wd, ws, nf, w_ea, src, dst, emask, ew_blk, cw, m,
+                       den, g, s, d_wd, d_ws, d_wself, d_nf, d_wea,
+                       adj_stride, n_tiles, tn, H, D, E, te, self_loops,
+                       slope, stream);
+}
+
+// nf in bf16 (8-byte aligned rows); every other argument as above
+extern "C" int dense_attr_bwd_bf16(
+    const void* adj, const void* wd, const void* ws, const void* nf,
+    const void* w_ea, const void* src, const void* dst, const void* emask,
+    const void* ew_blk, const void* cw, const void* m, const void* den,
+    const void* g, const void* s, void* d_wd, void* d_ws, void* d_wself,
+    void* d_nf, void* d_wea, long long adj_stride, int n_tiles, int tn, int H,
+    int D, int E, int te, int self_loops, float slope, void* stream) {
+  return launch<bf16_bits>(adj, wd, ws, nf, w_ea, src, dst, emask, ew_blk, cw,
+                           m, den, g, s, d_wd, d_ws, d_wself, d_nf, d_wea,
+                           adj_stride, n_tiles, tn, H, D, E, te, self_loops,
+                           slope, stream);
+}
+
 extern "C" const char* dense_attr_bwd_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+extern "C" const char* dense_attr_bwd_bf16_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -50,9 +50,18 @@
 // the R = 6 planes are read in place. At most one counted edge per slot is
 // assumed (packing.dp_level_ok; the host builder refuses repeated pairs).
 // The summation order is fixed, so the result is the same from run to run.
+//
+// dense_attr_fwd_bf16 is the same kernel with nf in bf16 (the JAX package's
+// bf16 compute, dense_gat.py:_build_attr's dt_name, l.476-479): each nf row
+// read (the neighbours' and the row's own) takes a lane's four columns as
+// one 8-byte load, widened to f32 exactly; the adjacency, wd, ws, w_ea, the
+// softmax and the sums stay f32, and out, m, den are written in f32. A
+// one-neighbour row's out is nf[j] widened, bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+typedef unsigned short bf16_bits;  // one bf16 value, as stored
 
 namespace {
 
@@ -67,7 +76,7 @@ struct Args {
   const float* adj;     // (n_tiles, tn, tn), tile stride adj_stride
   const float* wd;      // (N, H)
   const float* ws;      // (N, H)
-  const float* nf;      // (N, H*D)
+  const void* nf;       // (N, H*D), f32 or bf16 (the kernel's T)
   const float* w_ea;    // (E, H)
   const int* src;       // (E,)
   const int* dst;       // (E,)
@@ -90,7 +99,18 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-template <int H, int NV>  // float4 column groups per lane: H*D <= 128 * NV
+// four adjacent bf16 columns as one 8-byte load, widened to f32 exactly (a
+// bf16 is the high half of its f32)
+__device__ __forceinline__ float4 ld4(const bf16_bits* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// NV: float4 column groups per lane (H*D <= 128 * NV); T: nf's element type
+template <int H, int NV, typename T>
 __global__ void __launch_bounds__(kThreads) dense_attr_fwd_kernel(
     const Args a) {
   __shared__ int cols[kRows][kMaxTn];    // a warp's nonzero columns
@@ -100,6 +120,7 @@ __global__ void __launch_bounds__(kThreads) dense_attr_fwd_kernel(
 
   const int tn = a.tn, D = a.D, HD = H * a.D;
   const float slope = a.slope;
+  const T* nf = static_cast<const T*>(a.nf);
   const int t = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int node0 = t * tn;                       // the tile's first node
@@ -136,7 +157,7 @@ __global__ void __launch_bounds__(kThreads) dense_attr_fwd_kernel(
     on[v] = col[v] < HD;
     hd[v] = on[v] ? col[v] / D : 0;
     acc[v] = zero4;
-    own[v] = on[v] && a.self_loops ? ld4(a.nf + node * HD + col[v]) : zero4;
+    own[v] = on[v] && a.self_loops ? ld4(nf + node * HD + col[v]) : zero4;
   }
   // per-head state, the same in every lane
   float wdi[H], wsi[H], mh[H], dh[H];
@@ -194,7 +215,7 @@ __global__ void __launch_bounds__(kThreads) dense_attr_fwd_kernel(
       const size_t nj = (size_t)node0 + (ok ? clist[u] : 0);
 #pragma unroll
       for (int v = 0; v < NV; ++v)
-        x[u][v] = ok && on[v] ? ld4(a.nf + nj * HD + col[v]) : zero4;
+        x[u][v] = ok && on[v] ? ld4(nf + nj * HD + col[v]) : zero4;
     }
 
     // lane k: nonzero c0 + k, its logits for every head
@@ -260,7 +281,7 @@ __global__ void __launch_bounds__(kThreads) dense_attr_fwd_kernel(
         const size_t nj = (size_t)node0 + (okr ? clist[b0 + u] : 0);
 #pragma unroll
         for (int v = 0; v < NV; ++v)
-          x[u][v] = okr && on[v] ? ld4(a.nf + nj * HD + col[v]) : zero4;
+          x[u][v] = okr && on[v] ? ld4(nf + nj * HD + col[v]) : zero4;
       }
     }
     __syncwarp();  // the next chunk rewrites ps
@@ -312,17 +333,46 @@ __global__ void __launch_bounds__(kThreads) dense_attr_fwd_kernel(
   }
 }
 
-template <int H, int NV>
+template <int H, int NV, typename T>
 int launch(const Args& a, int n_tiles, cudaStream_t stream) {
   const dim3 grid(a.tn / kRows, n_tiles);
-  dense_attr_fwd_kernel<H, NV><<<grid, kThreads, 0, stream>>>(a);
+  dense_attr_fwd_kernel<H, NV, T><<<grid, kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int H>
+template <int H, typename T>
 int launch_nv(const Args& a, int n_tiles, cudaStream_t s) {
-  return H * a.D <= 128 ? launch<H, 1>(a, n_tiles, s)
-                        : launch<H, 2>(a, n_tiles, s);
+  return H * a.D <= 128 ? launch<H, 1, T>(a, n_tiles, s)
+                        : launch<H, 2, T>(a, n_tiles, s);
+}
+
+template <typename T>
+int launch_h(const void* adj, const void* wd, const void* ws, const void* nf,
+             const void* w_ea, const void* src, const void* dst,
+             const void* emask, const void* ew_blk, const void* cw,
+             void* out, void* m, void* den, long long adj_stride,
+             int n_tiles, int tn, int H, int D, int E, int te,
+             int self_loops, float slope, void* stream) {
+  // lanes read the adjacency rows and nf four columns at a time, a lane's
+  // four columns in one head: tn in {32, 64, 128, 256}, D a multiple of 4,
+  // H*D <= 256
+  if ((tn != 32 && tn != 64 && tn != 128 && tn != 256) || D <= 0 || D % 4
+      || H * D > 256 || n_tiles < 0 || E < 0 || te <= 0 || adj_stride % 4)
+    return (int)cudaErrorInvalidValue;
+  if (n_tiles == 0) return 0;
+  const Args a{(const float*)adj, (const float*)wd, (const float*)ws, nf,
+               (const float*)w_ea, (const int*)src, (const int*)dst,
+               (const float*)emask, (const int*)ew_blk, (const int*)cw,
+               (float*)out, (float*)m, (float*)den, adj_stride, E, tn, te,
+               D, self_loops, slope};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (H) {
+    case 1: return launch_nv<1, T>(a, n_tiles, s);
+    case 2: return launch_nv<2, T>(a, n_tiles, s);
+    case 4: return launch_nv<4, T>(a, n_tiles, s);
+    case 8: return launch_nv<8, T>(a, n_tiles, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -333,27 +383,27 @@ extern "C" int dense_attr_fwd(
     const void* ew_blk, const void* cw, void* out, void* m, void* den,
     long long adj_stride, int n_tiles, int tn, int H, int D, int E, int te,
     int self_loops, float slope, void* stream) {
-  // lanes read the adjacency rows and nf in float4, a lane's four columns
-  // in one head: tn in {32, 64, 128, 256}, D a multiple of 4, H*D <= 256
-  if ((tn != 32 && tn != 64 && tn != 128 && tn != 256) || D <= 0 || D % 4
-      || H * D > 256 || n_tiles < 0 || E < 0 || te <= 0 || adj_stride % 4)
-    return (int)cudaErrorInvalidValue;
-  if (n_tiles == 0) return 0;
-  const Args a{(const float*)adj, (const float*)wd, (const float*)ws,
-               (const float*)nf, (const float*)w_ea, (const int*)src,
-               (const int*)dst, (const float*)emask, (const int*)ew_blk,
-               (const int*)cw, (float*)out, (float*)m, (float*)den,
-               adj_stride, E, tn, te, D, self_loops, slope};
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (H) {
-    case 1: return launch_nv<1>(a, n_tiles, s);
-    case 2: return launch_nv<2>(a, n_tiles, s);
-    case 4: return launch_nv<4>(a, n_tiles, s);
-    case 8: return launch_nv<8>(a, n_tiles, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return launch_h<float>(adj, wd, ws, nf, w_ea, src, dst, emask, ew_blk, cw,
+                         out, m, den, adj_stride, n_tiles, tn, H, D, E, te,
+                         self_loops, slope, stream);
+}
+
+// nf in bf16 (8-byte aligned rows); every other argument as above
+extern "C" int dense_attr_fwd_bf16(
+    const void* adj, const void* wd, const void* ws, const void* nf,
+    const void* w_ea, const void* src, const void* dst, const void* emask,
+    const void* ew_blk, const void* cw, void* out, void* m, void* den,
+    long long adj_stride, int n_tiles, int tn, int H, int D, int E, int te,
+    int self_loops, float slope, void* stream) {
+  return launch_h<bf16_bits>(adj, wd, ws, nf, w_ea, src, dst, emask, ew_blk,
+                             cw, out, m, den, adj_stride, n_tiles, tn, H, D,
+                             E, te, self_loops, slope, stream);
 }
 
 extern "C" const char* dense_attr_fwd_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+extern "C" const char* dense_attr_fwd_bf16_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -78,7 +78,9 @@
 // exactly; g, s, m, den and every output stay f32 (pallas_gat.py:511 casts
 // g to f32; s comes from the forward's f32 out). A one-neighbour row still
 // cancels exactly: out = nf[src] widened, the same values this kernel reads.
-// K3's entry stays f32.
+// tcsr_gat_ep_bwd_bf16 is K3's backward with nf in bf16 (pallas_gat.py:
+// _make_ep_op's dt_name, l.786): the same bf16 instance on the shard's
+// grid, no kernel of its own.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -526,6 +528,32 @@ extern "C" int tcsr_gat_bwd_bf16(
 // m, den, g, s hold the grid's n_grid * tn rows; the node arrays and the
 // outputs d_wn, d_nf hold all n_nodes nodes, the edge arrays and d_w_ea the
 // shard's n_edges edges.
+namespace {
+
+template <typename T>
+int launch_ep(const void* wn, const void* nf, const void* w_ea,
+              const void* src, const void* dst, const void* emask,
+              const void* t0, const void* ew_blk, const void* cw,
+              const void* sw_tile, const void* m, const void* den,
+              const void* g, const void* s, void* d_wn, void* d_nf,
+              void* d_w_ea, int n_grid, int n_nodes, int n_edges, int tn,
+              int te, int k_src, int H, int D, float slope, void* stream) {
+  const Args<T> a = {
+      (const float*)wn, (const T*)nf, (const float*)w_ea, (const int*)src,
+      (const int*)dst, (const float*)emask, (const int*)t0,
+      (const int*)ew_blk, (const int*)cw, (const int*)sw_tile,
+      (const float*)m, (const float*)den, (const float*)g, (const float*)s,
+      (float*)d_wn, (float*)d_nf, (float*)d_w_ea, n_grid, n_nodes, n_edges,
+      tn, te, k_src, H, D, 0, slope};
+  return launch<T>(a, stream);
+}
+
+}  // namespace
+
+// K3's backward: one shard's grid of n_grid tiles from tile *t0 (device);
+// m, den, g, s hold the grid's n_grid * tn rows; the node arrays and the
+// outputs d_wn, d_nf hold all n_nodes nodes, the edge arrays and d_w_ea the
+// shard's n_edges edges.
 extern "C" int tcsr_gat_ep_bwd(
     const void* wn, const void* nf, const void* w_ea, const void* src,
     const void* dst, const void* emask, const void* t0, const void* ew_blk,
@@ -533,14 +561,25 @@ extern "C" int tcsr_gat_ep_bwd(
     const void* g, const void* s, void* d_wn, void* d_nf, void* d_w_ea,
     int n_grid, int n_nodes, int n_edges, int tn, int te, int k_src, int H,
     int D, float slope, void* stream) {
-  const Args<float> a = {
-      (const float*)wn, (const float*)nf, (const float*)w_ea,
-      (const int*)src, (const int*)dst, (const float*)emask, (const int*)t0,
-      (const int*)ew_blk, (const int*)cw, (const int*)sw_tile,
-      (const float*)m, (const float*)den, (const float*)g, (const float*)s,
-      (float*)d_wn, (float*)d_nf, (float*)d_w_ea, n_grid, n_nodes, n_edges,
-      tn, te, k_src, H, D, 0, slope};
-  return launch<float>(a, stream);
+  return launch_ep<float>(wn, nf, w_ea, src, dst, emask, t0, ew_blk, cw,
+                          sw_tile, m, den, g, s, d_wn, d_nf, d_w_ea, n_grid,
+                          n_nodes, n_edges, tn, te, k_src, H, D, slope,
+                          stream);
+}
+
+// K3's backward with nf in bf16 (8-byte aligned rows); every other
+// argument as above
+extern "C" int tcsr_gat_ep_bwd_bf16(
+    const void* wn, const void* nf, const void* w_ea, const void* src,
+    const void* dst, const void* emask, const void* t0, const void* ew_blk,
+    const void* cw, const void* sw_tile, const void* m, const void* den,
+    const void* g, const void* s, void* d_wn, void* d_nf, void* d_w_ea,
+    int n_grid, int n_nodes, int n_edges, int tn, int te, int k_src, int H,
+    int D, float slope, void* stream) {
+  return launch_ep<bf16_bits>(wn, nf, w_ea, src, dst, emask, t0, ew_blk, cw,
+                              sw_tile, m, den, g, s, d_wn, d_nf, d_w_ea,
+                              n_grid, n_nodes, n_edges, tn, te, k_src, H, D,
+                              slope, stream);
 }
 
 extern "C" const char* tcsr_gat_bwd_error_string(int code) {
@@ -552,5 +591,9 @@ extern "C" const char* tcsr_gat_bwd_bf16_error_string(int code) {
 }
 
 extern "C" const char* tcsr_gat_ep_bwd_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+extern "C" const char* tcsr_gat_ep_bwd_bf16_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

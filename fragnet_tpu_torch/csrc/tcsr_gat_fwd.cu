@@ -51,7 +51,10 @@
 // l.361-364): a lane reads its four columns as one 8-byte load and widens
 // them to f32 exactly; wn, w_ea, the softmax and the sums stay f32, and out,
 // m, den are written in f32 as in the f32 form. It halves the bytes of the
-// nf[src] gathers, the kernel's largest reads. K3's entry stays f32.
+// nf[src] gathers, the kernel's largest reads. tcsr_gat_ep_fwd_bf16 is
+// K3's forward with nf in bf16 (pallas_gat.py:_make_ep_op's dt_name, from
+// the node features' dtype, l.786): the same bf16 instance on the shard's
+// grid, no kernel of its own.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -285,6 +288,18 @@ extern "C" int tcsr_gat_ep_fwd(
                        m, den, n_grid, tn, te, H, D, 0, slope, stream);
 }
 
+// K3's forward with nf in bf16 (8-byte aligned rows); every other argument
+// as above
+extern "C" int tcsr_gat_ep_fwd_bf16(
+    const void* wn, const void* nf, const void* w_ea, const void* src,
+    const void* dst, const void* emask, const void* t0, const void* ew_blk,
+    const void* cw, void* out, void* m, void* den, int n_grid, int tn,
+    int te, int H, int D, float slope, void* stream) {
+  return launch<bf16_bits>(wn, nf, w_ea, src, dst, emask, t0, ew_blk, cw,
+                           out, m, den, n_grid, tn, te, H, D, 0, slope,
+                           stream);
+}
+
 extern "C" const char* tcsr_gat_fwd_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
@@ -294,5 +309,9 @@ extern "C" const char* tcsr_gat_fwd_bf16_error_string(int code) {
 }
 
 extern "C" const char* tcsr_gat_ep_fwd_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+extern "C" const char* tcsr_gat_ep_fwd_bf16_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -40,6 +40,7 @@ class BatchLoader:
         drop_last: bool = False,
         on_oversize: str = "skip",
         pack: bool = False,
+        compute_dtype=None,
     ):
         self.graphs = list(graphs)
         self.batch_size = batch_size
@@ -57,8 +58,10 @@ class BatchLoader:
         self.on_oversize = on_oversize
         # pack=True: emit single-buffer packed batches (data/packing.py),
         # padded without dense planes (unpack_batch rebuilds them on the
-        # device); the layout is built from the first batch
+        # device); the layout is built from the first batch, its model-dtype
+        # floats in ``compute_dtype`` (bf16 or f32, the default)
         self.pack = pack
+        self.compute_dtype = compute_dtype
         self.layout = None
         self._epoch = 0
 
@@ -155,8 +158,9 @@ class BatchLoader:
                             l for l in _DP_LEVELS
                             if dp_level_ok(self.graphs, l,
                                            self.spec.tn_of(l[3:])))
-                    self.layout = build_layout(batch, aligned=self.spec.align,
-                                               dp_levels=dp_levels)
+                    self.layout = build_layout(
+                        batch, self.compute_dtype or "float32",
+                        aligned=self.spec.align, dp_levels=dp_levels)
                 batch = pack_batch(batch, self.layout, validate=validate)
             yield batch
 
@@ -195,7 +199,8 @@ class BatchLoader:
             self.graphs, self.batch_size, spec=self.spec, shuffle=self.shuffle,
             seed=self.seed, n_tasks=self.n_tasks,
             with_targets=self.with_targets, drop_last=self.drop_last,
-            on_oversize=self.on_oversize, pack=True)
+            on_oversize=self.on_oversize, pack=True,
+            compute_dtype=self.compute_dtype)
         host.layout = self.layout
         return host
 

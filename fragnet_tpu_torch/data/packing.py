@@ -13,8 +13,11 @@ copy (graphs/batch.py:PackedUploader) and decoded there:
     definition (reference data.py:421-424): the summands are small
     integers, so the f32 sum is exact in any order;
   * index arrays → uint16 when the level's capacity allows, else int32;
-  * ea_bonds and the pretrain targets / y → f32; TCSR tile metadata → u16
-    windows and an i32 ``flat_slot``;
+  * the model-dtype floats (ea_bonds, gene_expr) → bf16 when the model
+    computes in bf16 (``build_layout(compute_dtype=...)``; the layers cast
+    their inputs to bf16 anyway, and the plane builder widens them back to
+    f32 exactly), else f32; the pretrain targets / y → f32; TCSR tile
+    metadata → u16 windows and an i32 ``flat_slot``;
   * the dense planes are not transported: ``unpack_batch`` rebuilds the
     levels listed in ``layout.dp_specs`` that the kernel policy reads
     (``plane_levels``: ``dp_bond`` and ``dp_fc`` under the default policy,
@@ -28,11 +31,13 @@ Differences from the JAX package, none of which changes a decoded value:
   * every entry starts at a multiple of 16 bytes (and the buffer's length is
     one), so each entry decodes as a ``view`` of the buffer in its dtype
     with no copy; the buffers are therefore not byte-equal to the JAX
-    package's, and the two are held equal field by field after decoding;
+    package's as a whole: the two layouts list the same entries (name,
+    encoding, shape, decoded dtype) in the same order, and each entry's
+    bytes are the JAX package's bytes of it (a bf16 entry rounds to nearest
+    even, as ml_dtypes does), only its offset differs;
   * the ``compact`` encodings (sparse rows, bit-packing, run lengths,
     molecule-local u8 ids), which no entry point uses, raise
-    NotImplementedError (ROADMAP.md Queue A6);
-  * the port computes in f32 only, so there is no bf16 entry.
+    NotImplementedError (ROADMAP.md Queue A6).
 
 Host functions (``build_layout``, ``pack_batch``, ``dp_level_ok``) are numpy
 only: pack workers import this module without torch.
@@ -41,16 +46,16 @@ only: pack workers import this module without torch.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from fragnet_tpu_torch.graphs.hiergraph import HierGraphBatch
 
 # encodings
-I8, U16, I32, F32 = "i8", "u16", "i32", "f32"
+I8, U16, I32, F32, BF16 = "i8", "u16", "i32", "f32", "bf16"
 MASKC = "maskc"      # contiguous-prefix 0/1 mask → one i32 count
-_ITEM = {I8: 1, U16: 2, I32: 4, F32: 4}
+_ITEM = {I8: 1, U16: 2, I32: 4, F32: 4, BF16: 2}
 ALIGN = 16           # every entry's offset, and the buffer's length
 
 
@@ -94,7 +99,7 @@ _IDX_FIELDS = {
     "atom_to_frag": "n_frags", "atom_batch": "n_graphs",
     "frag_batch": "n_graphs",
 }
-_F_FIELDS = ("ea_bonds", "gene_expr")
+_F_FIELDS = ("ea_bonds", "gene_expr")          # model-dtype floats
 _F32_FIELDS = ("y", "bnd_lngth", "bnd_angl", "dh_angl")
 _TM_LEVELS = ("tm_atom", "tm_bond", "tm_frag", "tm_fc")
 
@@ -164,14 +169,36 @@ def _align(n: int) -> int:
     return (n + ALIGN - 1) // ALIGN * ALIGN
 
 
-def build_layout(template: HierGraphBatch, compact: bool = False,
+def _is_bf16(dtype) -> bool:
+    """Whether ``dtype`` (a torch or JAX dtype, or its name) is bfloat16 —
+    read from its name, so that pack workers need neither package."""
+    name = str(dtype).lower()
+    return "bfloat16" in name or name == "bf16"
+
+
+def to_bf16_bits(x: np.ndarray) -> np.ndarray:
+    """f32 values → their bf16 bit patterns (uint16), rounded to nearest
+    even as ml_dtypes and torch round; a NaN stays a (quiet) NaN."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    r = ((u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) >> 16)
+    nan = (u & np.uint32(0x7FFFFFFF)) > np.uint32(0x7F800000)
+    r = np.where(nan, (u >> 16) | np.uint32(0x40), r)
+    return r.astype(np.uint16)
+
+
+def build_layout(template: HierGraphBatch, compute_dtype="float32",
+                 sparse_k: Optional[int] = None, compact: bool = False,
                  aligned: bool = False,
                  dp_levels: Tuple[str, ...] = ()) -> PackLayout:
     """Derive the static layout from one template batch (shapes come from the
     PadSpec so every batch of the spec conforms; the value-level assumption
     of the count-encoded masks is re-checked on every pack, and relaxed here
     when the template already violates it). Encodings as in the JAX
-    package's default ("fast") profile; ``compact=True`` is not ported."""
+    package's default ("fast") profile, in its signature and entry order:
+    ``compute_dtype`` (bf16, by a torch or JAX dtype or its name, or f32)
+    sets the model-dtype floats' encoding; ``sparse_k`` and
+    ``compact=True`` belong to the compact encodings, which are not
+    ported."""
     if compact:
         raise NotImplementedError(
             "compact packing (sparse / bit / run-length / local-u8 "
@@ -212,7 +239,13 @@ def build_layout(template: HierGraphBatch, compact: bool = False,
     for f, cap in _IDX_FIELDS.items():
         enc = U16 if caps[cap] <= 65535 else I32
         add(f, enc, np.asarray(getattr(template, f)).shape, "int32")
-    for f in _F_FIELDS + _F32_FIELDS:
+    fdt = "bfloat16" if _is_bf16(compute_dtype) else "float32"
+    for f in _F_FIELDS:
+        arr = getattr(template, f)
+        if arr is not None:
+            add(f, BF16 if fdt == "bfloat16" else F32, np.asarray(arr).shape,
+                fdt)
+    for f in _F32_FIELDS:
         arr = getattr(template, f)
         if arr is not None:
             add(f, F32, np.asarray(arr).shape, "float32")
@@ -314,6 +347,8 @@ def pack_batch(batch: HierGraphBatch, layout: PackLayout,
             put(e, arr.astype(np.uint16))
         elif e.enc == I32:
             put(e, arr if arr.dtype == np.int32 else arr.astype(np.int32))
+        elif e.enc == BF16:
+            put(e, to_bf16_bits(arr))
         else:
             put(e, arr if arr.dtype == np.float32 else arr.astype(np.float32))
     return buf
@@ -326,7 +361,7 @@ def pack_batch(batch: HierGraphBatch, layout: PackLayout,
 def _decode(buf, e: Entry):
     """One entry of the uint8 tensor ``buf`` as a tensor of its decoded
     dtype: a view of the buffer where the encoded dtype is the decoded one
-    (i32, f32), else one cast."""
+    (i32, f32, bf16), else one cast."""
     import torch
 
     n = int(np.prod(e.shape))
@@ -335,7 +370,7 @@ def _decode(buf, e: Entry):
         cnt = buf[e.offset : e.offset + 4].view(torch.int32)
         return (torch.arange(e.shape[0], device=buf.device) < cnt).to(odt)
     tdt = {I8: torch.int8, U16: torch.uint16, I32: torch.int32,
-           F32: torch.float32}[e.enc]
+           F32: torch.float32, BF16: torch.bfloat16}[e.enc]
     raw = buf[e.offset : e.offset + n * _ITEM[e.enc]].view(tdt)
     return raw.reshape(e.shape).to(odt)
 
@@ -345,10 +380,12 @@ def unpack_batch(buf, layout: PackLayout,
                  ) -> HierGraphBatch:
     """Decode a packed uint8 tensor into a ``HierGraphBatch`` of tensors on
     the buffer's device (the torch counterpart of the JAX unpack_batch,
-    packing.py:504-588). Dense planes are rebuilt for the ``layout.dp_specs``
-    levels named in ``planes`` — pass ``plane_levels(policy)``, the levels
-    the model's kernel policy reads — with the device plane builder: on
-    CUDA the K6 kernel, on the CPU its plain version."""
+    packing.py:504-588). Each field comes back in its entry's decoded dtype:
+    a bf16 layout's ea_bonds and gene_expr in bf16, as the JAX package's
+    do. Dense planes are rebuilt for the ``layout.dp_specs`` levels named in
+    ``planes`` — pass ``plane_levels(policy)``, the levels the model's
+    kernel policy reads — with the device plane builder (on CUDA the K6
+    kernel, on the CPU its plain version), from the widened attributes."""
     import torch
 
     from fragnet_tpu_torch.ops.tcsr import TileMeta

@@ -29,6 +29,16 @@ def calls_rank(calls) -> list:
     return [fn(*args) for fn, args in calls]
 
 
+def timed_calls_rank(calls) -> list:
+    """``calls_rank``'s results, each with the seconds its call took in
+    this rank: ``[(result, seconds), ...]``."""
+    out = []
+    for fn, args in calls:
+        t0 = time.perf_counter()
+        out.append((fn(*args), time.perf_counter() - t0))
+    return out
+
+
 def ep_pass_rank(nf, ea, src, dst, mask, avec, meta, g_out,
                  self_loops: bool, device: str = "cpu") -> Dict:
     """One ``tcsr_gat_pass_ep`` over the caller's whole-level arrays, this

@@ -12,7 +12,10 @@ Data parallelism: every rank holds the same parameters, takes its own
 micro-batch of each window of ``per_device_batch × world`` graphs
 (round-robin, as the JAX package's ``stack_for_dp``), and the gradients are
 averaged over the ranks before every optimizer step (``average_gradients``,
-the JAX step's ``pmean``), so every rank applies the same update.
+the JAX step's ``pmean``), so every rank applies the same update. A bf16
+model (``finetune.dtype=bf16``) runs each rank's micro-batch through the
+bf16 entries of the GAT kernels; its parameters and gradients stay f32, so
+the all-reduce moves f32 as in an f32 run.
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@ arrays of every level are split into one contiguous shard per rank and the
 node state stays replicated. Each rank runs K3 (ops/tcsr_gat.py:
 tcsr_gat_pass_ep) on its shard's destination-tile grid, and the softmax
 statistics combine across the ranks with an all-gather. Every rank builds
-every shard's ``EPTileMeta``, so each knows the others' grid rows.
+every shard's ``EPTileMeta``, so each knows the others' grid rows. A bf16
+model runs K3's bf16 entries on its shard; the statistics, the gathered
+sums and the gradients stay f32.
 
 Gradient convention (the one shard_map's transposes give the JAX package):
 every rank computes the same replicated forward and the same loss, unscaled;

@@ -195,6 +195,10 @@ class PretrainTask(nn.Module):
         self.FC_layers = _HalvingMLP(2 * dim_in, dim_out, L, generator=g)
 
     def forward(self, x_atoms, x_frags, edge_attr, batch):
+        # a bf16 encoder's outputs widened: the Linears' f32 parameters
+        # promote them, as flax's Dense(dtype=None) does
+        x_atoms, x_frags, edge_attr = (x.float() for x in
+                                       (x_atoms, x_frags, edge_attr))
         # index_select, not x[idx]: its backward is one index_add_, where
         # advanced indexing's is a sorting scatter (8.7 of 16.3 ms of device
         # time in a batch-512 step on the H100, chip_smoke.py)

@@ -424,7 +424,7 @@ class FragNetLayer(_BondAtomPasses):
     or bf16; parameters f32, logits and softmax f32). With ``ep`` (an
     EPContext) it runs edge-partitioned: the batch holds this rank's slice
     of the edge fields (dist/edge_partition.py:ep_local_batch) and every GAT
-    pass is the K3 pass (f32 only)."""
+    pass is the K3 pass (f32 or bf16)."""
 
     def __init__(self, atom_in: int = 128, atom_out: int = 128,
                  edge_in: int = 128, edge_out: int = 128,

@@ -6,6 +6,11 @@ The masks are drawn from a ``torch.Generator`` seeded with ``mask_seed``
 (one per device, made on first use) and applied in train mode only; they
 are not the JAX package's bits (its 'mask' RNG stream), so parity checks
 run in eval mode.
+
+``dtype`` (f32 or bf16) is the encoder's compute type (the JAX package's
+``FragNetPreTrain.dtype``); the head's Linears have f32 parameters and no
+dtype of their own, so, as flax's ``Dense(dtype=None)`` promotes a bf16
+input, the head computes in f32 on the widened encoder outputs.
 """
 
 from __future__ import annotations
@@ -33,14 +38,15 @@ class FragNetPreTrain(nn.Module):
                  edge_features: int = 17, fedge_in: int = 6,
                  fbond_edge_in: int = 6,
                  policy: KernelPolicy = KernelPolicy(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.pretrain = FragNet(
             num_layer=num_layer, drop_ratio=drop_ratio, emb_dim=emb_dim,
             atom_features=atom_features, frag_features=frag_features,
             edge_features=edge_features, fedge_in=fedge_in,
             fbond_edge_in=fbond_edge_in, num_heads=num_heads, policy=policy,
-            generator=generator)
+            generator=generator, dtype=dtype)
         self.head = PretrainTask(dim_in=emb_dim, dim_out=1,
                                  generator=generator)
         self.policy = policy

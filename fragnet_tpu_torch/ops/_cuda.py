@@ -35,9 +35,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
-# where the bf16 forms of the kernels not yet ported (K3, K6, K7, K8) are
-# queued; their wrappers, and the paths that would run them, raise naming it
-BF16_LATER = "ROADMAP.md Queue A item 5, slice 16"
+# the node-feature types the GAT kernels read: the JAX package's compute
+# types
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 # every CudaKernel of the port's own sources, in the order of definition
 REGISTRY: List["CudaKernel"] = []
@@ -189,6 +189,16 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
                              f"and apart from the others")
     elif not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def check_compute_dtype(name: str, *tensors) -> None:
+    """Raise unless every tensor given (None skipped) is f32 or bf16, on
+    every device: no kernel reads another type, and no path widens one
+    quietly."""
+    for t in tensors:
+        if t is not None and t.dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"{name}: dtype {t.dtype}, expected float32 or "
+                             f"bfloat16")
 
 
 def check_aligned(t: torch.Tensor, name: str, nbytes: int) -> None:

@@ -37,13 +37,14 @@ joining the kernels as the autograd boundary (dense_gat.py:584-628), and
 contract: ops/segment.py:gat_attention_pass.
 
 Node features in bf16 (the JAX package's bf16 compute, dense_gat.py:
-_make_op's dt_name): K4 and K5 have a bf16 entry each
-(``dense_gat_fwd_bf16`` and ``dense_gat_bwd_bf16`` in the same sources,
-each with its own launch count), which reads ``nf`` in bf16 and keeps
-planes, logits, softmax, ``out`` (cast to bf16 by the pass afterwards), g,
-s and every gradient in f32; the plain versions widen a bf16 ``nf`` at
-entry. The plane builder (K6) and the dense-attr pass (K7, K8) run f32
-only and refuse bf16 (ROADMAP.md Queue A item 5, slice 16).
+_make_op's and _build_attr's dt_name): K4, K5, K7 and K8 have a bf16 entry
+each (``dense_gat_fwd_bf16``, ``dense_gat_bwd_bf16``, ``dense_attr_fwd_bf16``
+and ``dense_attr_bwd_bf16`` in the same sources, each with its own launch
+count), which reads ``nf`` in bf16 and keeps planes, adjacency, logits,
+softmax, ``out`` (cast to bf16 by the pass afterwards), g, s and every
+gradient in f32; the plain versions widen a bf16 ``nf`` at entry. The plane
+builder (K6) has no bf16 form, as in the JAX package (_build_plane_builder
+takes no dtype): its wrapper widens bf16 attributes to f32.
 """
 
 from __future__ import annotations
@@ -56,6 +57,8 @@ import torch
 import torch.nn.functional as F
 
 from fragnet_tpu_torch.ops import _cuda
+from fragnet_tpu_torch.ops.tcsr_gat import (attention_by_source, node_logits,
+                                            prologue)
 
 _NEG = -1e30
 _VP = ctypes.c_void_p
@@ -82,17 +85,18 @@ KERNEL_BF16 = _cuda.CudaKernel(
 KERNEL_BWD_BF16 = _cuda.CudaKernel(
     "dense_gat_bwd.cu", "dense_gat_bwd_bf16",
     [_VP] * 13 + [_I] * 5 + [ctypes.c_float, _VP])
-# the node-feature types K4 and K5 read: {dtype: (forward, backward)}
+KERNEL_ATTR_BF16 = _cuda.CudaKernel(
+    "dense_attr_fwd.cu", "dense_attr_fwd_bf16",
+    [_VP] * 13 + [_LL] + [_I] * 7 + [ctypes.c_float, _VP])
+KERNEL_ATTR_BWD_BF16 = _cuda.CudaKernel(
+    "dense_attr_bwd.cu", "dense_attr_bwd_bf16",
+    [_VP] * 19 + [_LL] + [_I] * 7 + [ctypes.c_float, _VP])
+# the node-feature types the kernels read: {dtype: (forward, backward)},
+# K4 / K5 and K7 / K8
 _NF_KERNELS = {torch.float32: (KERNEL, KERNEL_BWD),
                torch.bfloat16: (KERNEL_BF16, KERNEL_BWD_BF16)}
-
-
-def _refuse_bf16(name, *tensors):
-    """The f32-only kernels (K6, K7, K8) and their passes raise on a bf16
-    tensor, on every device: no quiet widening to f32."""
-    if any(t is not None and t.dtype == torch.bfloat16 for t in tensors):
-        raise NotImplementedError(f"{name} runs f32 only; its bf16 form is "
-                                  f"not ported yet ({_cuda.BF16_LATER})")
+_ATTR_KERNELS = {torch.float32: (KERNEL_ATTR, KERNEL_ATTR_BWD),
+                 torch.bfloat16: (KERNEL_ATTR_BF16, KERNEL_ATTR_BWD_BF16)}
 
 _KERNEL_H = (1, 2, 4, 8)
 _KERNEL_TN = (32, 64, 128, 256)
@@ -191,12 +195,16 @@ def build_dense_planes_device(src, dst, edge_mask, edge_attr, n_nodes: int,
     package's build_dense_planes_device, dense_gat.py:168): (n_tiles,
     (R+1)*tn, tn) f32, the layout of ``build_dense_planes``, for R in
     {0, 1, 6}. ``src``/``dst`` (E,) int32, ``edge_mask`` (E,) f32,
-    ``edge_attr`` (E, R) f32 or None (R = 0). On a CUDA tensor this launches
+    ``edge_attr`` (E, R) or None (R = 0). On a CUDA tensor this launches
     csrc/dense_planes.cu (which replaces dense_gat.py:_plane_builder_kernel);
     on a CPU tensor it runs the plain version. Exact for batches that
     packing.dp_level_ok admits (tile-local, no repeated (dst, src) slot).
-    bf16 attributes raise (K6's bf16 form is not ported)."""
-    _refuse_bf16("build_dense_planes_device", edge_attr)
+    The planes are f32 whatever the attributes' type: bf16 attributes (the
+    packed transport of a bf16 model) are widened to f32 first, exactly, as
+    the JAX package widens them (dense_gat.py:189-190); K6 has no bf16 form."""
+    _cuda.check_compute_dtype("build_dense_planes_device", edge_attr)
+    if edge_attr is not None:
+        edge_attr = edge_attr.float()
     if src.device.type == "cpu":
         return build_dense_planes_device_plain(src, dst, edge_mask,
                                                edge_attr, n_nodes, meta)
@@ -464,9 +472,8 @@ def dense_gat_pass(
     Da = edge_attr.shape[-1]
     nf32 = node_feats_h.float()
     a32 = attn_vec.float()
-    a_dst, a_ea, a_src = a32[:, :D], a32[:, D:D + Da], a32[:, D + Da:]
-    wd = torch.einsum("nhd,hd->nh", nf32, a_dst)
-    ws = torch.einsum("nhd,hd->nh", nf32, a_src)
+    wn = node_logits(nf32, a32, Da)
+    wd, ws = wn[:, :H], wn[:, H:]
     vc = torch.cat([v.float(), c.float().reshape(1, H)], dim=0)
     nf_k = node_feats_h.reshape(N, H * D).contiguous().detach()
     out, m, den = DenseGatFn.apply(planes, wd.contiguous(), ws.contiguous(),
@@ -478,7 +485,7 @@ def dense_gat_pass(
     # interpretability epilogue: detached inputs (the JAX stop_gradient)
     wd, ws = wd.detach(), ws.detach()
     src_l, dst_l = src.long(), dst.long()
-    w_ea = edge_attr.detach().float() @ a_ea.detach().T
+    w_ea = edge_attr.detach().float() @ a32[:, D:D + Da].detach().T
     den_s = torch.where(den == 0.0, torch.ones_like(den), den)
     z = F.leaky_relu(wd[dst_l] + ws[src_l] + w_ea, negative_slope)
     expo = torch.where(edge_mask.float()[:, None] > 0, z - m[dst_l],
@@ -524,7 +531,9 @@ def _attr_logits(adj, wd, ws, w_ea, src, dst, emask, meta, slope):
 def dense_attr_fwd_plain(adj, wd, ws, nf, w_ea, src, dst, emask, meta,
                          self_loops: bool, slope: float = 0.2):
     """Plain PyTorch version of the dense-attr forward kernel: same inputs,
-    same (out (N, H*D), m (N, H), den (N, H))."""
+    same (out (N, H*D), m (N, H), den (N, H)); a bf16 ``nf`` is widened to
+    f32 first."""
+    nf = nf.float()
     T, tn, _ = adj.shape
     N, H = wd.shape
     D = nf.shape[1] // H
@@ -555,7 +564,8 @@ def dense_attr_bwd_plain(adj, wd, ws, nf, w_ea, src, dst, emask, meta, m,
     d_wself (N, H) the self-loop logit gradient — 0 without self-loops —,
     d_nf (N, H*D) = Pᵀg + ps·g, and the d_zpre planes (T, H*tn, tn), 0 off
     the adjacency) for the cotangent ``g`` (N, H*D) of out, with ``s``
-    (N, H) = Σ_d g·out."""
+    (N, H) = Σ_d g·out; a bf16 ``nf`` is widened to f32 first."""
+    nf = nf.float()
     T, tn, _ = adj.shape
     N, H = wd.shape
     D = nf.shape[1] // H
@@ -616,10 +626,11 @@ def _check_attr(name, adj, wd, nf, src, meta, extra=(), g=None):
     (T, tn, N, H, HD, E). ``adj`` may be the first tn rows of each tile of
     a taller planes tensor (its tile stride, a multiple of 4, is passed to
     the kernel); ``extra`` adds (name, tensor, dtype, shape). Lanes read
-    the adjacency rows and nf (and the backward's cotangent ``g``) in
-    float4, a lane's four columns in one head: D a multiple of 4, H*D <=
-    256, each 16-byte aligned; the backward also sums a head's D/4 lanes
-    by shuffles (D/4 a power of two)."""
+    the adjacency rows and nf (and the backward's cotangent ``g``) four
+    columns at a time, a lane's four columns in one head: D a multiple of
+    4, H*D <= 256, nf f32 or bf16 (the bf16 entries), each 16-byte aligned
+    (nf in bf16: 8); the backward also sums a head's D/4 lanes by shuffles
+    (D/4 a power of two)."""
     dev = nf.device
     if dev.type != "cuda":
         raise ValueError(f"no {name} kernel for device {dev}")
@@ -645,14 +656,15 @@ def _check_attr(name, adj, wd, nf, src, meta, extra=(), g=None):
                          f"stride must be a multiple of 4")
     i32, f32 = torch.int32, torch.float32
     for arg, t, dt, shape in (("wd", wd, f32, (N, H)),
-                              ("nf", nf, f32, (N, HD)),
+                              ("nf", nf, nf.dtype, (N, HD)),
                               ("src", src, i32, (E,)),
                               ("ew_blk", meta.ew_blk, i32, (T,)),
                               ("cw", meta.cw, i32, (T,))) + tuple(extra) \
             + ((("g", g, f32, (N, HD)),) if bwd else ()):
         _cuda.check(t, arg, dt, shape, dev)
-    for arg, t in (("adj", adj), ("nf", nf)) + ((("g", g),) if bwd else ()):
+    for arg, t in (("adj", adj),) + ((("g", g),) if bwd else ()):
         _cuda.check_aligned(t, arg, 16)
+    _cuda.check_aligned(nf, "nf", 4 * nf.element_size())
     return T, tn, N, H, HD, E
 
 
@@ -670,12 +682,12 @@ def dense_attr_fwd(adj, wd, ws, nf, w_ea, src, dst, emask, meta,
 
     ``adj`` (n_tiles, tn, tn) f32 adjacency planes, contiguous within each
     tile (the fconn level passes ``dp_fc[:, :tn, :]`` as it is); ``wd`` /
-    ``ws`` (N, H), ``nf`` (N, H*D), ``w_ea`` (E, H) f32; ``src`` / ``dst``
-    (E,) int32, ``emask`` (E,) f32; ``meta`` holds ``ew_blk`` and ``cw``
-    (n_tiles,) int32 tensors on the same device. At most one counted edge
-    per (dst, src) slot (packing.dp_level_ok). bf16 raises (K7's bf16 form
-    is not ported)."""
-    _refuse_bf16("dense_attr_fwd", nf, w_ea)
+    ``ws`` (N, H), ``w_ea`` (E, H) f32, ``nf`` (N, H*D) f32 or bf16 (the
+    bf16 entry); ``src`` / ``dst`` (E,) int32, ``emask`` (E,) f32; ``meta``
+    holds ``ew_blk`` and ``cw`` (n_tiles,) int32 tensors on the same
+    device. At most one counted edge per (dst, src) slot
+    (packing.dp_level_ok)."""
+    _cuda.check_compute_dtype("dense_attr_fwd", nf)
     if nf.device.type == "cpu":
         return dense_attr_fwd_plain(adj, wd, ws, nf, w_ea, src, dst, emask,
                                     meta, self_loops, slope)
@@ -690,11 +702,11 @@ def dense_attr_fwd(adj, wd, ws, nf, w_ea, src, dst, emask, meta,
     m = torch.empty((N, H), dtype=f32, device=dev)
     den = torch.empty((N, H), dtype=f32, device=dev)
     P = _cuda.ptr
-    KERNEL_ATTR.launch(P(adj), P(wd), P(ws), P(nf), P(w_ea), P(src), P(dst),
-                       P(emask), P(meta.ew_blk), P(meta.cw), P(out), P(m),
-                       P(den), adj.stride(0), T, tn, H, HD // H, E, meta.te,
-                       int(bool(self_loops)), ctypes.c_float(slope),
-                       _cuda.stream_ptr(dev))
+    _ATTR_KERNELS[nf.dtype][0].launch(
+        P(adj), P(wd), P(ws), P(nf), P(w_ea), P(src), P(dst), P(emask),
+        P(meta.ew_blk), P(meta.cw), P(out), P(m), P(den), adj.stride(0), T,
+        tn, H, HD // H, E, meta.te, int(bool(self_loops)),
+        ctypes.c_float(slope), _cuda.stream_ptr(dev))
     return out, m, den
 
 
@@ -703,16 +715,16 @@ def dense_attr_bwd(adj, wd, ws, nf, w_ea, src, dst, emask, meta, m, den, g,
     """Dense-attr backward kernel wrapper (csrc/dense_attr_bwd.cu, which
     replaces dense_gat.py:_attr_bwd_kernel and the emit, _attr_emit_kernel
     with op_bwd's flat_slot gather): (d_wd, d_ws, d_wself (N, H), d_nf
-    (N, H*D), d_wea (E, H)) f32, from the forward's inputs, its (m, den),
-    the cotangent ``g`` (N, H*D) of out and ``s`` (N, H) = Σ_d g·out. d_wea
+    (N, H*D), d_wea (E, H)) f32, from the forward's inputs (``nf`` f32 or
+    bf16, the bf16 entry), its (m, den), the cotangent ``g`` (N, H*D) of
+    out and ``s`` (N, H) = Σ_d g·out. d_wea
     is d_zpre at each counted edge's slot times its mask and 0 for every
     other edge (``dense_attr_emit_plain``); the d_zpre planes are never
     stored. The kernel writes every element it returns, each edge's d_wea
     included, so all five start empty. At most one counted edge per (dst,
     src) slot (packing.dp_level_ok). On CPU tensors: the plain versions in
-    a row (``dense_attr_bwd_emit_plain``). bf16 raises (K8's bf16 form is
-    not ported)."""
-    _refuse_bf16("dense_attr_bwd", nf, w_ea)
+    a row (``dense_attr_bwd_emit_plain``)."""
+    _cuda.check_compute_dtype("dense_attr_bwd", nf)
     if nf.device.type == "cpu":
         return dense_attr_bwd_emit_plain(adj, wd, ws, nf, w_ea, src, dst,
                                          emask, meta, m, den, g, s,
@@ -734,7 +746,7 @@ def dense_attr_bwd(adj, wd, ws, nf, w_ea, src, dst, emask, meta, m, den, g,
     d_wea = (torch.empty if T else torch.zeros)((E, H), dtype=f32,
                                                 device=dev)
     P = _cuda.ptr
-    KERNEL_ATTR_BWD.launch(
+    _ATTR_KERNELS[nf.dtype][1].launch(
         P(adj), P(wd), P(ws), P(nf), P(w_ea), P(src), P(dst), P(emask),
         P(meta.ew_blk), P(meta.cw), P(m), P(den), P(g), P(s), P(d_wd),
         P(d_ws), P(d_wself), P(d_nf), P(d_wea), adj.stride(0), T, tn, H,
@@ -748,15 +760,18 @@ class DenseAttrGatFn(torch.autograd.Function):
     kernel, with the backward kernel (which also gives d_wea) as its
     gradient (dense_gat.py:584-628). The self-loop terms join d_wd and d_ws
     here, as op_bwd adds them; ``m`` and ``den`` carry no gradient; the
-    adjacency, the edge arrays and the metadata get none."""
+    adjacency, the edge arrays and the metadata get none. ``nf_k``, where
+    given, is the tensor the kernels read — ``nf`` in the compute dtype
+    (bf16), ``nf`` itself its f32 widening — as in DenseGatFn."""
 
     @staticmethod
     def forward(ctx, adj, wd, ws, nf, w_ea, src, dst, emask, meta,
-                self_loops, slope):
-        out, m, den = dense_attr_fwd(adj, wd, ws, nf, w_ea, src, dst, emask,
-                                     meta, self_loops, slope)
-        ctx.save_for_backward(adj, wd, ws, nf, w_ea, src, dst, emask, out, m,
-                              den)
+                self_loops, slope, nf_k=None):
+        nf_k = nf if nf_k is None else nf_k
+        out, m, den = dense_attr_fwd(adj, wd, ws, nf_k, w_ea, src, dst,
+                                     emask, meta, self_loops, slope)
+        ctx.save_for_backward(adj, wd, ws, nf_k, w_ea, src, dst, emask, out,
+                              m, den)
         ctx.meta, ctx.self_loops, ctx.slope = meta, self_loops, slope
         ctx.mark_non_differentiable(m, den)
         return out, m, den
@@ -772,8 +787,7 @@ class DenseAttrGatFn(torch.autograd.Function):
             ctx.self_loops, ctx.slope)
         if ctx.self_loops:
             d_wd, d_ws = d_wd + d_wself, d_ws + d_wself
-        return (None, d_wd, d_ws, d_nf, d_wea, None, None, None, None, None,
-                None)
+        return (None, d_wd, d_ws, d_nf, d_wea) + (None,) * 7
 
 
 def dense_attr_gat_pass(
@@ -798,29 +812,30 @@ def dense_attr_gat_pass(
     folded in analytically for every node. ``adj_planes`` may be a view with
     a larger tile stride (the first tn rows of the fconn planes).
 
+    Node features in f32 or bf16: the kernels read them in that type,
+    everything else is f32, and ``out`` comes back in the node features'
+    type (dense_gat.py:587, 623).
+
     Returns (out (N,H,D), attn_by_src (N,H) or None); the attention vector
     (gat2.py:165-167 summed-by-source probabilities, dense_gat.py:668-686)
     is rebuilt from (m, den) on detached tensors only when
     ``return_attention``."""
-    from fragnet_tpu_torch.ops.tcsr_gat import attention_by_source
-
-    _refuse_bf16("dense_attr_gat_pass", node_feats_h, edge_attr)
+    _cuda.check_compute_dtype("dense_attr_gat_pass", node_feats_h)
     N, H, D = node_feats_h.shape
     Da = edge_attr.shape[-1]
     nf32 = node_feats_h.float()
     a32 = attn_vec.float()
-    a_dst, a_ea, a_src = a32[:, :D], a32[:, D:D + Da], a32[:, D + Da:]
-    wd = torch.einsum("nhd,hd->nh", nf32, a_dst)
-    ws = torch.einsum("nhd,hd->nh", nf32, a_src)
-    w_ea = edge_attr.float() @ a_ea.T                        # (E, H)
+    wn, w_ea = prologue(nf32, edge_attr, a32)
+    wd, ws = wn[:, :H], wn[:, H:]
     emask = edge_mask.float().contiguous()
+    nf_k = node_feats_h.reshape(N, H * D).contiguous().detach()
     out, m, den = DenseAttrGatFn.apply(
         adj_planes, wd.contiguous(), ws.contiguous(),
         nf32.reshape(N, H * D).contiguous(), w_ea.contiguous(), src, dst,
-        emask, meta, bool(self_loops), negative_slope)
+        emask, meta, bool(self_loops), negative_slope, nf_k)
     out = out.reshape(N, H, D).to(node_feats_h.dtype)
     if not return_attention:
         return out, None
-    wn = torch.cat([wd.detach(), ws.detach()], dim=-1)
-    return out, attention_by_source(wn, w_ea.detach(), src, dst, emask, m,
-                                    den, self_loops, negative_slope)
+    return out, attention_by_source(wn.detach(), w_ea.detach(), src, dst,
+                                    emask, m, den, self_loops,
+                                    negative_slope)

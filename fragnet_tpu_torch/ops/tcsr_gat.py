@@ -32,9 +32,10 @@ _make_op's dt_name): K1 and K2 have a bf16 entry each (``tcsr_gat_fwd_bf16``
 and ``tcsr_gat_bwd_bf16`` in the same sources, each with its own launch
 count), which reads ``nf`` in bf16 and keeps everything else f32: wn, w_ea,
 the softmax state, ``out`` (cast to bf16 by the pass afterwards), g, s and
-every gradient. The plain versions widen a bf16 ``nf`` at entry. K3's entry
-points stay f32: ``tcsr_gat_pass_ep`` refuses bf16 (ROADMAP.md Queue A
-item 5, slice 16).
+every gradient. The plain versions widen a bf16 ``nf`` at entry. K3 has a
+bf16 forward and backward entry too (``tcsr_gat_ep_fwd_bf16``,
+``tcsr_gat_ep_bwd_bf16``, pallas_gat.py:_make_ep_op's dt_name), the same
+bf16 kernel instances on the shard's grid, each with its own launch count.
 """
 
 from __future__ import annotations
@@ -91,19 +92,33 @@ def _check_nf_aligned(nf):
     _cuda.check_aligned(nf, "nf", 4 * nf.element_size())
 
 
+def logit_dot(eq: str, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, x, y)`` of a logit term, summed in f64 and rounded
+    once to f32. A logit's terms can cancel to within f32 round-off of the
+    leaky ReLU's kink (an ea·a_ea dot of terms near 1 summing to 1e-2): an
+    f32 sum then lands on the side its BLAS's order gives, which changes
+    with the CPU, and the gradient through that edge by the slope's factor
+    5. Rounded once, each term is within half an ulp of its exact value on
+    every machine."""
+    return torch.einsum(eq, x.double(), y.double()).float()
+
+
+def node_logits(nf: torch.Tensor, a: torch.Tensor, Da: int) -> torch.Tensor:
+    """wn (N, 2H) = [w_dst | w_src] = [nf·a_dst | nf·a_src] per head in f32
+    (``logit_dot``, both in one product), for the attention vector ``a``
+    (H, 2D + Da) = [a_dst | a_ea | a_src]."""
+    N, H, D = nf.shape
+    a_nodes = torch.stack([a[:, :D], a[:, D + Da:]])        # (2, H, D)
+    return logit_dot("nhd,khd->nkh", nf, a_nodes).reshape(N, 2 * H)
+
+
 def prologue(nf: torch.Tensor, ea: torch.Tensor, a: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(wn (N, 2H) = [w_dst | w_src], w_ea (E, H)) in f32."""
+    """(wn (N, 2H) = [w_dst | w_src], w_ea (E, H)) in f32 (``logit_dot``)."""
     D = nf.shape[2]
     Da = ea.shape[-1]
-    nf32 = nf.float()
-    a32 = a.float()
-    a_dst, a_ea, a_src = a32[:, :D], a32[:, D:D + Da], a32[:, D + Da:]
-    w_dst = torch.einsum("nhd,hd->nh", nf32, a_dst)
-    w_src = torch.einsum("nhd,hd->nh", nf32, a_src)
-    wn = torch.cat([w_dst, w_src], dim=-1)
-    w_ea = ea.float() @ a_ea.T
-    return wn, w_ea
+    return (node_logits(nf, a, Da),
+            logit_dot("ed,hd->eh", ea, a[:, D:D + Da]))
 
 
 def tcsr_gat_fwd_plain(wn, nf, w_ea, src, dst, emask, meta: TileMeta,
@@ -402,6 +417,15 @@ KERNEL_EP = _cuda.CudaKernel(
 KERNEL_EP_BWD = _cuda.CudaKernel(
     "tcsr_gat_bwd.cu", "tcsr_gat_ep_bwd",
     [_VP] * 17 + [_I] * 8 + [ctypes.c_float, _VP])
+KERNEL_EP_BF16 = _cuda.CudaKernel(
+    "tcsr_gat_fwd.cu", "tcsr_gat_ep_fwd_bf16",
+    [_VP] * 12 + [_I] * 5 + [ctypes.c_float, _VP])
+KERNEL_EP_BWD_BF16 = _cuda.CudaKernel(
+    "tcsr_gat_bwd.cu", "tcsr_gat_ep_bwd_bf16",
+    [_VP] * 17 + [_I] * 8 + [ctypes.c_float, _VP])
+# K3's entries by node-feature type: {dtype: (forward, backward)}
+_EP_KERNELS = {torch.float32: (KERNEL_EP, KERNEL_EP_BWD),
+               torch.bfloat16: (KERNEL_EP_BF16, KERNEL_EP_BWD_BF16)}
 
 
 def _grid_rows(meta: EPTileMeta, rank: int) -> Tuple[int, int]:
@@ -428,6 +452,7 @@ def _check_ep(name, wn, nf, w_ea, src, dst, emask, meta: EPTileMeta,
     shard's (t0, ew_blk, cw, sw_tile) rows."""
     if nf.device.type != "cuda":
         raise ValueError(f"no {name} kernel for device {nf.device}")
+    _nf_kernels(name, nf)
     N, HD = nf.shape
     H = wn.shape[1] // 2
     Es = src.shape[0]
@@ -439,7 +464,7 @@ def _check_ep(name, wn, nf, w_ea, src, dst, emask, meta: EPTileMeta,
                          f"tn={tn} te={te} rank={rank} of {S} shards")
     f32, i32 = torch.float32, torch.int32
     for arg, t, dt, shape in (
-            ("wn", wn, f32, (N, 2 * H)), ("nf", nf, f32, (N, HD)),
+            ("wn", wn, f32, (N, 2 * H)), ("nf", nf, nf.dtype, (N, HD)),
             ("w_ea", w_ea, f32, (Es, H)), ("src", src, i32, (Es,)),
             ("dst", dst, i32, (Es,)), ("emask", emask, f32, (Es,)),
             ("t0", meta.t0, i32, (S, 1)), ("ew_blk", meta.ew_blk, i32,
@@ -455,9 +480,9 @@ def tcsr_gat_ep_fwd(wn, nf, w_ea, src, dst, emask, meta: EPTileMeta,
                     rank: int, slope: float = 0.2):
     """K3 forward wrapper: (out_l (Ng, H*D), m_l (Ng, H), den_l (Ng, H)) f32
     for shard ``rank`` — its ``src``/``dst``/``emask`` (Es,) and ``w_ea``
-    (Es, H) against the whole ``wn`` (N, 2H) and ``nf`` (N, H*D); row i is
-    node t0·tn + i. ``meta`` holds every shard's rows as int32 tensors on
-    the same device."""
+    (Es, H) against the whole ``wn`` (N, 2H) and ``nf`` (N, H*D), f32 or
+    bf16 (the bf16 entry); row i is node t0·tn + i. ``meta`` holds every
+    shard's rows as int32 tensors on the same device."""
     if nf.device.type == "cpu":
         return tcsr_gat_ep_fwd_plain(wn, nf, w_ea, src, dst, emask, meta,
                                      rank, slope)
@@ -470,10 +495,10 @@ def tcsr_gat_ep_fwd(wn, nf, w_ea, src, dst, emask, meta: EPTileMeta,
     m = torch.empty((Ng, H), dtype=torch.float32, device=dev)
     den = torch.empty((Ng, H), dtype=torch.float32, device=dev)
     P = _cuda.ptr
-    KERNEL_EP.launch(P(wn), P(nf), P(w_ea), P(src), P(dst), P(emask), P(t0),
-                     P(ew), P(cw), P(out), P(m), P(den), meta.n_tiles_grid,
-                     tn, meta.te, H, HD // H, ctypes.c_float(slope),
-                     _cuda.stream_ptr(dev))
+    _EP_KERNELS[nf.dtype][0].launch(
+        P(wn), P(nf), P(w_ea), P(src), P(dst), P(emask), P(t0), P(ew), P(cw),
+        P(out), P(m), P(den), meta.n_tiles_grid, tn, meta.te, H, HD // H,
+        ctypes.c_float(slope), _cuda.stream_ptr(dev))
     return out, m, den
 
 
@@ -503,7 +528,8 @@ def tcsr_gat_ep_bwd_plain(wn, nf, w_ea, src, dst, emask, meta: EPTileMeta,
 def tcsr_gat_ep_bwd(wn, nf, w_ea, src, dst, emask, meta: EPTileMeta,
                     rank: int, m, dU, dV, slope: float = 0.2):
     """K3 backward wrapper: (d_wn (N, 2H), d_nf (N, H*D), d_w_ea (Es, H))
-    f32, the gradient of shard ``rank``'s U, V for the cotangents ``dU``
+    f32 (``nf`` f32 or bf16, the bf16 entry), the gradient of shard
+    ``rank``'s U, V for the cotangents ``dU``
     (Ng, H*D) and ``dV`` (Ng, H) given the global max ``m`` (Ng, H) at its
     grid rows. Masked edges get exactly 0; the kernel writes every output
     element."""
@@ -525,12 +551,11 @@ def tcsr_gat_ep_bwd(wn, nf, w_ea, src, dst, emask, meta: EPTileMeta,
     d_nf = torch.empty((N, HD), dtype=f32, device=dev)
     d_w_ea = torch.empty((Es, H), dtype=f32, device=dev)
     P = _cuda.ptr
-    KERNEL_EP_BWD.launch(P(wn), P(nf), P(w_ea), P(src), P(dst), P(emask),
-                         P(t0), P(ew), P(cw), P(sw), P(m), P(ones), P(dU),
-                         P(neg_dv), P(d_wn), P(d_nf), P(d_w_ea),
-                         meta.n_tiles_grid, N, Es, meta.tn, meta.te,
-                         meta.k_src, H, HD // H, ctypes.c_float(slope),
-                         _cuda.stream_ptr(dev))
+    _EP_KERNELS[nf.dtype][1].launch(
+        P(wn), P(nf), P(w_ea), P(src), P(dst), P(emask), P(t0), P(ew), P(cw),
+        P(sw), P(m), P(ones), P(dU), P(neg_dv), P(d_wn), P(d_nf), P(d_w_ea),
+        meta.n_tiles_grid, N, Es, meta.tn, meta.te, meta.k_src, H, HD // H,
+        ctypes.c_float(slope), _cuda.stream_ptr(dev))
     return d_wn, d_nf, d_w_ea
 
 
@@ -539,28 +564,31 @@ class TcsrGatEpFn(torch.autograd.Function):
     l.690-746): (wn, nf, w_ea) → (U_l (Ng, H*D), V_l (Ng, H)) given the
     global max ``m`` (Ng, H) at the grid rows and K3's forward stats, which
     carry no gradient. The forward is an elementwise rescale of the stats;
-    the backward is K3's backward kernel."""
+    the backward is K3's backward kernel. ``nf_k``, where given, is the
+    tensor the kernel reads — ``nf`` in the compute dtype (bf16), ``nf``
+    itself its f32 widening — as in TcsrGatFn."""
 
     @staticmethod
     def forward(ctx, wn, nf, w_ea, src, dst, emask, meta, rank, m, stats,
-                slope):
+                slope, nf_k=None):
         out_l, m_l, den_l = stats
         scale = torch.where(m_l > _NEG / 2, torch.exp(m_l - m),
                             torch.zeros_like(m_l))
         V = den_l * scale
         Ng, H = V.shape
         U = (out_l.view(Ng, H, -1) * V[..., None]).reshape(Ng, -1)
-        ctx.save_for_backward(wn, nf, w_ea, src, dst, emask, m)
+        ctx.save_for_backward(wn, nf if nf_k is None else nf_k, w_ea, src,
+                              dst, emask, m)
         ctx.meta, ctx.rank, ctx.slope = meta, rank, slope
         return U, V
 
     @staticmethod
     def backward(ctx, dU, dV):
-        wn, nf, w_ea, src, dst, emask, m = ctx.saved_tensors
+        wn, nf_k, w_ea, src, dst, emask, m = ctx.saved_tensors
         d_wn, d_nf, d_w_ea = tcsr_gat_ep_bwd(
-            wn, nf, w_ea, src, dst, emask, ctx.meta, ctx.rank, m,
+            wn, nf_k, w_ea, src, dst, emask, ctx.meta, ctx.rank, m,
             dU.float().contiguous(), dV.float().contiguous(), ctx.slope)
-        return (d_wn, d_nf, d_w_ea) + (None,) * 8
+        return (d_wn, d_nf, d_w_ea) + (None,) * 9
 
 
 def tcsr_gat_pass_ep(
@@ -591,26 +619,30 @@ def tcsr_gat_pass_ep(
     index-add; the analytic self-loop term is added once there. Gradient
     convention: every rank computes the same loss, and the caller averages
     every parameter gradient over the ranks (dist/data_parallel.py:
-    average_gradients)."""
+    average_gradients).
 
-    if node_feats_h.dtype != torch.float32:
-        raise NotImplementedError(
-            f"the edge-partitioned pass (K3) runs f32 only; its "
-            f"{node_feats_h.dtype} form is not ported yet "
-            f"({_cuda.BF16_LATER})")
+    Node features in f32 or bf16: K3 reads them in that type (its bf16
+    entries), while the stats, U, V, the gathers and the combine stay f32,
+    so the collectives move f32 as in an f32 run; the self-loop term and
+    NUM's index-add take the f32 widening, where d_nf meets the prologue's
+    gradient in f32 and is rounded once, and ``out`` comes back in the node
+    features' type (pallas_gat.py:842-843)."""
+    _cuda.check_compute_dtype("tcsr_gat_pass_ep", node_feats_h)
     N, H, D = node_feats_h.shape
     HD = H * D
     S = meta.ew_blk.shape[0]
     Ng = meta.n_tiles_grid * meta.tn
-    wn, w_ea = prologue(node_feats_h, edge_attr, attn_vec)
+    nf32 = node_feats_h.float()
+    wn, w_ea = prologue(nf32, edge_attr, attn_vec)
     wn, w_ea = wn.contiguous(), w_ea.contiguous()
-    nf = node_feats_h.float().reshape(N, HD).contiguous()
+    nf = nf32.reshape(N, HD).contiguous()
+    nf_k = node_feats_h.reshape(N, HD).contiguous().detach()
     emask = edge_mask.float().contiguous()
 
     # 1. the shard's softmax stats (values only)
     with torch.no_grad():
-        stats = tcsr_gat_ep_fwd(wn.detach(), nf.detach(), w_ea.detach(), src,
-                                dst, emask, meta, rank, negative_slope)
+        stats = tcsr_gat_ep_fwd(wn.detach(), nf_k, w_ea.detach(), src, dst,
+                                emask, meta, rank, negative_slope)
 
     # 2. global max: scatter-max of every shard's grid rows (no gradient)
     rows = (meta.t0.long().reshape(S, 1) * meta.tn
@@ -628,7 +660,8 @@ def tcsr_gat_pass_ep(
 
     # 3. the shard's un-normalised sums, gathered with their gradient
     U_l, V_l = TcsrGatEpFn.apply(wn, nf, w_ea, src, dst, emask, meta, rank,
-                                 Mg[own].contiguous(), stats, negative_slope)
+                                 Mg[own].contiguous(), stats, negative_slope,
+                                 nf_k)
     UV = all_gather_rows(torch.cat([U_l, V_l], dim=1), rank, group)
     UV = UV.reshape(S * Ng, HD + H)
     NUM = nf.new_zeros((N, HD)).index_add(0, rows, UV[:, :HD])

@@ -6,13 +6,13 @@ per-level kernel policy, resolved in one place for every entry point.
     with no card raises instead of falling back;
   * ``dtype``  — the compute type (``dtype: f32|bf16``), f32 by default:
     the JAX package picks bf16 only on a TPU (fastpath.py:85), and the
-    card is not one. bf16 runs on one device under the default kernel
-    policy for the families of ``_DTYPE_FAMILIES`` (``supports_dtype``;
-    build_model builds the others in f32, as the JAX package does) with
-    the bf16 forms of K1, K2, K4 and K5; the dense-attr policy,
-    ``dist.mode=dp|ep`` (``check_dtype_scope``) and the pretraining and
-    task trainers (``require_f32``) raise, naming ROADMAP.md's slice 16,
-    instead of running f32;
+    card is not one. bf16 runs for the families of ``_DTYPE_FAMILIES``
+    (``supports_dtype``; build_model builds the others in f32, as the JAX
+    package does) under every kernel policy and every ``dist.mode``, in
+    finetuning and in both pretraining trainers, through the bf16 forms of
+    the GAT kernels (K1-K5, K7, K8; K6 widens bf16 attributes). The task
+    trainer (``run_task``) raises on bf16 (``require_f32``): the JAX
+    package's DTA and CDRP models take no dtype and run f32;
   * ``tcsr``   — on by default on CUDA for the families that run GAT
     passes (TCSR_FAMILIES: those on the gat2 encoder, and gat2_lite,
     gat2_edge and v1 gat, which the JAX package leaves out because it runs
@@ -41,7 +41,6 @@ from typing import Union
 import torch
 
 from fragnet_tpu_torch.model.layers import KernelPolicy
-from fragnet_tpu_torch.ops._cuda import BF16_LATER
 
 # model families whose layers consume TCSR tile metadata: the FragNet
 # core and the variants whose GAT passes run on its kernels on the card
@@ -94,31 +93,23 @@ def resolve_dtype(section) -> torch.dtype:
     return _DTYPES[dname]
 
 
-def check_dtype_scope(dtype: torch.dtype, kernel: KernelPolicy,
-                      dist_mode: str = "none") -> None:
-    """Raise where bf16 asks for a path whose bf16 form is not ported:
-    the dense-attr policy (K6-K8) and ``dist.mode=dp|ep`` (K3) — never a
-    quiet f32 run."""
-    if dtype != torch.bfloat16:
-        return
-    if kernel.attr or kernel.fc == "attr":
-        raise NotImplementedError(
-            f"dtype=bf16 under the dense-attr kernel policy (kernel.attr="
-            f"{kernel.attr}, kernel.fc={kernel.fc}) is not ported yet: bf16 "
-            f"runs the default policy ({BF16_LATER})")
-    if dist_mode in ("dp", "ep"):
-        raise NotImplementedError(
-            f"dtype=bf16 with dist.mode={dist_mode} is not ported yet: bf16 "
-            f"runs on one device ({BF16_LATER})")
-
-
 def require_f32(section, entry: str) -> None:
-    """Raise when the config section of ``entry`` (a trainer whose bf16
-    form is not ported) asks for bf16."""
+    """Raise when the config section of ``entry``, a trainer of the JAX
+    package that runs f32 only, asks for bf16 — never a quiet f32 run."""
     if resolve_dtype(section) != torch.float32:
         raise NotImplementedError(
-            f"{entry} with dtype=bf16 is not ported yet: it runs f32 "
-            f"({BF16_LATER})")
+            f"{entry} runs f32 only: the reference's task trainers build "
+            f"their models without a compute dtype "
+            f"(fragnet_tpu/train/tasks.py), so dtype=bf16 has no "
+            f"counterpart there")
+
+
+def reduce_bf16_gemms_in_f32(fp: FastPath) -> None:
+    """A bf16 run on CUDA: bf16 GEMMs reduce in f32, as XLA's do (cuBLAS
+    may otherwise reduce split-K partial sums in bf16)."""
+    if fp.dtype == torch.bfloat16 and fp.device.type == "cuda":
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
 
 
 def resolve_device(device: Union[str, torch.device, None] = None
@@ -162,7 +153,6 @@ def resolve(section, model_version: str = "gat2",
     dev = resolve_device(device)
     dtype = resolve_dtype(section)
     kernel = resolve_kernel_policy(section)
-    check_dtype_scope(dtype, kernel, dist_mode)
     tcsr_default = model_version in TCSR_FAMILIES and (
         dev.type == "cuda" or dist_mode == "ep")
     tcsr = bool(section.get("tcsr", tcsr_default))

@@ -214,16 +214,9 @@ def _dist_mode(opt) -> str:
 
 
 def _refuse_unported(opt, device) -> None:
-    from fragnet_tpu_torch.train import fastpath
-
     ft = opt.finetune
     dist = opt.get("dist", None) or {}
     _model_version(opt, ep=_dist_mode(opt) == "ep")
-    # bf16 with the dense-attr policy or dp / ep: refused before any rank
-    # starts
-    fastpath.check_dtype_scope(fastpath.resolve_dtype(ft),
-                               fastpath.resolve_kernel_policy(ft),
-                               _dist_mode(opt))
     if _dist_mode(opt) == "ep" and not dist.get("tcsr", ft.get("tcsr", True)):
         raise NotImplementedError(
             "dist.mode=ep with dist.tcsr=false (the edge-partitioned segment "
@@ -301,6 +294,7 @@ def _launch(opt, quiet, datasets, device, rank_reports):
     from fragnet_tpu_torch.dist.data_parallel import backend_for
     from fragnet_tpu_torch.dist.launch import run_ranks
     from fragnet_tpu_torch.train.fastpath import (resolve_device,
+                                                  resolve_dtype,
                                                   resolve_kernel_policy)
 
     dev = resolve_device(device)
@@ -320,7 +314,8 @@ def _launch(opt, quiet, datasets, device, rank_reports):
         rank_reports.extend({k: v for k, v in r.items() if k != "state_dict"}
                             for r in results)
     model = build_model(opt, n_classes=datasets[3],
-                        policy=resolve_kernel_policy(opt.finetune))
+                        policy=resolve_kernel_policy(opt.finetune),
+                        dtype=resolve_dtype(opt.finetune))
     model.load_state_dict(results[0]["state_dict"])
     return results[0]["value"], model.to(dev)
 
@@ -380,11 +375,7 @@ def _run(opt, quiet, datasets, device, info):
               f"test={len(test_g)} tasks={n_tasks} type={task}")
         print(f"fastpath: tcsr={fp.tcsr} dtype={fp.dtype_name} "
               f"cache={fp.cache} device={fp.device}")
-    if fp.dtype == torch.bfloat16 and fp.device.type == "cuda":
-        # bf16 GEMMs reduce in f32, as XLA's do (cuBLAS may otherwise
-        # reduce split-K partial sums in bf16)
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
-            = False
+    fastpath.reduce_bf16_gemms_in_f32(fp)
 
     bs = int(ft.get("batch_size", 16))
     ep = None

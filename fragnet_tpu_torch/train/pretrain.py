@@ -211,10 +211,12 @@ def cel_loss(out: torch.Tensor, y: torch.Tensor,
 
 
 def build_aux_model(opt, n_classes: int, policy=None,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    dtype: torch.dtype = torch.float32):
     """The auxiliary pretraining's model: FragNetFineTune with
     ``n_classes`` outputs at ``pretrain.model``'s encoder widths (its head
-    at the class defaults, as the JAX package builds it)."""
+    at the class defaults, as the JAX package builds it), its encoder
+    computing in ``dtype``."""
     from fragnet_tpu_torch.model.finetune import FragNetFineTune
     from fragnet_tpu_torch.model.layers import KernelPolicy
 
@@ -230,7 +232,7 @@ def build_aux_model(opt, n_classes: int, policy=None,
         edge_features=int(opt.get("edge_features", 17)),
         fedge_in=int(opt.get("fedge_in", 6)),
         fbond_edge_in=int(opt.get("fbond_edge_in", 6)),
-        policy=policy or KernelPolicy(), generator=generator,
+        policy=policy or KernelPolicy(), generator=generator, dtype=dtype,
     )
 
 
@@ -244,8 +246,9 @@ def run_aux_pretrain(opt, quiet: bool = False,
     target); the checkpoint ``exp_dir/<chkpoint_name>`` is its state dict,
     whose ``pretrain.*`` encoder ``run_finetune`` transfers with
     ``pretrain.use``. Loss ``mse`` or ``cel`` (``pretrain.loss``; the
-    structure mode's classes take ``cel``). Runs on CUDA unless
-    ``device="cpu"``. Returns (best score, checkpoint path)."""
+    structure mode's classes take ``cel``). ``pretrain.dtype`` (f32 or
+    bf16) is the encoder's compute type, as in the JAX package. Runs on
+    CUDA unless ``device="cpu"``. Returns (best score, checkpoint path)."""
     from fragnet_tpu_torch.data.batcher import BatchLoader
     from fragnet_tpu_torch.data.datasets import build_graphs
     from fragnet_tpu_torch.graphs.hiergraph import spec_for
@@ -263,7 +266,6 @@ def run_aux_pretrain(opt, quiet: bool = False,
     exp_dir = opt.get("exp_dir", "exps/pt_aux")
     os.makedirs(exp_dir, exist_ok=True)
     pt = opt.pretrain
-    fastpath.require_f32(pt, "run_aux_pretrain")
     mode = pt.get("mode", "property")
     loss_name = pt.get("loss", "mse")
 
@@ -275,6 +277,7 @@ def run_aux_pretrain(opt, quiet: bool = False,
     train_g, val_g = split_graphs(graphs, seed)
 
     fp = fastpath.resolve(pt, model_version="gat2", device=device)
+    fastpath.reduce_bf16_gemms_in_f32(fp)
     bs = int(pt.get("batch_size", 32))
     spec = spec_for(graphs, batch_size=bs, tcsr=fp.tcsr)
     n_tasks_data = 1 if (mode == "structure" or loss_name == "cel") else n_classes
@@ -289,8 +292,8 @@ def run_aux_pretrain(opt, quiet: bool = False,
                                       policy=fp.cache, seed=seed + 1)
 
     model = build_aux_model(opt, n_classes, policy=fp.kernel,
-                            generator=torch.Generator().manual_seed(seed)
-                            ).to(fp.device)
+                            generator=torch.Generator().manual_seed(seed),
+                            dtype=fp.dtype).to(fp.device)
     # the JAX package draws an init batch here (model.init), which advances
     # the train loader's shuffle state
     next(iter(train_loader))
@@ -357,9 +360,10 @@ def split_graphs(graphs: list, seed: int) -> Tuple[list, list]:
 
 
 def build_pretrain_model(opt, policy=None,
-                         generator: Optional[torch.Generator] = None):
+                         generator: Optional[torch.Generator] = None,
+                         dtype: torch.dtype = torch.float32):
     """FragNetPreTrain (or a masked variant, ``pretrain.model_version``)
-    at the config's widths."""
+    at the config's widths, its encoder computing in ``dtype``."""
     from fragnet_tpu_torch.model.layers import KernelPolicy
     from fragnet_tpu_torch.model.pretrain import (FragNetPreTrain,
                                                   FragNetPreTrainMasked,
@@ -379,6 +383,7 @@ def build_pretrain_model(opt, policy=None,
         fbond_edge_in=int(opt.get("fbond_edge_in", 6)),
         policy=policy or KernelPolicy(),
         generator=generator,
+        dtype=dtype,
     )
     mv = pt.get("model_version", "gat2")
     seed = int(opt.get("seed", 42))
@@ -409,8 +414,10 @@ def run_pretrain(opt, quiet: bool = False,
     early stopping saving ``exp_dir/<chkpoint_name>`` on each improvement,
     ``scalars.jsonl`` (train loss and message-edges/s per epoch, val loss)
     and, with ``pretrain.profile``, a trace of epoch 1. ``graphs`` replaces
-    ``load_pretrain_graphs(opt)``. Runs on CUDA unless ``device="cpu"``.
-    Returns (best score, checkpoint path)."""
+    ``load_pretrain_graphs(opt)``. ``pretrain.dtype`` (f32 or bf16) is the
+    encoder's compute type; in bf16 the packed transport carries the bond
+    attributes in bf16, as the JAX package's does. Runs on CUDA unless
+    ``device="cpu"``. Returns (best score, checkpoint path)."""
     from fragnet_tpu_torch.data.batcher import (BatchLoader, DeviceCacheLoader,
                                                 DevicePackedCacheLoader,
                                                 PackedCacheLoader)
@@ -425,9 +432,9 @@ def run_pretrain(opt, quiet: bool = False,
     pt = opt.pretrain
     if pt.get("mode", "geometric") in ("property", "structure"):
         return run_aux_pretrain(opt, quiet=quiet, device=device)
-    fastpath.require_f32(pt, "run_pretrain")
     model_version = pt.get("model_version", "gat2")
     fp = fastpath.resolve(pt, model_version=model_version, device=device)
+    fastpath.reduce_bf16_gemms_in_f32(fp)
     seed = int(opt.get("seed", 42))
     seed_everything(seed)
     exp_dir = opt.get("exp_dir", "exps/pt")
@@ -449,11 +456,12 @@ def run_pretrain(opt, quiet: bool = False,
     val_loader = fastpath.maybe_cache(val_loader, fp.device, spec=spec,
                                       policy=fp.cache, seed=seed + 1)
     if not quiet:
-        print(f"fastpath: tcsr={fp.tcsr} dtype=f32 cache={fp.cache} "
-              f"device={fp.device}")
+        print(f"fastpath: tcsr={fp.tcsr} dtype={fp.dtype_name} "
+              f"cache={fp.cache} device={fp.device}")
 
     model = build_pretrain_model(opt, policy=fp.kernel,
-                                 generator=torch.Generator().manual_seed(seed))
+                                 generator=torch.Generator().manual_seed(seed),
+                                 dtype=fp.dtype)
     # the JAX package draws an init batch here (model.init), which advances
     # the train loader's shuffle state; drawing it too keeps both packages
     # on the same batches from the same seed
@@ -482,7 +490,8 @@ def run_pretrain(opt, quiet: bool = False,
             and _packed_transport(fp.device)
             and pt.get("stream", "auto") != "off"):
         ploader = BatchLoader(train_g, bs, spec=spec, shuffle=True,
-                              seed=seed, with_targets=True, pack=True)
+                              seed=seed, with_targets=True, pack=True,
+                              compute_dtype=fp.dtype_name)
         next(iter(ploader))  # build the pack layout in-parent
         ploader._epoch = 0   # the layout probe advanced the shuffle state
         trainer = PretrainTrainer(model, optimizer, compat,

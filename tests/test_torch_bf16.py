@@ -1,8 +1,10 @@
 """bf16 compute in the port against fragnet_tpu's, on the CPU: the GAT passes
 (the plain versions of K1/K2 and K4/K5, and the segment pass), the whole
 gat2 model and the three models on its encoder, the fast-path policy,
-``run_finetune`` with ``finetune.dtype=bf16``, and the refusals of what
-this slice leaves to slice 16 (ROADMAP.md Queue A item 5).
+``run_finetune`` with ``finetune.dtype=bf16`` (the default policy, the
+dense-attr policy, ``dist.mode=dp|ep``), and what still refuses bf16:
+``run_task``, whose reference trainers run f32 only, and every type but f32
+and bf16 (tests/test_torch_bf16_paths.py holds the other bf16 paths).
 
 Inputs are made with numpy from a seed and rounded to bf16 once, so both
 packages see the same bf16 values; weights are carried across with
@@ -491,59 +493,94 @@ def test_build_model_passes_dtype_to_its_families_only(tmp_path):
             assert dts <= {torch.float32}, mv
 
 
-_REFUSED = {
-    "kernel.attr": dict(kernel={"attr": True}),
-    "kernel.fc=attr": dict(kernel={"fc": "attr"}),
-}
+_DIST = {"dp": {"mode": "dp", "n_devices": 2},
+         "ep": {"mode": "ep", "n_devices": 2}}
+
+
+@pytest.fixture(scope="module")
+def port_datasets(ft_graphs):
+    """(train, val, test, n_tasks, task) of the port's graphs of the eight
+    molecules: 4 / 2 / 2."""
+    builder = PortBuilder("exp1s")
+    pg = [builder.build(*port_engine.mol_3d(g.smiles), g.y, smiles=g.smiles)
+          for g in ft_graphs]
+    return pg[:4], pg[4:6], pg[6:], 1, "regr"
 
 
 @pytest.mark.parametrize("case", ["kernel.attr", "kernel.fc=attr", "dp",
                                   "ep"])
-def test_run_finetune_bf16_refuses_what_slice_16_runs(tmp_path, case):
-    """bf16 under the dense-attr policy or dist.mode=dp|ep raises and names
-    slice 16, before any rank starts — no quiet f32 run."""
-    opt = _small_opt(tmp_path, **_REFUSED.get(case, {}))
-    if case in ("dp", "ep"):
-        opt.set_path("dist", {"mode": case, "n_devices": 2})
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        run_finetune(opt, device="cpu")
+def test_run_finetune_bf16_refuses_what_slice_16_runs(tmp_path, capsys,
+                                                      port_datasets, case):
+    """run_finetune(device="cpu") with finetune.dtype=bf16 under the
+    dense-attr policy (kernel.attr, kernel.fc=attr: the plain versions of
+    K7, K8 and K9 in bf16) and under dist.mode=dp|ep over two gloo ranks
+    (K3's bf16 plain versions under ep): one epoch trains, the test metric
+    and the predictions are written, and the model that comes back
+    computes in bf16 with f32 parameters; the ranks agree."""
+    kernel = {"kernel.attr": {"attr": True},
+              "kernel.fc=attr": {"fc": "attr"}}.get(case, {})
+    opt = _small_opt(tmp_path, tcsr=True, kernel=kernel)
+    reports = []
+    if case in _DIST:
+        opt.set_path("dist", dict(_DIST[case], timeout_s=120,
+                                  join_timeout_s=300))
+    rmse, model = run_finetune(opt, device="cpu", datasets=port_datasets,
+                               rank_reports=reports)
+    if case not in _DIST:  # ranks print in their own processes
+        out = capsys.readouterr().out
+        assert "dtype=bf16" in out and "test rmse:" in out
+    assert all(layer.dtype == BF for layer in model.pretrain.layers)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    if kernel:
+        assert all(layer.policy == fastpath.resolve_kernel_policy(
+            opt.finetune) for layer in model.pretrain.layers)
+    assert np.isfinite(rmse)
+    with open(tmp_path / "preds_seed_7.pkl", "rb") as f:
+        preds = pickle.load(f)
+    assert np.isfinite(preds["pred"]).all() and rmse == preds["rmse"]
+    if case in _DIST:
+        assert len(reports) == 2
+        for r in reports:
+            assert np.isfinite(r["train_loss"]).all()
+            assert (r["value"], r["train_loss"]) == (
+                reports[0]["value"], reports[0]["train_loss"])
 
 
 def test_trainers_refuse_bf16(tmp_path):
-    """run_pretrain (geometric and auxiliary) and run_task refuse bf16,
-    naming slice 16, before featurizing anything."""
-    from fragnet_tpu_torch.train.pretrain import run_pretrain
+    """run_task refuses bf16 before featurizing anything: the reference's
+    task trainers build their models without a compute dtype, so they run
+    f32 only (the pretraining trainers run bf16:
+    tests/test_torch_bf16_paths.py)."""
     from fragnet_tpu_torch.train.tasks import run_task
 
-    for mode in ("geometric", "property"):
-        popt = Config({"seed": 0, "exp_dir": str(tmp_path),
-                       "pretrain": {"mode": mode, "dtype": "bf16",
-                                    "n_synthetic": 4}})
-        with pytest.raises(NotImplementedError, match="slice 16"):
-            run_pretrain(popt, device="cpu")
-    with pytest.raises(NotImplementedError, match="run_task.*slice 16"):
+    with pytest.raises(NotImplementedError,
+                       match="run_task runs f32 only.*without a compute "
+                             "dtype"):
         run_task("cdrp", _small_opt(tmp_path), device="cpu")
 
 
 def test_f32_only_passes_refuse_bf16():
-    """The passes and wrappers whose bf16 forms are slice 16's — K3's
-    edge-partitioned pass, the plane builder K6, the dense-attr pass and
-    its kernels K7 and K8 — raise on bf16 on the CPU too."""
+    """The passes and wrappers that run bf16 now — K3's edge-partitioned
+    pass, the plane builder K6, the dense-attr pass and its kernels K7 and
+    K8 — still refuse every other type (f16 here) on the CPU too: no kernel
+    reads it, and no path widens it quietly."""
     N, H, D, E = 16, 2, 4, 8
-    nf = torch.zeros((N, H, D), dtype=BF)
+    half = torch.float16
+    nf = torch.zeros((N, H, D), dtype=half)
     idx = torch.zeros(E, dtype=torch.int32)
     mask = torch.zeros(E)
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        tcsr_gat.tcsr_gat_pass_ep(nf, torch.zeros((E, 3), dtype=BF), idx,
+    with pytest.raises(ValueError, match="dtype"):
+        tcsr_gat.tcsr_gat_pass_ep(nf, torch.zeros((E, 3), dtype=half), idx,
                                   idx, mask, torch.zeros((H, 2 * D + 3)),
                                   None, 0)
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        dense_gat.dense_attr_gat_pass(nf, torch.zeros((E, 3), dtype=BF), idx,
-                                      idx, mask, torch.zeros((H, 2 * D + 3)),
+    with pytest.raises(ValueError, match="dtype"):
+        dense_gat.dense_attr_gat_pass(nf, torch.zeros((E, 3), dtype=half),
+                                      idx, idx, mask,
+                                      torch.zeros((H, 2 * D + 3)),
                                       torch.zeros((1, N, N)), None)
-    with pytest.raises(NotImplementedError, match="slice 16"):
+    with pytest.raises(ValueError, match="dtype"):
         dense_gat.build_dense_planes_device(idx, idx, mask,
-                                            torch.zeros((E, 1), dtype=BF),
+                                            torch.zeros((E, 1), dtype=half),
                                             N, None)
     z = torch.zeros((N, H))
     nf2 = nf.reshape(N, H * D)
@@ -554,5 +591,5 @@ def test_f32_only_passes_refuse_bf16():
             (dense_gat.dense_attr_bwd,
              (torch.zeros((1, N, N)), z, z, nf2, torch.zeros((E, H)), idx,
               idx, mask, None, z, z, torch.zeros((N, H * D)), z, False))):
-        with pytest.raises(NotImplementedError, match="slice 16"):
+        with pytest.raises(ValueError, match="dtype"):
             fn(*args)

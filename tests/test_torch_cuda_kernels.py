@@ -1338,6 +1338,76 @@ def test_bf16_entries_match_plain(cuda, tn, case):
     assert all(torch.equal(a, b) for a, b in zip(grads, bwd(*bargs)))
 
 
+@pytest.mark.parametrize("case", ["attr", "attr-self-loops", "ep"])
+def test_bf16_attr_and_ep_entries_match_plain(cuda, case):
+    """The bf16 entries of K7 and K8 (with K9's d_wea, exactly 0 off the
+    counted edges) and of K3 (each of two shards, forward and backward)
+    with bf16 nf: each output within 1e-4 of its scale of the plain version
+    on the same bf16 inputs, each bf16 entry launched once per call and
+    its f32 form not at all, the same bits from a second call."""
+    rng = np.random.default_rng(300 + len(case))
+    bf = torch.bfloat16
+    if case.startswith("attr"):
+        self_loops = case.endswith("self-loops")
+        args = list(_attr_case(cuda, rng, 128, self_loops, cross=True))
+        args[3] = args[3].to(bf)
+        counters = (dense_gat.KERNEL_ATTR_BF16, dense_gat.KERNEL_ATTR_BWD_BF16,
+                    dense_gat.KERNEL_ATTR, dense_gat.KERNEL_ATTR_BWD)
+        n0 = tuple(k.launches for k in counters)
+        out, m, den = dense_gat.dense_attr_fwd(*args)
+        torch.cuda.synchronize()
+        assert tuple(k.launches for k in counters) == (n0[0] + 1, *n0[1:])
+        for k, p in zip((out, m, den), dense_gat.dense_attr_fwd_plain(*args)):
+            _close_m(k, p)
+        g = torch.from_numpy(rng.standard_normal(tuple(out.shape)).astype(
+            np.float32)).to(cuda)
+        N, H = m.shape
+        s_ = (g.view(N, H, -1) * out.view(N, H, -1)).sum(-1)
+        bargs = tuple(args[:9]) + (m, den, g, s_, self_loops)
+        got, again = _fused_bwd_twice(bargs)
+        assert tuple(k.launches for k in counters) == (
+            n0[0] + 1, n0[1] + 2, *n0[2:])
+        for k, p in zip(got, dense_gat.dense_attr_bwd_emit_plain(*bargs)):
+            _close(k, p)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        src, dst, mask = args[5], args[6], args[7]
+        cross = (src // 128 != dst // 128) & (mask > 0)
+        for off in (mask == 0, cross):
+            assert float(got[4][off].abs().max()) == 0.0
+        return
+    wn, nf, meta, shards = _ep_case(cuda, rng, 128)
+    nf = nf.to(bf)
+    counters = (tcsr_gat.KERNEL_EP_BF16, tcsr_gat.KERNEL_EP_BWD_BF16,
+                tcsr_gat.KERNEL_EP, tcsr_gat.KERNEL_EP_BWD)
+    Ng = meta.n_tiles_grid * 128
+    for r, s, d, m, w_ea in shards:
+        args = (wn, nf, w_ea, s, d, m, meta, r)
+        n0 = tuple(k.launches for k in counters)
+        k = tcsr_gat.tcsr_gat_ep_fwd(*args)
+        torch.cuda.synchronize()
+        assert tuple(c.launches for c in counters) == (n0[0] + 1, *n0[1:])
+        p = tcsr_gat.tcsr_gat_ep_fwd_plain(*args)
+        _close(k[0], p[0])
+        _close_m(k[1], p[1])
+        _close(k[2], p[2])
+        assert all(torch.equal(a, b)
+                   for a, b in zip(k, tcsr_gat.tcsr_gat_ep_fwd(*args)))
+        mg = torch.where(p[1] <= -1e29, torch.zeros_like(p[1]), p[1])
+        dU = torch.from_numpy(rng.standard_normal((Ng, nf.shape[1])).astype(
+            np.float32)).to(cuda)
+        dV = torch.from_numpy(rng.standard_normal(tuple(mg.shape)).astype(
+            np.float32)).to(cuda)
+        kb = tcsr_gat.tcsr_gat_ep_bwd(*args, mg, dU, dV)
+        torch.cuda.synchronize()
+        for a, b in zip(kb, tcsr_gat.tcsr_gat_ep_bwd_plain(*args, mg, dU,
+                                                            dV)):
+            _close(a, b)
+        assert all(torch.equal(a, b) for a, b in zip(
+            kb, tcsr_gat.tcsr_gat_ep_bwd(*args, mg, dU, dV)))
+        assert torch.equal(kb[2][m == 0], torch.zeros_like(kb[2][m == 0]))
+        assert tuple(c.launches for c in counters)[2:] == n0[2:]
+
+
 def test_bf16_passes_match_cpu(cuda):
     """The TCSR pass with bf16 node features and edge attributes, forward
     and backward through TcsrGatFn on the card (the bf16 entries) and on
@@ -1401,7 +1471,7 @@ def test_bf16_passes_match_cpu(cuda):
 def test_bf16_entries_refuse_what_they_do_not_take(cuda):
     """The bf16 entries read a lane's four columns as one 8-byte load: an
     nf not 8-byte aligned is refused, as is an nf of another type (f16);
-    the f32-only K3 and dense-attr wrappers refuse bf16."""
+    the K7 and K3 wrappers refuse a misaligned bf16 nf too."""
     N, H, D, tn = 128, 4, 32, 128
     z = lambda *shape: torch.zeros(shape, device=cuda)
     bf = torch.bfloat16
@@ -1425,7 +1495,18 @@ def test_bf16_entries_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="dtype"):
         tcsr_gat.tcsr_gat_fwd(z(Nc, 8), z(Nc, 128).half(), z(E, 4), *ints,
                               meta, False)
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        dense_gat.dense_attr_fwd(z(1, tn, tn), z(N, H), z(N, H),
-                                 z(N, H * D).to(bf), z(E, H), *ints, meta,
-                                 False)
+    rng = np.random.default_rng(9)
+    args = list(_attr_case(cuda, rng, tn, False))
+    Na, HDa = args[3].shape
+    for bad, match in (
+            (torch.zeros(Na * HDa + 2, device=cuda, dtype=bf)[2:].view(
+                Na, HDa), "8-byte aligned"),
+            (args[3].half(), "dtype")):
+        with pytest.raises(ValueError, match=match):
+            dense_gat.dense_attr_fwd(*args[:3], bad, *args[4:])
+    wn, nf32, ep_meta, shards = _ep_case(cuda, rng, tn)
+    r, s_, d_, m_, w_ea = shards[0]
+    Ne, HDe = nf32.shape
+    bad = torch.zeros(Ne * HDe + 2, device=cuda, dtype=bf)[2:].view(Ne, HDe)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        tcsr_gat.tcsr_gat_ep_fwd(wn, bad, w_ea, s_, d_, m_, ep_meta, r)

@@ -314,14 +314,11 @@ def test_run_finetune_refuses_what_it_does_not_run(tmp_path):
                       torch.empty((8,), device="meta"),
                       torch.empty((4, 20), device="meta"), num_nodes=8,
                       tm=None, dp=None, mode="tcsr", ep=EPContext(0, 2))
-    # bf16 runs on one device under the default policy; its dense-attr and
-    # dp / ep forms are slice 16's and raise (tests/test_torch_bf16.py)
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        run_finetune(_small_opt(tmp_path, dtype="bf16",
-                                kernel={"attr": True}), device="cpu")
+    # bf16 runs under every policy and dist.mode (tests/test_torch_bf16.py);
+    # its segment EP path is refused as in f32
     bf16_ep = _small_opt(tmp_path, dtype="bf16")
-    bf16_ep.set_path("dist", {"mode": "ep", "n_devices": 2})
-    with pytest.raises(NotImplementedError, match="slice 16"):
+    bf16_ep.set_path("dist", {"mode": "ep", "n_devices": 2, "tcsr": False})
+    with pytest.raises(NotImplementedError, match="dist.tcsr=false"):
         run_finetune(bf16_ep, device="cpu")
     with pytest.raises(ValueError, match="bond='attr' is refused"):
         run_finetune(_small_opt(tmp_path, kernel={"bond": "attr"}),
