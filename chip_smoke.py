@@ -133,20 +133,30 @@ Phases:
      rank the losses and test RMSE are finite and equal to the other's,
      and the launches equal the count derived from its loaders (ep_expect:
      K3's forward 4 × layers per forward, its backward 3 × layers + 1 per
-     train step, nothing else);
+     train step, nothing else); then, run in phase 22's ranks, the segment
+     EP mode (ops/segment.py:gat_attention_pass with ``ep``, torch ops and
+     all-reduces: the JAX package runs it in XLA, no Pallas kernel) for one
+     epoch with dist.tcsr=false, and with tiles whose K3 pins fail (rank 0
+     must print the JAX package's "ep fused kernel off: ..." and train):
+     losses finite and equal across the ranks, no kernel launched;
  22. one EP train step on 2 ranks (carried weights, dropout off) against
      the single-device card step on the same batch (TCSR metadata, K1/K2):
      loss, prediction, the four attention vectors and every averaged
      gradient within 1e-3 of each scale; each rank's step wall time,
      device busy time, K3 device time and the collectives' host time
-     beside phase 8's single-device step;
+     beside phase 8's single-device step; the same for the segment mode's
+     step on the batch without tile metadata, whose K3 launches must be 0
+     (the fused step's > 0, neither launching any other kernel);
  23. the data-parallel finetune path: dist.mode=dp over 2 ranks (gloo) for
-     3 epochs, as phase 21, each rank's K1, K2, K4, K5 launches derived
+     3 epochs, each rank run as run_finetune's launcher runs it, in the
+     same start of the ranks as the DP step (one spawn fewer), as
+     phase 21, each rank's K1, K2, K4, K5 launches derived
      from its micro-batches (dp_expect); one DP step's averaged gradients
      against the mean of the two micro-batches' single-device card
      gradients, within 1e-3;
  24. both modes for one epoch as one rank over NCCL (the backend checked),
-     launch counts derived as in phases 21 and 23;
+     launch counts derived as in phases 21 and 23, and the segment EP mode
+     (no launch);
  25. interpretability: FragNetInterpreter.interpret(s, with_contributions=
      True) of the esol model with phase 7's ft.ckpt, under the default and
      the dense-attr policy, for aspirin, benzene (one fragment, an unpaired
@@ -247,6 +257,15 @@ Phases:
      finite, the test RMSE beside its f32 twin's (same data and seed, no
      claim); (d) a timed bf16 train step (wall, busy, peak memory) beside
      phase 8's f32 step.
+ 31. bf16 on the rest of the bf16 paths (bf16_rest_phase): the dense-attr
+     policy, DP, EP, geometric and auxiliary pretraining in bf16;
+ 32. the compact packing encodings (compact_phase): bytes per batch, host
+     pack ms, device decode wall and busy, default vs compact, at the esol
+     batch 16 and the pretraining batch 64, every decoded field equal bit
+     for bit between the two layouts on the card; one epoch of packed
+     pretraining from each layout, launches exact (K6 once per train step
+     per plane level, K1 / K2 / K4 / K5 as derived), walls and busy side
+     by side.
 
 Prints a ``{"kernels": [...]}`` JSON line (launches from the pretraining
 path of phase 11 for K1-K6, of phase 19 for K7-K9 (K9's: K8's, whose
@@ -255,7 +274,7 @@ rank's for phases 21, 23 and 24, the interpret path's of phase 25 under
 each policy, each phase-26 model's, phase-27 task's and phase-28 model's
 training path, phase 29's HP trials, CV, bucketed and auxiliary runs, and
 phase 30's bf16 training path, whose launches the bf16 entries' lines
-carry — beside them), and as the last line ``{"ok": true, "device": {...}}``. Exits
+carry, and phase 32's compact pretraining epoch — beside them), and as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero on any failure, without a CUDA device, or when run outside a
 checkout of the repository.
 """
@@ -484,28 +503,33 @@ def _median_ms(fn, n: int = 50, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, n: int = 50, tries: int = 3) -> float:
+def _device_ms(fn, n: int = 50, tries: int = 5) -> float:
     """Device time per call: the summed time of the CUDA activity that
     torch.profiler (CUPTI) records over ``n`` calls, divided by ``n``; it
     leaves out the host's dispatch time that the event timing includes.
     Every timed callable launches device work, so a profile with no device
-    time (CUPTI now and then delivers none) is taken again, and after
-    ``tries`` such profiles this raises rather than report 0."""
+    time (CUPTI now and then delivers none) is taken again — from the
+    second try on with the CPU activity too, its device-side rows summed as
+    ``_busy`` sums them — and after ``tries`` such profiles this raises
+    rather than report 0."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for i in range(tries):
+        acts = [ProfilerActivity.CUDA] if i == 0 else [
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(getattr(e, "self_device_time_total", 0.0)
-                       for e in prof.key_averages())
-        if total_us > 0:
-            return total_us / 1e3 / n
+        total_ms = (_busy(prof)[0] if i else sum(
+            getattr(e, "self_device_time_total", 0.0)
+            for e in prof.key_averages()) / 1e3)
+        if total_ms > 0:
+            return total_ms / n
     raise AssertionError(f"the profiler recorded no device time in {tries} "
                          f"profiles of {n} calls")
 
@@ -2379,6 +2403,21 @@ def bf16_dist_opt(mode: str, n_ranks: int):
     return opt
 
 
+def segment_ep_opts(n_ranks: int):
+    """The segment EP mode's two run_finetune configs, one epoch each, in
+    their own exp_dirs: dist.tcsr=false, and the K3 mode with tiles whose
+    pins fail (tn 24 does not divide the node counts, multiples of
+    max(tn, te)·S = 512), which falls back to the segment mode."""
+    segopt = dist_opt("ep", n_ranks, 1)
+    segopt.set_path("dist.tcsr", False)
+    pinopt = dist_opt("ep", n_ranks, 1)
+    pinopt.set_path("dist.tile_tn", 24)
+    for opt, name in ((segopt, "segment"), (pinopt, "pins_fail")):
+        opt.set_path("exp_dir", os.path.join(
+            REPO, "exps", f"chip_smoke_ep{n_ranks}_{name}"))
+    return segopt, pinopt
+
+
 def dist_ranks(calls):
     """``calls`` [(fn, args)] in one start of EP_SHARDS ranks on the card
     (dist/checks.py:timed_calls_rank): for each call, ([each rank's
@@ -2419,21 +2458,32 @@ def ep_dp_phases(dev, datasets, spec, train_np, step_default, rng):
 
     # ---- 20 + 22. one EP train step on 2 ranks (layer 0's K3 inputs) ------
     # the same ranks then run phase 31 (e)'s bf16 EP step and bf16 EP
-    # finetune path (a new start of the ranks costs seconds)
+    # finetune path, and the segment mode's step and finetune paths
+    # (dist.tcsr=false; tiles whose K3 pins fail) — a new start of the
+    # ranks costs seconds
     t0 = time.perf_counter()
     eopt16 = bf16_dist_opt("ep", S)
-    (res, _), (res16, step16_s), (ep16, run16_s) = dist_ranks([
+    segopt, pinopt = segment_ep_opts(S)
+    ((res, _), (res16, step16_s), (ep16, run16_s), (seg, seg_step_s),
+     (seg_run, seg_run_s), (pin_run, pin_run_s)) = dist_ranks([
         (checks.ep_card_step_rank, (kw, sd, ep_np)),
         (checks.ep_card_step_rank, (dict(kw, dtype=torch.bfloat16), sd,
                                     ep_np)),
-        (_finetune_rank, (eopt16.to_dict(), True, datasets, "cuda"))])
+        (_finetune_rank, (eopt16.to_dict(), True, datasets, "cuda")),
+        (checks.ep_card_step_rank, (kw, sd, plain_np, False)),
+        (checks.ep_finetune_rank, (segopt.to_dict(), datasets, "cuda")),
+        (checks.ep_finetune_rank, (pinopt.to_dict(), datasets, "cuda"))])
     step_s = time.perf_counter() - t0
+    seg_s = seg_step_s + seg_run_s + pin_run_s
     bf16 = {"ep_steps": res16, "ep_run": (eopt16, ep16),
             "ep_s": step16_s + run16_s}
     print(f"phase 22's EP step on {S} ranks (spawn included), which captures "
-          f"phase 20's inputs: {step_s - bf16['ep_s']:.1f} s (and phase 31 "
-          f"(e)'s bf16 EP step {step16_s:.1f} s and bf16 EP finetune path "
-          f"{run16_s:.1f} s in the same ranks)")
+          f"phase 20's inputs: {step_s - bf16['ep_s'] - seg_s:.1f} s (and "
+          f"phase 31 (e)'s bf16 EP step {step16_s:.1f} s and bf16 EP "
+          f"finetune path {run16_s:.1f} s, the segment mode's step "
+          f"{seg_step_s:.1f} s and finetune paths {seg_run_s:.1f} s "
+          f"(dist.tcsr=false) and {pin_run_s:.1f} s (failed pins) in the "
+          f"same ranks)")
     t0 = time.perf_counter()
     report = check_kernels(EP_KERNELS, ep_kernel_calls(
         [r["calls"] for r in res], rng), rng, check_scales=check_ep_scales)
@@ -2448,6 +2498,21 @@ def ep_dp_phases(dev, datasets, spec, train_np, step_default, rng):
           f"bond/bond-graph edge slots")
     runs["finetune_ep"] = drive_dist(eopt, datasets, [expect] * S,
                                      "EP finetune", "gloo")
+    # the segment mode (run in phase 22's ranks): no kernel launches
+    none = {n: 0 for n in KERNELS}
+    for key, opt_, reports, reason in (
+            ("finetune_ep_segment", segopt, seg_run, "dist.tcsr=false"),
+            ("finetune_ep_pins_fail", pinopt, pin_run,
+             "EP tile-meta probe failed")):
+        label = f"EP segment finetune ({reason})"
+        runs[key] = check_rank_reports(opt_, reports, [none] * S, label)
+        printed = reports[0]["printed"]
+        if f"ep fused kernel off: {reason}" not in printed \
+                or "ep fused kernel active" in printed \
+                or not reports[0]["finite"]:
+            raise AssertionError(f"{label}: rank 0 printed {printed!r}")
+        print(f"{label}: rank 0 printed "
+              f"{[ln for ln in printed.splitlines() if 'ep fused' in ln]}")
     print(f"phase 21: {time.perf_counter() - t0:.1f} s")
 
     # ---- 22. EP gradients vs the single-device card step -------------------
@@ -2471,52 +2536,70 @@ def ep_dp_phases(dev, datasets, spec, train_np, step_default, rng):
     loss = float(loss_t.detach())
     grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
              for n, p in model.named_parameters()}
-    worst, worst_name = 0.0, ""
-    for r in res:
-        pairs = [("pred", r["pred"], pred.detach().cpu())] + [
-            (f"attn {k}", r["attn"][k], getattr(attn, k).cpu())
-            for k in r["attn"]] + [
-            (n, torch.zeros_like(g) if r["grads"][n] is None
-             else r["grads"][n], g) for n, g in grads.items()]
-        for name, got, want in pairs:
-            rel = float((got - want).abs().max()) / max(
-                float(want.abs().max()), 1e-30)
-            if rel > worst:
-                worst, worst_name = rel, name
-        if abs(r["loss"] - loss) > GRAD_REL_LIMIT * loss:
-            raise AssertionError(f"EP loss {r['loss']} vs {loss}")
-    print(f"EP step vs single-device card step (same batch and weights, "
-          f"dropout off): loss {res[0]['loss']:.6f} / {loss:.6f}; "
-          f"worst relative diff {worst:.3e} ({worst_name}) over the "
-          f"prediction, 4 attention vectors and {len(grads)} gradients "
-          f"(limit {GRAD_REL_LIMIT})")
-    if worst > GRAD_REL_LIMIT:
-        raise AssertionError("EP and single-device gradients disagree")
-    for r in res:
-        print(f"EP train step rank (2 ranks, gloo, one card): wall "
-              f"{r['wall_ms']:.2f} ms (median of 5), device busy "
-              f"{r['busy_ms']:.3f} ms, K3 device {r['k3_device_ms']:.3f} ms, "
-              f"collectives (host) {r['collectives_ms']:.2f} ms; "
-              f"single-device step (phase 8): wall "
-              f"{step_default['wall']:.2f} ms, device busy "
-              f"{step_default['busy']:.3f} ms")
+    k3 = [_counter(n)[1].symbol for n in EP_KERNELS]
+    for mode, steps in (("fused (K3)", res), ("segment", seg)):
+        worst, worst_name = 0.0, ""
+        for r in steps:
+            pairs = [("pred", r["pred"], pred.detach().cpu())] + [
+                (f"attn {k}", r["attn"][k], getattr(attn, k).cpu())
+                for k in r["attn"]] + [
+                (n, torch.zeros_like(g) if r["grads"][n] is None
+                 else r["grads"][n], g) for n, g in grads.items()]
+            for name, got, want in pairs:
+                rel = float((got - want).abs().max()) / max(
+                    float(want.abs().max()), 1e-30)
+                if rel > worst:
+                    worst, worst_name = rel, name
+            if abs(r["loss"] - loss) > GRAD_REL_LIMIT * loss:
+                raise AssertionError(f"EP {mode} loss {r['loss']} vs {loss}")
+            n_k3 = sum(r["launches"].get(sym, 0) for sym in k3)
+            others = sum(c for sym, c in r["launches"].items()
+                         if sym not in k3)
+            if (n_k3 == 0) == (steps is res) or others:
+                raise AssertionError(f"EP {mode} step launched {n_k3} K3 and "
+                                     f"{others} other kernels")
+        print(f"EP {mode} step vs single-device card step (same batch and "
+              f"weights, dropout off): loss {steps[0]['loss']:.6f} / "
+              f"{loss:.6f}; worst relative diff {worst:.3e} ({worst_name}) "
+              f"over the prediction, 4 attention vectors and {len(grads)} "
+              f"gradients (limit {GRAD_REL_LIMIT}); K3 launches "
+              f"{sum(steps[0]['launches'].get(sym, 0) for sym in k3)}")
+        if worst > GRAD_REL_LIMIT:
+            raise AssertionError(f"EP {mode} and single-device gradients "
+                                 f"disagree")
+        for r in steps:
+            print(f"EP {mode} train step rank (2 ranks, gloo, one card): "
+                  f"wall {r['wall_ms']:.2f} ms (median of 5), device busy "
+                  f"{r['busy_ms']:.3f} ms, K3 device "
+                  f"{r['k3_device_ms']:.3f} ms, collectives (host) "
+                  f"{r['collectives_ms']:.2f} ms; single-device step "
+                  f"(phase 8): wall {step_default['wall']:.2f} ms, device "
+                  f"busy {step_default['busy']:.3f} ms")
     bf16.update(ep_ref=ref_np, ep_steps32=res)
     print(f"phase 22: {step_s - bf16['ep_s'] + time.perf_counter() - t0:.1f}"
-          f" s")
+          f" s (the segment mode's runs included)")
 
     # ---- 23. the DP finetune path, 2 ranks over gloo, and its gradients ----
     t0 = time.perf_counter()
     dopt = dist_opt("dp", S, int(topt.finetune.n_epochs))
     expects, steps = dp_expect(dopt, datasets, spec, S)
     print(f"DP finetune path: {S} ranks, {steps} train steps")
-    runs["finetune_dp"] = drive_dist(dopt, datasets, expects, "DP finetune",
-                                     "gloo")
     kw0 = dict(kw, drop_ratio=0.0)
-    # the same ranks then run phase 31 (e)'s bf16 DP finetune path
+    # one start of the ranks runs the DP finetune path (each rank as the
+    # launcher runs it, train/finetune.py:_finetune_rank; phase 24 drives
+    # run_finetune's own launch), the DP step and phase 31 (e)'s bf16 DP
+    # finetune path
     dopt16 = bf16_dist_opt("dp", S)
-    (dres, _), (dp16, dp16_s) = dist_ranks([
+    (dp_run, dp_run_s), (dres, _), (dp16, dp16_s) = dist_ranks([
+        (_finetune_rank, (dopt.to_dict(), True, datasets, "cuda")),
         (checks.dp_step_rank, (kw0, sd, train_g, spec, bs, 1e-4, "cuda")),
         (_finetune_rank, (dopt16.to_dict(), True, datasets, "cuda"))])
+    runs["finetune_dp"] = check_rank_reports(dopt, dp_run, expects,
+                                             "DP finetune")
+    if [r["backend"] for r in dp_run] != ["gloo"] * S:
+        raise AssertionError("DP finetune: not every rank ran over gloo")
+    print(f"DP finetune: {S} ranks over gloo, run {dp_run_s:.2f} s in the "
+          f"ranks")
     bf16.update(dp_run=(dopt16, dp16), dp_s=dp16_s)
     win = DPBatchLoader(train_g, bs, S, spec).windows()[0]
     mean = {}
@@ -2553,6 +2636,13 @@ def ep_dp_phases(dev, datasets, spec, train_np, step_default, rng):
     runs["finetune_ep_nccl"] = drive_dist(e1, datasets,
                                           [ep_expect(e1, datasets, 1)[0]],
                                           "EP finetune, 1 rank", "nccl")
+    e1seg = dist_opt("ep", 1, 1)
+    e1seg.set_path("dist.tcsr", False)
+    e1seg.set_path("exp_dir", os.path.join(REPO, "exps",
+                                           "chip_smoke_ep1_segment"))
+    runs["finetune_ep_segment_nccl"] = drive_dist(
+        e1seg, datasets, [{n: 0 for n in KERNELS}],
+        "EP segment finetune, 1 rank", "nccl")
     d1 = dist_opt("dp", 1, 1)
     runs["finetune_dp_nccl"] = drive_dist(
         d1, datasets, dp_expect(d1, datasets, spec, 1)[0],
@@ -4704,6 +4794,180 @@ def bf16_rest_phase(dev, datasets, spec, windows, batch_np, train_np,
     return report, paths, {"attr": launches_attr, "ep": ep_launches[0]}
 
 
+def _same_bits(a, b) -> bool:
+    """Whether two decoded fields (tensors, TileMeta or None) hold the same
+    bits: floats compared as their integer patterns."""
+    import dataclasses
+
+    import torch
+
+    if a is None or b is None:
+        return a is None and b is None
+    if not isinstance(a, torch.Tensor):
+        return all(_same_bits(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a)
+                   if isinstance(getattr(a, f.name), torch.Tensor)) and all(
+            getattr(a, f.name) == getattr(b, f.name)
+            for f in dataclasses.fields(a)
+            if not isinstance(getattr(a, f.name), torch.Tensor))
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        bits = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        a, b = a.contiguous().view(bits), b.contiguous().view(bits)
+    return bool(torch.equal(a, b))
+
+
+def compact_phase(dev, datasets, spec, pgraphs):
+    """Phase 32: the compact packing encodings (``BatchLoader(pack_compact=
+    True)``, data/packing.py). (a) At the esol batch 16 (the finetune spec)
+    and the pretraining batch 64 (run_pretrain's spec, with targets), for
+    the default and the compact layout: bytes per batch, host pack ms per
+    batch (pack_batch alone, over one epoch's padded batches), the device
+    decode's wall (median of 20, to a synchronize) and device busy time
+    (profiler, one decode, K6's planes of the policy's levels included),
+    and every decoded field of every batch of the epoch equal bit for bit
+    between the two layouts on the card (the TileMeta parts with compact's
+    derived flat_slot, the K6 planes, ea_bonds). (b) One epoch of packed
+    geometric pretraining at batch 64 from the device packed cache, default
+    then compact layout, each from the same seeded model: the wall (to a
+    synchronize) and, over a second pass, the device busy time; the launch
+    counts of the first pass exact (pretrain_expect: K6 once per train step
+    per dp_specs level the policy reads, K1 / K2 / K4 / K5 as derived), the
+    losses finite and within 1e-3 of the default's. Returns {path:
+    launches}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fragnet_tpu_torch.data import packing
+    from fragnet_tpu_torch.data.batcher import (BatchLoader,
+                                                DevicePackedCacheLoader)
+    from fragnet_tpu_torch.graphs.hiergraph import pad_batch, spec_for
+    from fragnet_tpu_torch.train.fastpath import resolve_kernel_policy
+    from fragnet_tpu_torch.train.optim import make_optimizer
+    from fragnet_tpu_torch.train.pretrain import (PretrainTrainer,
+                                                  build_pretrain_model,
+                                                  split_graphs)
+
+    popt = pt_opt(PT_OVERRIDES)
+    seed, pbs = int(popt.seed), int(popt.pretrain.batch_size)
+    train_pg, _ = split_graphs(pgraphs, seed)
+    pspec = spec_for(pgraphs, batch_size=pbs, tcsr=True)
+    policy = resolve_kernel_policy(popt.pretrain)
+    planes = packing.plane_levels(policy)
+    fbs = int(smoke_opt().finetune.batch_size)
+
+    # ---- (a) bytes, host pack, device decode, equality ---------------------
+    cases = {f"esol batch {fbs}": (datasets[0], fbs, spec, False),
+             f"pretraining batch {pbs}": (train_pg, pbs, pspec, True)}
+    for label, (graphs, bs, sp, targets) in cases.items():
+        hosts = [pad_batch(w, sp, with_targets=targets, build_dense=False,
+                           strict_tcsr=sp.tcsr)
+                 for w in BatchLoader(graphs, bs, spec=sp)._windows()]
+        decoded, stats = [], {}
+        for compact in (False, True):
+            loader = BatchLoader(graphs, bs, spec=sp, with_targets=targets,
+                                 pack=True, pack_compact=compact)
+            next(iter(loader))
+            lay = loader.layout
+            t0 = time.perf_counter()
+            bufs = [packing.pack_batch(h, lay) for h in hosts]
+            pack_ms = (time.perf_counter() - t0) * 1e3 / len(hosts)
+            dbufs = [torch.from_numpy(b).to(dev) for b in bufs]
+            decoded.append([packing.unpack_batch(b, lay, planes)
+                            for b in dbufs])
+            walls = []
+            for _ in range(21):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                packing.unpack_batch(dbufs[0], lay, planes)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                packing.unpack_batch(dbufs[0], lay, planes)
+                torch.cuda.synchronize()
+            busy, rows = _busy(prof)
+            name = "compact" if compact else "default"
+            stats[name] = lay.total_bytes
+            encs = sorted({e.enc for e in lay.entries})
+            print(f"packed {label} [{name}]: {lay.total_bytes} bytes/batch "
+                  f"({len(lay.entries)} entries: {', '.join(encs)}), host "
+                  f"pack {pack_ms:.3f} ms/batch over {len(hosts)} batches, "
+                  f"device decode wall {statistics.median(walls[1:]):.3f} ms "
+                  f"(median of 20), busy {busy:.4f} ms in {len(rows)} "
+                  f"kernel kinds (planes {', '.join(planes)})")
+        for i, (a, b) in enumerate(zip(*decoded)):
+            bad = [f.name for f in dataclasses.fields(a)
+                   if not _same_bits(getattr(a, f.name), getattr(b, f.name))]
+            if bad:
+                raise AssertionError(f"{label} batch {i}: the compact decode "
+                                     f"differs from the default's at {bad}")
+        print(f"packed {label}: compact/default bytes "
+              f"{stats['compact'] / stats['default']:.4f}; every field of "
+              f"{len(hosts)} decoded batches equal bit for bit")
+
+    # ---- (b) one epoch of packed pretraining, default vs compact -----------
+    expect, n_train, _n_val, levels = pretrain_expect(popt, pgraphs, 1, 0)
+    losses = {}
+    for compact in (False, True):
+        name = "compact" if compact else "default"
+        model = build_pretrain_model(
+            popt, policy=policy,
+            generator=torch.Generator().manual_seed(seed)).to(dev)
+        optimizer, _ = make_optimizer(model.parameters(), "adam",
+                                      lr=float(popt.pretrain.lr))
+        loader = BatchLoader(train_pg, pbs, spec=pspec, shuffle=True,
+                             seed=seed, with_targets=True, pack=True,
+                             pack_compact=compact)
+        next(iter(loader))
+        loader._epoch = 0
+        cache = DevicePackedCacheLoader(loader, seed=seed + 7, device=dev)
+        trainer = PretrainTrainer(model, optimizer, layout=loader.layout,
+                                  device=dev)
+        torch.manual_seed(seed)  # the same dropout masks in both runs
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        step_losses = [trainer._step(b) for b in cache]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = _launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for b in cache:
+                trainer._step(b)
+            torch.cuda.synchronize()
+        busy, _rows = _busy(prof)
+        losses[name] = [float(x) for x in step_losses]
+        print(f"packed pretraining epoch [{name}] at batch {pbs}: "
+              f"{len(step_losses)} steps ({n_train} expected), wall "
+              f"{wall * 1e3:.2f} ms, device busy (second pass, profiled) "
+              f"{busy:.3f} ms, {loader.layout.total_bytes} bytes/batch; "
+              f"losses {[round(x, 6) for x in losses[name]]}; kernels: "
+              + " ".join(f"{n}={c} (expected {expect[n]})"
+                         for n, c in launched.items() if c or expect[n]))
+        if len(step_losses) != n_train \
+                or not np.isfinite(losses[name]).all():
+            raise AssertionError(f"packed pretraining [{name}]: "
+                                 f"{losses[name]}")
+        for n, c in launched.items():
+            if c != expect[n]:
+                raise AssertionError(f"{n} launched {c} times in the packed "
+                                     f"pretraining epoch [{name}], expected "
+                                     f"{expect[n]}")
+    diff = max(abs(a - b) / max(abs(a), 1e-30)
+               for a, b in zip(losses["default"], losses["compact"]))
+    print(f"compact vs default pretraining losses: worst relative diff "
+          f"{diff:.3e} (limit {GRAD_REL_LIMIT}); plane levels {levels}")
+    if diff > GRAD_REL_LIMIT:
+        raise AssertionError("compact and default pretraining disagree")
+    return {"pretrain_compact": launched}
+
+
 def smoke_weights(datasets):
     """(FragNetFineTune's arguments for the smoke's esol model, its seeded
     weights on the CPU)."""
@@ -5074,11 +5338,16 @@ def main() -> int:
                       for src in sorted({KERNELS[n].source.rsplit("/", 1)[1]
                                          for n in ATTR_BF16 + EP_BF16})))
 
+    # ---- 32. the compact packing encodings ---------------------------------
+    t_phase = time.perf_counter()
+    compact_paths = compact_phase(dev, datasets, spec, pgraphs)
+    print(f"phase 32: {time.perf_counter() - t_phase:.1f} s")
+
     paths = {"finetune_train": launches_t, "pretrain": launches_pt,
              "finetune_bf16_train": launches_16,
              "finetune_attr_train": launches_fa, "pretrain_attr": launches_pa,
              **interp_paths, **family_paths, **task_paths, **variant_paths,
-             **p29_paths, **rest_paths}
+             **p29_paths, **rest_paths, **compact_paths}
     for run, per_rank in dist_runs.items():
         for r, counts in enumerate(per_rank):
             paths[f"{run}_rank{r}"] = counts

@@ -40,6 +40,7 @@ class BatchLoader:
         drop_last: bool = False,
         on_oversize: str = "skip",
         pack: bool = False,
+        pack_compact: bool = False,
         compute_dtype=None,
     ):
         self.graphs = list(graphs)
@@ -59,8 +60,10 @@ class BatchLoader:
         # pack=True: emit single-buffer packed batches (data/packing.py),
         # padded without dense planes (unpack_batch rebuilds them on the
         # device); the layout is built from the first batch, its model-dtype
-        # floats in ``compute_dtype`` (bf16 or f32, the default)
+        # floats in ``compute_dtype`` (bf16 or f32, the default);
+        # pack_compact=True adds the compact encodings (packing.build_layout)
         self.pack = pack
+        self.pack_compact = pack_compact
         self.compute_dtype = compute_dtype
         self.layout = None
         self._epoch = 0
@@ -160,6 +163,7 @@ class BatchLoader:
                                            self.spec.tn_of(l[3:])))
                     self.layout = build_layout(
                         batch, self.compute_dtype or "float32",
+                        compact=self.pack_compact,
                         aligned=self.spec.align, dp_levels=dp_levels)
                 batch = pack_batch(batch, self.layout, validate=validate)
             yield batch
@@ -200,7 +204,7 @@ class BatchLoader:
             seed=self.seed, n_tasks=self.n_tasks,
             with_targets=self.with_targets, drop_last=self.drop_last,
             on_oversize=self.on_oversize, pack=True,
-            compute_dtype=self.compute_dtype)
+            pack_compact=self.pack_compact, compute_dtype=self.compute_dtype)
         host.layout = self.layout
         return host
 

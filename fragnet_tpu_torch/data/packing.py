@@ -26,18 +26,31 @@ copy (graphs/batch.py:PackedUploader) and decoded there:
     (ops/dense_gat.py:build_dense_planes_device); a level the policy does
     not read stays None.
 
-Differences from the JAX package, none of which changes a decoded value:
+``build_layout(compact=True)`` (``BatchLoader(pack_compact=True)``) adds
+the JAX package's compact encodings, ~3x fewer bytes than the default
+profile's, each chosen only where the template batch satisfies its
+assumption and re-checked when a batch is packed:
 
-  * every entry starts at a multiple of 16 bytes (and the buffer's length is
-    one), so each entry decodes as a ``view`` of the buffer in its dtype
-    with no copy; the buffers are therefore not byte-equal to the JAX
-    package's as a whole: the two layouts list the same entries (name,
-    encoding, shape, decoded dtype) in the same order, and each entry's
-    bytes are the JAX package's bytes of it (a bf16 entry rounds to nearest
-    even, as ml_dtypes does), only its offset differs;
-  * the ``compact`` encodings (sparse rows, bit-packing, run lengths,
-    molecule-local u8 ids), which no entry point uses, raise
-    NotImplementedError (ROADMAP.md Queue A6).
+  * x_atoms → sparse rows, (column u8, value i8) × k per row, decoded with
+    one scatter-add (the values are small integers: exact);
+  * the 0/1 one-hots → little-endian bit-packed rows;
+  * bg_dst → u8 in-degree run lengths (the builder emits the bond line
+    graph dst-sorted), decoded without reading the count back: each row's
+    run is the number of run ends at or before it (``searchsorted``);
+  * bg_src → u8 offsets from each molecule's first directed bond, that
+    base recomputed on the device from edge_src / atom_batch (a
+    scatter-min with a large initial value);
+  * TCSR ``flat_slot`` → not shipped, derived from ew_blk, dst and the
+    edge ids (its definition, ops/tcsr.py).
+
+Differences from the JAX package, none of which changes a decoded value:
+every entry starts at a multiple of 16 bytes (and the buffer's length is
+one), so each entry decodes as a ``view`` of the buffer in its dtype with
+no copy; the buffers are therefore not byte-equal to the JAX package's as
+a whole: the two layouts list the same entries (name, encoding, shape,
+decoded dtype, ``k``) in the same order, and each entry's bytes are the
+JAX package's bytes of it (a bf16 entry rounds to nearest even, as
+ml_dtypes does), only its offset differs.
 
 Host functions (``build_layout``, ``pack_batch``, ``dp_level_ok``) are numpy
 only: pack workers import this module without torch.
@@ -53,9 +66,13 @@ import numpy as np
 from fragnet_tpu_torch.graphs.hiergraph import HierGraphBatch
 
 # encodings
-I8, U16, I32, F32, BF16 = "i8", "u16", "i32", "f32", "bf16"
+I8, U8, U16, I32, F32, BF16 = "i8", "u8", "u16", "i32", "f32", "bf16"
+SPARSE8 = "sp8"      # sparse rows: (cols u8, vals i8) × k per row
 MASKC = "maskc"      # contiguous-prefix 0/1 mask → one i32 count
-_ITEM = {I8: 1, U16: 2, I32: 4, F32: 4, BF16: 2}
+BITS = "bits"        # 0/1 matrix → little-endian bitpacked rows
+RUNS8 = "runs8"      # sorted index array → u8 run lengths per segment
+LOC8 = "loc8"        # index array → u8 offsets from a derived per-mol base
+_ITEM = {I8: 1, U8: 1, U16: 2, I32: 4, F32: 4, BF16: 2}
 ALIGN = 16           # every entry's offset, and the buffer's length
 
 
@@ -66,6 +83,7 @@ class Entry:
     offset: int
     shape: Tuple[int, ...]
     out_dtype: str     # dtype of the decoded array
+    k: int = 0         # SPARSE8: max nonzeros/row; RUNS8: run-count rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,7 +107,7 @@ class PackLayout:
 
 _MASK_FIELDS = ("atom_mask", "edge_mask", "bg_mask", "frag_mask",
                 "fconn_mask", "fc_mask", "graph_mask")
-_ONE_HOT_FIELDS = ("nf_bonds", "cnx_attr", "nf_fbonds")
+_BITS_FIELDS = ("nf_bonds", "cnx_attr", "nf_fbonds")
 _I8_FIELDS = ("ea_fbonds", "protein")
 _IDX_FIELDS = {
     # field → capacity source (max exclusive value an index may take)
@@ -102,6 +120,10 @@ _IDX_FIELDS = {
 _F_FIELDS = ("ea_bonds", "gene_expr")          # model-dtype floats
 _F32_FIELDS = ("y", "bnd_lngth", "bnd_angl", "dh_angl")
 _TM_LEVELS = ("tm_atom", "tm_bond", "tm_frag", "tm_fc")
+_TM_DST = {"tm_atom": "edge_dst", "tm_bond": "bg_dst",
+           "tm_frag": "frag_dst", "tm_fc": "fc_dst"}
+_TM_MASK = {"tm_atom": "edge_mask", "tm_bond": "bg_mask",
+            "tm_frag": "fconn_mask", "tm_fc": "fc_mask"}
 
 
 def _caps(b: HierGraphBatch) -> dict:
@@ -115,6 +137,38 @@ def _caps(b: HierGraphBatch) -> dict:
 def _is_prefix_mask(mask: np.ndarray) -> bool:
     c = int(mask.sum())
     return bool(mask[:c].all()) and not mask[c:].any()
+
+
+def _bg_runs_ok(b: HierGraphBatch) -> bool:
+    """bg_dst must be sorted over the real prefix with in-degrees ≤ 255."""
+    c = int(np.asarray(b.bg_mask).sum())
+    d = np.asarray(b.bg_dst)[:c]
+    if c and (np.diff(d) < 0).any():
+        return False
+    indeg = np.bincount(d, minlength=b.edge_src.shape[0])
+    return indeg.max(initial=0) <= 255
+
+
+def _bond_base(edge_src: np.ndarray, atom_batch: np.ndarray,
+               n_graphs: int) -> np.ndarray:
+    """First directed-bond id of each molecule (host mirror of the device
+    derivation)."""
+    mol = atom_batch[edge_src]
+    base = np.full((n_graphs,), len(edge_src), np.int64)
+    np.minimum.at(base, mol, np.arange(len(edge_src)))
+    return base
+
+
+def _bg_loc8_ok(b: HierGraphBatch) -> bool:
+    caps = _caps(b)
+    base = _bond_base(np.asarray(b.edge_src), np.asarray(b.atom_batch),
+                      caps["n_graphs"])
+    mask = np.asarray(b.bg_mask) > 0
+    src = np.asarray(b.bg_src)
+    dst = np.asarray(b.bg_dst)
+    mol = np.asarray(b.atom_batch)[np.asarray(b.edge_src)[dst]]
+    loc = src - base[mol]
+    return bool((loc[mask] >= 0).all() and (loc[mask] <= 255).all())
 
 
 _ALIGNED_NODE_MASKS = ("atom_mask", "edge_mask", "frag_mask", "fconn_mask")
@@ -191,30 +245,45 @@ def build_layout(template: HierGraphBatch, compute_dtype="float32",
                  aligned: bool = False,
                  dp_levels: Tuple[str, ...] = ()) -> PackLayout:
     """Derive the static layout from one template batch (shapes come from the
-    PadSpec so every batch of the spec conforms; the value-level assumption
-    of the count-encoded masks is re-checked on every pack, and relaxed here
-    when the template already violates it). Encodings as in the JAX
-    package's default ("fast") profile, in its signature and entry order:
+    PadSpec so every batch of the spec conforms; value-level assumptions are
+    re-checked on every pack, and relaxed here when the template already
+    violates them). Signature and entry order as the JAX package's:
     ``compute_dtype`` (bf16, by a torch or JAX dtype or its name, or f32)
-    sets the model-dtype floats' encoding; ``sparse_k`` and
-    ``compact=True`` belong to the compact encodings, which are not
-    ported."""
-    if compact:
-        raise NotImplementedError(
-            "compact packing (sparse / bit / run-length / local-u8 "
-            "encodings) is not ported yet (ROADMAP.md Queue A6)")
+    sets the model-dtype floats' encoding. ``compact=False`` (the "fast"
+    profile): every encoding is a copy on the host and a view or cast on the
+    device. ``compact=True`` adds the sparse / bit / run-length /
+    molecule-local encodings (see the module docstring), ``sparse_k`` the
+    sparse rows' width (default: the template's widest row + 2)."""
+    if compact and template.x_atoms.shape[1] > 256:
+        raise ValueError("sparse x_atoms encoding needs feat dim <= 256")
     caps = _caps(template)
     entries = []
     off = 0
 
-    def add(name, enc, shape, out_dtype):
+    def add(name, enc, shape, out_dtype, k=0):
         nonlocal off
-        nbytes = 4 if enc == MASKC else int(np.prod(shape)) * _ITEM[enc]
+        if enc == SPARSE8:
+            nbytes = 2 * shape[0] * k
+        elif enc == MASKC:
+            nbytes = 4
+        elif enc == BITS:
+            nbytes = shape[0] * ((shape[1] + 7) // 8)
+        elif enc == RUNS8:
+            nbytes = k
+        elif enc == LOC8:
+            nbytes = shape[0]
+        else:
+            nbytes = int(np.prod(shape)) * _ITEM[enc]
         entries.append(Entry(name, enc, off, tuple(int(s) for s in shape),
-                             out_dtype))
+                             out_dtype, k))
         off = _align(off + nbytes)
 
-    add("x_atoms", I8, template.x_atoms.shape, "float32")
+    if compact:
+        x = np.asarray(template.x_atoms)
+        k = sparse_k or int((x != 0).sum(1).max()) + 2
+        add("x_atoms", SPARSE8, x.shape, "float32", k=k)
+    else:
+        add("x_atoms", I8, template.x_atoms.shape, "float32")
     for f in _MASK_FIELDS:
         arr = np.asarray(getattr(template, f))
         # tile-ALIGNED packing puts gaps mid-array on the four node axes, so
@@ -224,18 +293,28 @@ def build_layout(template: HierGraphBatch, compute_dtype="float32",
         maskc_ok = _is_prefix_mask(arr) and not (
             aligned and f in _ALIGNED_NODE_MASKS)
         add(f, MASKC if maskc_ok else I8, arr.shape, "float32")
-    for f in _ONE_HOT_FIELDS:
-        add(f, I8, np.asarray(getattr(template, f)).shape, "float32")
+    for f in _BITS_FIELDS:
+        arr = np.asarray(getattr(template, f))
+        ok = compact and np.isin(arr, (0.0, 1.0)).all()
+        add(f, BITS if ok else I8, arr.shape, "float32")
     for f in _I8_FIELDS:
         arr = getattr(template, f)
         if arr is not None:
             add(f, I8, np.asarray(arr).shape,
                 "int32" if f == "protein" else "float32")
 
+    # bond line graph: run-length dst + molecule-local src when valid
     E = caps["n_edges"]
-    for f in ("bg_dst", "bg_src"):
-        add(f, U16 if E <= 65535 else I32, np.asarray(getattr(template, f)).shape,
-            "int32")
+    idx = U16 if E <= 65535 else I32
+    shape = np.asarray(template.bg_dst).shape
+    if compact and _bg_runs_ok(template):
+        add("bg_dst", RUNS8, shape, "int32", k=E)
+    else:
+        add("bg_dst", idx, shape, "int32")
+    if compact and _bg_loc8_ok(template):
+        add("bg_src", LOC8, np.asarray(template.bg_src).shape, "int32")
+    else:
+        add("bg_src", idx, np.asarray(template.bg_src).shape, "int32")
     for f, cap in _IDX_FIELDS.items():
         enc = U16 if caps[cap] <= 65535 else I32
         add(f, enc, np.asarray(getattr(template, f)).shape, "int32")
@@ -260,7 +339,9 @@ def build_layout(template: HierGraphBatch, compute_dtype="float32",
         add(f"{lvl}.ew_blk", U16, (n_tiles,), "int32")
         add(f"{lvl}.sw_tile", U16, (n_tiles,), "int32")
         add(f"{lvl}.cw", U16, (n_tiles,), "int32")
-        add(f"{lvl}.flat_slot", I32, np.asarray(tm.flat_slot).shape, "int32")
+        if not compact:  # compact derives flat_slot from ew_blk + dst + ids
+            add(f"{lvl}.flat_slot", I32, np.asarray(tm.flat_slot).shape,
+                "int32")
 
     aliases = []
     if np.array_equal(np.asarray(template.edge_attr),
@@ -294,6 +375,26 @@ def build_layout(template: HierGraphBatch, compute_dtype="float32",
 # host-side pack
 # ---------------------------------------------------------------------------
 
+def _sparse_rows(x: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(A, D) → (cols (A,k) u8, vals (A,k) i8); unused slots are (0, 0)."""
+    A = x.shape[0]
+    r, c = np.nonzero(x)
+    counts = np.bincount(r, minlength=A)
+    if counts.max(initial=0) > k:
+        raise ValueError(f"x_atoms row has {counts.max()} nonzeros > k={k}")
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    pos = np.arange(len(r)) - np.repeat(starts, counts)
+    cols = np.zeros((A, k), np.uint8)
+    vals = np.zeros((A, k), np.int8)
+    v = x[r, c]
+    vi = v.astype(np.int8)
+    if not np.array_equal(vi.astype(x.dtype), v):
+        raise ValueError("x_atoms values are not int8-exact")
+    cols[r, pos] = c
+    vals[r, pos] = vi
+    return cols, vals
+
+
 def _check_int8(name: str, arr: np.ndarray) -> np.ndarray:
     b = arr.astype(np.int8)
     if not np.array_equal(b.astype(arr.dtype), arr):
@@ -306,8 +407,9 @@ def pack_batch(batch: HierGraphBatch, layout: PackLayout,
     """``validate=True`` runs full value-level checks (every lossy-if-wrong
     encoding is verified exactly). The loaders validate the FIRST batch of a
     spec; later batches come from the same builder invariants, so they skip
-    the O(bytes) checks (the mask-prefix check always runs)."""
+    the O(bytes) checks (the cheap range checks always run)."""
     buf = np.zeros((layout.total_bytes,), np.uint8)
+    caps = _caps(batch)
 
     def put(e: Entry, raw: np.ndarray):
         bts = raw.tobytes()
@@ -327,7 +429,11 @@ def pack_batch(batch: HierGraphBatch, layout: PackLayout,
             arr = np.asarray(getattr(tm, part))
         else:
             arr = np.asarray(getattr(batch, e.name))
-        if e.enc == MASKC:
+        if e.enc == SPARSE8:
+            cols, vals = _sparse_rows(arr, e.k)
+            put(e, np.concatenate([cols.reshape(-1),
+                                   vals.reshape(-1).view(np.uint8)]))
+        elif e.enc == MASKC:
             # always checked: a non-prefix mask encoded as a count silently
             # corrupts training; the check is O(n)
             if not _is_prefix_mask(arr):
@@ -337,9 +443,35 @@ def pack_batch(batch: HierGraphBatch, layout: PackLayout,
                     f"batch; rebuild the layout with aligned=True (or "
                     f"report this as a batcher invariant violation)")
             put(e, np.asarray([int(arr.sum())], np.int32))
+        elif e.enc == BITS:
+            b = arr.astype(np.uint8)
+            if validate and (
+                    not np.array_equal(b.astype(arr.dtype), arr)
+                    or b.max(initial=0) > 1):
+                raise ValueError(f"field {e.name} is not 0/1")
+            put(e, np.packbits(b, axis=1, bitorder="little"))
+        elif e.enc == RUNS8:
+            c = int(np.asarray(batch.bg_mask).sum())
+            indeg = np.bincount(arr[:c], minlength=e.k)
+            if indeg.max(initial=0) > 255 or (validate and not np.array_equal(
+                    np.repeat(np.arange(e.k), indeg), arr[:c])):
+                raise ValueError("bg_dst is not run-length-encodable")
+            put(e, indeg.astype(np.uint8))
+        elif e.enc == LOC8:
+            base = _bond_base(np.asarray(batch.edge_src),
+                              np.asarray(batch.atom_batch), caps["n_graphs"])
+            mol = np.asarray(batch.atom_batch)[
+                np.asarray(batch.edge_src)[np.asarray(batch.bg_dst)]]
+            loc = arr.astype(np.int64) - base[mol]
+            loc = np.where(np.asarray(batch.bg_mask) > 0, loc, 0)
+            if loc.min(initial=0) < 0 or loc.max(initial=0) > 255:
+                raise ValueError("bg_src not molecule-local-u8 encodable")
+            put(e, loc.astype(np.uint8))
         elif e.enc == I8:
             put(e, _check_int8(e.name, arr) if validate
                 else arr.astype(np.int8))
+        elif e.enc == U8:
+            put(e, arr.astype(np.uint8))
         elif e.enc == U16:
             if validate and (arr.min(initial=0) < 0
                              or arr.max(initial=0) > 65535):
@@ -361,7 +493,8 @@ def pack_batch(batch: HierGraphBatch, layout: PackLayout,
 def _decode(buf, e: Entry):
     """One entry of the uint8 tensor ``buf`` as a tensor of its decoded
     dtype: a view of the buffer where the encoded dtype is the decoded one
-    (i32, f32, bf16), else one cast."""
+    (i32, f32, bf16), else one cast. SPARSE8, RUNS8 and LOC8 entries decode
+    in ``unpack_batch``."""
     import torch
 
     n = int(np.prod(e.shape))
@@ -369,10 +502,77 @@ def _decode(buf, e: Entry):
     if e.enc == MASKC:
         cnt = buf[e.offset : e.offset + 4].view(torch.int32)
         return (torch.arange(e.shape[0], device=buf.device) < cnt).to(odt)
-    tdt = {I8: torch.int8, U16: torch.uint16, I32: torch.int32,
-           F32: torch.float32, BF16: torch.bfloat16}[e.enc]
+    if e.enc == BITS:
+        R, D = e.shape
+        nb = (D + 7) // 8
+        raw = buf[e.offset : e.offset + R * nb].reshape(R, nb)
+        shifts = torch.arange(8, dtype=torch.uint8, device=buf.device)
+        bits = (raw[:, :, None] >> shifts) & 1
+        return bits.reshape(R, nb * 8)[:, :D].to(odt)
+    tdt = {I8: torch.int8, U8: torch.uint8, U16: torch.uint16,
+           I32: torch.int32, F32: torch.float32, BF16: torch.bfloat16}[e.enc]
     raw = buf[e.offset : e.offset + n * _ITEM[e.enc]].view(tdt)
     return raw.reshape(e.shape).to(odt)
+
+
+def _decode_sparse(buf, e: Entry):
+    """SPARSE8 rows → the dense (A, D) f32 matrix: one scatter-add of the
+    int8 values into their u8 columns (unused slots add 0 to column 0; the
+    values are small integers, so the sum is exact in any order)."""
+    import torch
+
+    A, D = e.shape
+    k = e.k
+    cols = buf[e.offset : e.offset + A * k].reshape(A, k).long()
+    vals = buf[e.offset + A * k : e.offset + 2 * A * k].view(
+        torch.int8).reshape(A, k).float()
+    x = torch.zeros((A, D), dtype=torch.float32, device=buf.device)
+    return x.scatter_add_(1, cols, vals)
+
+
+def _decode_runs8(buf, e: Entry, bg_mask):
+    """bg_dst from its u8 in-degrees, without a read-back of their sum: row
+    i belongs to the run whose end is the first one past i (the number of
+    run ends at or before i), padding rows masked to 0 as in the JAX
+    package (whose ``jnp.repeat`` pads with the last value)."""
+    import torch
+
+    indeg = buf[e.offset : e.offset + e.k].long()
+    ends = torch.cumsum(indeg, 0)
+    rows = torch.arange(e.shape[0], device=buf.device)
+    rep = torch.searchsorted(ends, rows, right=True)
+    return torch.where(bg_mask > 0, rep, 0).to(torch.int32)
+
+
+def _decode_loc8(buf, e: Entry, fields):
+    """bg_src from its u8 molecule-local offsets: each molecule's first
+    directed bond is a scatter-min over the bonds' molecules (a large
+    initial value where a molecule has none, never read back), and a row's
+    source is its destination molecule's base plus its offset."""
+    import torch
+
+    loc = buf[e.offset : e.offset + e.shape[0]].long()
+    edge_src = fields["edge_src"].long()
+    E = edge_src.shape[0]
+    G = fields["y"].shape[0]
+    mol_of_bond = fields["atom_batch"].long()[edge_src]
+    base = torch.full((G,), E, dtype=torch.long, device=buf.device)
+    base = base.scatter_reduce(0, mol_of_bond,
+                               torch.arange(E, device=buf.device), "amin")
+    src = base[mol_of_bond[fields["bg_dst"].long()]] + loc
+    return torch.where(fields["bg_mask"] > 0, src, 0).to(torch.int32)
+
+
+def _derive_flat_slot(fields, lvl: str, parts, tn: int, te: int, nc: int):
+    """A level's TCSR ``flat_slot`` (its definition, ops/tcsr.py): each kept
+    edge's slot in its destination tile's window, 0 for a masked edge."""
+    import torch
+
+    dst = fields[_TM_DST[lvl]].long()
+    tile = dst // tn
+    eids = torch.arange(dst.shape[0], device=dst.device)
+    flat = tile * (nc * te) + (eids - parts["ew_blk"].long()[tile] * te)
+    return torch.where(fields[_TM_MASK[lvl]] > 0, flat, 0).to(torch.int32)
 
 
 def unpack_batch(buf, layout: PackLayout,
@@ -380,12 +580,13 @@ def unpack_batch(buf, layout: PackLayout,
                  ) -> HierGraphBatch:
     """Decode a packed uint8 tensor into a ``HierGraphBatch`` of tensors on
     the buffer's device (the torch counterpart of the JAX unpack_batch,
-    packing.py:504-588). Each field comes back in its entry's decoded dtype:
-    a bf16 layout's ea_bonds and gene_expr in bf16, as the JAX package's
-    do. Dense planes are rebuilt for the ``layout.dp_specs`` levels named in
-    ``planes`` — pass ``plane_levels(policy)``, the levels the model's
-    kernel policy reads — with the device plane builder (on CUDA the K6
-    kernel, on the CPU its plain version), from the widened attributes."""
+    packing.py:504-588), with no read-back to the host in either profile.
+    Each field comes back in its entry's decoded dtype: a bf16 layout's
+    ea_bonds and gene_expr in bf16, as the JAX package's do. Dense planes
+    are rebuilt for the ``layout.dp_specs`` levels named in ``planes`` —
+    pass ``plane_levels(policy)``, the levels the model's kernel policy
+    reads — with the device plane builder (on CUDA the K6 kernel, on the
+    CPU its plain version), from the widened attributes."""
     import torch
 
     from fragnet_tpu_torch.ops.tcsr import TileMeta
@@ -396,12 +597,23 @@ def unpack_batch(buf, layout: PackLayout,
                          f"({layout.total_bytes},)")
     fields: dict = {f.name: None for f in dataclasses.fields(HierGraphBatch)}
     tm_parts: dict = {}
+    deferred = []
     for e in layout.entries:
         if "." in e.name:
             lvl, part = e.name.split(".")
             tm_parts.setdefault(lvl, {})[part] = _decode(buf, e)
+        elif e.enc == SPARSE8:
+            fields[e.name] = _decode_sparse(buf, e)
+        elif e.enc in (RUNS8, LOC8):
+            deferred.append(e)  # need masks / other index fields first
         else:
             fields[e.name] = _decode(buf, e)
+    # LOC8 bg_src reads bg_dst, so RUNS8 decodes first
+    for e in sorted(deferred, key=lambda e: e.enc != RUNS8):
+        if e.enc == RUNS8:
+            fields["bg_dst"] = _decode_runs8(buf, e, fields["bg_mask"])
+        else:
+            fields["bg_src"] = _decode_loc8(buf, e, fields)
 
     for dst_f, src_f in layout.aliases:
         fields[dst_f] = fields[src_f]
@@ -413,8 +625,11 @@ def unpack_batch(buf, layout: PackLayout,
 
     for lvl, (tn, te, nc, kk) in layout.tm_static:
         parts = tm_parts[lvl]
+        flat = parts.get("flat_slot")
+        if flat is None:
+            flat = _derive_flat_slot(fields, lvl, parts, tn, te, nc)
         fields[lvl] = TileMeta(ew_blk=parts["ew_blk"], sw_tile=parts["sw_tile"],
-                               flat_slot=parts["flat_slot"], cw=parts["cw"],
+                               flat_slot=flat, cw=parts["cw"],
                                tn=tn, te=te, n_chunks=nc, k_src=kk)
 
     return add_planes(HierGraphBatch(**fields), layout, planes)

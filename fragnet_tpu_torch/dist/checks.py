@@ -1,7 +1,7 @@
 """Rank functions that hold the distributed paths against the
 single-device ones: each runs inside a process group (dist/launch.py:
 run_ranks) and returns what the caller compares — tests/test_torch_ep.py,
-tests/test_torch_dist.py and chip_smoke.py phases 20-23. They live in the
+tests/test_torch_dist.py and chip_smoke.py phases 20-24. They live in the
 package so that a spawned rank imports torch and this package only.
 
 Every gradient returned is averaged over the ranks
@@ -66,6 +66,47 @@ def ep_pass_rank(nf, ea, src, dst, mask, avec, meta, g_out,
             "d_ea": _cpu(ea.grad), "d_avec": _cpu(avec.grad)}
 
 
+def ep_segment_pass_rank(nf, ea, src, dst, mask, avec, g_out, data,
+                         seg_ids, n_seg: int, seg_mask) -> Dict:
+    """The segment edge-partitioned pass (dist/edge_partition.py:
+    edge_partitioned_gat_pass) over every shard's arrays ((S, Es, ...), as
+    shard_edges lays them out), this rank computing on its own: (out, and
+    the averaged gradients of Σ out·g_out w.r.t. nf, ea and avec), and
+    ``edge_partitioned_segment_sum`` of (data, seg_ids, seg_mask)."""
+    from fragnet_tpu_torch.dist.data_parallel import average_gradients
+    from fragnet_tpu_torch.dist.edge_partition import (
+        EPContext, edge_partitioned_gat_pass, edge_partitioned_segment_sum)
+
+    ctx = EPContext(dist.get_rank(), dist.get_world_size())
+    nf, ea, avec = (t.clone().requires_grad_() for t in (nf, ea, avec))
+    out = edge_partitioned_gat_pass(ctx, nf, ea, src, dst, mask, avec)
+    (out * g_out).sum().backward()
+    average_gradients([nf, ea, avec])
+    return {"out": _cpu(out), "d_nf": _cpu(nf.grad), "d_ea": _cpu(ea.grad),
+            "d_avec": _cpu(avec.grad),
+            "segment_sum": _cpu(edge_partitioned_segment_sum(
+                ctx, data, seg_ids, n_seg, mask=seg_mask))}
+
+
+def ep_finetune_rank(opt_dict, datasets, device: str = "cpu") -> Dict:
+    """``run_finetune`` as this rank of the running group (the launcher's
+    rank report, train/finetune.py:_finetune_rank, without the state
+    dict), with what it printed and whether every parameter of the trained
+    model (rank 0's) is finite."""
+    import contextlib
+    import io
+
+    from fragnet_tpu_torch.train.finetune import _finetune_rank
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        report = _finetune_rank(opt_dict, False, datasets, device)
+    sd = report.pop("state_dict")
+    params = list(sd.values()) if sd is not None else []
+    return dict(report, printed=text.getvalue(),
+                finite=all(bool(torch.isfinite(p).all()) for p in params))
+
+
 def _ep_model(model_kw, state_dict, dev):
     from fragnet_tpu_torch.dist.edge_partition import EPContext
     from fragnet_tpu_torch.model.finetune import FragNetFineTune
@@ -77,11 +118,13 @@ def _ep_model(model_kw, state_dict, dev):
 
 
 def ep_model_rank(model_kw, state_dict, batch, lr: float,
-                  device: str = "cpu") -> Dict:
+                  device: str = "cpu", hooks=None) -> Dict:
     """The edge-partitioned FragNetFineTune (carried weights, eval mode:
-    dropout off) on ``batch`` (numpy, with every shard's EPTileMeta): its
-    predictions and last-layer attentions, the MSE and every parameter's
-    averaged gradient, then the parameters after one SGD step of ``lr``."""
+    dropout off) on ``batch`` (numpy: with every shard's EPTileMeta, the
+    fused mode, or with no tile metadata, the segment mode), both forwards
+    with ``hooks`` (one LayerHooks per layer, or None): its predictions and
+    last-layer attentions, the MSE and every parameter's averaged gradient,
+    then the parameters after one SGD step of ``lr``."""
     from fragnet_tpu_torch.dist.data_parallel import average_gradients
     from fragnet_tpu_torch.dist.edge_partition import ep_local_batch
     from fragnet_tpu_torch.graphs.batch import to_device
@@ -92,8 +135,8 @@ def ep_model_rank(model_kw, state_dict, batch, lr: float,
     model.eval()
     b = ep_local_batch(to_device(batch, dev), ctx.rank, ctx.size)
     with torch.no_grad():
-        pred, attn = model(b, return_attentions=True)
-    loss = mse_loss(model(b), b.y, b.graph_mask)
+        pred, attn = model(b, return_attentions=True, hooks=hooks)
+    loss = mse_loss(model(b, hooks=hooks), b.y, b.graph_mask)
     loss.backward()
     average_gradients(list(model.parameters()))
     grads = {n: _cpu(p.grad) for n, p in model.named_parameters()}
@@ -144,8 +187,11 @@ def ep_card_step_rank(model_kw, state_dict, batch, capture: bool = True
                       ) -> Dict:
     """chip_smoke.py phases 20 and 22, on the card: one edge-partitioned
     train step's loss, predictions, attentions and averaged gradients
-    (carried weights, dropout off), with layer 0's K3 forward calls
-    (their inputs, for the kernel-vs-plain check) when ``capture``; then
+    (carried weights, dropout off) and the kernel launches it made (by
+    launcher symbol; ``batch`` with EPTileMeta runs K3, one without tile
+    metadata the segment mode, which launches none), with layer 0's K3
+    forward calls (their inputs, for the kernel-vs-plain check) when
+    ``capture``; then
     the step's wall time (median of 5 after a warm-up, each ended by a
     synchronize) and, under the profiler, its device busy time, K3's
     device time and the collectives' host time."""
@@ -155,7 +201,7 @@ def ep_card_step_rank(model_kw, state_dict, batch, capture: bool = True
     from fragnet_tpu_torch.dist.data_parallel import average_gradients
     from fragnet_tpu_torch.dist.edge_partition import ep_local_batch
     from fragnet_tpu_torch.graphs.batch import to_device
-    from fragnet_tpu_torch.ops import tcsr_gat
+    from fragnet_tpu_torch.ops import _cuda, tcsr_gat
     from fragnet_tpu_torch.train.loop import mse_loss
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -182,8 +228,11 @@ def ep_card_step_rank(model_kw, state_dict, batch, capture: bool = True
         average_gradients(list(model.parameters()), ctx.group)
         return loss, pred, attn
 
+    before = _cuda.launch_counts()
     loss, pred, attn = step(record=capture)
-    out = {"loss": float(loss), "pred": _cpu(pred),
+    launches = {k: n - before.get(k, 0)
+                for k, n in _cuda.launch_counts().items()}
+    out = {"loss": float(loss), "pred": _cpu(pred), "launches": launches,
            "attn": {k: _cpu(getattr(attn, k))
                     for k in ("atoms", "frags", "bonds", "fbonds")},
            "grads": {n: _cpu(p.grad) for n, p in model.named_parameters()},

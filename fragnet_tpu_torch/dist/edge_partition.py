@@ -1,14 +1,30 @@
 """Edge-partitioned training on torch.distributed (counterpart of
-fragnet_tpu/dist/edge_partition.py, its fused-kernel mode).
+fragnet_tpu/dist/edge_partition.py).
 
 When one batch has more message edges than one card should hold, the EDGE
 arrays of every level are split into one contiguous shard per rank and the
-node state stays replicated. Each rank runs K3 (ops/tcsr_gat.py:
-tcsr_gat_pass_ep) on its shard's destination-tile grid, and the softmax
-statistics combine across the ranks with an all-gather. Every rank builds
-every shard's ``EPTileMeta``, so each knows the others' grid rows. A bf16
-model runs K3's bf16 entries on its shard; the statistics, the gathered
-sums and the gradients stay f32.
+node state stays replicated. Two modes, chosen per batch by its metadata,
+as in the JAX package:
+
+  * the fused mode (a batch with every shard's ``EPTileMeta``): each rank
+    runs K3 (ops/tcsr_gat.py:tcsr_gat_pass_ep) on its shard's
+    destination-tile grid, and the softmax statistics combine across the
+    ranks with an all-gather. Every rank builds every shard's
+    ``EPTileMeta``, so each knows the others' grid rows. A bf16 model runs
+    K3's bf16 entries on its shard; the statistics, the gathered sums and
+    the gradients stay f32.
+  * the segment mode (a batch with no tile metadata; ``dist.tcsr=false``,
+    or the fused mode's pins failed): each rank runs the segment pass on
+    its shard (ops/segment.py:gat_attention_pass with ``ep``) and the
+    statistics combine with three all-reduces, MAX, SUM, SUM (and a fourth
+    SUM for the attention vectors when asked for):
+
+        m      = max over ranks of the local segment max of the logits
+        denom  = Σ over ranks of the local Σ exp(logit − m)
+        out    = Σ over ranks of the local Σ prob·h_src
+
+    The JAX package computes it with XLA segment ops and mesh collectives,
+    no Pallas kernel, so on the card it runs as torch ops.
 
 Gradient convention (the one shard_map's transposes give the JAX package):
 every rank computes the same replicated forward and the same loss, unscaled;
@@ -34,7 +50,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
-from fragnet_tpu_torch.dist.collectives import all_reduce
+from fragnet_tpu_torch.dist.collectives import all_reduce, all_reduce_sum
 from fragnet_tpu_torch.dist.data_parallel import average_gradients
 
 # per-level EDGE arrays split over the ranks; node-space state replicated
@@ -70,6 +86,52 @@ def shard_edges(arrs, n_shards: int, pad_value=0):
         ap = np.pad(np.asarray(a), pad, constant_values=fill)
         out.append(ap.reshape((n_shards, Ep // n_shards) + a.shape[1:]))
     return out
+
+
+def edge_partitioned_gat_pass(
+    ctx: EPContext,
+    node_feats_h: torch.Tensor,   # (N, H, D) — replicated
+    edge_attr_h: torch.Tensor,    # (S, Es, H, Da) — every shard's
+    src: torch.Tensor,            # (S, Es)
+    dst: torch.Tensor,            # (S, Es)
+    edge_mask: torch.Tensor,      # (S, Es)
+    attn_vec: torch.Tensor,       # (H, 2D+Da) — replicated
+    negative_slope: float = 0.2,
+) -> torch.Tensor:
+    """Same math as ops.segment.gat_attention_pass over the union of all
+    edge shards (``shard_edges``' layout); every rank of ``ctx.group``
+    calls it with the same arrays and computes on its own shard,
+    ``ctx.rank``: the segment EP pass (the JAX package's ``_local_pass``,
+    whose numerator it normalises before the sum instead of after).
+    Returns the replicated (N, H, D) aggregate."""
+    from fragnet_tpu_torch.ops.segment import gat_attention_pass
+
+    r = ctx.rank
+    return gat_attention_pass(node_feats_h, edge_attr_h[r], src[r], dst[r],
+                              attn_vec, node_feats_h.shape[0],
+                              edge_mask=edge_mask[r],
+                              negative_slope=negative_slope, ep=ctx,
+                              need_attn=False)[0]
+
+
+def edge_partitioned_segment_sum(
+    ctx: EPContext,
+    data: torch.Tensor,           # (S*R, ...) row-sharded
+    segment_ids: torch.Tensor,    # (S*R,) row-sharded
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Cross-shard segment sum (atom→fragment pooling when atoms are
+    partitioned): this rank's contiguous block of rows summed locally,
+    then one differentiable SUM all-reduce. Every rank passes the whole
+    arrays."""
+    from fragnet_tpu_torch.ops.segment import segment_sum
+
+    R = data.shape[0] // ctx.size
+    rows = slice(ctx.rank * R, (ctx.rank + 1) * R)
+    part = segment_sum(data[rows], segment_ids[rows], num_segments,
+                       mask=None if mask is None else mask[rows])
+    return all_reduce_sum(part, ctx.group)
 
 
 def with_ep_tile_meta(batch, n_shards: int, tn: int = 128, te: int = 256,
@@ -166,27 +228,54 @@ class EPMetaLoader:
 def ep_local_batch(batch, rank: int, n_shards: int):
     """Rank ``rank``'s view of an edge-partitioned batch (the JAX package's
     ``ep_batch_specs``): its contiguous slice of every field in
-    EP_SHARDED_FIELDS, everything else whole — the EPTileMeta too, since the
-    pass reads its own rows by rank and every shard's t0. Raises unless
-    every level carries EPTileMeta."""
+    EP_SHARDED_FIELDS, everything else whole. A batch whose four levels
+    carry ``n_shards``-shard EPTileMeta (the fused mode) keeps them whole,
+    since the pass reads its own rows by rank and every shard's t0; a batch
+    with no tile metadata (the segment mode) has each sharded field padded
+    to a multiple of ``n_shards`` first, as ``shard_edges`` pads (the
+    masks' padding 0). Single-device TileMeta, or a mix, raises."""
     from fragnet_tpu_torch.ops.tcsr import EPTileMeta
 
-    for lvl in _LEVELS:
-        tm = getattr(batch, lvl)
-        if not isinstance(tm, EPTileMeta) or tm.ew_blk.shape[0] != n_shards:
-            raise ValueError(
-                f"edge-partitioned mode needs {n_shards}-shard EPTileMeta "
-                f"for {lvl} (with_ep_tile_meta), got {type(tm).__name__}")
+    tms = [getattr(batch, lvl) for lvl in _LEVELS]
+    fused = all(isinstance(tm, EPTileMeta) and tm.ew_blk.shape[0] == n_shards
+                for tm in tms)
+    if not fused and any(tm is not None for tm in tms):
+        lvl, tm = next((lvl, tm) for lvl, tm in zip(_LEVELS, tms)
+                       if not isinstance(tm, EPTileMeta)
+                       or tm.ew_blk.shape[0] != n_shards)
+        raise ValueError(
+            f"edge-partitioned mode needs {n_shards}-shard EPTileMeta "
+            f"for {lvl} (with_ep_tile_meta), or no tile metadata at all "
+            f"(the segment path), got {type(tm).__name__}")
     kw = {}
     for name in EP_SHARDED_FIELDS:
         v = getattr(batch, name)
         n = v.shape[0]
         if n % n_shards:
-            raise ValueError(f"{name}: {n} rows do not split into "
-                             f"{n_shards} shards")
-        es = n // n_shards
+            if fused:
+                raise ValueError(f"{name}: {n} rows do not split into "
+                                 f"{n_shards} shards")
+            pad = n_shards - n % n_shards
+            v = _pad_rows(v, pad)
+        es = v.shape[0] // n_shards
         kw[name] = v[rank * es:(rank + 1) * es]
     return dataclasses.replace(batch, **kw)
+
+
+def _pad_rows(v, pad: int):
+    """``v`` (numpy or torch) with ``pad`` zero rows appended."""
+    if isinstance(v, torch.Tensor):
+        return torch.cat([v, v.new_zeros((pad,) + tuple(v.shape[1:]))])
+    return np.concatenate([v, np.zeros((pad,) + v.shape[1:], v.dtype)])
+
+
+def shard_rows(x, ctx: EPContext, n: int):
+    """Rows ``[rank·n, (rank+1)·n)`` of a replicated (M, ...) tensor, padded
+    with zero rows to ``n`` where M is not a multiple of the shard count:
+    a layer's slice of the per-edge features that match its sharded edge
+    arrays (``ep_local_batch``)."""
+    part = x[ctx.rank * n:(ctx.rank + 1) * n]
+    return part if part.shape[0] == n else _pad_rows(part, n - part.shape[0])
 
 
 def make_ep_train_step(model: torch.nn.Module,

@@ -10,8 +10,11 @@ kernel (ops/tcsr_gat.py) as the kernel policy and the batch's metadata
 select, else — on the CPU only — the segment path (ops/segment.py). A
 layer built with an ``EPContext`` runs edge-partitioned (dist/
 edge_partition.py): each rank passes its shard of every level's edges to
-the K3 pass (ops/tcsr_gat.py:tcsr_gat_pass_ep), node state replicated. The
-attention vectors are computed only when asked for. ``LayerHooks`` (the
+the K3 pass (ops/tcsr_gat.py:tcsr_gat_pass_ep) when the batch carries
+EPTileMeta, else to the segment EP pass (ops/segment.py:
+gat_attention_pass with ``ep``, torch ops on any device, as the JAX
+package runs it in XLA), node state replicated. The attention vectors are
+computed only when asked for. ``LayerHooks`` (the
 interpretability masks, interp/) zero rows of the bond, atom and fconn
 passes' outputs, whichever kernel ran the pass. The bond, atom and
 fragment passes are methods of ``_BondAtomPasses``, which FragNetLayer and
@@ -41,6 +44,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from fragnet_tpu_torch.dist.edge_partition import shard_rows
 from fragnet_tpu_torch.ops.dense_gat import (dense_attr_gat_pass,
                                              dense_gat_pass)
 from fragnet_tpu_torch.ops.segment import gat_attention_pass, segment_sum
@@ -138,8 +142,9 @@ def _gat_dispatch(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One GAT pass through whichever kernel the batch metadata + policy
     select (the JAX package's ladder, fragnet_tpu/model/layers.py:171-190):
-    under ``ep`` the K3 pass on this rank's edge shard, which needs
-    EPTileMeta (the segment EP path is not ported); else
+    under ``ep`` the K3 pass on this rank's edge shard when ``tm`` is
+    EPTileMeta, else the segment EP pass (``seg`` or this rank's edges;
+    its collectives combine the shards); else
     the dense planes kernel, the dense-attr kernel over the adjacency plane
     (``dp`` itself at R = 0, else its first tn rows of each tile), else the
     fused TCSR kernel, else — for CPU tensors only — the segment path. A
@@ -151,14 +156,8 @@ def _gat_dispatch(
             return tcsr_gat_pass_ep(nf, ea, src, dst, mask, avec, tm,
                                     ep.rank, ep.group, self_loops=self_loops,
                                     return_attention=need_attn)
-        if nf.device.type != "cpu":
-            raise RuntimeError(
-                f"edge-partitioned GAT pass on {nf.device} without "
-                f"EPTileMeta: the segment path runs on the CPU only; attach "
-                f"it with dist/edge_partition.py:with_ep_tile_meta")
-        raise NotImplementedError(
-            "the edge-partitioned segment path (dist.tcsr=false) is not "
-            "ported yet (ROADMAP.md Queue A12): attach EPTileMeta")
+        return _segment_pass(nf, avec, num_nodes, seg or (src, dst, ea, mask),
+                             need_attn, ep)
     if mode == "planes" and dp is not None and fold is not None:
         v, c = fold
         return dense_gat_pass(nf, dp, v, c, ea, src, dst, mask, avec,
@@ -178,12 +177,29 @@ def _gat_dispatch(
             f"GAT pass on {nf.device} without TCSR tile metadata or dense "
             f"planes: the segment path runs on the CPU only; build the batch "
             f"with a TCSR spec (spec_for(..., tcsr=True))")
-    xsrc, xdst, xattr, xmask = seg if seg is not None else (src, dst, ea, mask)
+    return _segment_pass(nf, avec, num_nodes, seg or (src, dst, ea, mask),
+                         need_attn)
+
+
+def _segment_pass(nf, avec, num_nodes: int, seg, need_attn: bool, ep=None):
+    """The segment path over ``seg`` = (src, dst, attr, mask), the attrs
+    broadcast over the heads; edge-partitioned under ``ep``."""
+    xsrc, xdst, xattr, xmask = seg
     H = nf.shape[1]
     attr_h = xattr[:, None, :].expand(xattr.shape[0], H, xattr.shape[1])
-    out, attn = gat_attention_pass(nf, attr_h, xsrc, xdst, avec, num_nodes,
-                                   edge_mask=xmask)
-    return out, (attn if need_attn else None)
+    return gat_attention_pass(nf, attr_h, xsrc, xdst, avec, num_nodes,
+                              edge_mask=xmask, ep=ep, need_attn=need_attn)
+
+
+def _self_loop_rows(src, dst, ea, mask, n: int, on: bool = True):
+    """(src, dst, attr, mask) with a self-loop row per node appended after
+    the edges (gat2.py:179-185): zero attributes, mask 1 — or 0 where
+    ``on`` is false (an edge-partitioned rank other than 0: the loops count
+    once over the ranks)."""
+    sl = torch.arange(n, dtype=src.dtype, device=src.device)
+    return (torch.cat([src, sl]), torch.cat([dst, sl]),
+            torch.cat([ea, ea.new_zeros((n, ea.shape[1]))]),
+            torch.cat([mask, mask.new_full((n,), 1.0 if on else 0.0)]))
 
 
 def _linear_dt(lin: nn.Linear, x: torch.Tensor,
@@ -361,19 +377,18 @@ class _BondAtomPasses(nn.Module):
         seg = None
         ea_a, mask_a = new_bond_features, edge_mask
         if ep is not None:
-            # this rank's slice of the replicated bond features; the
-            # self-loops are folded in the combine
+            # this rank's slice of the replicated bond features (and their
+            # mask, in the compute type); K3 folds the self-loops in its
+            # combine, the segment pass takes them as rows on rank 0 only
             Es = batch.edge_src.shape[0]
-            ea_a = new_bond_features[ep.rank * Es:(ep.rank + 1) * Es]
-            mask_a = edge_mask[ep.rank * Es:(ep.rank + 1) * Es]
+            ea_a = shard_rows(new_bond_features, ep, Es)
+            mask_a = shard_rows(edge_mask.to(self.dtype), ep, Es)
+            if not isinstance(batch.tm_atom, EPTileMeta):
+                seg = _self_loop_rows(batch.edge_src, batch.edge_dst, ea_a,
+                                      mask_a, A, on=ep.rank == 0)
         elif batch.tm_atom is None:
-            sl = torch.arange(A, dtype=batch.edge_src.dtype,
-                              device=x_atoms.device)
-            seg = (torch.cat([batch.edge_src, sl]),
-                   torch.cat([batch.edge_dst, sl]),
-                   torch.cat([new_bond_features,
-                              new_bond_features.new_zeros((A, self.edge_out))]),
-                   torch.cat([edge_mask, edge_mask.new_ones((A,))]))
+            seg = _self_loop_rows(batch.edge_src, batch.edge_dst,
+                                  new_bond_features, edge_mask, A)
         nf_a = _linear_dt(self.projection_a, x_atoms, self.dtype).reshape(
             A, H, self.atom_out // H)
         atom_out_feats, attn_atoms = _gat_dispatch(
@@ -401,15 +416,14 @@ class _BondAtomPasses(nn.Module):
         mask_f, ep, seg = batch.fconn_mask, self.ep, None
         if ep is not None:
             Cs = batch.frag_src.shape[0]
-            ea_f = ea_f[ep.rank * Cs:(ep.rank + 1) * Cs]
-            mask_f = mask_f[ep.rank * Cs:(ep.rank + 1) * Cs]
+            ea_f = shard_rows(ea_f, ep, Cs)
+            mask_f = shard_rows(mask_f.to(self.dtype), ep, Cs)
+            if self_loops and not isinstance(batch.tm_frag, EPTileMeta):
+                seg = _self_loop_rows(batch.frag_src, batch.frag_dst, ea_f,
+                                      mask_f, F_, on=ep.rank == 0)
         elif self_loops and batch.tm_frag is None:
-            sl = torch.arange(F_, dtype=batch.frag_src.dtype,
-                              device=x_frags.device)
-            seg = (torch.cat([batch.frag_src, sl]),
-                   torch.cat([batch.frag_dst, sl]),
-                   torch.cat([ea_f, ea_f.new_zeros((F_, ea_f.shape[1]))]),
-                   torch.cat([mask_f, mask_f.new_ones((F_,))]))
+            seg = _self_loop_rows(batch.frag_src, batch.frag_dst, ea_f,
+                                  mask_f, F_)
         frag_out, attn_frags = _gat_dispatch(
             nf_f, ea_f, batch.frag_src, batch.frag_dst, mask_f, avec,
             num_nodes=F_, tm=batch.tm_frag, dp=batch.dp_frag,

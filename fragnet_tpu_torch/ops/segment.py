@@ -5,7 +5,10 @@ pass (counterpart of fragnet_tpu/ops/segment.py).
 (per-segment max subtraction in the softmax) with an explicit mask for padded
 entries. The fused kernels (ops/tcsr_gat.py, ops/dense_gat.py) implement the
 same contract; on the CPU this module is also the fallback GAT pass for
-batches that carry no kernel metadata.
+batches that carry no kernel metadata, and on any device it is the
+segment edge-partitioned pass (``gat_attention_pass(ep=...)``), which the
+JAX package computes with XLA segment ops and mesh collectives, no Pallas
+kernel: it runs as torch ops on the card, as ``TransformerConv`` does.
 
 Numerics: matches torch_scatter.scatter_softmax (gat2.py:153) — empty segments
 produce zeros (no edge scatters into them), masked entries contribute nothing;
@@ -81,7 +84,9 @@ def gat_attention_pass(
     num_nodes: int,
     edge_mask: Optional[torch.Tensor] = None,
     negative_slope: float = 0.2,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    ep=None,
+    need_attn: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One GAT-style attention pass — the reference's repeated block
     (gat2.py:137-169 and three siblings):
 
@@ -92,14 +97,57 @@ def gat_attention_pass(
         attn[n]   = Σ_{e: src=n} prob_e              (reference sums by SOURCE,
                                                       gat2.py:165-167)
 
-    Returns (aggregated (N, H, D), summed_attn (N, H))."""
+    Returns (aggregated (N, H, D), summed_attn (N, H), or None when not
+    ``need_attn``).
+
+    ``ep`` (dist/edge_partition.py:EPContext): the edge-partitioned mode of
+    the JAX package's ``axis_name`` (ops/segment.py:132-157) — this call
+    sees only this rank's edge shard while node state is replicated; the
+    softmax shift combines with a MAX all-reduce (no gradient), the
+    denominator, ``out`` and ``attn_by_src`` with differentiable SUM
+    all-reduces (dist/collectives.py). Its logit terms (nf·a_dst, ea·a_ea,
+    nf·a_src) are each summed in f64 and rounded once (ops/tcsr_gat.py:
+    logit_dot), as the kernels' passes take them."""
     h_src = node_feats_h[src]  # (E, H, D)
-    h_dst = node_feats_h[dst]
-    msg = torch.cat([h_dst, edge_attr_h.to(h_dst.dtype), h_src], dim=-1)
-    logits = torch.sum(msg.float() * attn_vec[None, :, :].float(), dim=-1)
-    logits = F.leaky_relu(logits, negative_slope)
-    probs = segment_softmax(logits, dst, num_nodes, mask=edge_mask)
+    if ep is None:
+        h_dst = node_feats_h[dst]
+        msg = torch.cat([h_dst, edge_attr_h.to(h_dst.dtype), h_src], dim=-1)
+        logits = torch.sum(msg.float() * attn_vec[None, :, :].float(), dim=-1)
+        logits = F.leaky_relu(logits, negative_slope)
+        probs = segment_softmax(logits, dst, num_nodes, mask=edge_mask)
+        weighted = probs.to(h_src.dtype)[..., None] * h_src
+        out = segment_sum(weighted, dst, num_nodes)
+        attn_by_src = segment_sum(probs, src, num_nodes) if need_attn \
+            else None
+        return out, attn_by_src
+
+    from fragnet_tpu_torch.dist.collectives import (all_reduce_max,
+                                                    all_reduce_sum)
+    from fragnet_tpu_torch.ops.tcsr_gat import logit_dot, node_logits
+
+    H, D = node_feats_h.shape[1:]
+    Da = edge_attr_h.shape[-1]
+    dl, sl = dst.long(), src.long()
+    wn = node_logits(node_feats_h, attn_vec, Da)                # (N, 2H)
+    w_ea = logit_dot("ehd,hd->eh", edge_attr_h, attn_vec[:, D:D + Da])
+    logits = F.leaky_relu(wn[dl, :H] + w_ea + wn[sl, H:], negative_slope)
+    if edge_mask is not None:
+        logits = torch.where(_bcast(edge_mask, logits) > 0, logits,
+                             torch.full_like(logits, _NEG_BIG))
+    # the max shift is gradient-free (it cancels in the softmax)
+    with torch.no_grad():
+        gmax = all_reduce_max(segment_max(logits.detach(), dst, num_nodes),
+                              ep.group)
+        gmax = torch.where(gmax <= _NEG_BIG / 2, torch.zeros_like(gmax),
+                           gmax)
+    ex = torch.exp(logits - gmax[dl])
+    if edge_mask is not None:
+        ex = ex * _bcast(edge_mask, ex)
+    den = all_reduce_sum(segment_sum(ex, dst, num_nodes), ep.group)
+    den = torch.where(den == 0.0, torch.ones_like(den), den)
+    probs = ex / den[dl]
     weighted = probs.to(h_src.dtype)[..., None] * h_src
-    out = segment_sum(weighted, dst, num_nodes)
-    attn_by_src = segment_sum(probs, src, num_nodes)
+    out = all_reduce_sum(segment_sum(weighted, dst, num_nodes), ep.group)
+    attn_by_src = all_reduce_sum(segment_sum(probs, src, num_nodes),
+                                 ep.group) if need_attn else None
     return out, attn_by_src

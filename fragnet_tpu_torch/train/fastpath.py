@@ -21,8 +21,9 @@ per-level kernel policy, resolved in one place for every entry point.
     graphs/hiergraph.py:spec_for) and every GAT pass runs a kernel. That
     holds under ``dist.mode=dp`` too (the JAX package turns TCSR off there
     and runs the segment path, which the port has on the CPU only). Under
-    ``dist.mode=ep`` it means per-shard EPTileMeta and is on for every
-    device, since the segment EP path is not ported;
+    ``dist.mode=ep`` it means per-shard EPTileMeta (the K3 kernels) and is
+    on for every device, as the JAX package's is on the TPU; with it off
+    (or ``dist.tcsr=false``) EP runs its segment mode;
   * ``kernel`` — the per-level KernelPolicy from ``kernel.*`` config keys;
   * ``cache``  — the finetune/pretrain section's ``cache``: 'auto' wraps a
     loader in DeviceCacheLoader (data/batcher.py) when its padded batches

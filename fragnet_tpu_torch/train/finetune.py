@@ -214,13 +214,8 @@ def _dist_mode(opt) -> str:
 
 
 def _refuse_unported(opt, device) -> None:
-    ft = opt.finetune
     dist = opt.get("dist", None) or {}
     _model_version(opt, ep=_dist_mode(opt) == "ep")
-    if _dist_mode(opt) == "ep" and not dist.get("tcsr", ft.get("tcsr", True)):
-        raise NotImplementedError(
-            "dist.mode=ep with dist.tcsr=false (the edge-partitioned segment "
-            "path) is not ported yet (ROADMAP.md Queue A12)")
     if dist.get("multihost", False) and str(device) == "cpu":
         raise NotImplementedError("dist.multihost on the CPU is not ported; "
                                   "start the ranks with torchrun")
@@ -257,7 +252,9 @@ def run_finetune(opt, quiet: bool = False, datasets=None,
     ``finetune.cache`` says (``fastpath.maybe_cache``), with one PadSpec
     per size bucket when ``finetune.n_buckets`` > 1
     (``BucketedBatchLoader``); ``dp`` (data
-    parallel) and ``ep`` (edge-partitioned, the K3 kernels) run
+    parallel) and ``ep`` (edge-partitioned: the K3 kernels, or the
+    segment mode under ``dist.tcsr=false`` or when the K3 pins fail, which
+    prints ``ep fused kernel off: <reason>`` as the JAX package does) run
     ``dist.n_devices`` ranks of a process group. Inside a group (torchrun's
     RANK environment, or one the caller joined) this process runs its rank;
     otherwise it starts the ranks itself (dist/launch.py; one in this
@@ -382,18 +379,23 @@ def _run(opt, quiet, datasets, device, info):
     if mode == "ep":
         from fragnet_tpu_torch.dist.edge_partition import EPContext
 
-        # the K3 kernels need node counts % tn and edge counts % (S·te):
-        # dist.tile sets both, dist.tile_tn / dist.tile_te each (on CUDA
-        # the single-device kernels' tiles, 8 on the CPU as in the JAX
-        # package off the TPU)
+        # the fused mode (K3) unless dist.tcsr (or finetune.tcsr, the JAX
+        # package's key) is false: the segment mode then. The K3 kernels
+        # need node counts % tn and edge counts % (S·te): dist.tile sets
+        # both, dist.tile_tn / dist.tile_te each (on CUDA the single-device
+        # kernels' tiles, 8 on the CPU as in the JAX package off the TPU);
+        # the segment mode pads to 8·S
+        ep_tcsr = bool(opt.dist.get("tcsr", fp.tcsr))
         cuda = fp.device.type == "cuda"
         ep_tn = int(opt.dist.get("tile_tn",
                                  opt.dist.get("tile", 128 if cuda else 8)))
         ep_te = int(opt.dist.get("tile_te",
                                  opt.dist.get("tile", 256 if cuda else 8)))
         spec = spec_for(train_g + val_g + test_g, batch_size=bs,
-                        multiple=max(ep_tn, ep_te) * S)
+                        multiple=max(ep_tn, ep_te) * S if ep_tcsr else 8 * S)
         ep = EPContext(rank, S)
+        if say and not ep_tcsr:
+            print("ep fused kernel off: dist.tcsr=false")
     else:
         spec = spec_for(train_g + val_g + test_g, batch_size=bs,
                         tcsr=fp.tcsr)
@@ -435,20 +437,24 @@ def _run(opt, quiet, datasets, device, info):
                                  on_oversize="error")
         test_loader = BatchLoader(test_g, bs, spec=spec, n_tasks=n_tasks,
                                   on_oversize="error")
-    if mode == "ep":
+    if mode == "ep" and ep_tcsr:
         # ONE set of pinned widths across train/val/test (the JAX package's
-        # single compiled EP step); a probe failure raises with its reason
-        # (the JAX package falls back to its segment EP path, not ported)
+        # single compiled EP step); a probe failure prints its reason and
+        # keeps the plain loaders: the segment mode, as in the JAX package
         from fragnet_tpu_torch.dist.edge_partition import (EPMetaLoader,
                                                            pin_ep_widths)
 
-        pins = pin_ep_widths([train_loader, val_loader, test_loader], S,
-                             tn=ep_tn, te=ep_te)
-        train_loader, val_loader, test_loader = (
-            EPMetaLoader(ld, S, tn=ep_tn, te=ep_te, pins=pins)
-            for ld in (train_loader, val_loader, test_loader))
-        if say:
-            print(f"ep fused kernel active (tn={ep_tn} te={ep_te})")
+        try:
+            pins = pin_ep_widths([train_loader, val_loader, test_loader], S,
+                                 tn=ep_tn, te=ep_te)
+            train_loader, val_loader, test_loader = (
+                EPMetaLoader(ld, S, tn=ep_tn, te=ep_te, pins=pins)
+                for ld in (train_loader, val_loader, test_loader))
+            if say:
+                print(f"ep fused kernel active (tn={ep_tn} te={ep_te})")
+        except ValueError as e:
+            if say:
+                print(f"ep fused kernel off: {e}")
     if mode == "none":
         # device-resident caching: after the first pass the input pipeline
         # costs nothing (DeviceCacheLoader; reshuffles batch ORDER per

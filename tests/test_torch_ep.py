@@ -4,7 +4,12 @@ EP tile metadata, K3's plain forward and backward against the Pallas
 EP pass over two gloo ranks against the single-device pass and JAX's
 ``pallas_gat_pass_ep`` under shard_map, the whole EP model (two ranks,
 carried weights) against the JAX single-device model, and
-``run_finetune`` under ``dist.mode=ep``.
+``run_finetune`` under ``dist.mode=ep``; the same for the segment mode
+(batches without tile metadata: ``edge_partitioned_gat_pass`` and
+``edge_partitioned_segment_sum`` against the JAX package's on a 2-device
+CPU mesh, the model in f32 and bf16, ``run_finetune`` with
+``dist.tcsr=false`` and after a failed pin); and LayerHooks under both
+modes against the single-device forward.
 
 Ranks are spawned processes (dist/launch.py) that import torch and the
 port only; their functions live in fragnet_tpu_torch/dist/checks.py. The
@@ -12,7 +17,10 @@ group meets through a file under tmp_path and every collective and the
 whole run time out, so a rank that fails cannot hang the suite. Inputs are
 made with numpy from a seed. Tolerances: 1e-5 for one pass (f32, the two
 frameworks sum in different orders), 1e-4 relative for the model (two
-layers deep).
+layers deep); bf16: predictions 2e-2 of their scale, gradients 5e-2 of
+their own scale, floor 1e-4 of the largest (tests/test_torch_bf16.py's
+bounds); the EP forward with hooks against the port's single-device one
+1e-5 of each output's scale.
 """
 
 import dataclasses
@@ -61,8 +69,18 @@ _META = ("t0", "ew_blk", "sw_tile", "flat_slot", "cw")
 
 
 def _ranks(fn, args, tmp_path):
-    return run_ranks(fn, S, args, device="cpu", timeout_s=120,
-                     join_timeout_s=300, workdir=str(tmp_path))
+    """``fn(*args)`` in S spawned ranks, each on one intra-op thread (their
+    many small ops and gloo's waits oversubscribe the cores otherwise)."""
+    old = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"
+    try:
+        return run_ranks(fn, S, args, device="cpu", timeout_s=120,
+                         join_timeout_s=300, workdir=str(tmp_path))
+    finally:
+        if old is None:
+            del os.environ["OMP_NUM_THREADS"]
+        else:
+            os.environ["OMP_NUM_THREADS"] = old
 
 
 def _torch_meta(meta):
@@ -252,14 +270,20 @@ def _pass_args(self_loops):
 
 
 @pytest.fixture(scope="module")
-def ep_batches(ft_graphs, port_graphs):
+def plain_batch(port_graphs):
+    """The port batch of all eight molecules padded for S = 2, without tile
+    metadata (the segment mode's batch)."""
+    return pad_batch(port_graphs, spec_for(port_graphs, batch_size=8,
+                                           multiple=8 * S))
+
+
+@pytest.fixture(scope="module")
+def ep_batches(ft_graphs, plain_batch):
     """(JAX batch, port batch with 2-shard EPTileMeta) of all eight
     molecules, padded for S = 2 at tn = te = 8."""
     bj = jax_pad_batch(ft_graphs, jax_spec_for(ft_graphs, batch_size=8,
                                                multiple=8 * S))
-    bp = pad_batch(port_graphs, spec_for(port_graphs, batch_size=8,
-                                         multiple=8 * S))
-    bp, ok = with_ep_tile_meta(bp, S, tn=8, te=8)
+    bp, ok = with_ep_tile_meta(plain_batch, S, tn=8, te=8)
     assert ok
     _, ok_j = jax_with_ep_tile_meta(bj, S, tn=8, te=8)
     assert ok_j
@@ -277,20 +301,88 @@ def jax_model(ep_batches):
 
 
 MODEL_LR = 0.05
+BF = torch.bfloat16
+
+
+def _hooks(n_atoms):
+    """One LayerHooks per layer of SMALL, every field set."""
+    from fragnet_tpu_torch.model.layers import LayerHooks
+
+    zero = torch.zeros(n_atoms)
+    zero[5] = 1.0
+    return [LayerHooks(bond_mask=2, frag_bond_mask=1, atom_mask=3,
+                       atom_zero_vec=zero),
+            LayerHooks(bond_rows=torch.tensor([0, 7]),
+                       fconn_rows=torch.tensor([1]),
+                       atom_rows=torch.tensor([4, 9]))]
+
+
+def _ft_opt(exp_dir, **dist):
+    return Config({
+        "seed": 7, "exp_dir": str(exp_dir), "model_version": "gat2",
+        "dist": {"mode": "ep", "n_devices": S, **dist},
+        "finetune": {"model": dict(SMALL, act="relu", fthead="FTHead3"),
+                     "target_type": "regr", "batch_size": 4,
+                     "n_epochs": 1}}).to_dict()
 
 
 @pytest.fixture(scope="module")
-def rank_results(tmp_path_factory, ep_batches, jax_model):
-    """The rank side of the pass tests (both self_loops) and the model
-    test, run in one start of two ranks: {"pass": {self_loops: [per rank]},
-    "model": [per rank]}."""
-    calls = [(checks.ep_pass_rank, _pass_args(sl)) for sl in (False, True)]
-    calls.append((checks.ep_model_rank, (SMALL, state_dict_from_jax(
-        jax_model[1]), ep_batches[1], MODEL_LR)))
-    res = _ranks(checks.calls_rank, (calls,), tmp_path_factory.mktemp("ep"))
-    return {"pass": {sl: [r[i] for r in res]
-                     for i, sl in enumerate((False, True))},
-            "model": [r[2] for r in res]}
+def rank_results(tmp_path_factory, ep_batches, plain_batch, jax_model,
+                 port_graphs):
+    """The rank side of the pass tests (both self_loops, and the segment
+    mode's pass), the model tests (fused; segment in f32 and bf16; both
+    with hooks) and two segment-mode run_finetune runs (dist.tcsr=false,
+    and tiles whose pins fail), in one start of two ranks."""
+    sd = state_dict_from_jax(jax_model[1])
+    tmp = tmp_path_factory.mktemp("ep")
+    datasets = (port_graphs[:4], port_graphs[4:6], port_graphs[6:], 1,
+                "regr")
+    hooks = _hooks(plain_batch.x_atoms.shape[0])
+    calls = {
+        "pass": [(checks.ep_pass_rank, _pass_args(sl))
+                 for sl in (False, True)],
+        "model": (checks.ep_model_rank, (SMALL, sd, ep_batches[1],
+                                         MODEL_LR)),
+        "seg_pass": (checks.ep_segment_pass_rank, _segment_pass_args()),
+        "seg_model": (checks.ep_model_rank, (SMALL, sd, plain_batch,
+                                             MODEL_LR)),
+        "seg_model_bf16": (checks.ep_model_rank,
+                           (dict(SMALL, dtype=BF), sd, plain_batch,
+                            MODEL_LR)),
+        "hooks_fused": (checks.ep_model_rank, (SMALL, sd, ep_batches[1],
+                                               MODEL_LR, "cpu", hooks)),
+        "hooks_segment": (checks.ep_model_rank, (SMALL, sd, plain_batch,
+                                                 MODEL_LR, "cpu", hooks)),
+        "ft_segment": (checks.ep_finetune_rank,
+                       (_ft_opt(tmp / "seg", tcsr=False), datasets)),
+        # tn 12, te 8: shards of 12·k edges, not all a multiple of te
+        "ft_pins_fail": (checks.ep_finetune_rank,
+                         (_ft_opt(tmp / "pins", tile_tn=12, tile_te=8),
+                          datasets)),
+    }
+    flat = calls.pop("pass") + list(calls.values())
+    res = _ranks(checks.calls_rank, (flat,), tmp)
+    out = {"pass": {sl: [r[i] for r in res]
+                    for i, sl in enumerate((False, True))}}
+    for i, key in enumerate(calls, start=2):
+        out[key] = [r[i] for r in res]
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_ref(ep_batches, jax_model):
+    """The JAX single-device model on the EP batch (no tile metadata: its
+    segment path): predictions, last-layer attentions, the MSE and its
+    parameter gradients, under the port's names."""
+    bj, _bp = ep_batches
+    model, params = jax_model
+    pred_j, attn_j = jax.jit(lambda p: model.apply(
+        p, bj, deterministic=True, return_attentions=True))(params)
+    loss_j, grads_j = jax.jit(jax.value_and_grad(
+        lambda p: jax_mse(model.apply(p, bj, deterministic=True), bj.y,
+                          bj.graph_mask)))(params)
+    return pred_j, attn_j, float(loss_j), state_dict_from_jax(
+        jax.device_get(grads_j))
 
 
 @pytest.mark.parametrize("self_loops", [False, True])
@@ -319,29 +411,18 @@ def test_ep_pass_over_two_ranks_matches(rank_results, self_loops):
                 _close(r[n], gref)
 
 
-def test_ep_model_matches_jax_single_device(rank_results, ep_batches,
-                                            jax_model):
-    """FragNetFineTune under EP (2 ranks) against the JAX single-device
-    model with the same weights: predictions, the four attention vectors,
-    the loss and every averaged parameter gradient, and the parameters
-    after one SGD step."""
-    bj, _bp = ep_batches
-    model, params = jax_model
+def _check_model_against_jax(res, jax_model, jax_ref, lr=MODEL_LR):
+    """Each rank's predictions, attentions, loss, averaged gradients and
+    SGD update against the JAX single-device model (1e-4 relative)."""
+    _model, params = jax_model
+    pred_j, attn_j, loss_j, want = jax_ref
     sd = state_dict_from_jax(params)
-    lr = MODEL_LR
-    res = rank_results["model"]
-    pred_j, attn_j = jax.jit(lambda p: model.apply(
-        p, bj, deterministic=True, return_attentions=True))(params)
-    loss_j, grads_j = jax.jit(jax.value_and_grad(
-        lambda p: jax_mse(model.apply(p, bj, deterministic=True), bj.y,
-                          bj.graph_mask)))(params)
-    want = state_dict_from_jax(jax.device_get(grads_j))
     scale = max(float(w.abs().max()) for w in want.values())
     rel = dict(rtol=1e-4)
     for r in res:
         _close(r["pred"], pred_j, atol=1e-4 * float(np.abs(pred_j).max()),
                **rel)
-        assert abs(r["loss"] - float(loss_j)) <= 1e-4 * float(loss_j)
+        assert abs(r["loss"] - loss_j) <= 1e-4 * loss_j
         for lvl in ("atoms", "frags", "bonds", "fbonds"):
             ref = np.asarray(getattr(attn_j, lvl))
             _close(r["attn"][lvl], ref, atol=1e-4 * np.abs(ref).max(), **rel)
@@ -355,6 +436,15 @@ def test_ep_model_matches_jax_single_device(rank_results, ep_batches,
             _close(r["params"][name], p0 - lr * w,
                    atol=1e-4 * float(p0.abs().max()) + lr * 1e-4 * scale,
                    **rel)
+
+
+def test_ep_model_matches_jax_single_device(rank_results, jax_model,
+                                            jax_ref):
+    """FragNetFineTune under EP (2 ranks) against the JAX single-device
+    model with the same weights: predictions, the four attention vectors,
+    the loss and every averaged parameter gradient, and the parameters
+    after one SGD step."""
+    _check_model_against_jax(rank_results["model"], jax_model, jax_ref)
 
 
 def test_run_finetune_ep_two_ranks(tmp_path, port_graphs):
@@ -391,3 +481,163 @@ def test_shard_edges_matches_jax():
     for got, want in zip(shard_edges(arrs, 4, pad_value=-1),
                          jax_shard(arrs, 4, pad_value=-1)):
         np.testing.assert_array_equal(got, want)
+
+
+# --------------------------------------------------------------------------
+# the segment mode (batches without tile metadata)
+# --------------------------------------------------------------------------
+
+SEG_N = 37  # rows of the segment-sum case: not a multiple of S
+
+
+def _segment_case():
+    """The seeded pass case with per-head edge attributes, laid out in S
+    shards (shard_edges), and a segment-sum case."""
+    from fragnet_tpu_torch.dist.edge_partition import shard_edges
+
+    c = _case(seed=2)
+    rng = np.random.default_rng(5)
+    H = c["nf"].shape[1]
+    eh = rng.standard_normal((len(c["src"]), H, c["ea"].shape[1])).astype(
+        np.float32)
+    sh = shard_edges([eh, c["src"], c["dst"], c["mask"]], S)
+    data = rng.standard_normal((2 * SEG_N, 3)).astype(np.float32)
+    ids = rng.integers(0, 11, 2 * SEG_N).astype(np.int32)
+    smask = (rng.random(2 * SEG_N) > 0.2).astype(np.float32)
+    return c, eh, sh, (data, ids, 11, smask)
+
+
+def _segment_pass_args():
+    c, _eh, (ea, src, dst, mask), (data, ids, n, smask) = _segment_case()
+    t = torch.from_numpy
+    return (t(c["nf"]), t(ea), t(src), t(dst), t(mask), t(c["a"]),
+            t(c["g"]), t(data), t(ids), n, t(smask))
+
+
+def test_segment_ep_pass_and_sum_match_jax(rank_results):
+    """``edge_partitioned_gat_pass`` and ``edge_partitioned_segment_sum``
+    over two gloo ranks against the JAX package's on a 2-device CPU mesh,
+    and the pass's averaged gradients against the JAX single-device
+    pass's (1e-5)."""
+    from fragnet_tpu.dist.edge_partition import (
+        edge_partitioned_gat_pass as jax_ep_pass,
+        edge_partitioned_segment_sum as jax_ep_sum)
+    from fragnet_tpu.ops.segment import gat_attention_pass as jax_pass
+
+    c, eh, (ea, src, dst, mask), (data, ids, n, smask) = _segment_case()
+    mesh = Mesh(np.array(jax.devices()[:S]), ("data",))
+    j = jnp.asarray
+    out_j = jax_ep_pass(mesh, j(c["nf"]), j(ea), j(src), j(dst), j(mask),
+                        j(c["a"]))
+    sum_j = jax_ep_sum(mesh, j(data), j(ids), n, mask=j(smask))
+
+    def loss(nf, e, a):
+        out, _ = jax_pass(nf, e, j(c["src"]), j(c["dst"]), a, c["N"],
+                          edge_mask=j(c["mask"]))
+        return jnp.sum(out * j(c["g"]))
+
+    grads_j = jax.grad(loss, argnums=(0, 1, 2))(j(c["nf"]), j(eh),
+                                                j(c["a"]))
+    Es = ea.shape[1]
+    for r in rank_results["seg_pass"]:
+        _close(r["out"], out_j)
+        _close(r["segment_sum"], sum_j)
+        _close(r["d_nf"], grads_j[0])
+        _close(r["d_ea"].reshape(S * Es, *eh.shape[1:])[:len(eh)],
+               grads_j[1])
+        _close(r["d_avec"], grads_j[2])
+
+
+def test_segment_ep_model_matches_jax_single_device(rank_results, jax_model,
+                                                    jax_ref, plain_batch):
+    """The segment mode (a batch with no tile metadata, two ranks) against
+    the JAX single-device model: predictions, attentions, loss, averaged
+    gradients and the SGD update (1e-4 relative); its local batch pads
+    each sharded level to a multiple of S as shard_edges does."""
+    from fragnet_tpu_torch.dist.edge_partition import ep_local_batch
+
+    _check_model_against_jax(rank_results["seg_model"], jax_model, jax_ref)
+    odd = dataclasses.replace(plain_batch,
+                              edge_src=plain_batch.edge_src[:-1],
+                              fc_mask=plain_batch.fc_mask[:-3])
+    parts = [ep_local_batch(odd, r, S) for r in range(S)]
+    n = len(odd.edge_src)
+    assert all(len(p.edge_src) == (n + 1) // S for p in parts)
+    np.testing.assert_array_equal(
+        np.concatenate([p.edge_src for p in parts])[:n], odd.edge_src)
+    assert parts[-1].fc_mask[-1] == 0 and parts[-1].edge_src[-1] == 0
+    with pytest.raises(ValueError, match="EPTileMeta"):
+        one = dataclasses.replace(plain_batch, tm_atom=build_tile_meta(
+            plain_batch.edge_src, plain_batch.edge_dst, plain_batch.edge_mask,
+            plain_batch.x_atoms.shape[0], tn=8, te=8))
+        ep_local_batch(one, 0, S)
+
+
+def test_segment_ep_model_bf16_matches_jax(rank_results, ep_batches,
+                                           jax_model):
+    """The segment mode in bf16 (two ranks) against the JAX single-device
+    bf16 model with the same weights: predictions within 2e-2 of their
+    scale, every averaged gradient within 5e-2 of its own scale (floor
+    1e-4 of the largest)."""
+    bj, _bp = ep_batches
+    _model, params = jax_model
+    model = JaxModel(**SMALL, dtype=jnp.bfloat16)
+    pred_j = np.asarray(jax.jit(lambda p: model.apply(
+        p, bj, deterministic=True))(params), np.float32)
+    grads_j = state_dict_from_jax(jax.device_get(jax.jit(jax.grad(
+        lambda p: jax_mse(model.apply(p, bj, deterministic=True), bj.y,
+                          bj.graph_mask)))(params)))
+    top = max(float(w.abs().max()) for w in grads_j.values())
+    for r in rank_results["seg_model_bf16"]:
+        scale = float(np.abs(pred_j).max())
+        assert float(np.abs(r["pred"].float().numpy() - pred_j).max()) \
+            <= 2e-2 * scale
+        for name, w in grads_j.items():
+            g = r["grads"][name]
+            g = torch.zeros_like(w) if g is None else g.float()
+            assert bool(torch.isfinite(g).all()), name
+            assert float((g - w).abs().max()) <= 5e-2 * max(
+                float(w.abs().max()), 1e-4 * top), name
+
+
+@pytest.mark.parametrize("mode", ["hooks_fused", "hooks_segment"])
+def test_ep_forward_with_hooks_matches_single_device(rank_results, jax_model,
+                                                     plain_batch, mode):
+    """An EP forward with LayerHooks (every field, both layers), in the
+    fused and the segment mode, against the port's single-device forward
+    with the same hooks: predictions and the four attention vectors
+    (1e-5 of each one's scale); the hooks change the prediction."""
+    from fragnet_tpu_torch.graphs.batch import to_device
+
+    model = FragNetFineTune(**SMALL)
+    model.load_state_dict(state_dict_from_jax(jax_model[1]))
+    model.eval()
+    b = to_device(plain_batch, "cpu")
+    with torch.no_grad():
+        pred, attn = model(b, return_attentions=True,
+                           hooks=_hooks(b.x_atoms.shape[0]))
+        bare = model(b)
+    assert float((pred - bare).abs().max()) > 1e-3 * float(bare.abs().max())
+    for r in rank_results[mode]:
+        _close(r["pred"], pred, atol=1e-5 * float(pred.abs().max()))
+        for lvl in ("atoms", "frags", "bonds", "fbonds"):
+            ref = getattr(attn, lvl)
+            _close(r["attn"][lvl], ref, atol=1e-5 * float(ref.abs().max()))
+
+
+def test_run_finetune_segment_ep_and_pin_fallback(rank_results):
+    """``run_finetune`` with dist.mode=ep on two ranks in the segment mode:
+    with dist.tcsr=false, and when the K3 pins fail (the JAX package's
+    message on rank 0, then training on the segment mode): finite values
+    and parameters, the same losses and test value on both ranks."""
+    for key, reason in (("ft_segment", "dist.tcsr=false"),
+                        ("ft_pins_fail", "EP tile-meta probe failed")):
+        r0, r1 = rank_results[key]
+        assert [r["rank"] for r in (r0, r1)] == [0, 1]
+        assert np.isfinite(r0["value"] + sum(r0["train_loss"]))
+        assert (r0["value"], r0["train_loss"], r0["val_score"]) == (
+            r1["value"], r1["train_loss"], r1["val_score"])
+        assert r0["finite"]
+        assert f"ep fused kernel off: {reason}" in r0["printed"]
+        assert "ep fused kernel active" not in r0["printed"]
+        assert r1["printed"] == ""

@@ -298,28 +298,30 @@ def _small_opt(tmp_path, **finetune):
 
 
 def test_run_finetune_refuses_what_it_does_not_run(tmp_path):
-    opt = _small_opt(tmp_path)
-    opt.set_path("dist", {"mode": "ep", "tcsr": False})
-    with pytest.raises(NotImplementedError, match="dist.tcsr=false"):
-        run_finetune(opt, device="cpu")
-    # an edge-partitioned pass off the CPU needs EPTileMeta: a batch
-    # without it raises (a meta-device tensor stands in for a CUDA one)
-    from fragnet_tpu_torch.dist.edge_partition import EPContext
+    from fragnet_tpu_torch.train.finetune import _refuse_unported
+
+    # the segment EP mode (dist.tcsr=false) runs, in f32 and bf16
+    # (tests/test_torch_ep.py); a CPU multihost run is still refused
+    for dtype in ("f32", "bf16"):
+        opt = _small_opt(tmp_path, dtype=dtype)
+        opt.set_path("dist", {"mode": "ep", "n_devices": 2, "tcsr": False})
+        _refuse_unported(opt, "cpu")
+    multihost = _small_opt(tmp_path)
+    multihost.set_path("dist", {"mode": "dp", "multihost": True})
+    with pytest.raises(NotImplementedError, match="multihost"):
+        run_finetune(multihost, device="cpu")
+    # a single-device GAT pass off the CPU needs TCSR or dense metadata: a
+    # batch without it raises (a meta-device tensor stands in for a CUDA
+    # one); an edge-partitioned one takes the segment EP pass instead
     from fragnet_tpu_torch.model.layers import _gat_dispatch
 
     nf = torch.empty((8, 4, 8), device="meta")
     idx = torch.empty((8,), dtype=torch.int32, device="meta")
-    with pytest.raises(RuntimeError, match="without EPTileMeta"):
+    with pytest.raises(RuntimeError, match="without TCSR tile metadata"):
         _gat_dispatch(nf, torch.empty((8, 4), device="meta"), idx, idx,
                       torch.empty((8,), device="meta"),
                       torch.empty((4, 20), device="meta"), num_nodes=8,
-                      tm=None, dp=None, mode="tcsr", ep=EPContext(0, 2))
-    # bf16 runs under every policy and dist.mode (tests/test_torch_bf16.py);
-    # its segment EP path is refused as in f32
-    bf16_ep = _small_opt(tmp_path, dtype="bf16")
-    bf16_ep.set_path("dist", {"mode": "ep", "n_devices": 2, "tcsr": False})
-    with pytest.raises(NotImplementedError, match="dist.tcsr=false"):
-        run_finetune(bf16_ep, device="cpu")
+                      tm=None, dp=None, mode="tcsr")
     with pytest.raises(ValueError, match="bond='attr' is refused"):
         run_finetune(_small_opt(tmp_path, kernel={"bond": "attr"}),
                      device="cpu")

@@ -126,7 +126,10 @@ def test_plane_builder_drops_foreign_and_masked_edges():
 # pack / unpack against the JAX package
 # --------------------------------------------------------------------------
 
-def _assert_decoded_equal(uj, up, names):
+def _assert_decoded_equal(uj, up, names, jax_f32=False):
+    """Every field of ``names`` in ``up`` (the port's decode) equals its
+    value in ``uj`` (numpy or JAX arrays, or tensors), dtype too; with
+    ``jax_f32`` a bf16 field of ``uj`` is compared widened to f32."""
     for name in names:
         a, b = getattr(uj, name), getattr(up, name)
         if a is None:
@@ -135,14 +138,20 @@ def _assert_decoded_equal(uj, up, names):
         if name.startswith("tm_"):
             for part in _TM_ARRAYS:
                 np.testing.assert_array_equal(
-                    getattr(b, part).numpy(), np.asarray(getattr(a, part)),
+                    getattr(b, part).numpy(), _np(getattr(a, part)),
                     err_msg=f"{name}.{part}")
             assert (a.tn, a.te, a.n_chunks, a.k_src) == \
                 (b.tn, b.te, b.n_chunks, b.k_src)
             continue
-        a = np.asarray(a)
+        a = _np(a)
+        if jax_f32 and str(a.dtype) == "bfloat16":
+            a = a.astype(np.float32)
         assert b.numpy().dtype == a.dtype, name
         np.testing.assert_array_equal(b.numpy(), a, err_msg=name)
+
+
+def _np(a):
+    return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 @pytest.mark.parametrize("case", ["aligned", "unaligned-tcsr", "plain"])
@@ -215,8 +224,10 @@ def test_unpack_attr_policy_rebuilds_adjacency_planes(pt_graphs):
 
 def test_pack_refusals(port_graphs):
     b = next(iter(BatchLoader(port_graphs, 4, spec=_plain(port_graphs))))
-    with pytest.raises(NotImplementedError, match="compact"):
-        packing.build_layout(b, compact=True)
+    # the compact layout is built (its checks are the compact tests below)
+    compact = packing.build_layout(b, compact=True)
+    assert compact.entry("x_atoms").enc == packing.SPARSE8
+    assert compact.total_bytes < packing.build_layout(b).total_bytes
     lay = packing.build_layout(b)
     assert lay.entry("atom_mask").enc == packing.MASKC
     bad = np.asarray(b.atom_mask).copy()
@@ -225,6 +236,220 @@ def test_pack_refusals(port_graphs):
         packing.pack_batch(dataclasses.replace(b, atom_mask=bad), lay)
     with pytest.raises(ValueError, match="uint8"):
         packing.unpack_batch(torch.zeros(8, dtype=torch.uint8), lay)
+
+
+# --------------------------------------------------------------------------
+# the compact encodings against the JAX package's
+# --------------------------------------------------------------------------
+
+_CASES = {"plain": dict(tcsr=False, align=False),
+          "tcsr": dict(tcsr=True, align=False),
+          "aligned": dict(tcsr=True, align=True)}
+
+
+def _entry_key(e):
+    return (e.name, e.enc, e.shape, e.out_dtype, e.k)
+
+
+def _entry_bytes(layout, buf):
+    """{name: the entry's bytes} of a buffer (the JAX package's entries
+    end where the next one starts; the port's by their encoded length)."""
+    ends = [e.offset for e in layout.entries[1:]] + [layout.total_bytes]
+    return {e.name: bytes(buf[e.offset:end])
+            for e, end in zip(layout.entries, ends)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(_CASES))
+def test_compact_layout_and_bytes_match_jax(pt_graphs, case, dtype):
+    """``build_layout(compact=True)`` lists the JAX package's entries (name,
+    encoding, shape, decoded dtype, k) in its order, and every entry holds
+    the JAX package's bytes, with and without targets; the port decodes
+    each buffer to the unpacked batch exactly in f32 (every field, the
+    TileMeta parts with the derived flat_slot, the rebuilt planes), and to
+    the JAX package's decode in bf16."""
+    from fragnet_tpu_torch.graphs.hiergraph import pad_batch
+
+    jg, pg = pt_graphs
+    kw = dict(batch_size=4, multiple=16, tn=16, te=16, **_CASES[case])
+    sj, sp = jax_spec_for(jg, **kw), spec_for(pg, **kw)
+    bf16 = dtype == "bfloat16"
+    for targets in (True, False):
+        lj = JaxLoader(jg, 4, spec=sj, to_device=False, with_targets=targets,
+                       pack=True, pack_compact=True,
+                       compute_dtype=jnp.bfloat16 if bf16 else None)
+        lp = BatchLoader(pg, 4, spec=sp, with_targets=targets, pack=True,
+                         pack_compact=True, compute_dtype=dtype)
+        n = 0
+        for bj, bp, window in zip(lj, lp, lp._windows()):
+            n += 1
+            assert [_entry_key(e) for e in lp.layout.entries] == \
+                [_entry_key(e) for e in lj.layout.entries]
+            want = _entry_bytes(lj.layout, bj)
+            for e in lp.layout.entries:
+                got = bytes(bp[e.offset:e.offset + len(want[e.name])])
+                assert got == want[e.name], e.name
+            assert all(e.offset % packing.ALIGN == 0
+                       for e in lp.layout.entries)
+            up = packing.unpack_batch(torch.from_numpy(bp), lp.layout)
+            names = [f.name for f in dataclasses.fields(up)
+                     if not f.name.startswith("dp_")]
+            if bf16:
+                uj = jax_unpack_batch(jnp.asarray(bj), lj.layout)
+                _assert_decoded_equal(uj, _as_f32(up), names
+                                      + ["dp_bond", "dp_fc"], jax_f32=True)
+                continue
+            host = pad_batch(window, sp, with_targets=targets,
+                             build_dense=True, strict_tcsr=sp.tcsr)
+            _assert_decoded_equal(host, up, names + ["dp_bond", "dp_fc"])
+        assert n == len(lp) > 1
+        encs = {e.enc for e in lp.layout.entries}
+        assert {packing.SPARSE8, packing.BITS, packing.RUNS8,
+                packing.LOC8} <= encs
+        assert not any(e.name.endswith("flat_slot")
+                       for e in lp.layout.entries)
+        if case != "plain":
+            default = packing.build_layout(
+                pad_batch(next(lp._windows()), sp, with_targets=targets,
+                          build_dense=False, strict_tcsr=True), dtype,
+                aligned=sp.align)
+            assert lp.layout.total_bytes < default.total_bytes
+
+
+def _as_f32(b):
+    """``b`` with its bf16 fields widened to f32 (exact)."""
+    return dataclasses.replace(b, **{
+        f.name: getattr(b, f.name).float() for f in dataclasses.fields(b)
+        if isinstance(getattr(b, f.name), torch.Tensor)
+        and getattr(b, f.name).dtype == torch.bfloat16})
+
+
+def _compact_pair(ft_graphs, port_graphs):
+    """(JAX batch, port batch, JAX compact layout, port compact layout) of
+    the first four molecules, padded without TCSR."""
+    from fragnet_tpu.data.packing import build_layout as jax_build_layout
+    from fragnet_tpu.graphs.hiergraph import pad_batch as jax_pad
+
+    from fragnet_tpu_torch.graphs.hiergraph import pad_batch
+
+    sj = jax_spec_for(ft_graphs, batch_size=4)
+    sp = spec_for(port_graphs, batch_size=4)
+    bj = jax_pad(ft_graphs[:4], sj)
+    bp = pad_batch(port_graphs[:4], sp)
+    return (bj, bp, jax_build_layout(bj, compact=True),
+            packing.build_layout(bp, compact=True))
+
+
+def _mutations(b):
+    """{error: (field, mutated array)} for each value assumption of the
+    compact encodings, on a copy of ``b``'s arrays."""
+    x = np.asarray(b.x_atoms).copy()
+    x[0, :] = 1.0                     # more nonzeros than k
+    x_frac = np.asarray(b.x_atoms).copy()
+    x_frac[0, np.flatnonzero(x_frac[0])[0]] = 0.5  # not int8-exact
+    c = int(np.asarray(b.bg_mask).sum())
+    dst = np.asarray(b.bg_dst).copy()
+    i = int(np.flatnonzero(np.diff(dst[:c]))[0])
+    dst[i], dst[i + 1] = dst[i + 1], dst[i]  # unsorted: no run lengths
+    src = np.asarray(b.bg_src).copy()
+    src[0] += 300                     # past a molecule's u8 offsets
+    return {"nonzeros > k": ("x_atoms", x),
+            "not int8-exact": ("x_atoms", x_frac),
+            "not run-length-encodable": ("bg_dst", dst),
+            "molecule-local-u8": ("bg_src", src)}
+
+
+def test_compact_pack_raises_where_jax_does(ft_graphs, port_graphs):
+    """``pack_batch`` on a compact layout raises, with the JAX package's
+    message, where the JAX package's raises: k exceeded, values not
+    int8-exact, bg_dst not run-length-encodable (a validating pack), bg_src
+    not molecule-local u8."""
+    from fragnet_tpu.data.packing import pack_batch as jax_pack
+
+    bj, bp, lj, lp = _compact_pair(ft_graphs, port_graphs)
+    assert lp.entry("bg_dst").enc == packing.RUNS8
+    assert lp.entry("bg_src").enc == packing.LOC8
+    np.testing.assert_array_equal(packing.pack_batch(bp, lp, validate=True),
+                                  packing.pack_batch(bp, lp))
+    for msg, (field, arr) in _mutations(bp).items():
+        for pack, b, lay in ((packing.pack_batch, bp, lp),
+                             (jax_pack, bj, lj)):
+            bad = dataclasses.replace(b, **{field: arr})
+            with pytest.raises(ValueError, match=msg):
+                pack(bad, lay, validate=True)
+
+
+def test_compact_train_step_matches_default(pt_graphs):
+    """One packed pretraining step on compact buffers equals the step on
+    the default profile's buffers of the same batches: loss and every
+    gradient (1e-6), the decoded batches equal field for field; and
+    make_pretrain_step's losses over the loader's batches (1e-6)."""
+    from fragnet_tpu_torch.model.pretrain import FragNetPreTrain
+    from fragnet_tpu_torch.train.optim import make_optimizer
+    from fragnet_tpu_torch.train.pretrain import (make_pretrain_step,
+                                                  pretrain_loss)
+
+    _jg, pg = pt_graphs
+    spec = _aligned(pg)
+    out, steps = [], []
+    for compact in (False, True):
+        loader = BatchLoader(pg, 4, spec=spec, with_targets=True, pack=True,
+                             pack_compact=compact)
+        m = FragNetPreTrain(num_layer=1, num_heads=2, emb_dim=16,
+                            drop_ratio=0.0,
+                            generator=torch.Generator().manual_seed(0))
+        levels = packing.plane_levels(m.policy)
+        b = packing.unpack_batch(torch.from_numpy(next(iter(loader))),
+                                 loader.layout, levels)
+        m.train()
+        loss = pretrain_loss(m(b), b)
+        loss.backward()
+        out.append((b, float(loss.detach()),
+                    {n: p.grad for n, p in m.named_parameters()
+                     if p.grad is not None}))
+        # and through the packed step itself (train/pretrain.py)
+        m2 = FragNetPreTrain(num_layer=1, num_heads=2, emb_dim=16,
+                             drop_ratio=0.0,
+                             generator=torch.Generator().manual_seed(0))
+        opt, _ = make_optimizer(m2.parameters(), "adam", lr=1e-3)
+        step = make_pretrain_step(m2, opt, layout=loader.layout,
+                                  device="cpu")
+        steps.append([float(step(buf)) for buf in loader])
+    (b0, l0, g0), (b1, l1, g1) = out
+    np.testing.assert_allclose(steps[1], steps[0], rtol=1e-6)
+    _assert_decoded_equal(b0, b1, [f.name for f in dataclasses.fields(b0)])
+    np.testing.assert_allclose(l1, l0, rtol=1e-6)
+    assert set(g0) == set(g1)
+    for n in g0:
+        np.testing.assert_allclose(g1[n].numpy(), g0[n].numpy(), rtol=1e-6,
+                                   atol=1e-6 * float(g0[n].abs().max()),
+                                   err_msg=n)
+
+
+def test_compact_loaders_in_every_packed_tier(port_graphs):
+    """``BatchLoader(pack_compact=True)``: a spawned pack worker, the host
+    and device packed caches all carry the compact layout and reproduce
+    the thread stream's buffers."""
+    def mk(**kw):
+        return BatchLoader(port_graphs, 2, spec=_aligned(port_graphs),
+                           pack=True, pack_compact=True, **kw)
+
+    base = mk()
+    ref = list(base)
+    assert base.layout.entry("x_atoms").enc == packing.SPARSE8
+    keys = sorted(b.tobytes() for b in ref)
+    proc = mk()
+    proc.layout = base.layout
+    got = list(proc.stream(1, process=True, workers=1))
+    assert [b.tobytes() for b in got] == [b.tobytes() for b in ref]
+    host = PackedCacheLoader(mk())
+    dev = DevicePackedCacheLoader(mk(), device="cpu")
+    for cache in (host, dev):
+        assert cache.layout.entry("bg_dst").enc == packing.RUNS8
+        bufs = [np.asarray(b) for b in cache]
+        assert sorted(b.tobytes() for b in bufs) == keys
+    up = packing.unpack_batch(dev.bufs[0], dev.layout)
+    assert up.tm_atom.flat_slot.dtype == torch.int32
 
 
 # --------------------------------------------------------------------------
