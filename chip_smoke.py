@@ -22,7 +22,8 @@ the DTA and CDRP tasks through ``run_task``, and the HP search, k-fold CV,
 bucketed finetuning and auxiliary pretraining (``run_hp_search``,
 ``run_finetune_cv``, ``finetune.n_buckets``, ``pretrain.mode``), and the
 esol recipe in bf16 (``finetune.dtype=bf16``: the bf16 forms of K1, K2,
-K4, K5).
+K4, K5), the compact packing encodings, and the ELL neighbour-table path
+(``spec_for(..., ell=True)``) with the native host runtime.
 Phases:
 
   1. the card's name and power limit (nvidia-smi);
@@ -265,7 +266,19 @@ Phases:
      for bit between the two layouts on the card; one epoch of packed
      pretraining from each layout, launches exact (K6 once per train step
      per plane level, K1 / K2 / K4 / K5 as derived), walls and busy side
-     by side.
+     by side;
+ 33. the ELL neighbour-table path (ell_phase; ops/ell.py, torch ops on the
+     card as the JAX package runs it in XLA) at the esol width on phase
+     8's molecules, batches from spec_for(..., ell=True): a forward, one
+     train step's gradients and 3 Adam steps card vs CPU (1e-3 of scale),
+     a bf16 forward (2e-2), every GAT kernel's launches 0 and 4 ELL passes
+     per layer; a batch with TCSR metadata and ELL tables runs K1 / K4 and
+     no ELL pass; the ELL step's wall and busy beside phase 8's, each ELL
+     level's forward + backward device ms beside its kernels' (phase 4);
+     then the native host runtime (native_phase): loaded, its counters
+     moved by the esol featurization and the TCSR builds, host ms per call
+     of the line graph and the TCSR windows, native beside Python / numpy
+     (equal outputs), on the esol set and a batch-64 pretraining batch.
 
 Prints a ``{"kernels": [...]}`` JSON line (launches from the pretraining
 path of phase 11 for K1-K6, of phase 19 for K7-K9 (K9's: K8's, whose
@@ -4639,12 +4652,17 @@ def bf16_rest_phase(dev, datasets, spec, windows, batch_np, train_np,
     report = check_kernels(ATTR_BF16, calls, rng)
     report.update(check_kernels(EP_BF16, calls, rng,
                                 check_scales=check_ep_scales))
+    # K9 in the bf16 K8's launch: checked at every level, and at each timed
+    # level (K8's report there) its plain version and the library gather
+    # timed as phase 16 times the f32 ones
+    k8_16 = {p["level"]: p for p in report["dense_attr_bwd_bf16"][0]}
     for lvl, a, kw in calls["dense_attr_bwd_bf16"]:
         got = dense_gat.dense_attr_bwd(*a, **kw)
         want = dense_gat.dense_attr_bwd_emit_plain(*a, **kw)
         floor = 0.0 if "seeded" in lvl else _scale_floor(
             "dense_attr_bwd_bf16", a)
-        emit_levels(a, got[4], want[4], _diff(got[4], want[4], floor))
+        emit_levels(a, got[4], want[4], _diff(got[4], want[4], floor),
+                    k8_16.get(lvl))
     print(f"bf16 K8's d_wea (K9 in its launch) against the plain pair and "
           f"0 off the counted edges at all "
           f"{len(calls['dense_attr_bwd_bf16'])} levels")
@@ -5012,6 +5030,342 @@ def ep_step_ranks(kw, sd, ep_np):
                      workdir=os.path.join(REPO, "exps"))
 
 
+# phase 33: the ELL neighbour-table path (ops/ell.py; the JAX package's
+# spec_for(..., ell=True)) at the esol width: torch ops on the card, no
+# kernel (the JAX package computes it in XLA); and the native host runtime
+# (native/graphops.cc) against the Python / numpy paths
+ELL_STEPS = 3
+# the ELL passes in the order of one layer's calls, each beside the kernels
+# that carry it under the default policy and their phase-4 level
+ELL_LEVELS = (("bond", ("dense_gat_fwd", "dense_gat_bwd"), "bond (R=1)"),
+              ("atom", ("tcsr_gat_fwd", "tcsr_gat_bwd"), "atom (self-loops)"),
+              ("fconn", ("dense_gat_fwd", "dense_gat_bwd"), "fconn (R=6)"),
+              ("frag", ("tcsr_gat_fwd", "tcsr_gat_bwd"), "frag"))
+
+
+class _EllSpy:
+    """Counts model/layers.py's ELL passes while in a with block, keeping
+    the arguments of the first ``keep`` calls."""
+
+    def __init__(self, keep: int = 0):
+        self.calls, self.keep, self.args = 0, keep, []
+
+    def __enter__(self):
+        from fragnet_tpu_torch.model import layers
+
+        self._mod, self._orig = layers, layers.ell_gat_pass
+
+        def spy(*a, **kw):
+            self.calls += 1
+            if len(self.args) < self.keep:
+                self.args.append((a, kw))
+            return self._orig(*a, **kw)
+
+        layers.ell_gat_pass = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.ell_gat_pass = self._orig
+        return False
+
+
+def _no_launches(label):
+    launched = {n: c for n, c in _launches().items() if c}
+    if launched:
+        raise AssertionError(f"{label}: kernels launched on the ELL path: "
+                             f"{launched}")
+
+
+def ell_adam_steps(cpu_model, batch_np, d):
+    """ELL_STEPS Adam steps (lr 1e-4, dropout off) of a copy of
+    ``cpu_model`` on ``batch_np`` on device ``d``: (each step's loss, the
+    predictions after the last)."""
+    import torch
+
+    from fragnet_tpu_torch.graphs.batch import to_device
+    from fragnet_tpu_torch.train.loop import mse_loss
+    from fragnet_tpu_torch.train.optim import make_optimizer
+
+    m = copy.deepcopy(cpu_model).to(d).eval()
+    adam, _ = make_optimizer(m.parameters(), "adam", lr=1e-4)
+    b = to_device(batch_np, d)
+    losses = []
+    for _ in range(ELL_STEPS):
+        loss = mse_loss(m(b), b.y, b.graph_mask)
+        loss.backward()
+        adam.step()
+        adam.zero_grad(set_to_none=True)
+        losses.append(float(loss.detach()))
+    with torch.no_grad():
+        return losses, m(b).cpu()
+
+
+def ell_level_times(model, batch_np, dev, report, rng):
+    """Each ELL pass of layer 0 of one forward of ``model`` on
+    ``batch_np`` (phase 4's test batch, with ELL tables), forward +
+    backward alone on the card: device ms and event ms per call, beside
+    the device ms of the kernels that carry the level under the default
+    policy at phase 4 (forward + backward)."""
+    import torch
+
+    from fragnet_tpu_torch.graphs.batch import to_device
+    from fragnet_tpu_torch.ops.ell import ell_gat_pass
+
+    with _EllSpy(keep=len(ELL_LEVELS)) as spy, torch.no_grad():
+        model(to_device(batch_np, dev))
+    out = {}
+    for (lvl, kernels, k_lvl), (a, kw) in zip(ELL_LEVELS, spy.args):
+        nf, ea, src, nbr, mask, avec = a
+        nf, ea, avec = (t.detach().clone().requires_grad_()
+                        for t in (nf, ea, avec))
+        g = torch.from_numpy(rng.standard_normal(tuple(nf.shape)).astype(
+            "float32")).to(dev)
+
+        def fwd_bwd():
+            o, _ = ell_gat_pass(nf, ea, src, nbr, mask, avec,
+                                want_attn_by_src=False,
+                                num_src_nodes=kw["num_src_nodes"])
+            return torch.autograd.grad(o, (nf, ea, avec), g)
+
+        k_ms = sum(next(p["device_ms"] for p in report[k][0]
+                        if p["level"] == k_lvl) for k in kernels)
+        out[lvl] = dict(device_ms=_device_ms(fwd_bwd), ms=_median_ms(fwd_bwd),
+                        kernel_device_ms=k_ms, K=tuple(nbr.shape),
+                        kernels=kernels)
+        print(f"ELL pass [{lvl}, layer 0] forward + backward: nf "
+              f"{'x'.join(map(str, nf.shape))}, table "
+              f"{'x'.join(map(str, nbr.shape))}: device_ms="
+              f"{out[lvl]['device_ms']:.4f} ms={out[lvl]['ms']:.4f}; "
+              f"{' + '.join(kernels)} at phase 4's [{k_lvl}]: device_ms="
+              f"{k_ms:.4f} ({out[lvl]['device_ms'] / k_ms:.1f}x)")
+    return out
+
+
+def ell_phase(dev, datasets, train_win, batch_win, step_default, report,
+              rng):
+    """Phase 33 (a)-(e): the ELL path of FragNetFineTune at the esol
+    config's width (4 layers, emb 128, 4 heads, batch 16, f32), on the
+    molecules of phase 8's train batch (``train_win``) in batches built
+    with spec_for(..., ell=True) (no TCSR): (a) a forward card vs CPU,
+    seeded weights: predictions within 1e-3 of scale, 4 ELL passes per
+    layer, no kernel launched; (b) one train step's loss and gradients
+    card vs CPU (1e-3 of each scale); (c) ELL_STEPS Adam steps on each:
+    every loss and the predictions after them within 1e-3, no launch; (d)
+    a bf16 forward card vs CPU within 2e-2 of scale, no launch; (e) the
+    same molecules with ell=True and tcsr=True run K1 / K4 (launches as
+    expected_launches counts) and no ELL pass. Then, for the record, the
+    ELL train step's wall and busy beside phase 8's TCSR step and each ELL
+    level's forward + backward device time at layer 0 of phase 4's test
+    batch (``batch_win``) beside its kernels'. Returns {step, levels}."""
+    import torch
+
+    from fragnet_tpu_torch.graphs.batch import to_device
+    from fragnet_tpu_torch.graphs.hiergraph import pad_batch, spec_for
+    from fragnet_tpu_torch.model.layers import KernelPolicy
+
+    train_g, val_g, test_g, n_tasks, _task = datasets
+    opt = smoke_opt()
+    L = int(opt.finetune.model.num_layer)
+    bs = int(opt.finetune.batch_size)
+    graphs = train_g + val_g + test_g
+    spec_e = spec_for(graphs, bs, ell=True)
+    ell_np = pad_batch(train_win, spec_e, n_tasks=n_tasks)
+    if ell_np.atom_nbr_edge is None or ell_np.tm_atom is not None \
+            or ell_np.dp_bond is not None:
+        raise AssertionError("phase 33's batch is not an ELL-only batch")
+    print(f"ELL spec: widths atom {spec_e.k_atom} (self-loop included), "
+          f"bond line {spec_e.k_bg}, frag {spec_e.k_frag}, fconn line "
+          f"{spec_e.k_fc}; slots {spec_e.n_atoms} atoms, {spec_e.n_edges} "
+          f"bonds, {spec_e.n_frags} frags, {spec_e.n_fconn} connections")
+
+    # (a) the forward
+    t0 = time.perf_counter()
+    cpu_model = build_model_cpu(opt, n_tasks).eval()
+    model = copy.deepcopy(cpu_model).to(dev).eval()
+    _reset_launches()
+    with _EllSpy() as spy, torch.no_grad():
+        pred_gpu = model(to_device(ell_np, dev)).cpu()
+    torch.cuda.synchronize()
+    _no_launches("ELL forward")
+    with torch.no_grad():
+        pred_cpu = cpu_model(to_device(ell_np, "cpu"))
+    if tuple(pred_gpu.shape) != (bs, n_tasks) \
+            or not torch.isfinite(pred_gpu).all():
+        raise AssertionError(f"ELL prediction shape {tuple(pred_gpu.shape)}"
+                             f" or not finite")
+    err, rel = _diff(pred_gpu, pred_cpu)
+    print(f"ELL forward cpu vs gpu: max_abs_err={err:.3e} rel={rel:.3e} "
+          f"(limit {FORWARD_REL_LIMIT}); {spy.calls} ELL passes (expected "
+          f"{4 * L}), no kernel launched")
+    if spy.calls != 4 * L or rel > FORWARD_REL_LIMIT:
+        raise AssertionError("the ELL forward disagrees")
+
+    # (b) one train step's gradients
+    l_cpu, l_gpu, worst, worst_name, n_par = train_grads_card_vs_cpu(
+        cpu_model, ell_np, dev)
+    _no_launches("ELL train step")
+    print(f"ELL train step cpu vs gpu: loss {l_cpu:.6f} / {l_gpu:.6f}; "
+          f"worst relative diff {worst:.3e} ({worst_name}) over {n_par} "
+          f"parameters (limit {GRAD_REL_LIMIT})")
+    if worst > GRAD_REL_LIMIT:
+        raise AssertionError("ELL: card and CPU gradients disagree")
+
+    # (c) a few Adam steps on each
+    losses_gpu, after_gpu = ell_adam_steps(cpu_model, ell_np, dev)
+    _no_launches("ELL Adam steps")
+    losses_cpu, after_cpu = ell_adam_steps(cpu_model, ell_np, "cpu")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses_gpu,
+                                                       losses_cpu))
+    err, rel = _diff(after_gpu, after_cpu)
+    print(f"ELL {ELL_STEPS} Adam steps: losses card {losses_gpu}, cpu "
+          f"{losses_cpu} (worst rel {loss_rel:.3e}); predictions after them "
+          f"max_abs_err={err:.3e} rel={rel:.3e} (limit {FORWARD_REL_LIMIT})")
+    if loss_rel > FORWARD_REL_LIMIT or rel > FORWARD_REL_LIMIT:
+        raise AssertionError("ELL: the Adam steps disagree")
+
+    # (d) a bf16 forward
+    opt16 = smoke_opt()
+    opt16.set_path("finetune.dtype", "bf16")
+    cpu16 = build_model_cpu(opt16, n_tasks).eval()
+    cpu16.load_state_dict(cpu_model.state_dict())
+    card16 = copy.deepcopy(cpu16).to(dev)
+    _reset_launches()
+    with _EllSpy() as spy16, torch.no_grad():
+        p16_gpu = card16(to_device(ell_np, dev)).cpu()
+    torch.cuda.synchronize()
+    _no_launches("ELL bf16 forward")
+    with torch.no_grad():
+        p16_cpu = cpu16(to_device(ell_np, "cpu"))
+    err, rel = _diff(p16_gpu, p16_cpu)
+    print(f"ELL bf16 forward cpu vs gpu: max_abs_err={err:.3e} "
+          f"rel={rel:.3e} (limit {BF16_PRED_LIMIT}); {spy16.calls} ELL "
+          f"passes, no kernel launched")
+    if spy16.calls != 4 * L or not rel <= BF16_PRED_LIMIT:
+        raise AssertionError("the ELL bf16 forward disagrees")
+
+    # (e) TCSR metadata and ELL tables together: the kernels run
+    spec_b = spec_for(graphs, bs, ell=True, tcsr=True)
+    both_np = pad_batch(train_win, spec_b, n_tasks=n_tasks)
+    if both_np.atom_nbr_edge is None or both_np.tm_atom is None:
+        raise AssertionError("phase 33 (e)'s batch lacks a table or TCSR")
+    expect = expected_launches(KernelPolicy(), L,
+                               [(_planes_of(both_np), 1, 0)])
+    _reset_launches()
+    with _EllSpy() as spy_b, torch.no_grad():
+        model(to_device(both_np, dev))
+    torch.cuda.synchronize()
+    launched = _launches()
+    print(f"ell=True, tcsr=True: {spy_b.calls} ELL passes; kernels: "
+          + " ".join(f"{n}={c} (expected {expect[n]})"
+                     for n, c in launched.items() if c or expect[n]))
+    if spy_b.calls or launched != expect or not expect["tcsr_gat_fwd"]:
+        raise AssertionError("a batch with TCSR metadata and ELL tables did "
+                             "not take the kernels")
+    print(f"phase 33 (a)-(e): {time.perf_counter() - t0:.1f} s")
+
+    # for the record: the step and the passes alone
+    t0 = time.perf_counter()
+    step_ell = timed_train_step(model, ell_np, dev, "ELL")
+    print(f"ELL train step vs phase 8's TCSR step (same molecules): wall "
+          f"{step_ell['wall']:.2f} / {step_default['wall']:.2f} ms, device "
+          f"busy {step_ell['busy']:.3f} / {step_default['busy']:.3f} ms, "
+          f"peak {step_ell['peak_mib']:.1f} / {step_default['peak_mib']:.1f}"
+          f" MiB")
+    levels = ell_level_times(model, pad_batch(batch_win, spec_e,
+                                              n_tasks=n_tasks),
+                             dev, report, rng)
+    print(f"phase 33, timings: {time.perf_counter() - t0:.1f} s")
+    return {"step": step_ell, "levels": levels}
+
+
+def _host_ms(fn, n: int):
+    """Median host ms of ``n`` calls of ``fn`` (after one warm-up)."""
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def native_phase(datasets, train_np, pgraphs, feat_s, calls_after_feat):
+    """Phase 33 (f): the native host runtime. It must have loaded, and
+    its counters must have moved during the esol featurization (line
+    graphs, ``calls_after_feat``) and the TCSR builds since (tile
+    metadata). Host ms per call, native beside the Python / numpy path
+    (same outputs): the atom line graph of each esol molecule and of each
+    molecule of one batch-64 pretraining batch; each level's TCSR windows
+    of the esol train batch and of that pretraining batch."""
+    import numpy as np
+
+    from fragnet_tpu_torch import native
+    from fragnet_tpu_torch.graphs.build import (_line_graph_edges,
+                                                _line_graph_edges_py)
+    from fragnet_tpu_torch.graphs.hiergraph import pad_batch, spec_for
+    from fragnet_tpu_torch.ops.tcsr import (build_tile_meta,
+                                            build_tile_meta_numpy)
+
+    t0 = time.perf_counter()
+    calls = dict(native.CALLS)
+    print(f"native runtime: available {native.available()}, library "
+          f"{os.path.relpath(native.so_path('g++'), REPO)}; calls after "
+          f"the esol featurization {calls_after_feat}, now {calls}")
+    if not native.available() or not calls_after_feat["line_graph"] \
+            or calls["tile_meta_arrays"] <= calls_after_feat[
+                "tile_meta_arrays"]:
+        raise AssertionError("the native runtime did not run")
+    pt_bs = int(PT_OVERRIDES["pretrain.batch_size"])
+    esol = datasets[0] + datasets[1] + datasets[2]
+    out = {}
+    for label, gs in (("esol", esol), (f"pretraining batch {pt_bs}",
+                                       pgraphs[:pt_bs])):
+        ends = [list(zip(g.edge_index[0].tolist(), g.edge_index[1].tolist()))
+                for g in gs]
+        if any(_line_graph_edges(e) != _line_graph_edges_py(e)
+               for e in ends):
+            raise AssertionError("native and Python line graphs differ")
+        nat = _host_ms(lambda: [_line_graph_edges(e) for e in ends], 5)
+        py = _host_ms(lambda: [_line_graph_edges_py(e) for e in ends], 5)
+        out[f"line_graph, {label}"] = (nat / len(gs), py / len(gs))
+        print(f"line_graph [{label}, {len(gs)} molecules, "
+              f"{sum(len(e) for e in ends)} directed bonds]: native "
+              f"{nat / len(gs):.4f} ms, Python {py / len(gs):.4f} ms per "
+              f"molecule ({py / nat:.1f}x)")
+    spec_p = spec_for(pgraphs, pt_bs, tcsr=True)
+    levels = {"atom": ("edge_src", "edge_dst", "edge_mask"),
+              "bond": ("bg_src", "bg_dst", "bg_mask"),
+              "frag": ("frag_src", "frag_dst", "fconn_mask"),
+              "fc": ("fc_src", "fc_dst", "fc_mask")}
+    for label, b in (("esol batch 16", train_np),
+                     (f"pretraining batch {pt_bs}",
+                      pad_batch(pgraphs[:pt_bs], spec_p))):
+        for lvl, (s_, d_, m_) in levels.items():
+            tm = getattr(b, f"tm_{lvl}")
+            args = (getattr(b, s_), getattr(b, d_), getattr(b, m_),
+                    tm.tn * tm.ew_blk.shape[0])  # the level's node slots
+            kw = dict(tn=tm.tn, te=tm.te, n_chunks=tm.n_chunks,
+                      k_src=tm.k_src)
+            got, want = build_tile_meta(*args, **kw), \
+                build_tile_meta_numpy(*args, **kw)
+            if not all(np.array_equal(getattr(got, f), getattr(want, f))
+                       for f in ("ew_blk", "sw_tile", "flat_slot", "cw")):
+                raise AssertionError(f"native and numpy TCSR windows "
+                                     f"differ [{label}, {lvl}]")
+            nat = _host_ms(lambda: build_tile_meta(*args, **kw), 20)
+            py = _host_ms(lambda: build_tile_meta_numpy(*args, **kw), 20)
+            out[f"tile_meta, {label}, {lvl}"] = (nat, py)
+            print(f"build_tile_meta [{label}, {lvl}: {args[0].shape[0]} "
+                  f"edge slots, {args[3]} nodes]: native {nat:.4f} ms, "
+                  f"numpy {py:.4f} ms ({py / nat:.1f}x)")
+    per_mol = out["line_graph, esol"]
+    print(f"esol featurization (phase 3) {feat_s:.2f} s for {len(esol)} "
+          f"molecules with the native line graph; the Python one would add "
+          f"~{(per_mol[1] - per_mol[0]) * len(esol) / 1e3:.3f} s")
+    print(f"phase 33 (f): {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def build_model_cpu(opt, n_tasks):
     """The smoke's esol model, seeded, on the CPU, in the compute type and
     under the kernel policy its config names (finetune.dtype,
@@ -5086,6 +5440,8 @@ def main() -> int:
     train_g, val_g, test_g, n_tasks, _task = datasets
     print(f"featurization: {t_feat_end - t_feat:.2f} s "
           f"({len(train_g)}/{len(val_g)}/{len(test_g)} graphs)")
+    from fragnet_tpu_torch import native
+    native_after_feat = dict(native.CALLS)  # phase 33 reads them
     # phase 27's sets, behind the pretraining set, once the esol set is
     # done: the main process featurizes it beside the pool
     task_graphs = TaskGraphs(pending)
@@ -5221,8 +5577,8 @@ def main() -> int:
     t_phase = time.perf_counter()
 
     # ---- 8. one train step: host time and device busy time ----------------
-    train_np = pad_batch(next(iter(train_loader._windows())), spec,
-                         n_tasks=n_tasks)
+    train_win = next(iter(train_loader._windows()))
+    train_np = pad_batch(train_win, spec, n_tasks=n_tasks)
     step_default = timed_train_step(tr_model, train_np, dev,
                                     "default policy")
 
@@ -5342,6 +5698,14 @@ def main() -> int:
     t_phase = time.perf_counter()
     compact_paths = compact_phase(dev, datasets, spec, pgraphs)
     print(f"phase 32: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 33. the ELL path and the native host runtime -----------------------
+    t_phase = time.perf_counter()
+    ell_phase(dev, datasets, train_win, windows[0], step_default, report,
+              rng)
+    native_phase(datasets, train_np, pgraphs, t_feat_end - t_feat,
+                 native_after_feat)
+    print(f"phase 33: {time.perf_counter() - t_phase:.1f} s")
 
     paths = {"finetune_train": launches_t, "pretrain": launches_pt,
              "finetune_bf16_train": launches_16,

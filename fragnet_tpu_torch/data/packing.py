@@ -240,6 +240,11 @@ def to_bf16_bits(x: np.ndarray) -> np.ndarray:
     return r.astype(np.uint16)
 
 
+def _refuse_ell(batch) -> None:
+    if batch.atom_nbr_edge is not None:
+        raise ValueError("packed transport does not support the ELL path")
+
+
 def build_layout(template: HierGraphBatch, compute_dtype="float32",
                  sparse_k: Optional[int] = None, compact: bool = False,
                  aligned: bool = False,
@@ -253,7 +258,9 @@ def build_layout(template: HierGraphBatch, compute_dtype="float32",
     profile): every encoding is a copy on the host and a view or cast on the
     device. ``compact=True`` adds the sparse / bit / run-length /
     molecule-local encodings (see the module docstring), ``sparse_k`` the
-    sparse rows' width (default: the template's widest row + 2)."""
+    sparse rows' width (default: the template's widest row + 2). A batch
+    with ELL tables raises, as in the JAX package."""
+    _refuse_ell(template)
     if compact and template.x_atoms.shape[1] > 256:
         raise ValueError("sparse x_atoms encoding needs feat dim <= 256")
     caps = _caps(template)
@@ -407,7 +414,9 @@ def pack_batch(batch: HierGraphBatch, layout: PackLayout,
     """``validate=True`` runs full value-level checks (every lossy-if-wrong
     encoding is verified exactly). The loaders validate the FIRST batch of a
     spec; later batches come from the same builder invariants, so they skip
-    the O(bytes) checks (the cheap range checks always run)."""
+    the O(bytes) checks (the cheap range checks always run). A batch with
+    ELL tables raises, as ``build_layout`` does."""
+    _refuse_ell(batch)
     buf = np.zeros((layout.total_bytes,), np.uint8)
     caps = _caps(batch)
 

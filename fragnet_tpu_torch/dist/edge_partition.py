@@ -233,8 +233,12 @@ def ep_local_batch(batch, rank: int, n_shards: int):
     since the pass reads its own rows by rank and every shard's t0; a batch
     with no tile metadata (the segment mode) has each sharded field padded
     to a multiple of ``n_shards`` first, as ``shard_edges`` pads (the
-    masks' padding 0). Single-device TileMeta, or a mix, raises."""
+    masks' padding 0). Single-device TileMeta, or a mix, raises; so do ELL
+    tables, as in the JAX package."""
     from fragnet_tpu_torch.ops.tcsr import EPTileMeta
+
+    if batch.atom_nbr_edge is not None:
+        raise ValueError("edge-partitioned mode does not support ELL tables")
 
     tms = [getattr(batch, lvl) for lvl in _LEVELS]
     fused = all(isinstance(tm, EPTileMeta) and tm.ew_blk.shape[0] == n_shards

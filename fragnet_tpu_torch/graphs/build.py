@@ -36,6 +36,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from fragnet_tpu_torch import native
 from fragnet_tpu_torch.chem.features import FeaturesEXP
 from fragnet_tpu_torch.chem.fragments import FragmentedMol
 
@@ -94,7 +95,20 @@ class MolGraph:
 
 def _line_graph_edges(edge_endpoints: List[Tuple[int, int]]) -> Tuple[List[int], List[int]]:
     """Pairs of directed edges sharing exactly ONE atom, in the reference's
-    i-major / j-ascending order (data.py:116-128) but O(E·deg)."""
+    i-major / j-ascending order (data.py:116-128) but O(E·deg). Uses the C++
+    native runtime (fragnet_tpu_torch/native) when a compiler is present,
+    else ``_line_graph_edges_py``; the two give the same pairs."""
+    if edge_endpoints:
+        src = np.fromiter((u for u, _ in edge_endpoints), np.int32)
+        dst = np.fromiter((v for _, v in edge_endpoints), np.int32)
+        out = native.line_graph(src, dst, int(max(src.max(), dst.max())) + 1)
+        if out is not None:
+            return out[0].tolist(), out[1].tolist()
+    return _line_graph_edges_py(edge_endpoints)
+
+
+def _line_graph_edges_py(edge_endpoints: List[Tuple[int, int]]) -> Tuple[List[int], List[int]]:
+    """``_line_graph_edges`` in Python (no native runtime)."""
     incident: Dict[int, List[int]] = {}
     for e, (u, v) in enumerate(edge_endpoints):
         incident.setdefault(u, []).append(e)

@@ -64,6 +64,17 @@ class HierGraphBatch:
     # optional task extras
     protein: Optional[np.ndarray] = None     # (G, seq_len) i32
     gene_expr: Optional[np.ndarray] = None   # (G, n_genes) f32
+    # optional ELL neighbor tables (ops/ell.py) — dense bounded-degree
+    # formulation; atom tables index the EXTENDED edge array where id E+i is
+    # atom i's self-loop
+    atom_nbr_edge: Optional[np.ndarray] = None  # (A, Ka) i32
+    atom_nbr_mask: Optional[np.ndarray] = None  # (A, Ka) f32
+    bg_nbr_edge: Optional[np.ndarray] = None    # (E, Kb) i32
+    bg_nbr_mask: Optional[np.ndarray] = None    # (E, Kb) f32
+    frag_nbr_edge: Optional[np.ndarray] = None  # (F, Kf) i32
+    frag_nbr_mask: Optional[np.ndarray] = None  # (F, Kf) f32
+    fc_nbr_edge: Optional[np.ndarray] = None    # (C, Kc) i32
+    fc_nbr_mask: Optional[np.ndarray] = None    # (C, Kc) f32
     # optional TCSR tile metadata (ops/tcsr.py) for the fused GAT kernel
     tm_atom: Optional[object] = None
     tm_bond: Optional[object] = None
@@ -111,6 +122,11 @@ class PadSpec:
     n_fconn: int
     n_bg_edges: int
     n_fc_edges: int
+    # ELL neighbor-table widths (None disables the dense formulation)
+    k_atom: Optional[int] = None
+    k_bg: Optional[int] = None
+    k_frag: Optional[int] = None
+    k_fc: Optional[int] = None
     # TCSR tiling for the fused GAT kernel (ops/tcsr_gat.py): tile sizes
     # plus pinned (n_chunks, k_src) per level so every batch has the same
     # window bounds. None disables the kernel path. The defaults (tn=128,
@@ -192,7 +208,7 @@ def _max_indeg(dst_rows, n_nodes: int) -> int:
 
 
 def spec_for(graphs: Sequence, batch_size: int, slack: float = 1.1,
-             multiple: int = 8,
+             multiple: int = 8, ell: bool = False,
              tcsr: bool = False, tn: int = 128, te: int = 256,
              align: Optional[bool] = None) -> PadSpec:
     """Compute a PadSpec covering a window of ``batch_size`` graphs from the
@@ -220,6 +236,27 @@ def spec_for(graphs: Sequence, batch_size: int, slack: float = 1.1,
         est = int(batch_size * arr.mean() * max(slack - 0.1, 1.0)
                   + 4.0 * arr.std() * np.sqrt(batch_size) + 2 * arr.max())
         return est
+
+    ks = {}
+    if ell:
+        # the ELL (dense neighbor-table) formulation (ops/ell.py): per-level
+        # max in-degree across the dataset (+1 atom self-loop). The JAX
+        # package measured it ~100x slower than its segment path on a TPU
+        # and keeps it opt-in; the port keeps it opt-in too (PERF.md has its
+        # times on the GPU)
+        ks["k_atom"] = 1 + max(
+            _max_indeg(g.edge_index[1], g.n_atoms) for g in graphs
+        )
+        ks["k_bg"] = max(
+            _max_indeg(g.ei_bonds[0], g.n_edges) for g in graphs
+        )  # row 0 of ei_bonds is the aggregation target (see pad_batch)
+        ks["k_frag"] = max(
+            _max_indeg(g.frag_index[1], g.n_frags) for g in graphs
+        )
+        ks["k_fc"] = max(
+            _max_indeg(g.ei_fbonds[0], g.n_fconn) for g in graphs
+        )
+        ks = {k: max(v, 1) for k, v in ks.items()}
 
     if align is None:
         align = tcsr  # aligned packing is the TCSR/dense fast path default
@@ -260,6 +297,7 @@ def spec_for(graphs: Sequence, batch_size: int, slack: float = 1.1,
         n_fc_edges=caps["n_fc_edges"],
         tn=tn, te=te, align=align,
         **(tns if (tcsr or align) else {}),
+        **ks,
     ).round_to(max(multiple, tn, te, *tn_by_name.values())
                if (tcsr or align) else multiple)
     if not tcsr:
@@ -574,6 +612,28 @@ def pad_batch(graphs: Sequence, spec: PadSpec, n_tasks: int = 1,
             frag_src, frag_dst, fconn_mask, np.zeros((C, 0), np.float32),
             F, tn=spec.tn_of("frag"))
 
+    ell_kw = {}
+    if spec.k_atom is not None:
+        from fragnet_tpu_torch.ops.ell import build_ell_table
+
+        # atom tables index the EXTENDED edge array: real edge ids [0, E),
+        # then self-loop id E + i for atom slot i (matching the model's
+        # concatenation order, gat2.py:179-185)
+        ext_dst = np.concatenate([edge_dst, np.arange(A, dtype=np.int32)])
+        ext_mask = np.concatenate([edge_mask, np.ones((A,), np.float32)])
+        ell_kw["atom_nbr_edge"], ell_kw["atom_nbr_mask"] = build_ell_table(
+            ext_dst, A, spec.k_atom, edge_mask=ext_mask
+        )
+        ell_kw["bg_nbr_edge"], ell_kw["bg_nbr_mask"] = build_ell_table(
+            bg_dst, E, spec.k_bg, edge_mask=bg_mask
+        )
+        ell_kw["frag_nbr_edge"], ell_kw["frag_nbr_mask"] = build_ell_table(
+            frag_dst, F, spec.k_frag, edge_mask=fconn_mask
+        )
+        ell_kw["fc_nbr_edge"], ell_kw["fc_nbr_mask"] = build_ell_table(
+            fc_dst, C, spec.k_fc, edge_mask=fc_mask
+        )
+
     return HierGraphBatch(
         x_atoms=x_atoms, edge_src=edge_src, edge_dst=edge_dst,
         edge_attr=edge_attr, atom_mask=atom_mask, edge_mask=edge_mask,
@@ -585,6 +645,6 @@ def pad_batch(graphs: Sequence, spec: PadSpec, n_tasks: int = 1,
         atom_to_frag=atom_to_frag, atom_batch=atom_batch,
         frag_batch=frag_batch, y=y, graph_mask=graph_mask,
         bnd_lngth=bnd_lngth, bnd_angl=bnd_angl, dh_angl=dh_angl,
-        protein=protein, gene_expr=gene_expr, **tcsr_kw,
+        protein=protein, gene_expr=gene_expr, **ell_kw, **tcsr_kw,
         **dense_kw,
     )

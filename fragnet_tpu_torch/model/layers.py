@@ -7,7 +7,10 @@ passes (bond-graph GAT → atom-graph GAT with self-loops → atom→frag poolin
 GAT pass goes through ``_gat_dispatch``: the dense planes kernel
 (ops/dense_gat.py), the dense-attr kernel (same module), or the fused TCSR
 kernel (ops/tcsr_gat.py) as the kernel policy and the batch's metadata
-select, else — on the CPU only — the segment path (ops/segment.py). A
+select, else the ELL pass (ops/ell.py, torch ops on any device, as the JAX
+package runs it in XLA) when FragNetLayer's batch carries neighbour tables
+(``spec_for(..., ell=True)``), else — on the CPU only — the segment path
+(ops/segment.py). A
 layer built with an ``EPContext`` runs edge-partitioned (dist/
 edge_partition.py): each rank passes its shard of every level's edges to
 the K3 pass (ops/tcsr_gat.py:tcsr_gat_pass_ep) when the batch carries
@@ -47,6 +50,7 @@ import torch.nn.functional as F
 from fragnet_tpu_torch.dist.edge_partition import shard_rows
 from fragnet_tpu_torch.ops.dense_gat import (dense_attr_gat_pass,
                                              dense_gat_pass)
+from fragnet_tpu_torch.ops.ell import ell_gat_pass
 from fragnet_tpu_torch.ops.segment import gat_attention_pass, segment_sum
 from fragnet_tpu_torch.ops.tcsr import EPTileMeta, TileMeta
 from fragnet_tpu_torch.ops.tcsr_gat import tcsr_gat_pass, tcsr_gat_pass_ep
@@ -134,11 +138,12 @@ def _gat_dispatch(
     mode: str,                   # "planes" | "attr" | "tcsr"
     fold=None,                   # (v, c) folded edge-attr term (planes mode)
     self_loops: bool = False,
-    seg=None,                    # (src, dst, attr, mask) for the segment
-                                 # path (the atom level appends explicit
-                                 # self-loop rows there)
+    seg=None,                    # (src, dst, attr, mask) for the ELL and
+                                 # segment paths (the atom level appends
+                                 # explicit self-loop rows there)
     need_attn: bool = False,
     ep=None,                     # EPContext: edge-partitioned pass
+    nbr=None,                    # (nbr_edge, nbr_mask) ELL tables or None
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One GAT pass through whichever kernel the batch metadata + policy
     select (the JAX package's ladder, fragnet_tpu/model/layers.py:171-190):
@@ -147,8 +152,9 @@ def _gat_dispatch(
     its collectives combine the shards); else
     the dense planes kernel, the dense-attr kernel over the adjacency plane
     (``dp`` itself at R = 0, else its first tn rows of each tile), else the
-    fused TCSR kernel, else — for CPU tensors only — the segment path. A
-    CUDA tensor with neither kernel's metadata raises. Math contract for
+    fused TCSR kernel, else the ELL pass over ``nbr`` (any device), else —
+    for CPU tensors only — the segment path. A CUDA tensor with none of
+    these raises. Math contract for
     every branch: ops/segment.py:gat_attention_pass (reference
     gat2.py:137-169)."""
     if ep is not None:
@@ -172,11 +178,17 @@ def _gat_dispatch(
         return tcsr_gat_pass(nf, ea, src, dst, mask, avec, tm,
                              self_loops=self_loops,
                              return_attention=need_attn)
+    if nbr is not None:
+        xsrc, _xdst, xattr, _xmask = seg or (src, dst, ea, mask)
+        return ell_gat_pass(nf, xattr, xsrc, nbr[0], nbr[1], avec,
+                            want_attn_by_src=need_attn,
+                            num_src_nodes=num_nodes)
     if nf.device.type != "cpu":
         raise RuntimeError(
-            f"GAT pass on {nf.device} without TCSR tile metadata or dense "
-            f"planes: the segment path runs on the CPU only; build the batch "
-            f"with a TCSR spec (spec_for(..., tcsr=True))")
+            f"GAT pass on {nf.device} without TCSR tile metadata, dense "
+            f"planes or ELL tables: the segment path runs on the CPU only; "
+            f"build the batch with a TCSR spec (spec_for(..., tcsr=True)) "
+            f"or ELL tables (spec_for(..., ell=True))")
     return _segment_pass(nf, avec, num_nodes, seg or (src, dst, ea, mask),
                          need_attn)
 
@@ -310,7 +322,12 @@ class _BondAtomPasses(nn.Module):
     and 2, gat2.py:137-224) with their parameters — edge_attr_bond_embed,
     projection_b, a_b, projection_a, a — and the fragment-level pass
     (pass 5) as a method over a given attention vector. FragNetLayer and
-    the gat2_lite / gat2_edge layers (model/variants.py) build on it."""
+    the gat2_lite / gat2_edge layers (model/variants.py) build on it.
+
+    ``takes_ell``: whether the passes take a batch's ELL tables
+    (FragNetLayer's, whose JAX counterpart reaches the ELL branch of its
+    dispatch; the JAX package's variants run their passes on the segment
+    path, so theirs do not)."""
 
     def __init__(self, atom_in: int, atom_out: int, edge_in: int,
                  edge_out: int, bond_edge_in: int, num_heads: int,
@@ -332,6 +349,15 @@ class _BondAtomPasses(nn.Module):
         self.a_b = _attn_param(H, 3 * eph, g)
         self.projection_a = _linear(atom_in, aph * H, "torch", g)
         self.a = _attn_param(H, 2 * aph + edge_out, g)
+
+    takes_ell = False
+
+    def _nbr(self, batch, level: str):
+        """``level``'s (nbr_edge, nbr_mask) for the ELL branch, or None."""
+        edge = getattr(batch, f"{level}_nbr_edge")
+        if not self.takes_ell or edge is None:
+            return None
+        return edge, getattr(batch, f"{level}_nbr_mask")
 
     def bond_pass(self, nf_bonds, batch, need_attn: bool = False,
                   hooks: Optional[LayerHooks] = None):
@@ -355,7 +381,8 @@ class _BondAtomPasses(nn.Module):
         bond_out, attn_bonds = _gat_dispatch(
             nf_b, ea_b, batch.bg_src, batch.bg_dst, batch.bg_mask, self.a_b,
             num_nodes=E, tm=batch.tm_bond, dp=batch.dp_bond, mode=pol.bond,
-            fold=fold_b, need_attn=need_attn, ep=ep)
+            fold=fold_b, need_attn=need_attn, ep=ep,
+            nbr=self._nbr(batch, "bg"))
         new_bond_features = _zero_rows(bond_out.reshape(E, -1),
                                        hooks.bond_pair(), hooks.bond_rows)
         return new_bond_features * batch.edge_mask.to(dt)[:, None], attn_bonds
@@ -373,7 +400,8 @@ class _BondAtomPasses(nn.Module):
         A = x_atoms.shape[0]
         # self-loops appended after real edges, zero edge attrs
         # (gat2.py:179-185); the kernel folds them in analytically, so the
-        # appended arrays are built only for the segment path
+        # appended arrays are built only for the ELL and segment paths (the
+        # atom table's ids E + i name the appended rows)
         seg = None
         ea_a, mask_a = new_bond_features, edge_mask
         if ep is not None:
@@ -395,7 +423,7 @@ class _BondAtomPasses(nn.Module):
             nf_a, ea_a, batch.edge_src, batch.edge_dst, mask_a, self.a,
             num_nodes=A, tm=batch.tm_atom, dp=batch.dp_atom,
             mode="attr" if pol.attr else "tcsr", self_loops=True, seg=seg,
-            need_attn=need_attn, ep=ep)
+            need_attn=need_attn, ep=ep, nbr=self._nbr(batch, "atom"))
         x_atoms_new = _zero_rows(atom_out_feats.reshape(A, -1),
                                  hooks.atom_mask, hooks.atom_rows)
         if hooks.atom_zero_vec is not None:
@@ -428,7 +456,8 @@ class _BondAtomPasses(nn.Module):
             nf_f, ea_f, batch.frag_src, batch.frag_dst, mask_f, avec,
             num_nodes=F_, tm=batch.tm_frag, dp=batch.dp_frag,
             mode="attr" if self.policy.attr else "tcsr",
-            self_loops=self_loops, seg=seg, need_attn=need_attn, ep=ep)
+            self_loops=self_loops, seg=seg, need_attn=need_attn, ep=ep,
+            nbr=None if self_loops else self._nbr(batch, "frag"))
         frag_mask = batch.frag_mask.to(self.dtype)
         return frag_out.reshape(F_, -1) * frag_mask[:, None], attn_frags
 
@@ -438,7 +467,10 @@ class FragNetLayer(_BondAtomPasses):
     or bf16; parameters f32, logits and softmax f32). With ``ep`` (an
     EPContext) it runs edge-partitioned: the batch holds this rank's slice
     of the edge fields (dist/edge_partition.py:ep_local_batch) and every GAT
-    pass is the K3 pass (f32 or bf16)."""
+    pass is the K3 pass (f32 or bf16). A batch with ELL tables and no
+    kernel metadata runs every pass as the ELL pass (``takes_ell``)."""
+
+    takes_ell = True
 
     def __init__(self, atom_in: int = 128, atom_out: int = 128,
                  edge_in: int = 128, edge_out: int = 128,
@@ -498,7 +530,8 @@ class FragNetLayer(_BondAtomPasses):
         fbond_out, attn_fbonds = _gat_dispatch(
             nf_fb, ea_fb, batch.fc_src, batch.fc_dst, batch.fc_mask,
             self.f_a_b, num_nodes=C, tm=batch.tm_fc, dp=batch.dp_fc,
-            mode=pol.fc, fold=fold_f, need_attn=need_attn, ep=ep)
+            mode=pol.fc, fold=fold_f, need_attn=need_attn, ep=ep,
+            nbr=self._nbr(batch, "fc"))
         new_fbond_features = _zero_rows(fbond_out.reshape(C, -1),
                                         hooks.fconn_pair(), hooks.fconn_rows)
         new_fbond_features = new_fbond_features \

@@ -29,6 +29,8 @@ from typing import Optional
 
 import numpy as np
 
+from fragnet_tpu_torch import native
+
 
 @dataclasses.dataclass(frozen=True)
 class TileMeta:
@@ -77,8 +79,42 @@ def build_tile_meta(
     Requires ``n_nodes % tn == 0`` and ``len(src) % te == 0`` (the PadSpec
     guarantees both). ``n_chunks``/``k_src`` may be pinned (e.g. from a
     dataset-wide spec) so every batch compiles to the same kernel; batches
-    needing wider windows return None.
+    needing wider windows return None. The windows come from the C++ native
+    runtime (fragnet_tpu_torch/native) when a compiler is present, else
+    from ``build_tile_meta_numpy``; the two give the same metadata.
     """
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    E = len(src)
+    if n_nodes % tn or E % te or n_nodes < tn or E < te:
+        return None
+    nat = native.tile_meta_arrays(src, dst, edge_mask, n_nodes, tn, te,
+                                  n_chunks, k_src)
+    if nat is None:
+        return build_tile_meta_numpy(src, dst, edge_mask, n_nodes, tn, te,
+                                     n_chunks, k_src)
+    if nat == "overflow":
+        return None
+    ew, sw, flat, nc, kk = nat
+    keep = np.asarray(edge_mask) > 0
+    cw = _chunk_widths(np.asarray(ew, np.int64), dst, keep, tn, te,
+                       n_nodes // tn)
+    return TileMeta(ew_blk=ew, sw_tile=sw, flat_slot=flat,
+                    cw=cw.astype(np.int32),
+                    tn=tn, te=te, n_chunks=int(nc), k_src=int(kk))
+
+
+def build_tile_meta_numpy(
+    src: np.ndarray,
+    dst: np.ndarray,
+    edge_mask: np.ndarray,
+    n_nodes: int,
+    tn: int = 128,
+    te: int = 256,
+    n_chunks: Optional[int] = None,
+    k_src: Optional[int] = None,
+) -> Optional[TileMeta]:
+    """``build_tile_meta`` in numpy (no native runtime)."""
     src = np.asarray(src, np.int64)
     dst = np.asarray(dst, np.int64)
     keep = np.asarray(edge_mask) > 0

@@ -213,14 +213,6 @@ def _dist_mode(opt) -> str:
     return mode
 
 
-def _refuse_unported(opt, device) -> None:
-    dist = opt.get("dist", None) or {}
-    _model_version(opt, ep=_dist_mode(opt) == "ep")
-    if dist.get("multihost", False) and str(device) == "cpu":
-        raise NotImplementedError("dist.multihost on the CPU is not ported; "
-                                  "start the ranks with torchrun")
-
-
 class _Silent:
     """The scalar logger of a rank other than 0: logs nothing."""
 
@@ -260,11 +252,16 @@ def run_finetune(opt, quiet: bool = False, datasets=None,
     otherwise it starts the ranks itself (dist/launch.py; one in this
     process, more spawned), returns rank 0's result, and appends each
     rank's report (value, losses, backend, kernel launches) to
-    ``rank_reports`` when given. Rank 0 alone prints and writes files."""
+    ``rank_reports`` when given. Rank 0 alone prints and writes files.
+    ``dist.multihost`` (the JAX package's multi-process bring-up) needs no
+    step of its own: processes started by torchrun on one host or many,
+    on the card or on the CPU (gloo), each join the group from RANK,
+    WORLD_SIZE, MASTER_ADDR and MASTER_PORT; without them the run starts
+    its ranks itself, as the JAX package's initialize is a no-op there."""
     import torch.distributed as tdist
 
     mode = _dist_mode(opt)
-    _refuse_unported(opt, device)
+    _model_version(opt, ep=mode == "ep")
     if mode == "none":
         return _run(opt, quiet, datasets, device, None)[:2]
     if not tdist.is_initialized() and "RANK" not in os.environ:

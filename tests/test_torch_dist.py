@@ -1,18 +1,21 @@
 """The port's data-parallel mode on the CPU against fragnet_tpu's: the
 DPBatchLoader's windows (and its spill where the JAX loader raises), one
 data-parallel Adam step over two gloo ranks against the JAX update with the
-mean of ``jax.grad`` over the two micro-batches, and ``run_finetune`` under
-``dist.mode=dp``.
+mean of ``jax.grad`` over the two micro-batches, ``run_finetune`` under
+``dist.mode=dp``, and two OS processes started with torchrun's variables
+(``dist.multihost=true`` on the CPU) against the one-process step.
 
 Ranks are spawned processes (dist/launch.py) that import torch and the
 port only; their functions live in fragnet_tpu_torch/dist/checks.py. The
 group meets through a file under tmp_path and every collective and the
 whole run time out. Tolerance: 1e-4 relative (a small model, two
-frameworks).
+frameworks); the torchrun-style processes' step against the port's own
+one-process step 1e-5.
 """
 
 import dataclasses
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +43,7 @@ from fragnet_tpu_torch.train.checkpoint import state_dict_from_jax
 from fragnet_tpu_torch.train.finetune import run_finetune
 from fragnet_tpu_torch.train.loop import mse_loss
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 S = 2
 SMALL = dict(num_layer=2, num_heads=4, emb_dim=32, h1=16, h2=16, h3=16,
              h4=16, drop_ratio=0.0)
@@ -177,3 +181,126 @@ def test_run_finetune_dp_two_ranks(tmp_path, port_graphs):
     assert (tmp_path / "ft.ckpt").exists()
     assert (tmp_path / "preds_seed_7.pkl").exists()
     assert isinstance(model, FragNetFineTune)
+
+
+# --------------------------------------------------------------------------
+# multi-process runs on the CPU: processes started as torchrun starts them
+# --------------------------------------------------------------------------
+
+_TORCHRUN_WORKER = r"""
+import sys
+import torch
+torch.set_num_threads(1)
+sys.path.insert(0, %(repo)r)
+import torch.distributed as dist
+from fragnet_tpu_torch.config import Config
+from fragnet_tpu_torch.dist import checks
+from fragnet_tpu_torch.dist.data_parallel import initialize_distributed
+from fragnet_tpu_torch.train.finetune import run_finetune
+
+args = torch.load(sys.argv[1], weights_only=False)
+info = initialize_distributed(device="cpu", timeout_s=120)
+out = {"rank": info.rank, "world": info.world_size, "backend": info.backend,
+       "step": checks.dp_step_rank(*args["step"])}
+out["value"], _ = run_finetune(Config(args["opt"]), quiet=True,
+                               datasets=args["datasets"], device="cpu")
+torch.save(out, sys.argv[2] + ".%%d" %% info.rank)
+dist.destroy_process_group()
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_torchrun_processes_join_on_the_cpu(tmp_path, port_graphs):
+    """Two OS processes with torchrun's variables (RANK, WORLD_SIZE,
+    LOCAL_RANK, MASTER_ADDR, MASTER_PORT on localhost) join one gloo group
+    (the counterpart of tests/test_multiprocess.py): one data-parallel
+    Adam step equals the one-process step — the mean of the two
+    micro-batches' losses and gradients, then Adam — at 1e-5; then
+    ``run_finetune`` with ``dist.multihost=true`` runs as each process's
+    rank, both ranks reporting the same test RMSE."""
+    import subprocess
+    import sys
+
+    from fragnet_tpu_torch.train.optim import make_optimizer
+
+    model_kw = dict(SMALL, drop_ratio=0.0)
+    model = FragNetFineTune(**model_kw,
+                            generator=torch.Generator().manual_seed(3))
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    graphs, spec, lr = port_graphs[:4], spec_for(port_graphs, 2), 1e-3
+    opt = {"seed": 7, "exp_dir": str(tmp_path / "run"),
+           "model_version": "gat2",
+           "dist": {"mode": "dp", "n_devices": S, "multihost": True,
+                    "timeout_s": 120},
+           "finetune": {"model": dict(SMALL, act="relu", fthead="FTHead3"),
+                        "target_type": "regr", "batch_size": 2,
+                        "n_epochs": 1}}
+    args = tmp_path / "args.pt"
+    torch.save({"step": (model_kw, sd, graphs, spec, 2, lr), "opt": opt,
+                "datasets": (port_graphs[:4], port_graphs[4:6],
+                             port_graphs[6:], 1, "regr")}, args)
+    script = tmp_path / "worker.py"
+    script.write_text(_TORCHRUN_WORKER % {"repo": REPO})
+    port = _free_port()
+    procs = []
+    for rank in range(S):
+        env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
+                   WORLD_SIZE=str(S), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(script), str(args), str(tmp_path / "out")],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {rank}:\n{log[-4000:]}"
+    res = [torch.load(f"{tmp_path / 'out'}.{r}", weights_only=False)
+           for r in range(S)]
+    assert [(r["rank"], r["world"], r["backend"]) for r in res] == \
+        [(r, S, "gloo") for r in range(S)]
+
+    # the one-process step: both micro-batches' mean loss and gradient
+    losses, grads = [], []
+    for rank in range(S):
+        model.load_state_dict(sd)
+        model.zero_grad(set_to_none=True)
+        b = to_device(next(iter(DPBatchLoader(graphs, 2, S, spec,
+                                              rank=rank))), "cpu")
+        loss = mse_loss(model(b), b.y, b.graph_mask)
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+    model.load_state_dict(sd)
+    mean = {n: (grads[0][n] + grads[1][n]) / S for n in grads[0]}
+    for n, p in model.named_parameters():
+        p.grad = mean.get(n)
+    adam, _ = make_optimizer(model.parameters(), "adam", lr=lr)
+    adam.step()
+    for r in res:
+        step = r["step"]
+        assert abs(step["loss"] - sum(losses) / S) <= 1e-5 * sum(losses) / S
+        for n, w in mean.items():
+            np.testing.assert_allclose(step["grads"][n].numpy(), w.numpy(),
+                                       rtol=1e-5,
+                                       atol=1e-5 * float(w.abs().max()))
+        for n, p in model.named_parameters():
+            np.testing.assert_allclose(
+                step["params"][n].numpy(), p.detach().numpy(), rtol=1e-5,
+                atol=1e-5 * float(p.detach().abs().max()))
+    assert np.isfinite(res[0]["value"]) and res[0]["value"] == res[1]["value"]
+    assert (tmp_path / "run" / "ft.ckpt").exists()

@@ -62,8 +62,11 @@ def _assert_tile_meta_equal(tj, tp, where):
 
 @pytest.mark.parametrize("kw", [dict(tcsr=True, align=True),
                                 dict(tcsr=True, align=False),
-                                dict()],
-                         ids=["aligned-tcsr", "tcsr", "plain"])
+                                dict(),
+                                dict(ell=True),
+                                dict(ell=True, tcsr=True, align=True)],
+                         ids=["aligned-tcsr", "tcsr", "plain", "ell",
+                              "ell-aligned-tcsr"])
 def test_spec_and_pad_batch_match(ft_graphs, port_graphs, kw):
     sj = jax_spec_for(ft_graphs, batch_size=len(ft_graphs), **kw)
     sp = spec_for(port_graphs, batch_size=len(port_graphs), **kw)
@@ -82,6 +85,8 @@ def test_spec_and_pad_batch_match(ft_graphs, port_graphs, kw):
             np.testing.assert_array_equal(a, b, err_msg=f.name)
     if kw.get("align"):
         assert bp.dp_bond is not None and bp.dp_fc is not None
+    if kw.get("ell"):
+        assert sp.k_atom is not None and bp.atom_nbr_edge is not None
 
 
 def test_tile_meta_and_planes_match_on_random_graphs():
@@ -123,8 +128,10 @@ def test_port_imports_no_jax():
     sys.modules; the modules walked include model/transformer.py and the
     DTA / CDRP modules (data/{dta,cdrp}.py, model/{dta,cdrp}.py,
     train/tasks.py), the variants and ablations (model/variants.py,
-    model/ablations.py), and the HP search, CV and ingest modules
-    (hp/search.py, train/cv.py, data/{gdsc,create,lmdb_io,tables}.py)."""
+    model/ablations.py), the HP search, CV and ingest modules
+    (hp/search.py, train/cv.py, data/{gdsc,create,lmdb_io,tables}.py), and
+    the ELL pass, the native runtime and the downloader (ops/ell.py,
+    native/, data/download.py)."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import fragnet_tpu_torch
@@ -142,7 +149,8 @@ def test_port_imports_no_jax():
             "model.transformer", "data.dta", "data.cdrp", "model.dta",
             "model.cdrp", "train.tasks", "model.variants",
             "model.ablations", "hp.search", "train.cv", "data.gdsc",
-            "data.create", "data.lmdb_io", "data.tables")}
+            "data.create", "data.lmdb_io", "data.tables", "ops.ell",
+            "native", "data.download")}
         sys.exit(1 if bad or len(names) < 20 or not need <= set(names)
                  else 0)
     """)

@@ -17,16 +17,22 @@ on tiny inputs written at run time, on the CPU:
   text;
 * ``FinetuneData``, ``FinetuneMultiConfData`` and ``MoleculeDataset`` on
   column tables against the JAX classes on DataFrames;
+* the MoleculeNet downloader (data/download.py) through file:// URLs:
+  plain, gzipped and aliased sources byte for byte against the JAX
+  package's function, an existing file, the no-egress error, the CLI;
 * no port module imports pandas.
 """
 
 import argparse
 import ast
 import dataclasses
+import gzip
 import math
 import os
 import pickle
 import random
+import subprocess
+import sys
 
 import numpy as np
 import pandas as pd
@@ -403,6 +409,88 @@ def test_molecule_dataset_matches_jax(tmp_path):
     got = MoleculeDataset("clintox").get_data()  # the synthetic stand-in
     assert got == JaxMD("clintox").get_data()
     assert len(got) == 512 and len(got[0]["y"][0]) == 2
+
+
+# --------------------------------------------------------------------------
+# the MoleculeNet downloader (file:// URLs: no network)
+# --------------------------------------------------------------------------
+
+def test_download_registry_matches_jax():
+    import fragnet_tpu.data.download as jax_download
+    import fragnet_tpu_torch.data.download as port_download
+    from fragnet_tpu_torch.data.moleculenet import MOLECULENET_REGISTRY
+
+    assert port_download.DOWNLOAD_REGISTRY == jax_download.DOWNLOAD_REGISTRY
+    assert set(MOLECULENET_REGISTRY) <= set(port_download.DOWNLOAD_REGISTRY)
+
+
+_CSV = "smiles,expt\nCCO,1.0\nc1ccccc1,-0.25\n"
+
+
+@pytest.mark.parametrize("name,suffix", [("freesolv", ".csv"),
+                                         ("tox21", ".csv.gz"),
+                                         ("Delaney", ".csv")],
+                         ids=["plain", "gz", "alias"])
+def test_download_file_url_matches_jax(tmp_path, name, suffix):
+    """A plain and a gzipped file:// source, and a dataset alias: the
+    port's file equals the JAX package's byte for byte, under the same
+    canonical name."""
+    import fragnet_tpu.data.download as jax_download
+    import fragnet_tpu_torch.data.download as port_download
+
+    src = tmp_path / f"src{suffix}"
+    raw = _CSV.encode()
+    src.write_bytes(gzip.compress(raw) if suffix.endswith(".gz") else raw)
+    got = port_download.download_moleculenet(name, str(tmp_path / "port"),
+                                             url=f"file://{src}")
+    want = jax_download.download_moleculenet(name, str(tmp_path / "jax"),
+                                             url=f"file://{src}")
+    assert os.path.basename(got) == os.path.basename(want)
+    with open(got, "rb") as f, open(want, "rb") as g:
+        assert f.read() == g.read() == raw
+
+
+def test_download_existing_file_and_no_egress(tmp_path):
+    """An existing file is returned untouched without a fetch (its URL
+    names nothing); a source that cannot be read raises ConnectionError
+    naming the destination, as in the JAX package; an unknown name
+    raises KeyError."""
+    import fragnet_tpu.data.download as jax_download
+    import fragnet_tpu_torch.data.download as port_download
+
+    out = tmp_path / "out"
+    out.mkdir()
+    (out / "esol.csv").write_text("smiles,y\nCCO,0\n")
+    missing = f"file://{tmp_path}/absent.csv"
+    assert port_download.download_moleculenet("esol", str(out), url=missing) \
+        == str(out / "esol.csv")
+    assert (out / "esol.csv").read_text() == "smiles,y\nCCO,0\n"
+    errs = []
+    for mod in (port_download, jax_download):
+        with pytest.raises(ConnectionError) as e:
+            mod.download_moleculenet("bace", str(tmp_path / mod.__name__),
+                                     url=missing, timeout=1.0)
+        errs.append(str(e.value))
+        with pytest.raises(KeyError):
+            mod.download_moleculenet("no_such_set", str(tmp_path / "k"))
+    assert "bace.csv" in errs[0] and "no network" in errs[0]
+    assert errs[0].split(str(tmp_path))[0] == errs[1].split(str(tmp_path))[0]
+
+
+def test_download_cli(tmp_path):
+    """``python -m fragnet_tpu_torch.data.download`` writes the file and
+    prints its path."""
+    src = tmp_path / "src.csv"
+    src.write_text(_CSV)
+    r = subprocess.run(
+        [sys.executable, "-m", "fragnet_tpu_torch.data.download",
+         "--dataset", "esol", "--out", str(tmp_path / "raw"),
+         "--url", f"file://{src}"], cwd=REPO, capture_output=True,
+        text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    dest = tmp_path / "raw" / "esol.csv"
+    assert r.stdout.strip() == f"downloaded -> {dest}"
+    assert dest.read_text() == _CSV
 
 
 # --------------------------------------------------------------------------

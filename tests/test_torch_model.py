@@ -298,18 +298,22 @@ def _small_opt(tmp_path, **finetune):
 
 
 def test_run_finetune_refuses_what_it_does_not_run(tmp_path):
-    from fragnet_tpu_torch.train.finetune import _refuse_unported
+    from fragnet_tpu_torch.train.finetune import _model_version
 
     # the segment EP mode (dist.tcsr=false) runs, in f32 and bf16
-    # (tests/test_torch_ep.py); a CPU multihost run is still refused
+    # (tests/test_torch_ep.py); a CPU multihost run runs too
+    # (tests/test_torch_dist.py::test_torchrun_processes_join_on_the_cpu);
+    # EP of another family than gat2 is refused, as in the JAX package
     for dtype in ("f32", "bf16"):
         opt = _small_opt(tmp_path, dtype=dtype)
-        opt.set_path("dist", {"mode": "ep", "n_devices": 2, "tcsr": False})
-        _refuse_unported(opt, "cpu")
-    multihost = _small_opt(tmp_path)
-    multihost.set_path("dist", {"mode": "dp", "multihost": True})
-    with pytest.raises(NotImplementedError, match="multihost"):
-        run_finetune(multihost, device="cpu")
+        opt.set_path("dist", {"mode": "ep", "n_devices": 2, "tcsr": False,
+                              "multihost": True})
+        assert _model_version(opt, ep=True) == "gat2"
+    lite = _small_opt(tmp_path)
+    lite.set_path("model_version", "gat2_lite")
+    lite.set_path("dist", {"mode": "ep", "n_devices": 2})
+    with pytest.raises(ValueError, match="supports model_version=gat2"):
+        run_finetune(lite, device="cpu")
     # a single-device GAT pass off the CPU needs TCSR or dense metadata: a
     # batch without it raises (a meta-device tensor stands in for a CUDA
     # one); an edge-partitioned one takes the segment EP pass instead
