@@ -596,6 +596,14 @@ def unpack_batch(buf, layout: PackLayout,
     pass ``plane_levels(policy)``, the levels the model's kernel policy
     reads — with the device plane builder (on CUDA the K6 kernel, on the
     CPU its plain version), from the widened attributes."""
+    from fragnet_tpu_torch import obs
+
+    with obs.span("fragnet.data.decode"):
+        return add_planes(_decode_fields(buf, layout), layout, planes)
+
+
+def _decode_fields(buf, layout: PackLayout) -> HierGraphBatch:
+    """``unpack_batch``'s fields, without the dense planes."""
     import torch
 
     from fragnet_tpu_torch.ops.tcsr import TileMeta
@@ -641,7 +649,7 @@ def unpack_batch(buf, layout: PackLayout,
                                flat_slot=flat, cw=parts["cw"],
                                tn=tn, te=te, n_chunks=nc, k_src=kk)
 
-    return add_planes(HierGraphBatch(**fields), layout, planes)
+    return HierGraphBatch(**fields)
 
 
 def add_planes(batch: HierGraphBatch, layout: PackLayout,
@@ -649,15 +657,17 @@ def add_planes(batch: HierGraphBatch, layout: PackLayout,
     """``batch`` (decoded from a buffer of ``layout``) with the dense planes
     of the ``layout.dp_specs`` levels named in ``planes``, built on its
     device by the plane builder."""
+    from fragnet_tpu_torch import obs
     from fragnet_tpu_torch.ops.dense_gat import build_dense_planes_device
 
-    built = {}
-    for lvl, src_f, dst_f, mask_f, ea_f, n_nodes, _tn in layout.dp_specs:
-        tm = getattr(batch, _DP_TM[lvl])
-        if lvl not in planes or tm is None:
-            continue
-        built[lvl] = build_dense_planes_device(
-            getattr(batch, src_f), getattr(batch, dst_f),
-            getattr(batch, mask_f),
-            getattr(batch, ea_f) if ea_f else None, n_nodes, tm)
-    return dataclasses.replace(batch, **built)
+    with obs.span("fragnet.data.planes"):
+        built = {}
+        for lvl, src_f, dst_f, mask_f, ea_f, n_nodes, _tn in layout.dp_specs:
+            tm = getattr(batch, _DP_TM[lvl])
+            if lvl not in planes or tm is None:
+                continue
+            built[lvl] = build_dense_planes_device(
+                getattr(batch, src_f), getattr(batch, dst_f),
+                getattr(batch, mask_f),
+                getattr(batch, ea_f) if ea_f else None, n_nodes, tm)
+        return dataclasses.replace(batch, **built)

@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from fragnet_tpu_torch import obs
 from fragnet_tpu_torch.model.finetune import FragNetFineTuneBase
 from fragnet_tpu_torch.model.heads import _dense
 from fragnet_tpu_torch.model.layers import KernelPolicy
@@ -274,6 +275,7 @@ class DTAModel(nn.Module):
         self.fc1 = _dense(2 * emb_dim + target_dim, 128, g)
         self.fc2 = _dense(128, 1, g)
 
+    @obs.spanned("fragnet.model.protein")
     def encode_target(self, tokens):
         if self.protein_encoder == "transformer":
             return self.target_model(tokens)
@@ -281,6 +283,8 @@ class DTAModel(nn.Module):
                            self.fc1_xt)
 
     def forward(self, batch):
-        drug_enc = self.drug_model.encode(batch)
-        cat = torch.cat([drug_enc, self.encode_target(batch.protein)], dim=1)
-        return self.fc2(self.fc1(cat))
+        with obs.span("fragnet.model.drug"):
+            drug_enc = self.drug_model.encode(batch)
+        target = self.encode_target(batch.protein)
+        with obs.span("fragnet.model.head"):
+            return self.fc2(self.fc1(torch.cat([drug_enc, target], dim=1)))

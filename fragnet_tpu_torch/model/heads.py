@@ -11,6 +11,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from fragnet_tpu_torch import obs
 from fragnet_tpu_torch.model.layers import torch_linear_init_
 from fragnet_tpu_torch.ops.segment import segment_sum
 
@@ -194,6 +195,7 @@ class PretrainTask(nn.Module):
         self.da_layers = _HalvingMLP(dim_in, dim_out, L, generator=g)
         self.FC_layers = _HalvingMLP(2 * dim_in, dim_out, L, generator=g)
 
+    @obs.spanned("fragnet.model.head")
     def forward(self, x_atoms, x_frags, edge_attr, batch):
         # a bf16 encoder's outputs widened: the Linears' f32 parameters
         # promote them, as flax's Dense(dtype=None) does

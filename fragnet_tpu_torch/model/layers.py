@@ -47,6 +47,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from fragnet_tpu_torch import obs
 from fragnet_tpu_torch.dist.edge_partition import shard_rows
 from fragnet_tpu_torch.ops.dense_gat import (dense_attr_gat_pass,
                                              dense_gat_pass)
@@ -359,6 +360,7 @@ class _BondAtomPasses(nn.Module):
             return None
         return edge, getattr(batch, f"{level}_nbr_mask")
 
+    @obs.spanned("fragnet.gat.bond")
     def bond_pass(self, nf_bonds, batch, need_attn: bool = False,
                   hooks: Optional[LayerHooks] = None):
         """Pass 1, the bond-graph GAT (gat2.py:137-169): (new bond
@@ -387,6 +389,7 @@ class _BondAtomPasses(nn.Module):
                                        hooks.bond_pair(), hooks.bond_rows)
         return new_bond_features * batch.edge_mask.to(dt)[:, None], attn_bonds
 
+    @obs.spanned("fragnet.gat.atom")
     def atom_pass(self, x_atoms, new_bond_features, batch,
                   need_attn: bool = False,
                   hooks: Optional[LayerHooks] = None):
@@ -431,6 +434,7 @@ class _BondAtomPasses(nn.Module):
         return x_atoms_new * batch.atom_mask.to(self.dtype)[:, None], \
             attn_atoms
 
+    @obs.spanned("fragnet.gat.frag")
     def frag_pass(self, x_frags, ea_f, avec, batch, need_attn: bool = False,
                   self_loops: bool = False):
         """Pass 5, the fragment-graph GAT over edge attributes ``ea_f`` (C,
@@ -490,34 +494,15 @@ class FragNetLayer(_BondAtomPasses):
         self.f_a_b = _attn_param(H, 3 * eph, g)
         self.f = _attn_param(H, 2 * aph + edge_out, g)
 
-    def forward(self, x_atoms, nf_bonds, nf_fbonds, batch,
-                need_attn: bool = False,
-                hooks: Optional[LayerHooks] = None):
-        hooks = hooks or LayerHooks()
-        H = self.num_heads
-        pol = self.policy
-        ep = self.ep
-        dt = self.dtype
+    @obs.spanned("fragnet.gat.fconn")
+    def fconn_pass(self, nf_fbonds, batch, need_attn: bool,
+                   hooks: LayerHooks):
+        """Pass 4, the fconn-graph GAT (gat2.py:238-278): (new fconn
+        features (C, edge_out), masked, the hooks' rows zeroed; attention
+        by source or None)."""
+        H, pol, ep, dt = self.num_heads, self.policy, self.ep, self.dtype
         edge_out_ph = self.edge_out // H
         C = nf_fbonds.shape[0]
-        # the layer's inputs in the compute type (layers.py:256-264)
-        x_atoms, nf_bonds, nf_fbonds = (x.to(dt) for x in
-                                        (x_atoms, nf_bonds, nf_fbonds))
-
-        # ---- pass 1: bond-graph GAT (gat2.py:137-169) --------------------
-        new_bond_features, attn_bonds = self.bond_pass(nf_bonds, batch,
-                                                       need_attn, hooks)
-        # ---- pass 2: atom-graph GAT with self-loops (gat2.py:178-224) ----
-        x_atoms_new, attn_atoms = self.atom_pass(x_atoms, new_bond_features,
-                                                 batch, need_attn, hooks)
-
-        # ---- pass 3: atom → fragment pooling (gat2.py:234) ----------------
-        # incoming fragment state is recomputed from atoms every layer (the
-        # reference overwrites its x_frags argument)
-        F_ = batch.x_frags.shape[0]
-        x_frags = segment_sum(x_atoms_new, batch.atom_to_frag, F_)
-
-        # ---- pass 4: fconn-graph GAT (gat2.py:238-278) --------------------
         ea_fb = _linear_dt(self.edge_attr_fbond_embed, batch.ea_fbonds, dt)
         nf_fb = _linear_dt(self.projection_fb, nf_fbonds, dt).reshape(
             C, H, edge_out_ph)
@@ -534,8 +519,33 @@ class FragNetLayer(_BondAtomPasses):
             nbr=self._nbr(batch, "fc"))
         new_fbond_features = _zero_rows(fbond_out.reshape(C, -1),
                                         hooks.fconn_pair(), hooks.fconn_rows)
-        new_fbond_features = new_fbond_features \
-            * batch.fconn_mask.to(dt)[:, None]
+        return new_fbond_features * batch.fconn_mask.to(dt)[:, None], \
+            attn_fbonds
+
+    def forward(self, x_atoms, nf_bonds, nf_fbonds, batch,
+                need_attn: bool = False,
+                hooks: Optional[LayerHooks] = None):
+        hooks = hooks or LayerHooks()
+        # the layer's inputs in the compute type (layers.py:256-264)
+        x_atoms, nf_bonds, nf_fbonds = (x.to(self.dtype) for x in
+                                        (x_atoms, nf_bonds, nf_fbonds))
+
+        # ---- pass 1: bond-graph GAT (gat2.py:137-169) --------------------
+        new_bond_features, attn_bonds = self.bond_pass(nf_bonds, batch,
+                                                       need_attn, hooks)
+        # ---- pass 2: atom-graph GAT with self-loops (gat2.py:178-224) ----
+        x_atoms_new, attn_atoms = self.atom_pass(x_atoms, new_bond_features,
+                                                 batch, need_attn, hooks)
+
+        # ---- pass 3: atom → fragment pooling (gat2.py:234) ----------------
+        # incoming fragment state is recomputed from atoms every layer (the
+        # reference overwrites its x_frags argument)
+        F_ = batch.x_frags.shape[0]
+        x_frags = segment_sum(x_atoms_new, batch.atom_to_frag, F_)
+
+        # ---- pass 4: fconn-graph GAT (gat2.py:238-278) --------------------
+        new_fbond_features, attn_fbonds = self.fconn_pass(nf_fbonds, batch,
+                                                          need_attn, hooks)
 
         # ---- pass 5: frag-graph GAT (gat2.py:283-316) ---------------------
         x_frags_new, attn_frags = self.frag_pass(

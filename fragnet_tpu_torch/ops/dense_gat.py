@@ -56,6 +56,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fragnet_tpu_torch import obs
 from fragnet_tpu_torch.ops import _cuda
 from fragnet_tpu_torch.ops.tcsr_gat import (attention_by_source, node_logits,
                                             prologue)
@@ -427,10 +428,12 @@ class DenseGatFn(torch.autograd.Function):
         out, m, den = dense_gat_fwd(planes, wd, ws, nf_k, vc, slope)
         ctx.save_for_backward(planes, wd, ws, nf_k, vc, out, m, den)
         ctx.slope = slope
+        ctx.span = obs.current()
         ctx.mark_non_differentiable(m, den)
         return out, m, den
 
     @staticmethod
+    @obs.spanned_backward
     def backward(ctx, g_out, _g_m, _g_den):
         planes, wd, ws, nf_k, vc, out, m, den = ctx.saved_tensors
         g = g_out.float().contiguous()
@@ -773,10 +776,12 @@ class DenseAttrGatFn(torch.autograd.Function):
         ctx.save_for_backward(adj, wd, ws, nf_k, w_ea, src, dst, emask, out,
                               m, den)
         ctx.meta, ctx.self_loops, ctx.slope = meta, self_loops, slope
+        ctx.span = obs.current()
         ctx.mark_non_differentiable(m, den)
         return out, m, den
 
     @staticmethod
+    @obs.spanned_backward
     def backward(ctx, g_out, _g_m, _g_den):
         adj, wd, ws, nf, w_ea, src, dst, emask, out, m, den = ctx.saved_tensors
         N, H = wd.shape

@@ -46,6 +46,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from fragnet_tpu_torch import obs
 from fragnet_tpu_torch.dist.collectives import (all_gather, all_gather_rows,
                                                 all_reduce)
 from fragnet_tpu_torch.ops import _cuda
@@ -103,21 +104,27 @@ def logit_dot(eq: str, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, x.double(), y.double()).float()
 
 
+@obs.spanned("fragnet.gat.logits")
 def node_logits(nf: torch.Tensor, a: torch.Tensor, Da: int) -> torch.Tensor:
     """wn (N, 2H) = [w_dst | w_src] = [nf·a_dst | nf·a_src] per head in f32
     (``logit_dot``, both in one product), for the attention vector ``a``
     (H, 2D + Da) = [a_dst | a_ea | a_src]."""
+    return _node_logits(nf, a, Da)
+
+
+def _node_logits(nf: torch.Tensor, a: torch.Tensor, Da: int) -> torch.Tensor:
     N, H, D = nf.shape
     a_nodes = torch.stack([a[:, :D], a[:, D + Da:]])        # (2, H, D)
     return logit_dot("nhd,khd->nkh", nf, a_nodes).reshape(N, 2 * H)
 
 
+@obs.spanned("fragnet.gat.logits")
 def prologue(nf: torch.Tensor, ea: torch.Tensor, a: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(wn (N, 2H) = [w_dst | w_src], w_ea (E, H)) in f32 (``logit_dot``)."""
     D = nf.shape[2]
     Da = ea.shape[-1]
-    return (node_logits(nf, a, Da),
+    return (_node_logits(nf, a, Da),
             logit_dot("ed,hd->eh", ea, a[:, D:D + Da]))
 
 
@@ -326,10 +333,12 @@ class TcsrGatFn(torch.autograd.Function):
                                    self_loops, slope)
         ctx.save_for_backward(wn, nf_k, w_ea, src, dst, emask, out, m, den)
         ctx.meta, ctx.self_loops, ctx.slope = meta, self_loops, slope
+        ctx.span = obs.current()
         ctx.mark_non_differentiable(m, den)
         return out, m, den
 
     @staticmethod
+    @obs.spanned_backward
     def backward(ctx, g_out, _g_m, _g_den):
         wn, nf_k, w_ea, src, dst, emask, out, m, den = ctx.saved_tensors
         N, HD = nf_k.shape
@@ -580,9 +589,11 @@ class TcsrGatEpFn(torch.autograd.Function):
         ctx.save_for_backward(wn, nf if nf_k is None else nf_k, w_ea, src,
                               dst, emask, m)
         ctx.meta, ctx.rank, ctx.slope = meta, rank, slope
+        ctx.span = obs.current()
         return U, V
 
     @staticmethod
+    @obs.spanned_backward
     def backward(ctx, dU, dV):
         wn, nf_k, w_ea, src, dst, emask, m = ctx.saved_tensors
         d_wn, d_nf, d_w_ea = tcsr_gat_ep_bwd(

@@ -16,6 +16,7 @@ from typing import Callable, Iterable, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from fragnet_tpu_torch import obs
 from fragnet_tpu_torch.graphs.batch import to_device
 
 
@@ -55,6 +56,19 @@ def _loss_fn(loss: Union[str, Callable]) -> Callable:
     return LOSSES[loss] if isinstance(loss, str) else loss
 
 
+def apply_gradients(loss: torch.Tensor, optimizer: torch.optim.Optimizer,
+                    scheduler=None) -> None:
+    """Backpropagate ``loss``, step the optimizer, then the scheduler, and
+    drop the gradients."""
+    with obs.span("fragnet.train.backward"):
+        loss.backward()
+    with obs.span("fragnet.train.optimizer"):
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+        optimizer.zero_grad(set_to_none=True)
+
+
 def make_train_step(model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer,
                     loss_name: Union[str, Callable] = "mse",
@@ -70,15 +84,16 @@ def make_train_step(model: torch.nn.Module,
     loss_fn = _loss_fn(loss_name)
 
     def train_step(batch):
-        b = to_device(batch, device)
-        model.train()
-        loss = loss_fn(model(b), b.y, b.graph_mask)
-        loss.backward()
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
-        optimizer.zero_grad(set_to_none=True)
-        return loss.detach()
+        with obs.span("fragnet.step"):
+            with obs.span("fragnet.data.upload"):
+                b = to_device(batch, device)
+            model.train()
+            with obs.span("fragnet.model.forward"):
+                out = model(b)
+            with obs.span("fragnet.train.loss"):
+                loss = loss_fn(out, b.y, b.graph_mask)
+            apply_gradients(loss, optimizer, scheduler)
+            return loss.detach()
 
     return train_step
 
@@ -91,11 +106,15 @@ def make_eval_step(model: torch.nn.Module,
     loss_fn = _loss_fn(loss_name)
 
     def eval_step(batch):
-        b = to_device(batch, device)
-        model.eval()
-        with torch.no_grad():
-            out = model(b)
-            return loss_fn(out, b.y, b.graph_mask), out
+        with obs.span("fragnet.predict"):
+            with obs.span("fragnet.data.upload"):
+                b = to_device(batch, device)
+            model.eval()
+            with torch.no_grad():
+                with obs.span("fragnet.model.forward"):
+                    out = model(b)
+                with obs.span("fragnet.train.loss"):
+                    return loss_fn(out, b.y, b.graph_mask), out
 
     return eval_step
 

@@ -82,23 +82,28 @@ def make_pretrain_step(model: torch.nn.Module,
     uint8 buffer: moved to ``device`` through pinned memory and decoded
     there, the dense planes that the model's kernel policy reads rebuilt
     by the plane builder."""
+    from fragnet_tpu_torch import obs
     from fragnet_tpu_torch.data.packing import plane_levels, unpack_batch
     from fragnet_tpu_torch.graphs.batch import PackedUploader, to_device
+    from fragnet_tpu_torch.train.loop import apply_gradients
 
     upload = PackedUploader(device) if layout is not None else None
     planes = plane_levels(model.policy)
 
     def step(batch):
-        if layout is not None:
-            b = unpack_batch(upload(batch), layout, planes)
-        else:
-            b = to_device(batch, device)
-        model.train()
-        loss = pretrain_loss(model(b), b, compat_loss_overwrite)
-        loss.backward()
-        optimizer.step()
-        optimizer.zero_grad(set_to_none=True)
-        return loss.detach()
+        with obs.span("fragnet.step"):
+            with obs.span("fragnet.data.upload"):
+                b = to_device(batch, device) if layout is None \
+                    else upload(batch)
+            if layout is not None:
+                b = unpack_batch(b, layout, planes)
+            model.train()
+            with obs.span("fragnet.model.forward"):
+                preds = model(b)
+            with obs.span("fragnet.train.loss"):
+                loss = pretrain_loss(preds, b, compat_loss_overwrite)
+            apply_gradients(loss, optimizer)
+            return loss.detach()
 
     return step
 

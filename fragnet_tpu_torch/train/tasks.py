@@ -26,6 +26,7 @@ from typing import Callable, Iterable, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from fragnet_tpu_torch import obs
 from fragnet_tpu_torch.graphs.batch import to_device
 from fragnet_tpu_torch.train.loop import _numpy, make_train_step, mse_loss
 
@@ -65,9 +66,14 @@ def make_standardized_steps(model: torch.nn.Module,
         scheduler)
 
     def predict(batch):
-        model.eval()
-        with torch.no_grad():
-            return model(to_device(batch, device))[:, 0] * sdev + mean
+        with obs.span("fragnet.predict"):
+            with obs.span("fragnet.data.upload"):
+                b = to_device(batch, device)
+            model.eval()
+            with torch.no_grad():
+                with obs.span("fragnet.model.forward"):
+                    out = model(b)
+                return out[:, 0] * sdev + mean
 
     return train_step, predict
 
