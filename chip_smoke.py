@@ -76,7 +76,10 @@ Phases:
      molecules at batch 64 (so that each epoch has >= 3 train steps), 3
      epochs validated every epoch; it must report the HBM packed tier, its
      train and val losses must be finite and each kernel's launches must
-     equal the count derived from the loaders (pretrain_expect);
+     equal the count derived from the loaders (pretrain_expect), the logit
+     kernels' (csrc/gat_logits.cu) among them: the forward once a GAT
+     pass, the backward and its d_vec sum once a pass whose backward runs
+     (16 and 13 a train step at 4 layers; logit_expect);
  12. the process-stream tier (no packed cache fits) for one epoch: the
      spawned workers' batches drive the same counts;
  13. one pretrain train step at batch 512 from a packed buffer on the
@@ -86,7 +89,13 @@ Phases:
      atom and frag) and the dense forward and backward (K4, K5: bond and
      fconn) against their plain versions at this step's layer-0 inputs,
      checked and timed as in phase 4 (their levels tagged "batch 512" in
-     the kernels' line);
+     the kernels' line); then the logit kernels at the step's layer-0
+     bond, atom, fconn and frag passes (check_logit_kernels): the forward
+     against the f64 einsums, the backward and its d_vec sum against the
+     backward written out from the formulas and against autograd of the
+     einsums, for numpy cotangents, every output within one ulp of its
+     type; each wrapper's and plain version's ms and device ms, and each
+     kernel's bound from the bytes its rows need;
  14. one pretrain step's loss and gradients, card (packed buffer decoded
      there, K6 planes) vs CPU (host batch, host planes), same weights (the
      run's checkpoint), dropout off: within 1e-3 of each scale;
@@ -147,7 +156,9 @@ Phases:
      device busy time, K3 device time and the collectives' host time
      beside phase 8's single-device step; the same for the segment mode's
      step on the batch without tile metadata, whose K3 launches must be 0
-     (the fused step's > 0, neither launching any other kernel);
+     (the fused step's > 0, neither launching any other kernel but the
+     logit kernels, in both modes once a pass forward and once a pass's
+     backward, with its d_vec sum);
  23. the data-parallel finetune path: dist.mode=dp over 2 ranks (gloo) for
      3 epochs, each rank run as run_finetune's launcher runs it, in the
      same start of the ranks as the DP step (one spawn fewer), as
@@ -287,7 +298,9 @@ rank's for phases 21, 23 and 24, the interpret path's of phase 25 under
 each policy, each phase-26 model's, phase-27 task's and phase-28 model's
 training path, phase 29's HP trials, CV, bucketed and auxiliary runs, and
 phase 30's bf16 training path, whose launches the bf16 entries' lines
-carry, and phase 32's compact pretraining epoch — beside them), and as the last line ``{"ok": true, "device": {...}}``. Exits
+carry, and phase 32's compact pretraining epoch — beside them; the logit
+kernels' launches from phase 11, beside phases 19's and 31's pretraining
+paths, their levels from phase 13), and as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero on any failure, without a CUDA device, or when run outside a
 checkout of the repository.
 """
@@ -903,9 +916,9 @@ def _planes_cost(args):
     return nbytes, n_edges * (R + 1)
 
 
-def _bound_ms(nbytes, flops):
+def _bound_ms(nbytes, flops, flops_per_s=F32_FLOPS):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / F32_FLOPS * 1e3
+    t_f = flops / flops_per_s * 1e3
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
@@ -1038,6 +1051,22 @@ PLANE_LEVELS = {"dp_bond": "bond (R=1)", "dp_fc": "fconn (R=6)",
                 "dp_atom": "atom (R=0)", "dp_frag": "frag (R=0)"}
 # the plane levels that the default policy's pretraining step builds
 PLANES_ON_PATH = ("bond (R=1)", "fconn (R=6)")
+# the GAT logit terms' kernels (csrc/gat_logits.cu) by name, with the
+# CudaKernel entries of ops/gat_logits.py whose launches each sums (its f32
+# and bf16 forms). Every GAT pass launches them, whatever kernel runs the
+# pass, so they stand apart from KERNELS, whose counts the paths' expected
+# launches name; the pretraining paths and the EP step check them
+LOGIT_KERNELS = {"gat_logits_fwd": ("KERNEL", "KERNEL_BF16"),
+                 "gat_logits_bwd": ("KERNEL_BWD", "KERNEL_BWD_BF16"),
+                 "gat_logits_dvec": ("KERNEL_DVEC",)}
+LOGIT_SOURCE = "fragnet_tpu_torch/csrc/gat_logits.cu"
+# no TPU kernel: the JAX package forms the terms with XLA einsums
+LOGIT_REPLACES = "none (XLA einsums, fragnet_tpu/ops/pallas_gat.py:471)"
+# one layer's GAT passes in call order (model/layers.py:FragNetLayer)
+LOGIT_LEVELS = ("bond", "atom", "fconn", "frag")
+# H100 SXM f64 (non-tensor) flop/s (NVIDIA data sheet): the logit kernels
+# multiply and sum in f64
+F64_FLOPS = 34e12
 
 
 def _counter(name):
@@ -1066,8 +1095,41 @@ def as_bf16(expect):
 
 
 def _reset_launches():
+    from fragnet_tpu_torch.ops import gat_logits
+
     for name in KERNELS:
         _counter(name)[1].launches = 0
+    for entries in LOGIT_KERNELS.values():
+        for e in entries:
+            getattr(gat_logits, e).launches = 0
+
+
+def _logit_launches():
+    """Each logit kernel's launches, its f32 and bf16 entries summed."""
+    from fragnet_tpu_torch.ops import gat_logits
+
+    return {n: sum(getattr(gat_logits, e).launches for e in entries)
+            for n, entries in LOGIT_KERNELS.items()}
+
+
+def _logit_symbols():
+    """{launcher symbol: its LOGIT_KERNELS name}."""
+    from fragnet_tpu_torch.ops import gat_logits
+
+    return {getattr(gat_logits, e).symbol: n
+            for n, entries in LOGIT_KERNELS.items() for e in entries}
+
+
+def logit_expect(expect):
+    """The logit kernels' launches on a path whose GAT passes all run
+    KERNELS' kernels, whose counts are ``expect``: every pass launches the
+    forward once, and every pass whose backward runs launches the backward
+    and the d_vec sum once (ops/gat_logits.py:GatLogitsFn)."""
+    fwd = sum(expect[n] for n, k in KERNELS.items()
+              if k.fwd is None and n != PLANES)
+    bwd = sum(expect[n] for n, k in KERNELS.items() if k.fwd is not None)
+    return {"gat_logits_fwd": fwd, "gat_logits_bwd": bwd,
+            "gat_logits_dvec": bwd}
 
 
 def _launches():
@@ -1584,13 +1646,15 @@ def pretrain_expect(popt, pgraphs, n_epochs: int, n_validations: int):
         policy, L, [(set(levels), steps, steps)]
         + [(h, n_validations, 0) for h in val_have])
     expect[PLANES] = len(levels) * steps
+    expect.update(logit_expect(expect))
     return expect, n_train, len(val_w), levels
 
 
 def drive_pretrain(popt, pgraphs, expect, tier: str):
     """Run run_pretrain on the card with every launch count set to 0 just
-    before it; its printed tier, finite losses and each kernel's launches
-    against ``expect``. Returns (launches, checkpoint path)."""
+    before it; its printed tier, finite losses and each kernel's launches,
+    the logit kernels' among them, against ``expect``. Returns (launches,
+    checkpoint path)."""
     import contextlib
     import io
 
@@ -1606,7 +1670,7 @@ def drive_pretrain(popt, pgraphs, expect, tier: str):
     with contextlib.redirect_stdout(text):
         best, ckpt = run_pretrain(popt, device="cuda", graphs=pgraphs)
     run_s = time.perf_counter() - t0
-    launches = _launches()
+    launches = {**_launches(), **_logit_launches()}
     print(text.getvalue().rstrip())
     scal = read_scalars(popt.exp_dir)
     losses = [r["value"] for r in scal if r["tag"] == "train/loss"][-n_epochs:]
@@ -1682,6 +1746,202 @@ def pretrain_kernel_calls(popt, model, buf, layout, rng):
     return out
 
 
+def pretrain_logit_calls(popt, model, buf, layout):
+    """[(level, (nf, ea, a, Da))]: the logit forward kernel's calls in layer
+    0 of one forward of the pretrain ``model`` on the packed ``buf``
+    decoded on its device (K6 planes), one a GAT pass (LOGIT_LEVELS),
+    tagged "batch 512"."""
+    import torch
+
+    from fragnet_tpu_torch.data.packing import (add_planes, plane_levels,
+                                                unpack_batch)
+    from fragnet_tpu_torch.ops import gat_logits
+
+    batch = add_planes(unpack_batch(buf, layout, planes=()), layout,
+                       plane_levels(model.policy))
+    seen, orig = [], gat_logits.gat_logits_fwd
+
+    def rec(nf, ea, a, Da):
+        seen.append((nf, ea, a, Da))
+        return orig(nf, ea, a, Da)
+
+    was = model.training
+    model.eval()
+    gat_logits.gat_logits_fwd = rec
+    try:
+        with torch.no_grad():
+            model(batch)
+    finally:
+        gat_logits.gat_logits_fwd = orig
+        model.train(was)
+    n = len(LOGIT_LEVELS)
+    if len(seen) != n * int(popt.pretrain.model.num_layer):
+        raise AssertionError(f"gat_logits_fwd: {len(seen)} calls in one "
+                             f"forward")
+    return [(f"{lvl}, batch 512", c) for lvl, c in zip(LOGIT_LEVELS,
+                                                       seen[:n])]
+
+
+def _ulps(got, want):
+    """The largest |got - want| in ulps of ``want`` in its type (f32: 24
+    bits, bf16: 8)."""
+    import torch
+
+    if want.numel() == 0:
+        return 0.0
+    bits = 24 if want.dtype == torch.float32 else 8
+    w = want.double()
+    _, e = torch.frexp(w)
+    return float(((got.double() - w).abs()
+                  / torch.ldexp(torch.ones_like(w), e - bits)).max())
+
+
+def _rows_ms(fn, n: int = 50, tries: int = 5):
+    """{profile row: device ms a call} of ``n`` calls of ``fn`` (_busy's
+    rows), a profile with no device time taken again, as _device_ms
+    does."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total, rows = _busy(prof)
+        if total > 0:
+            return {k: ms / n for k, ms in rows}
+    raise AssertionError(f"the profiler recorded no device time in {tries} "
+                         f"profiles of {n} calls")
+
+
+def check_logit_kernels(calls, rng):
+    """Phase 13: the logit kernels at each level of ``calls``
+    (pretrain_logit_calls). The forward against gat_logits_plain (the f64
+    einsums, on the card), the backward (with its d_vec sum) against
+    gat_logits_bwd_plain and against autograd of gat_logits_plain, for
+    cotangents drawn with numpy: every output within one ulp of its type.
+    Each wrapper's and its plain version's ms and device ms, the backward's
+    device ms split between its two kernels, and each kernel's bound from
+    the bytes the rows need (f64 operations at F64_FLOPS). Returns
+    {kernel: (per-level report, 0.0)} for LOGIT_KERNELS."""
+    import numpy as np
+    import torch
+
+    from fragnet_tpu_torch.ops import gat_logits as gl
+
+    report = {n: [] for n in LOGIT_KERNELS}
+    for lvl, call in calls:
+        nf, ea, a, Da = (t.detach() if isinstance(t, torch.Tensor) else t
+                         for t in call)
+        H = a.shape[0]
+        dev = a.device
+
+        def draw(*shape):
+            return torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(dev)
+
+        d_wn = None if nf is None else draw(nf.shape[0], 2 * H)
+        d_wea = None if ea is None else draw(ea.shape[0], H)
+        sets = [(x, dw) for x, dw in ((nf, d_wn), (ea, d_wea))
+                if x is not None]
+        # the row sets' bytes, their terms' bytes, their multiply-adds (a
+        # node row's element meets 2 vectors, an edge row's H)
+        x_b = sum(x.numel() * x.element_size() for x, _ in sets)
+        w_b = sum(4 * dw.numel() for _, dw in sets)
+        macs = sum(x.numel() * (2 if x is nf else H) for x, _ in sets)
+        n_part = gl._sets(nf, ea, a, Da)[2]
+
+        got = [t for t in gl.gat_logits_fwd(nf, ea, a, Da) if t is not None]
+        want = [t for t in gl.gat_logits_plain(nf, ea, a, Da)
+                if t is not None]
+        d_got = [t for t in gl.gat_logits_bwd(nf, ea, a, Da, d_wn, d_wea)
+                 if t is not None]
+        d_plain = [t for t in gl.gat_logits_bwd_plain(nf, ea, a, Da, d_wn,
+                                                      d_wea)
+                   if t is not None]
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (a, nf, ea) if t is not None]
+        it = iter(leaves)
+        a_l = next(it)
+        nf_l = next(it) if nf is not None else None
+        ea_l = next(it) if ea is not None else None
+        outs = [t for t in gl.gat_logits_plain(nf_l, ea_l, a_l, Da)
+                if t is not None]
+        cots = [dw for _, dw in sets]
+        d_auto = list(torch.autograd.grad(outs, leaves, cots,
+                                          retain_graph=True))
+        torch.cuda.synchronize()
+        # d_vec's output is d_a, the first of the backward's; the row
+        # gradients are the backward kernel's own
+        pairs = {"fwd": list(zip(got, want)),
+                 "bwd": list(zip(d_got[1:], d_plain[1:]))
+                 + list(zip(d_got[1:], d_auto[1:])),
+                 "dvec": [(d_got[0], d_plain[0]), (d_got[0], d_auto[0])]}
+        ulps = {k: max(_ulps(g, w) for g, w in p) for k, p in pairs.items()}
+        errs = {k: max(float((g.float() - w.float()).abs().max())
+                       if w.numel() else 0.0 for g, w in p)
+                for k, p in pairs.items()}
+
+        fwd = lambda: gl.gat_logits_fwd(nf, ea, a, Da)
+        bwd = lambda: gl.gat_logits_bwd(nf, ea, a, Da, d_wn, d_wea)
+        fwd_plain = lambda: gl.gat_logits_plain(nf, ea, a, Da)
+        bwd_plain = lambda: torch.autograd.grad(outs, leaves, cots,
+                                                retain_graph=True)
+        rows = _rows_ms(bwd)
+        split = {n: sum(ms for k, ms in rows.items() if f"{n}_kernel" in k)
+                 for n in ("gat_logits_bwd", "gat_logits_dvec")}
+        if not all(v > 0 for v in split.values()):
+            raise AssertionError(f"gat_logits_bwd [{lvl}]: a kernel of the "
+                                 f"backward holds no device time: {rows}")
+        ms, plain_ms = {}, {}
+        ms["fwd"], plain_ms["fwd"] = (_median_ms(fwd),
+                                      _median_ms(fwd_plain))
+        ms["bwd"], plain_ms["bwd"] = (_median_ms(bwd),
+                                      _median_ms(bwd_plain))
+        dev_ms = {"fwd": _device_ms(fwd), "bwd": split["gat_logits_bwd"],
+                  "dvec": split["gat_logits_dvec"]}
+        plain_dev = {"fwd": _device_ms(fwd_plain),
+                     "bwd": _device_ms(bwd_plain)}
+        a_b = 4 * a.numel()
+        cost = {"fwd": (x_b + w_b + a_b, 2 * macs),
+                # rows read and their gradient written, the cotangents
+                # read, the per-block partials of d_vec written
+                "bwd": (2 * x_b + w_b + a_b + 8 * n_part, 4 * macs),
+                "dvec": (8 * n_part + a_b, n_part)}
+        shape = " + ".join("x".join(str(s) for s in x.shape) for x, _ in sets)
+        for key, name in (("fwd", "gat_logits_fwd"),
+                          ("bwd", "gat_logits_bwd"),
+                          ("dvec", "gat_logits_dvec")):
+            nbytes, flops = cost[key]
+            bound, by = _bound_ms(nbytes, flops, F64_FLOPS)
+            rec = dict(level=lvl, rows=shape, max_abs_err=errs[key],
+                       max_ulps=ulps[key], device_ms=dev_ms[key],
+                       bound_ms=bound, bound_by=by, bytes=nbytes,
+                       flops=flops,
+                       # the backward wrapper launches the d_vec sum too:
+                       # its host-clock ms and its plain version are the
+                       # backward's
+                       ms=ms.get(key), plain_ms=plain_ms.get(key),
+                       plain_device_ms=plain_dev.get(key))
+            report[name].append(rec)
+            print(f"{name} [{lvl}] rows {shape} (Da {Da}): max_abs_err="
+                  f"{errs[key]:.3e} max_ulps={ulps[key]:.2f} (limit 1) "
+                  + (f"ms={ms[key]:.4f} plain_ms={plain_ms[key]:.4f} "
+                     f"plain_device_ms={plain_dev[key]:.4f} "
+                     if key in ms else "")
+                  + f"device_ms={dev_ms[key]:.4f} bound_ms={bound:.5f} "
+                  f"({by}: {nbytes} B, {flops} flop)")
+        if max(ulps.values()) > 1.0:
+            raise AssertionError(f"gat_logits [{lvl}] differs from the f64 "
+                                 f"einsums by more than one ulp: {ulps}")
+    return {n: (levels, 0.0) for n, levels in report.items()}
+
+
 def pretrain_step_profile(popt, calls_buf, dev, names, label: str):
     """One pretrain train step at batch 512 from the packed buffer
     ``calls_buf`` on the card under ``popt``'s kernel policy: wall time
@@ -1735,8 +1995,10 @@ def timed_pretrain_step(popt, calls_buf, dev):
     """Phase 13: one pretrain train step at batch 512 from a packed buffer
     on the card — pretrain_step_profile, then the step in stages each
     ended by a synchronize; then K1, K2, K4 and K5 against their plain
-    versions at this step's layer-0 inputs, timed as in phase 4. Returns
-    their per-level reports ({kernel: (levels, 0.0)})."""
+    versions at this step's layer-0 inputs, timed as in phase 4, and the
+    logit kernels at its four passes (check_logit_kernels). Returns their
+    per-level reports ({kernel: (levels, 0.0)}: K1, K2, K4 and K5's, the
+    logit kernels')."""
     import torch
 
     from fragnet_tpu_torch.data.packing import (add_planes, plane_levels,
@@ -1783,7 +2045,12 @@ def timed_pretrain_step(popt, calls_buf, dev):
     print(f"K1, K2, K4 and K5 at batch 512 (capture, check against plain, "
           f"timing): "
           f"{time.perf_counter() - t0:.1f} s of phase 13")
-    return report
+    t0 = time.perf_counter()
+    logit_report = check_logit_kernels(
+        pretrain_logit_calls(popt, model, buf, layout), rng)
+    print(f"the logit kernels at batch 512 (capture, check against plain, "
+          f"timing): {time.perf_counter() - t0:.1f} s of phase 13")
+    return report, logit_report
 
 
 def pretrain_grads_card_vs_cpu(popt, pgraphs, ckpt, dev):
@@ -1855,7 +2122,8 @@ def pretrain_phases(dev, pending, datasets):
     """Phases 10-15: the pretraining path. ``pending`` is the PretrainGraphs
     featurizing the config's synthetic set. Returns (the plane builder's
     per-level report, each kernel's launches on the pretraining path, the
-    graphs, the BIG_KERNELS' per-level reports at batch 512)."""
+    graphs, the BIG_KERNELS' per-level reports at batch 512, the logit
+    kernels' at batch 512)."""
     import torch
 
     from fragnet_tpu_torch.train.finetune import run_finetune
@@ -1893,8 +2161,8 @@ def pretrain_phases(dev, pending, datasets):
 
     # ---- 13. one train step at batch 512 from a packed buffer -------------
     t0 = time.perf_counter()
-    big_report = timed_pretrain_step(popt, pretrain_big_batch(pgraphs, dev),
-                                     dev)
+    big_report, logit_report = timed_pretrain_step(
+        popt, pretrain_big_batch(pgraphs, dev), dev)
     print(f"phase 13: {time.perf_counter() - t0:.1f} s")
 
     # ---- 14. one pretrain step's gradients: card vs CPU -------------------
@@ -1925,7 +2193,7 @@ def pretrain_phases(dev, pending, datasets):
           f"{time.perf_counter() - t0:.1f} s")
     if bad or not enc:
         raise AssertionError(f"encoder transfer differs at {bad[:5]}")
-    return k6_report, launches, pgraphs, big_report
+    return k6_report, launches, pgraphs, big_report, logit_report
 
 
 def _attr_calls(fwd, rng):
@@ -2550,6 +2818,13 @@ def ep_dp_phases(dev, datasets, spec, train_np, step_default, rng):
     grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
              for n, p in model.named_parameters()}
     k3 = [_counter(n)[1].symbol for n in EP_KERNELS]
+    # the logit kernels: once a pass forward, once a pass's backward (and
+    # its d_vec sum), in both modes
+    logit_sym = _logit_symbols()
+    L = int(topt.finetune.model.num_layer)
+    n_bwd = sum(gat_levels(topt.model_version, L)[0].values())
+    logit_want = {"gat_logits_fwd": L * len(EP_LEVELS),
+                  "gat_logits_bwd": n_bwd, "gat_logits_dvec": n_bwd}
     for mode, steps in (("fused (K3)", res), ("segment", seg)):
         worst, worst_name = 0.0, ""
         for r in steps:
@@ -2566,17 +2841,27 @@ def ep_dp_phases(dev, datasets, spec, train_np, step_default, rng):
             if abs(r["loss"] - loss) > GRAD_REL_LIMIT * loss:
                 raise AssertionError(f"EP {mode} loss {r['loss']} vs {loss}")
             n_k3 = sum(r["launches"].get(sym, 0) for sym in k3)
+            logits = {n: 0 for n in logit_want}
+            for sym, c in r["launches"].items():
+                if sym in logit_sym:
+                    logits[logit_sym[sym]] += c
             others = sum(c for sym, c in r["launches"].items()
-                         if sym not in k3)
+                         if sym not in k3 and sym not in logit_sym)
             if (n_k3 == 0) == (steps is res) or others:
                 raise AssertionError(f"EP {mode} step launched {n_k3} K3 and "
                                      f"{others} other kernels")
+            if logits != logit_want:
+                raise AssertionError(f"EP {mode} step launched the logit "
+                                     f"kernels {logits}, expected "
+                                     f"{logit_want}")
         print(f"EP {mode} step vs single-device card step (same batch and "
               f"weights, dropout off): loss {steps[0]['loss']:.6f} / "
               f"{loss:.6f}; worst relative diff {worst:.3e} ({worst_name}) "
               f"over the prediction, 4 attention vectors and {len(grads)} "
               f"gradients (limit {GRAD_REL_LIMIT}); K3 launches "
-              f"{sum(steps[0]['launches'].get(sym, 0) for sym in k3)}")
+              f"{sum(steps[0]['launches'].get(sym, 0) for sym in k3)}, "
+              f"logit kernels {logit_want} a rank's step (forward once a "
+              f"pass, {L} layers x {len(EP_LEVELS)} passes)")
         if worst > GRAD_REL_LIMIT:
             raise AssertionError(f"EP {mode} and single-device gradients "
                                  f"disagree")
@@ -5597,8 +5882,8 @@ def main() -> int:
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 10.-15. the pretraining path -------------------------------------
-    k6_report, launches_pt, pgraphs, big_report = pretrain_phases(
-        dev, pending, datasets)
+    k6_report, launches_pt, pgraphs, big_report, logit_report = \
+        pretrain_phases(dev, pending, datasets)
     report[PLANES] = (k6_report, 0.0)
     for name, (levels, _err) in big_report.items():
         # the batch-512 levels stand beside the finetune layer's in the
@@ -5746,6 +6031,29 @@ def main() -> int:
             "bound_by": by,
             "library_ms": (sum(p["library_ms"] for p in on_path)
                            if name in (PLANES, EMIT) else None),
+            "levels": per_level,
+        })
+    # the logit kernels: launches from the pretraining paths (the others'
+    # counts are not kept), levels from phase 13's batch-512 step, where the
+    # backward wrapper's ms and plain ms stand on gat_logits_bwd
+    for name, (per_level, _err) in logit_report.items():
+        by_key = lambda k: (None if per_level[0][k] is None
+                            else sum(p[k] for p in per_level))
+        out.append({
+            "name": name, "route": "cuda", "source": LOGIT_SOURCE,
+            "replaces": LOGIT_REPLACES,
+            "launches": launches_pt[name],
+            "launches_by_path": {p: c[name] for p, c in paths.items()
+                                 if name in c},
+            "max_abs_err": max(p["max_abs_err"] for p in per_level),
+            "max_ulps": max(p["max_ulps"] for p in per_level),
+            "ms": by_key("ms"), "plain_ms": by_key("plain_ms"),
+            "device_ms": by_key("device_ms"),
+            "plain_device_ms": by_key("plain_device_ms"),
+            "bound_ms": by_key("bound_ms"),
+            "bound_by": _bound_ms(by_key("bytes"), by_key("flops"),
+                                  F64_FLOPS)[1],
+            "library_ms": None,
             "levels": per_level,
         })
     print(f"total: {time.perf_counter() - t_all:.1f} s")

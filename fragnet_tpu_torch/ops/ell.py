@@ -15,9 +15,9 @@ attention pass then becomes dense, regular ops:
 The only scatter left is the optional attention-by-source sum. Numerics
 match the segment formulation (same edge sets, max-subtracted softmax): a
 node with no valid neighbour gets 0, forward and backward. The three logit
-terms are each summed in f64 and rounded once (ops/tcsr_gat.py:logit_dot),
-as every other pass of the port takes them; the JAX package sums them in
-f32, so the two agree to f32 round-off.
+terms are each summed in f64 and rounded once (ops/tcsr_gat.py:prologue,
+one pass for both row sets), as every other pass of the port takes them;
+the JAX package sums them in f32, so the two agree to f32 round-off.
 
 The JAX package computes this pass in XLA and reaches no ``pallas_call``:
 there is no TPU kernel to port, and on the card it runs as torch ops, as
@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from fragnet_tpu_torch.ops.segment import segment_sum
-from fragnet_tpu_torch.ops.tcsr_gat import logit_dot, node_logits
+from fragnet_tpu_torch.ops.tcsr_gat import prologue
 
 _NEG_BIG = -1e9
 
@@ -55,7 +55,6 @@ def ell_gat_pass(
     and sums the output in bf16, as the JAX package's does."""
     N = nbr_edge.shape[0]
     H, D = node_feats_h.shape[1], node_feats_h.shape[2]
-    Da = edge_attr.shape[-1]
     K = nbr_edge.shape[1]
     nbr = nbr_edge.long().reshape(-1)
     src_ids = edge_src.long()[nbr]                  # (N·K,)
@@ -67,8 +66,7 @@ def ell_gat_pass(
 
     # the split attention vector: per-node [nf·a_dst | nf·a_src] and the
     # per-edge ea·a_ea, gathered into the table (no concat message)
-    wn = node_logits(node_feats_h, attn_vec, Da)    # (N, 2H)
-    w_ea = logit_dot("ed,hd->eh", edge_attr, attn_vec[:, D:D + Da])
+    wn, w_ea = prologue(node_feats_h, edge_attr, attn_vec)  # (N,2H), (E,H)
     logits = (wn[:, None, :H]
               + wn[:, H:].index_select(0, src_ids).view(N, K, H)
               + w_ea.index_select(0, nbr).view(N, K, H))     # (N, K, H)

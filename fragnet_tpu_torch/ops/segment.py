@@ -106,7 +106,7 @@ def gat_attention_pass(
     softmax shift combines with a MAX all-reduce (no gradient), the
     denominator, ``out`` and ``attn_by_src`` with differentiable SUM
     all-reduces (dist/collectives.py). Its logit terms (nf·a_dst, ea·a_ea,
-    nf·a_src) are each summed in f64 and rounded once (ops/tcsr_gat.py:
+    nf·a_src) are each summed in f64 and rounded once (ops/gat_logits.py:
     logit_dot), as the kernels' passes take them."""
     h_src = node_feats_h[src]  # (E, H, D)
     if ep is None:
@@ -123,7 +123,8 @@ def gat_attention_pass(
 
     from fragnet_tpu_torch.dist.collectives import (all_reduce_max,
                                                     all_reduce_sum)
-    from fragnet_tpu_torch.ops.tcsr_gat import logit_dot, node_logits
+    from fragnet_tpu_torch.ops.gat_logits import logit_dot
+    from fragnet_tpu_torch.ops.tcsr_gat import node_logits
 
     H, D = node_feats_h.shape[1:]
     Da = edge_attr_h.shape[-1]

@@ -4,7 +4,9 @@ One GAT pass (math contract: ops/segment.py:gat_attention_pass) over the
 TCSR layout of ops/tcsr.py, in four parts:
 
   * ``prologue`` — the per-node and per-edge logit terms (pallas_gat.py:
-    471-479): w_dst = nf·a_dst, w_src = nf·a_src per head, w_ea = ea·a_ea;
+    471-479): w_dst = nf·a_dst, w_src = nf·a_src per head, w_ea = ea·a_ea,
+    summed in f64 (ops/gat_logits.py: csrc/gat_logits.cu on CUDA, the f64
+    einsums on the CPU);
   * ``tcsr_gat_fwd`` — the forward kernel (csrc/tcsr_gat_fwd.cu, which
     replaces pallas_gat.py:_fwd_kernel): segment-softmax aggregation per
     destination tile, self-loops folded in analytically; emits out, m, den.
@@ -13,8 +15,8 @@ TCSR layout of ops/tcsr.py, in four parts:
     replaces pallas_gat.py:_bwd_kernel): d_wn, d_nf (the p·g aggregation)
     and d_w_ea from (m, den), with ``tcsr_gat_bwd_plain`` beside it;
     ``TcsrGatFn`` joins the two as the autograd boundary (pallas_gat.py:
-    op_bwd), and the prologue stays plain torch, so autograd carries d_wn
-    and d_w_ea on to nf, ea and the attention vector;
+    op_bwd), and the prologue's own Function (ops/gat_logits.py) carries
+    d_wn and d_w_ea on to nf, ea and the attention vector;
   * the summed-attention-by-source epilogue (pallas_gat.py:598-622),
     rebuilt from (m, den) with torch ops on detached tensors, only when
     asked for;
@@ -50,6 +52,7 @@ from fragnet_tpu_torch import obs
 from fragnet_tpu_torch.dist.collectives import (all_gather, all_gather_rows,
                                                 all_reduce)
 from fragnet_tpu_torch.ops import _cuda
+from fragnet_tpu_torch.ops.gat_logits import logit_terms
 from fragnet_tpu_torch.ops.tcsr import EPTileMeta, TileMeta
 
 _NEG = -1e30
@@ -93,39 +96,20 @@ def _check_nf_aligned(nf):
     _cuda.check_aligned(nf, "nf", 4 * nf.element_size())
 
 
-def logit_dot(eq: str, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``torch.einsum(eq, x, y)`` of a logit term, summed in f64 and rounded
-    once to f32. A logit's terms can cancel to within f32 round-off of the
-    leaky ReLU's kink (an ea·a_ea dot of terms near 1 summing to 1e-2): an
-    f32 sum then lands on the side its BLAS's order gives, which changes
-    with the CPU, and the gradient through that edge by the slope's factor
-    5. Rounded once, each term is within half an ulp of its exact value on
-    every machine."""
-    return torch.einsum(eq, x.double(), y.double()).float()
-
-
 @obs.spanned("fragnet.gat.logits")
 def node_logits(nf: torch.Tensor, a: torch.Tensor, Da: int) -> torch.Tensor:
     """wn (N, 2H) = [w_dst | w_src] = [nf·a_dst | nf·a_src] per head in f32
-    (``logit_dot``, both in one product), for the attention vector ``a``
-    (H, 2D + Da) = [a_dst | a_ea | a_src]."""
-    return _node_logits(nf, a, Da)
-
-
-def _node_logits(nf: torch.Tensor, a: torch.Tensor, Da: int) -> torch.Tensor:
-    N, H, D = nf.shape
-    a_nodes = torch.stack([a[:, :D], a[:, D + Da:]])        # (2, H, D)
-    return logit_dot("nhd,khd->nkh", nf, a_nodes).reshape(N, 2 * H)
+    (ops/gat_logits.py:logit_terms, both in one pass), for the attention
+    vector ``a`` (H, 2D + Da) = [a_dst | a_ea | a_src]."""
+    return logit_terms(nf, None, a, Da)[0]
 
 
 @obs.spanned("fragnet.gat.logits")
 def prologue(nf: torch.Tensor, ea: torch.Tensor, a: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(wn (N, 2H) = [w_dst | w_src], w_ea (E, H)) in f32 (``logit_dot``)."""
-    D = nf.shape[2]
-    Da = ea.shape[-1]
-    return (_node_logits(nf, a, Da),
-            logit_dot("ed,hd->eh", ea, a[:, D:D + Da]))
+    """(wn (N, 2H) = [w_dst | w_src], w_ea (E, H)) in f32
+    (ops/gat_logits.py:logit_terms, both row sets in one pass)."""
+    return logit_terms(nf, ea, a, ea.shape[-1])
 
 
 def tcsr_gat_fwd_plain(wn, nf, w_ea, src, dst, emask, meta: TileMeta,

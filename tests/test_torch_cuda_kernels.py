@@ -35,6 +35,13 @@ entry) at the esol head shape, both node tiles and every level kind, with
 its own launch count and the f32 entry's untouched, the same bits twice,
 the exact one-neighbour cancellations, and the 8-byte alignment and dtype
 its wrapper demands.
+The GAT logit terms' kernels (csrc/gat_logits.cu) are held to autograd of
+the f64 einsums on the CPU, and their gradients to the backward written out
+from the formulas, within one ulp of each output's type, at the
+passes' head shapes and edge widths, in f32 and bf16, for node rows, edge
+rows and both in one launch; they give the same bits twice, the f64 sum's
+sign on a knife-edge cancellation, launch counts on their own entries
+only, and refuse what their wrapper does not take.
 """
 
 import dataclasses
@@ -1510,3 +1517,198 @@ def test_bf16_entries_refuse_what_they_do_not_take(cuda):
     bad = torch.zeros(Ne * HDe + 2, device=cuda, dtype=bf)[2:].view(Ne, HDe)
     with pytest.raises(ValueError, match="8-byte aligned"):
         tcsr_gat.tcsr_gat_ep_fwd(wn, bad, w_ea, s_, d_, m_, ep_meta, r)
+
+
+# --------------------------------------------------------------------------
+# the GAT logit terms (csrc/gat_logits.cu) against the f64 einsums
+# --------------------------------------------------------------------------
+
+LOGIT_HEADS = [(4, 32), (3, 8), (1, 32), (8, 16)]
+# (node rows, edge rows): empty, one, and counts off every tile size
+LOGIT_ROWS = [(0, 5), (1, 1), (255, 1001), (1537, 4099)]
+LOGIT_KERNELS = ("KERNEL", "KERNEL_BF16", "KERNEL_BWD", "KERNEL_BWD_BF16",
+                 "KERNEL_DVEC")
+
+
+def _logit_launches():
+    from fragnet_tpu_torch.ops import gat_logits
+    return [getattr(gat_logits, k).launches for k in LOGIT_KERNELS]
+
+
+def _within_ulp(got, want):
+    """|got - want| within one ulp of want in its type (f32: 24 bits,
+    bf16: 8); both on the CPU."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    bits = 24 if want.dtype == torch.float32 else 8
+    g, w = got.detach().cpu().double(), want.detach().cpu().double()
+    _, e = torch.frexp(w)
+    ulp = torch.ldexp(torch.ones_like(w), e - bits)
+    assert torch.isfinite(g).all()
+    err = (g - w).abs()
+    assert bool((err <= ulp).all()), float((err - ulp).max())
+
+
+def _logit_inputs(rng, H, D, Da, dtype, N, E, form):
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    a = f(H, 2 * D + Da)
+    nf = f(N, H, D).to(dtype) if form != "edge" else None
+    ea = f(E, Da).to(dtype) if form != "node" else None
+    return a, nf, ea, f(N, 2 * H), f(E, H)
+
+
+def _logit_grads(dev, a, nf, ea, Da, d_wn, d_wea):
+    """(outputs, gradients) of logit_terms on ``dev`` by autograd: the
+    kernels' Function on CUDA, the f64 einsums on the CPU."""
+    from fragnet_tpu_torch.ops import gat_logits
+    leaves = [None if t is None
+              else t.detach().to(dev, copy=True).requires_grad_(True)
+              for t in (a, nf, ea)]
+    wn, w_ea = gat_logits.logit_terms(leaves[1], leaves[2], leaves[0], Da)
+    outs = [t for t in (wn, w_ea) if t is not None]
+    cots = [g.to(dev) for t, g in ((wn, d_wn), (w_ea, d_wea))
+            if t is not None]
+    torch.autograd.backward(outs, cots)
+    return outs, [t.grad for t in leaves if t is not None]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("Da", [1, 6, 32, 128])
+@pytest.mark.parametrize("H,D", LOGIT_HEADS)
+def test_gat_logits_match_the_f64_einsum(cuda, H, D, Da, dtype):
+    """wn, w_ea, d_nf, d_ea and d_a of the kernel pair against autograd of
+    the f64 einsums on the CPU, and the gradients also against the backward
+    written out from the formulas (gat_logits_bwd_plain), within one ulp
+    (one bf16 ulp for a bf16 gradient), for node rows alone (node_logits),
+    edge rows alone and both in one launch (prologue), at row counts 0, 1
+    and off every tile."""
+    from fragnet_tpu_torch.ops import gat_logits
+    rng = np.random.default_rng(H * 1000 + D * 10 + Da)
+    for form in ("node", "edge", "both"):
+        for N, E in LOGIT_ROWS:
+            a, nf, ea, d_wn, d_wea = _logit_inputs(rng, H, D, Da, dtype, N,
+                                                   E, form)
+            outs_k, grads_k = _logit_grads(cuda, a, nf, ea, Da, d_wn, d_wea)
+            outs_c, grads_c = _logit_grads("cpu", a, nf, ea, Da, d_wn, d_wea)
+            grads_p = [t for t in gat_logits.gat_logits_bwd_plain(
+                nf, ea, a, Da, d_wn, d_wea) if t is not None]
+            torch.cuda.synchronize()
+            for k, c in zip(outs_k + grads_k, outs_c + grads_c):
+                _within_ulp(k, c)
+            assert len(grads_p) == len(grads_k)
+            for k, p in zip(grads_k, grads_p):
+                _within_ulp(k, p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gat_logits_same_bits_twice(cuda, dtype):
+    """The pretraining step's atom-level shapes (H 4, D 32, Da 128) at rows
+    that take every SM: two runs give the same bits, forward and backward
+    (no atomics; d_a's partials are summed in a fixed order)."""
+    rng = np.random.default_rng(11)
+    a, nf, ea, d_wn, d_wea = _logit_inputs(rng, 4, 32, 128, dtype, 60001,
+                                           120007, "both")
+    runs = [_logit_grads(cuda, a, nf, ea, 128, d_wn, d_wea)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for x, y in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_gat_logits_knife_edge_cancellation(cuda, sign):
+    """An ea·a_ea dot of terms 1, 2^-30, -1, -2^-31 (times ``sign``), spread
+    over a row's slots: summed in f32 in that order it lands at -2^-31
+    (the wrong side of 0), in f64 at +2^-31 exactly. The kernel gives the
+    f64 sum, through prologue as the passes call it."""
+    H, D, Da = 4, 32, 32
+    terms = [(0, 1.0), (9, 2.0 ** -30), (17, -1.0), (31, -2.0 ** -31)]
+    s32 = np.float32(0.0)
+    for _, v in terms:
+        s32 = np.float32(s32 + np.float32(sign * v))
+    assert sign * float(s32) < 0.0
+    ea = torch.zeros(3, Da)
+    for c, v in terms:
+        ea[1, c] = sign * v
+    a = torch.zeros(H, 2 * D + Da)
+    a[:, D:D + Da] = 1.0
+    nf = torch.ones(7, H, D)
+    wn, w_ea = tcsr_gat.prologue(nf.to(cuda), ea.to(cuda), a.to(cuda))
+    torch.cuda.synchronize()
+    assert float(w_ea[1, 0]) == sign * 2.0 ** -31
+    assert torch.equal(w_ea.cpu()[1], torch.full((H,), sign * 2.0 ** -31))
+    assert torch.equal(w_ea.cpu()[[0, 2]], torch.zeros(2, H))
+
+
+def test_gat_logits_launch_counts(cuda):
+    """Each call moves the count of the entry that ran and no other: the
+    f32 forward, the bf16 forward (a bf16 row set: the bf16 prologue's f32
+    node rows and bf16 edge rows), each with its backward entry and one
+    gat_logits_dvec; no other kernel of the port launches."""
+    from fragnet_tpu_torch.ops import _cuda
+    rng = np.random.default_rng(5)
+    a, nf, ea, d_wn, d_wea = _logit_inputs(rng, 4, 32, 128, torch.float32,
+                                           300, 500, "both")
+    cases = [
+        (lambda: tcsr_gat.node_logits(nf.to(cuda), a.to(cuda), 128),
+         [1, 0, 0, 0, 0]),
+        (lambda: tcsr_gat.prologue(nf.to(cuda), ea.to(cuda), a.to(cuda)),
+         [1, 0, 0, 0, 0]),
+        (lambda: _logit_grads(cuda, a, nf, ea, 128, d_wn, d_wea),
+         [1, 0, 1, 0, 1]),
+        (lambda: _logit_grads(cuda, a, nf, ea.bfloat16(), 128, d_wn, d_wea),
+         [0, 1, 0, 1, 1]),
+        (lambda: _logit_grads(cuda, a, nf.bfloat16(), None, 128, d_wn,
+                              d_wea), [0, 1, 0, 1, 1]),
+    ]
+    for fn, moved in cases:
+        before, others = _logit_launches(), _cuda.launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        after = _logit_launches()
+        assert [y - x for x, y in zip(before, after)] == moved
+        now = _cuda.launch_counts()
+        assert {k: n for k, n in now.items() if not k.startswith(
+            "gat_logits")} == {k: n for k, n in others.items()
+                               if not k.startswith("gat_logits")}
+
+
+def test_gat_logits_refuse_what_they_do_not_take(cuda):
+    """The wrapper raises on a row type other than f32 / bf16, an attention
+    vector other than f32 or of the wrong shape, rows not contiguous within
+    themselves, tensors on two devices, more than 16 vectors a segment and
+    rows wider than a block's slots. Rows off a 16-byte boundary are taken,
+    at a narrower load, and give the contiguous rows' values."""
+    from fragnet_tpu_torch.ops import gat_logits
+    H, D, Da = 4, 32, 128
+    z = lambda *s, **kw: torch.zeros(s, device=cuda, **kw)
+    a, nf, ea = z(H, 2 * D + Da), z(9, H, D), z(11, Da)
+    fwd = gat_logits.gat_logits_fwd
+    for bad, match in ((nf.half(), "dtype"), (nf.double(), "dtype")):
+        with pytest.raises(ValueError, match=match):
+            fwd(bad, ea, a, Da)
+    with pytest.raises(ValueError, match="dtype"):
+        fwd(nf, ea, a.double(), Da)
+    with pytest.raises(ValueError, match="shape"):
+        fwd(nf, ea, z(H, 2 * D + Da + 1), Da)
+    with pytest.raises(ValueError, match="strides|contiguous"):
+        fwd(z(9, D, H).transpose(1, 2), ea, a, Da)
+    with pytest.raises(ValueError, match="is on"):
+        fwd(nf, ea.cpu(), a, Da)
+    with pytest.raises(ValueError, match="vectors a segment"):
+        fwd(None, z(5, 8), z(17, 2 * D + 8), 8)
+    with pytest.raises(ValueError, match="slots"):
+        fwd(None, z(5, 4096), z(H, 2 * D + 4096), 4096)
+    rng = np.random.default_rng(2)
+    base = torch.from_numpy(rng.standard_normal((11, Da + 2))
+                            .astype(np.float32)).to(cuda)
+    off = base[:, 1:Da + 1]                   # 4 bytes past a boundary
+    aa = torch.from_numpy(rng.standard_normal((H, 2 * D + Da))
+                          .astype(np.float32)).to(cuda)
+    assert gat_logits.plan(11, 1, Da, H, off.stride(0), 4,
+                           off.data_ptr()).V == 1
+    _, w_off = fwd(None, off, aa, Da)
+    _, w_ref = fwd(None, off.contiguous(), aa, Da)
+    torch.cuda.synchronize()
+    _within_ulp(w_off, w_ref)
