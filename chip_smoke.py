@@ -290,6 +290,19 @@ Phases:
      moved by the esol featurization and the TCSR builds, host ms per call
      of the line graph and the TCSR windows, native beside Python / numpy
      (equal outputs), on the esol set and a batch-64 pretraining batch.
+ 34. the mixture-of-experts dispatch and combine (moe_phase;
+     csrc/moe_route.cu) at the dta-davis-moonlight-b32 cell's shapes: the
+     Moonlight tower of perfbench/configs/dta-fragnet-moonlight.json (its
+     widths, 5 layers, 8 of 64 experts held) on 32 proteins of up to 1000
+     residues, its router biases balanced as the cell's set-up balances
+     them, runs one training step (forward, backward, Adam) with the
+     launch counts zeroed before it (gather 4, combine 4 + 4, combine
+     backward 4: one of each a MoE layer, the combine also as the gather's
+     backward); the first MoE layer's rows, routes, weights and output
+     gradient, captured in that step, hold each kernel against its plain
+     version (bit-equal, twice, but d_w: within D·2^-23 of its magnitudes'
+     dot), timed as in phase 4, with its byte bound from
+     perfbench/costs/moe.py.
 
 Prints a ``{"kernels": [...]}`` JSON line (launches from the pretraining
 path of phase 11 for K1-K6, of phase 19 for K7-K9 (K9's: K8's, whose
@@ -300,7 +313,8 @@ training path, phase 29's HP trials, CV, bucketed and auxiliary runs, and
 phase 30's bf16 training path, whose launches the bf16 entries' lines
 carry, and phase 32's compact pretraining epoch — beside them; the logit
 kernels' launches from phase 11, beside phases 19's and 31's pretraining
-paths, their levels from phase 13), and as the last line ``{"ok": true, "device": {...}}``. Exits
+paths, their levels from phase 13; the MoE kernels' from phase 34), and
+as the last line ``{"ok": true, "device": {...}}``. Exits
 non-zero on any failure, without a CUDA device, or when run outside a
 checkout of the repository.
 """
@@ -5666,6 +5680,156 @@ def build_model_cpu(opt, n_tasks):
                        generator=torch.Generator().manual_seed(0),
                        dtype=resolve_dtype(opt.finetune))
 
+# phase 34: the Moonlight cell's configuration, batch and residue cap
+MOE_CONFIG = "perfbench/configs/dta-fragnet-moonlight.json"
+MOE_SOURCE = "fragnet_tpu_torch/csrc/moe_route.cu"
+MOE_BATCH, MOE_LEN, MOE_BALANCE_PAIRS = 32, 1000, 8
+
+
+def moe_phase(dev):
+    """Phase 34 (see the module's note): the MoE kernels' entries of the
+    kernels line."""
+    import numpy as np
+    import torch
+    from fragnet_tpu_torch.model.moonlight import (MoonlightConfig,
+                                                   MoonlightTower, moe_layers)
+    from fragnet_tpu_torch.ops import moe
+    from perfbench.costs import moe as moe_cost
+    from perfbench.reference import moonlight as ref_ml
+
+    with open(os.path.join(REPO, MOE_CONFIG)) as f:
+        cfg = json.load(f)
+    c = MoonlightConfig.from_dict(cfg)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    with torch.device(dev):
+        tower = MoonlightTower(c, gen).train()
+    rng = np.random.default_rng(23)
+    lengths = np.clip(np.rint(rng.lognormal(np.log(800), 0.35, MOE_BATCH)),
+                      244, MOE_LEN).astype(int)
+    tokens = torch.zeros(MOE_BATCH, MOE_LEN, dtype=torch.long)
+    for i, n in enumerate(lengths):
+        tokens[i, :n] = torch.from_numpy(rng.integers(1, c.vocab_size, n))
+    tokens = tokens.to(dev)
+    pre = "target_model."
+    biases = ref_ml.setup_biases(
+        {pre + k: v for k, v in tower.state_dict().items()},
+        tokens[:MOE_BALANCE_PAIRS], cfg)
+    tower.load_state_dict({k[len(pre):]: v for k, v in biases.items()},
+                          strict=False)
+
+    # one training step, the first MoE layer's kernel arguments captured
+    got = {}
+    orig = moe.dispatch, moe.combine
+
+    def dispatch(x, tok, pos):
+        if "x" not in got:
+            got.update(x=x.detach().clone(), tok=tok, pos=pos)
+        return orig[0](x, tok, pos)
+
+    def combine(y, w, pos):
+        out = orig[1](y, w, pos)
+        if "y" not in got:
+            got.update(y=y.detach().clone(), w=w.detach().clone())
+            out.register_hook(
+                lambda d: got.setdefault("d_out", d.detach().clone()))
+        return out
+
+    opt = torch.optim.Adam(tower.parameters(), lr=1e-5)
+    probe = torch.randn(MOE_BATCH, c.hidden_size, generator=gen, device=dev)
+    counters = {"moe_gather": moe.GATHER, "moe_combine": moe.COMBINE,
+                "moe_combine_bwd": moe.COMBINE_BWD}
+    for k in counters.values():
+        k.launches = 0
+    moe.dispatch, moe.combine = dispatch, combine
+    try:
+        (tower(tokens) * probe).sum().backward()
+        opt.step()
+    finally:
+        moe.dispatch, moe.combine = orig
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in counters.items()}
+    n_moe = len(moe_layers(tower))
+    expect = {"moe_gather": n_moe, "moe_combine": 2 * n_moe,
+              "moe_combine_bwd": n_moe}
+    print("moe kernels in one training step: " + " ".join(
+        f"{n}={launches[n]} (expected {expect[n]})" for n in launches))
+    if launches != expect:
+        raise AssertionError(f"MoE launches {launches}, expected {expect}")
+    del tower, opt, probe
+    torch.cuda.empty_cache()
+
+    x, tok, pos, y, w, d_out = (got[k] for k in
+                                ("x", "tok", "pos", "y", "w", "d_out"))
+    (T, K), A, D = pos.shape, tok.shape[0], x.shape[1]
+    U = int((pos >= 0).any(1).sum())
+    nbytes = moe_cost.kernel_bytes(T, A, U, D, K)
+    shape = f"dta-moe: T {T}, D {D}, A {A}, U {U}"
+    print(f"moe kernels' inputs (first MoE layer of the step): {shape}")
+    # name: [(level, kernel, plain, bytes)]
+    cases = {
+        "moe_gather": [(shape, lambda: moe.moe_gather(x, tok),
+                        lambda: moe.gather_plain(x, tok), nbytes["gather"])],
+        "moe_combine": [
+            (shape + ", weighted", lambda: moe.moe_combine(y, pos, w),
+             lambda: moe.combine_plain(y, pos, w), nbytes["combine"]),
+            (shape + ", unweighted (the gather's backward)",
+             lambda: moe.moe_combine(y, pos, None),
+             lambda: moe.combine_plain(y, pos, None),
+             nbytes["gather_bwd"])],
+        "moe_combine_bwd": [(shape, lambda: moe.moe_combine_bwd(
+            y, pos, w, d_out), lambda: moe.combine_bwd_plain(
+            y, pos, w, d_out), nbytes["combine_bwd"])],
+    }
+    # d_w's dot, summed in another order than torch's: within the f32 bound
+    # of a sum of D products, D·2^-23 of the sum of their magnitudes
+    dw_bound = D * 2.0 ** -23 * moe.combine_bwd_plain(
+        y.abs(), pos, w, d_out.abs())[1]
+    entries = []
+    for name, levels in cases.items():
+        per_level = []
+        for level, kern, plain, by in levels:
+            a, b, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            a, b, want = (t if isinstance(t, tuple) else (t,)
+                          for t in (a, b, want))
+            if not all(torch.equal(p, q) for p, q in zip(a, b)):
+                raise AssertionError(f"{name} ({level}): two runs differ")
+            err = max(float((p - q).abs().max()) if p.numel() else 0.0
+                      for p, q in zip(a, want))
+            ulps = None
+            if name == "moe_combine_bwd":
+                if not torch.equal(a[0], want[0]):
+                    raise AssertionError(f"{name}: d_y differs from plain")
+                if not ((a[1] - want[1]).abs() <= dw_bound).all():
+                    raise AssertionError(f"{name}: d_w off its bound")
+                ulps = _ulps(a[1], want[1])
+            elif not torch.equal(a[0], want[0]):
+                raise AssertionError(f"{name} ({level}) differs from plain")
+            bound, _ = _bound_ms(by, 0.0)
+            per_level.append({
+                "level": level, "ms": _median_ms(kern),
+                "device_ms": _device_ms(kern), "plain_ms": _median_ms(plain),
+                "plain_device_ms": _device_ms(plain), "bytes": by,
+                "bound_ms": bound, "max_abs_err": err,
+                **({"d_w_max_ulps": ulps} if ulps is not None else {})})
+        tot = lambda k: sum(p[k] for p in per_level)
+        entries.append({
+            "name": name, "route": "cuda", "source": MOE_SOURCE,
+            "replaces": None, "launches": launches[name],
+            "launches_by_path": {"moonlight_train_step": launches[name]},
+            "max_abs_err": max(p["max_abs_err"] for p in per_level),
+            "ms": tot("ms"), "plain_ms": tot("plain_ms"),
+            "device_ms": tot("device_ms"),
+            "plain_device_ms": tot("plain_device_ms"),
+            "bound_ms": tot("bound_ms"),
+            "bound_by": _bound_ms(tot("bytes"), 0.0)[1],
+            "library_ms": None, "levels": per_level})
+        share = tot("bound_ms") / tot("device_ms")
+        print(f"{name}: ms {tot('ms'):.4f}, dev {tot('device_ms'):.4f}, "
+              f"bound {tot('bound_ms'):.4f} ({share:.1%} of it), plain dev "
+              f"{tot('plain_device_ms'):.4f}")
+    return entries
+
 
 def main() -> int:
     import numpy as np
@@ -5992,6 +6156,11 @@ def main() -> int:
                  native_after_feat)
     print(f"phase 33: {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- 34. the mixture-of-experts dispatch and combine -------------------
+    t_phase = time.perf_counter()
+    moe_entries = moe_phase(dev)
+    print(f"phase 34: {time.perf_counter() - t_phase:.1f} s")
+
     paths = {"finetune_train": launches_t, "pretrain": launches_pt,
              "finetune_bf16_train": launches_16,
              "finetune_attr_train": launches_fa, "pretrain_attr": launches_pa,
@@ -6056,6 +6225,7 @@ def main() -> int:
             "library_ms": None,
             "levels": per_level,
         })
+    out.extend(moe_entries)
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,11 @@ fragnet_tpu/train/checkpoint.py:import_dta_state_dict reads:
 ``drug_model.pretrain.*``; the transformer's ``target_model.emb.*`` and
 ``target_model.encoder.layer.{i}.*`` (DeepTTC's BERT layout, LayerNorms with
 ``gamma`` / ``beta``); the CNN's ``embedding_xt``, ``conv_xt_1`` and
-``fc1_xt`` at the top level of the model; ``fc1`` / ``fc2``.
+``fc1_xt`` at the top level of the model; ``fc1`` / ``fc2``. A third
+protein encoder, "moonlight" (``model/moonlight.py``; no counterpart in
+the JAX package), is the Moonlight-16B-A3B block as a causal tower under
+``target_model.*``, pooled by the masked mean over the residues: the
+first row that BERT's pooling takes sees only itself under a causal mask.
 
 The protein encoders and the heads are torch ops on every device, as the
 JAX package runs them in XLA (no Pallas kernel exists for them); the drug
@@ -32,6 +36,7 @@ from fragnet_tpu_torch import obs
 from fragnet_tpu_torch.model.finetune import FragNetFineTuneBase
 from fragnet_tpu_torch.model.heads import _dense
 from fragnet_tpu_torch.model.layers import KernelPolicy
+from fragnet_tpu_torch.model.moonlight import MoonlightConfig, MoonlightTower
 
 
 def _lecun_normal_(layer: nn.Module, fan_in: int,
@@ -235,8 +240,9 @@ class ProteinCNN(nn.Module):
 class DTAModel(nn.Module):
     """FragNet drug encoder + protein encoder → concat → fc1 → fc2
     (dta/model.py:83-104). ``protein_encoder`` "transformer" (DTAModel;
-    width 128) or "cnn" (DTAModel2; width 300, its modules at the top
-    level of the model, as the reference keeps them)."""
+    width 128), "cnn" (DTAModel2; width 300, its modules at the top
+    level of the model, as the reference keeps them) or "moonlight"
+    (``MoonlightTower`` of the ``moonlight`` config; width hidden_size)."""
 
     def __init__(self, num_layer: int = 4, num_heads: int = 4,
                  drop_ratio: float = 0.15, emb_dim: int = 128,
@@ -247,6 +253,7 @@ class DTAModel(nn.Module):
                  protein_vocab_size: int = 26, protein_layers: int = 8,
                  protein_heads: int = 8, protein_intermediate: int = 512,
                  protein_max_len: int = 1000,
+                 moonlight: Optional[MoonlightConfig] = None,
                  policy: KernelPolicy = KernelPolicy(),
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -269,15 +276,19 @@ class DTAModel(nn.Module):
             self.embedding_xt, self.conv_xt_1, self.fc1_xt = _cnn_modules(
                 26, 300, protein_max_len, 32, 8, 300, g)
             target_dim = 300
+        elif protein_encoder == "moonlight":
+            self.target_model = MoonlightTower(moonlight or MoonlightConfig(),
+                                               generator=g)
+            target_dim = self.target_model.config.hidden_size
         else:
             raise ValueError(f"unknown protein_encoder {protein_encoder!r} "
-                             f"(transformer|cnn)")
+                             f"(transformer|cnn|moonlight)")
         self.fc1 = _dense(2 * emb_dim + target_dim, 128, g)
         self.fc2 = _dense(128, 1, g)
 
     @obs.spanned("fragnet.model.protein")
     def encode_target(self, tokens):
-        if self.protein_encoder == "transformer":
+        if self.protein_encoder in ("transformer", "moonlight"):
             return self.target_model(tokens)
         return protein_cnn(tokens, self.embedding_xt, self.conv_xt_1,
                            self.fc1_xt)

@@ -28,12 +28,18 @@ The reference logs train/val scalars to TensorBoard
   open spans for every thread: the thread that calls ``loss.backward()``
   waits while autograd's device thread runs the backward, whose spans
   then open in the innermost open span.
+* ``count(name, value)`` — a counter beside the spans: while a profiler
+  records, adds the host number ``value`` to the counter ``name`` of the
+  innermost open span (nothing where no span is open); else nothing. It
+  never reads the device: the caller counts what it already holds on the
+  host.
 * ``current()`` — the innermost open span's name (None when off); an
   autograd Function keeps it from its forward to name its backward's span.
 * ``span_table(t0_ns, t1_ns)`` — the buffered spans whose host interval
   lies in ``[t0_ns, t1_ns]``, summed by name: calls, host and device ms,
-  each with its self ms (less the time its child spans cover), and the
-  same per step (over the number of root spans).
+  each with its self ms (less the time its child spans cover), the
+  counters kept with them, and the same per step (over the number of root
+  spans).
 """
 
 from __future__ import annotations
@@ -130,15 +136,16 @@ MAX_SPANS = 1 << 16
 
 
 class _Span:
-    """One span: name, parent span, step id, host stamps (ns) and, on CUDA,
-    its start and end events."""
+    """One span: name, parent span, step id, host stamps (ns), on CUDA its
+    start and end events, and the counters kept with it."""
 
     __slots__ = ("rec", "name", "parent", "step", "t0", "t1", "ev0", "ev1",
-                 "_rf")
+                 "counts", "_rf")
 
     def __init__(self, rec: "SpanRecorder", name: str):
         self.rec, self.name = rec, name
         self.t1 = self.ev0 = self.ev1 = None
+        self.counts: Dict[str, float] = {}
 
     def __enter__(self):
         self.rec.open(self)
@@ -188,6 +195,12 @@ class SpanRecorder:
             self.stack.remove(sp)
             self.spans.append(sp)
 
+    def count(self, name: str, value) -> None:
+        with self._lock:
+            if self.stack:
+                c = self.stack[-1].counts
+                c[name] = c.get(name, 0) + value
+
 
 _RECORDER = SpanRecorder()
 _OFF = contextlib.nullcontext()
@@ -225,6 +238,14 @@ def spanned_backward(fn):
     return inner
 
 
+def count(name: str, value) -> None:
+    """Add ``value`` (a host number) to the counter ``name`` of the
+    innermost open span while a ``torch.profiler`` records; else, and
+    where no span is open, nothing."""
+    if torch.autograd._profiler_enabled():
+        _RECORDER.count(name, value)
+
+
 def current() -> Optional[str]:
     """The innermost open span's name, or None."""
     stack = _RECORDER.stack
@@ -235,8 +256,9 @@ def span_records(t0_ns: Optional[int] = None, t1_ns: Optional[int] = None
                  ) -> List[Dict]:
     """The buffered spans whose host interval lies in ``[t0_ns, t1_ns]``,
     in closing order: name, parent (an index into the list, or None where
-    the parent is not in it), step id, host start and end (ns), host ms
-    and device ms (None without CUDA events). Waits for the device."""
+    the parent is not in it), step id, host start and end (ns), host ms,
+    device ms (None without CUDA events) and the counters kept with it.
+    Waits for the device."""
     sel = [s for s in list(_RECORDER.spans)
            if (t0_ns is None or s.t0 >= t0_ns)
            and (t1_ns is None or s.t1 <= t1_ns)]
@@ -249,7 +271,8 @@ def span_records(t0_ns: Optional[int] = None, t1_ns: Optional[int] = None
              "step": s.step, "t0_ns": s.t0, "t1_ns": s.t1,
              "host_ms": (s.t1 - s.t0) * 1e-6,
              "device_ms": s.ev0.elapsed_time(s.ev1)
-             if s.ev1 is not None else None}
+             if s.ev1 is not None else None,
+             "counts": dict(s.counts)}
             for s in sel]
 
 
@@ -258,7 +281,8 @@ def span_table(t0_ns: Optional[int] = None, t1_ns: Optional[int] = None
     """``span_records`` summed by name: ``{"steps": root spans, "spans":
     {name: row}}``; a row holds the parents' names, calls, host_ms,
     host_self_ms, device_ms and device_self_ms (None where a call has no
-    device facet), and ``per_step``, each of them over ``steps``."""
+    device facet), ``counts`` (each counter summed over the calls), and
+    ``per_step``, each of them over ``steps``."""
     recs = span_records(t0_ns, t1_ns)
     child_host = [0.0] * len(recs)
     child_dev = [0.0] * len(recs)
@@ -272,7 +296,10 @@ def span_table(t0_ns: Optional[int] = None, t1_ns: Optional[int] = None
     for i, r in enumerate(recs):
         row = rows.setdefault(r["name"], {
             "parents": set(), "calls": 0, "host_ms": 0.0,
-            "host_self_ms": 0.0, "device_ms": 0.0, "device_self_ms": 0.0})
+            "host_self_ms": 0.0, "device_ms": 0.0, "device_self_ms": 0.0,
+            "counts": {}})
+        for k, v in r["counts"].items():
+            row["counts"][k] = row["counts"].get(k, 0) + v
         p = r["parent"]
         row["parents"].add(recs[p]["name"] if p is not None else None)
         row["calls"] += 1
@@ -290,4 +317,6 @@ def span_table(t0_ns: Optional[int] = None, t1_ns: Optional[int] = None
         row["parents"] = sorted(row["parents"], key=lambda n: n or "")
         row["per_step"] = {k: (row[k] / steps if steps and row[k] is not None
                                else None) for k in keys}
+        row["per_step"]["counts"] = {k: (v / steps if steps else None)
+                                     for k, v in row["counts"].items()}
     return {"steps": steps, "spans": rows}

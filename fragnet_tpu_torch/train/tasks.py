@@ -168,10 +168,14 @@ def load_task_graphs(task: str, opt):
 def build_task_model(task: str, opt, graphs, policy=None,
                      generator: Optional[torch.Generator] = None):
     """The task's model from ``finetune.model`` with the JAX package's
-    defaults: DTAModel (``protein_encoder`` transformer or cnn, over the
-    graphs' protein length; the transformer at its 8 layers, 8 heads and
-    FFN 512, as the JAX package's run_task builds it) or CDRPModel
-    (``gene_dim`` from the graphs)."""
+    defaults: DTAModel (``protein_encoder`` transformer, cnn or moonlight,
+    over the graphs' protein length; the transformer at its 8 layers, 8
+    heads and FFN 512, as the JAX package's run_task builds it; moonlight,
+    which the JAX package lacks, at the published Moonlight-16B-A3B sizes
+    with the keys of ``finetune.model.moonlight`` (config.json's names:
+    ``num_hidden_layers``, ``hidden_size``, ``experts_held``, ...) over
+    them) or CDRPModel (``gene_dim`` from the graphs). Any other encoder
+    raises ValueError."""
     from fragnet_tpu_torch.model.layers import KernelPolicy
 
     m = opt.finetune.model
@@ -183,9 +187,15 @@ def build_task_model(task: str, opt, graphs, policy=None,
     if task == "dta":
         from fragnet_tpu_torch.model.dta import DTAModel
 
+        from fragnet_tpu_torch.model.moonlight import MoonlightConfig
+
+        enc = m.get("protein_encoder", "transformer")
+        ml = m.get("moonlight", None) or {}
         return DTAModel(
-            protein_encoder=m.get("protein_encoder", "transformer"),
-            protein_max_len=graphs[0].protein.shape[-1], **kw)
+            protein_encoder=enc, protein_max_len=graphs[0].protein.shape[-1],
+            moonlight=MoonlightConfig.from_dict(
+                ml.to_dict() if hasattr(ml, "to_dict") else ml)
+            if enc == "moonlight" else None, **kw)
     if task == "cdrp":
         from fragnet_tpu_torch.model.cdrp import CDRPModel
 

@@ -42,6 +42,13 @@ passes' head shapes and edge widths, in f32 and bf16, for node rows, edge
 rows and both in one launch; they give the same bits twice, the f64 sum's
 sign on a knife-edge cancellation, launch counts on their own entries
 only, and refuse what their wrapper does not take.
+The mixture-of-experts dispatch and combine (csrc/moe_route.cu) are held
+to their plain versions at 0, 1 and off-tile token counts, at the tiny
+and the published width: the gather, the combine and d_y bit for bit (the
+same products and sums in the same order), d_w within the f32 bound of
+its dot (summed in another order), the same bits twice; the routes built
+on the card equal the CPU's, and a routed layer's gradients through the
+autograd Functions match the plain path's.
 """
 
 import dataclasses
@@ -1712,3 +1719,110 @@ def test_gat_logits_refuse_what_they_do_not_take(cuda):
     _, w_ref = fwd(None, off.contiguous(), aa, Da)
     torch.cuda.synchronize()
     _within_ulp(w_off, w_ref)
+
+
+# ---------------------------------------------------------------------------
+# the mixture-of-experts dispatch and combine (csrc/moe_route.cu)
+# ---------------------------------------------------------------------------
+
+def _moe_case(T, K, D, seed, share=0.3):
+    """Random routes (about ``share`` of the T·K slots held) and rows."""
+    g = torch.Generator().manual_seed(seed)
+    A = int(T * K * share)
+    flat = torch.randperm(T * K, generator=g)[:A]
+    pos = torch.full((T * K,), -1, dtype=torch.int32)
+    pos[flat] = torch.randperm(A, generator=g).to(torch.int32)
+    pos = pos.view(T, K)
+    tok = torch.empty(A, dtype=torch.int32)
+    t, k = torch.nonzero(pos >= 0, as_tuple=True)
+    tok[pos[t, k].long()] = t.to(torch.int32)
+    x = torch.randn(T, D, generator=g)
+    y = torch.randn(A, D, generator=g)
+    w = torch.rand(T, K, generator=g)
+    d_out = torch.randn(T, D, generator=g)
+    return pos, tok, x, y, w, d_out
+
+
+@pytest.mark.parametrize("T", [0, 1, 129, 1000])
+@pytest.mark.parametrize("D", [64, 2048])
+def test_moe_route_kernels_match_plain(cuda, T, D):
+    from fragnet_tpu_torch.ops import moe
+
+    pos, tok, x, y, w, d_out = (t.to(cuda) for t in
+                                _moe_case(T, 6, D, T + D))
+    counts = [k.launches for k in (moe.GATHER, moe.COMBINE, moe.COMBINE_BWD)]
+    runs = []
+    for _ in range(2):
+        runs.append((moe.moe_gather(x, tok), moe.moe_combine(y, pos, w),
+                     moe.moe_combine(y, pos, None),
+                     *moe.moe_combine_bwd(y, pos, w, d_out)))
+    torch.cuda.synchronize()
+    plain = (moe.gather_plain(x, tok), moe.combine_plain(y, pos, w),
+             moe.combine_plain(y, pos, None),
+             *moe.combine_bwd_plain(y, pos, w, d_out))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    *exact, d_w = runs[0]
+    for i, (a, b) in enumerate(zip(exact, plain)):
+        assert torch.equal(a, b), i
+    # d_w's dot, summed in another order than torch's: within the f32 bound
+    # of a sum of D products, D·2^-23 of the sum of their magnitudes
+    bound = moe.combine_bwd_plain(y.abs(), pos, w, d_out.abs())[1]
+    assert d_w.shape == plain[-1].shape
+    assert ((d_w - plain[-1]).abs() <= D * 2.0 ** -23 * bound).all()
+    assert [k.launches for k in (moe.GATHER, moe.COMBINE, moe.COMBINE_BWD)
+            ] == [counts[0] + 2, counts[1] + 4, counts[2] + 2]
+
+
+def test_moe_routes_and_gradients_match_the_cpu(cuda):
+    from fragnet_tpu_torch.model.moonlight import MoE, MoonlightConfig
+
+    c = MoonlightConfig(hidden_size=64, moe_intermediate_size=32,
+                        n_routed_experts=8, num_experts_per_tok=2,
+                        n_shared_experts=1, experts_held=(2, 5, 6, 7))
+    cpu = MoE(c, torch.Generator().manual_seed(0))
+    gpu = MoE(c, None).to(cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(3, 40, 64, generator=g)
+    real = torch.rand(3, 40, generator=g) < 0.7
+    outs, grads = [], []
+    for layer, dev in ((cpu, "cpu"), (gpu, cuda)):
+        xd = x.detach().to(dev).requires_grad_()
+        out = layer(xd, real.to(dev))
+        (out * torch.linspace(-1, 1, 64, device=dev)).sum().backward()
+        outs.append(out.detach().cpu())
+        grads.append([xd.grad.cpu()] + [p.grad.cpu()
+                                        for p in layer.parameters()])
+    for a, b in zip([outs[1]] + grads[1], [outs[0]] + grads[0]):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    from fragnet_tpu_torch.ops import moe
+
+    h = x.reshape(-1, 64)
+    idx, _ = cpu.gate(h)
+    r_cpu = moe.plan_routes(idx, cpu.local_of, 4, real.reshape(-1))
+    r_gpu = moe.plan_routes(idx.to(cuda), gpu.local_of, 4,
+                            real.reshape(-1).to(cuda))
+    assert r_cpu.counts == r_gpu.counts
+    assert r_cpu.tokens_held == r_gpu.tokens_held
+    assert torch.equal(r_cpu.pos, r_gpu.pos.cpu())
+    assert torch.equal(r_cpu.tok, r_gpu.tok.cpu())
+
+
+def test_moe_route_kernels_refuse_what_they_do_not_take(cuda):
+    from fragnet_tpu_torch.ops import moe
+
+    pos, tok, x, y, w, d_out = (t.to(cuda) for t in _moe_case(8, 2, 16, 0))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        moe.moe_gather(x[:, :14].contiguous(), tok)
+    with pytest.raises(ValueError, match="dtype"):
+        moe.moe_combine(y.double(), pos, w)
+    with pytest.raises(ValueError, match="dtype"):
+        moe.moe_combine(y, pos.long(), w)
+    with pytest.raises(ValueError, match="slots"):
+        moe.moe_combine(y, torch.full((8, 9), -1, dtype=torch.int32,
+                                      device=cuda), None)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe.moe_combine_bwd(y, pos, w, d_out.t().contiguous().t())
+    with pytest.raises(ValueError, match="aligned"):
+        moe.moe_gather(x.view(-1)[1:1 + 8 * 12].view(8, 12), tok)

@@ -217,6 +217,40 @@ def test_a_backward_span_is_named_by_its_forwards_span():
     assert torch.equal(x.grad, torch.full((3,), 4.0))
 
 
+def test_a_count_is_a_noop_with_no_profiler(monkeypatch):
+    rec = obs.SpanRecorder()
+    monkeypatch.setattr(obs, "_RECORDER", rec)
+    with obs.span("fragnet.step"):
+        obs.count("fragnet.x", 3)
+    obs.count("fragnet.x", 3)
+    assert not rec.spans and not rec.stack
+
+
+def test_counts_are_kept_under_the_current_span_and_summed(monkeypatch):
+    rec = obs.SpanRecorder()
+    monkeypatch.setattr(obs, "_RECORDER", rec)
+    with profile(activities=[ProfilerActivity.CPU]):
+        obs.count("fragnet.x", 1)          # no span open: kept nowhere
+        for step in range(2):
+            with obs.span("fragnet.step"):
+                obs.count("fragnet.rows", 10)
+                for k in range(3):
+                    with obs.span("fragnet.route"):
+                        obs.count("fragnet.rows", k)
+                        obs.count("fragnet.mean", 0.5)
+    recs = obs.span_records()
+    assert [r["counts"] for r in recs if r["name"] == "fragnet.route"] == \
+        [{"fragnet.rows": k, "fragnet.mean": 0.5} for k in range(3)] * 2
+    assert [r["counts"] for r in recs if r["name"] == "fragnet.step"] == \
+        [{"fragnet.rows": 10}] * 2
+    tab = obs.span_table()
+    route = tab["spans"]["fragnet.route"]
+    assert route["counts"] == {"fragnet.rows": 6, "fragnet.mean": 3.0}
+    assert route["per_step"]["counts"] == {"fragnet.rows": 3,
+                                           "fragnet.mean": 1.5}
+    assert tab["spans"]["fragnet.step"]["counts"] == {"fragnet.rows": 20}
+
+
 def test_host_stamps_sit_on_the_profilers_clock(pt_data):
     _m, _o, step = _pt_step(pt_data[0])
     prof, recs = _traced(step, pt_data[1])
